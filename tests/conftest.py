@@ -15,3 +15,9 @@ except ModuleNotFoundError:
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs a CUDA device; the test skips "
+        "where none is visible")
