@@ -32,6 +32,16 @@ Phases (any failure raises, so the script exits non-zero):
                shadowed as in phase 3.  Then one profiled serve (8 new
                tokens) for the card's busy share and device time by
                kernel.
+  5. seq tiny — the sequential engines (dense ring cache, flash kernel) on
+               the committed pair: every engine's greedy stream must equal
+               the port's own AR greedy decode; SpS and SpecBranch at
+               temperature 1 are compared with the same serve on the CPU
+               (printed); the flash kernel must have run.
+  6. seq full — the full-width pair through the sequential engines: AR,
+               SpS and SpecBranch greedy (2 requests x 32 new tokens,
+               teacher-forced as in phase 4) and SpecBranch at
+               temperature 1 with epsilon 0; wall tokens/s and rounds per
+               engine; one profiled SpecBranch serve for the busy share.
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -57,11 +67,14 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged as PG  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import verify_accept as VA  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.runtime import engines as TE  # noqa: E402
+from repro_torch.runtime import runner as RN  # noqa: E402
 from repro_torch.runtime.engines import EngineConfig  # noqa: E402
 from repro_torch.serving import device_loop as DL  # noqa: E402
 
@@ -89,6 +102,9 @@ KERNELS = {
     "paged_gather": dict(
         route="cuda", source="src/repro_torch/csrc/paged_gather.cu",
         replaces="src/repro/kernels/paged.py:42"),
+    "flash_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:102"),
 }
 
 
@@ -134,6 +150,26 @@ def time_ms(fn, iters: int = 21, warmup: int = 3) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
 
+def check_close(name, got, want) -> tuple:
+    """Hold an attention kernel's output against its plain version; returns
+    (max abs error, its largest share of the elementwise bound).  f32:
+    1e-4 absolute.  bf16: min(2e-2, 1.6e-2 * |want| + 1e-3 * rms(want))
+    per element -- two bf16 spacings of the value (both sides round an f32
+    result that differs only in summation order), never above 2e-2."""
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        lim = torch.full_like(err, 1e-4)
+    else:
+        w = want.float()
+        rms = w.pow(2).mean().sqrt()
+        lim = (1.6e-2 * w.abs() + 1e-3 * rms).clamp_max(2e-2)
+    share = (err / lim).max().item()
+    if not math.isfinite(share) or share > 1.0:
+        raise AssertionError(f"{name}: max err {err.max().item():.3e} is "
+                             f"{share:.2f}x its bound")
+    return err.max().item(), share
+
+
 def bound(nbytes: float, ops_: float, dtype) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops_ / PEAK_OPS[dtype] * 1e3
@@ -177,11 +213,7 @@ def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0):
     out = PA.paged_attention(q, kp, vp, table, lens, qs)
     want = ref.paged_attention_ref(q, kp, vp, table, lens, qs)
     torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    if not math.isfinite(err) or err > tol:
-        raise AssertionError(f"paged_attention {label}: max err {err} > "
-                             f"{tol}")
+    err, share = check_close(f"paged_attention {label}", out, want)
     es = kp.element_size()
     ps_ = kp.shape[1]
     pages = int(sum(-(-int(n) // ps_) for n in lens.tolist()))
@@ -206,8 +238,8 @@ def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0):
     qd = q.transpose(1, 2).contiguous()
     lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
                                                          attn_mask=mask))
-    return dict(case=label, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=bms, bound_by=by)
+    return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 def check_verify(rng, label, B, R, V):
@@ -281,6 +313,64 @@ def check_gather(rng, label, P, ps, dim, n, valid):
                 library_ms=lib, bound_ms=bms, bound_by=by)
 
 
+def flash_case(rng, B, T, S, H, KV, hd, L, dtype, stale=0):
+    """A dense ring of S slots after L tokens, as the runner leaves it:
+    slot s holds the newest position p < L with p % S == s (the ring
+    wraps when L > S) or -1; ``stale`` slots hold positions past L (a
+    rollback's leftovers).  The T queries sit at L - T .. L - 1."""
+    kpos = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        for p in range(max(0, L - S), L):
+            kpos[b, p % S] = p
+        own = {p % S for p in range(L - T, L)}
+        free = [s for s in range(S) if s not in own]
+        kpos[b, rng.permutation(np.asarray(free, np.int64))[:stale]] = L + 2
+    qpos = np.ascontiguousarray(np.broadcast_to(
+        np.arange(L - T, L, dtype=np.int32), (B, T)))
+    dev = "cuda"
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32)
+                             ).to(dev, dtype)
+            for shape in ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd))] + [
+        torch.from_numpy(qpos).to(dev), torch.from_numpy(kpos).to(dev)]
+
+
+def check_flash(rng, label, B, T, S, H, KV, hd, L, dtype, stale=0,
+                window=0, cap=None):
+    q, k, v, qp, kp = flash_case(rng, B, T, S, H, KV, hd, L, dtype, stale)
+    kw = dict(window=window, cap=cap)
+    out = FA.flash_attention(q, k, v, qp, kp, **kw)
+    want = ref.flash_attention_ref(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    err, share = check_close(f"flash_attention {label}", out, want)
+    # the work these positions need: per query the keys it sees; per
+    # (row, kv head) the K/V of keys some query of the row sees
+    kpl, qpl = kp.long()[:, None, :], qp.long()[:, :, None]
+    vis = (kpl >= 0) & (kpl <= qpl)
+    if window > 0:
+        vis &= (qpl - kpl) < window
+    G = H // KV
+    es = q.element_size()
+    keys_row = int(vis.any(1).sum())
+    nbytes = (2 * keys_row * KV * hd * es + 2 * q.numel() * es
+              + (kp.numel() + qp.numel()) * 4)
+    flops = 4 * hd * int(vis.sum()) * KV * G
+    bms, by = bound(nbytes, flops, dtype)
+    ms = time_ms(lambda: FA.flash_attention(q, k, v, qp, kp, **kw))
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kp, **kw))
+    lib = None
+    if cap is None:
+        # library yardstick: SDPA with a boolean mask over the same dense
+        # KV, heads expanded for the group (timed only)
+        kd = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        vd = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        qd = q.transpose(1, 2).contiguous()
+        mask = vis[:, None]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+    return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+
+
 def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -304,16 +394,44 @@ def phase_kernels() -> dict:
     gat = [check_gather(rng, "zm swap ps=4 dim=512", 64, 4, 512, 13, 50),
            check_gather(rng, "llama-7b swap ps=16 dim=262144", 8, 16,
                         262144, 5, 70)]
-    for r in att + ver + gat:
+    fl = [check_flash(rng, "llama-7b B=1 T=1 S=512", 1, 1, 512, 32, 32, 128,
+                      48, bf),
+          check_flash(rng, "llama-7b B=1 T=5 S=512", 1, 5, 512, 32, 32, 128,
+                      40, bf, stale=3),
+          check_flash(rng, "llama-7b B=6 T=1 S=512", 6, 1, 512, 32, 32, 128,
+                      41, bf),
+          check_flash(rng, "llama-7b B=6 T=10 S=512", 6, 10, 512, 32, 32,
+                      128, 300, bf, stale=5),
+          check_flash(rng, "llama-7b prefill B=1 T=15", 1, 15, 512, 32, 32,
+                      128, 15, bf),
+          check_flash(rng, "llama-7b cache-less B=2 T=S=48", 2, 48, 48, 32,
+                      32, 128, 48, bf),
+          check_flash(rng, "llama-68m B=6 T=1 S=512", 6, 1, 512, 12, 12, 64,
+                      41, bf),
+          check_flash(rng, "llama-68m B=1 T=1 S=512", 1, 1, 512, 12, 12, 64,
+                      44, bf),
+          check_flash(rng, "zm-target B=1 T=5 S=512", 1, 5, 512, 4, 2, 32,
+                      40, f32, stale=3),
+          check_flash(rng, "zm-draft B=6 T=1 S=512", 6, 1, 512, 2, 1, 16,
+                      41, f32),
+          check_flash(rng, "gemma2 window B=1 T=1 S=4608", 1, 1, 4608, 32,
+                      16, 128, 4608, bf, window=4096, cap=50.0),
+          check_flash(rng, "gemma2 window B=1 T=16 S=4608", 1, 16, 4608, 32,
+                      16, 128, 4608, bf, window=4096, cap=50.0),
+          check_flash(rng, "gemma2 window B=1 T=16 f32", 1, 16, 4608, 32, 16,
+                      128, 4608, f32, window=4096, cap=50.0)]
+    for r in att + ver + gat + fl:
         lib = r["library_ms"]
         log(f"  {r['case']:32s} err={r['max_abs_err']:.2e} "
+            + (f"({r['err_share']:.2f} of bound) "
+               if "err_share" in r else "") +
             f"ms={r['ms']:.4f} bound={r['bound_ms']:.4f} "
             f"({r['bound_by']}) plain={r['plain_ms']:.4f} "
             f"lib={'null' if lib is None else f'{lib:.4f}'}"
             + (f" boundary={r['boundary_cases']}"
                if "boundary_cases" in r else ""))
     return {"paged_attention": att, "verify_accept_batched": ver,
-            "paged_gather": gat}
+            "paged_gather": gat, "flash_attention": fl}
 
 
 # ---------------------------------------------------------------------------
@@ -561,8 +679,7 @@ def busy_profile(run) -> dict:
                 top=[(n, t / 1e9) for n, t in top])
 
 
-def phase_full(dev, totals) -> dict:
-    pair = SV.load_pair("paper-llama", dev)
+def phase_full(dev, totals, pair) -> dict:
     prompts = SV.make_prompts(8)
     n_new = 32
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
@@ -614,6 +731,119 @@ def phase_full(dev, totals) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 5-6: the sequential engines
+# ---------------------------------------------------------------------------
+
+SEQ_ENGINES = ["autoregressive", "sps", "adaedl", "confidence-sd",
+               "lookahead", "pearl", "specbranch"]
+# engines the CLI does not list, served by their class
+UNLISTED = {"confidence-sd": TE.ConfidenceSDEngine}
+
+
+def seq_drive(pair, ecfg, engine, prompts, n_new, totals=None):
+    """One sequential main-path drive through ``serve.serve_sequential``
+    (the confidence-SD baseline, which the CLI does not list, by its class)
+    with the launch counters zeroed just before and read just after."""
+    ops.reset_launches()
+    done, _, wall = SV.serve_sequential(
+        pair, ecfg, UNLISTED.get(engine, engine), prompts, n_new)
+    counts = dict(ops.LAUNCHES)
+    if totals is not None:
+        for k, v in counts.items():
+            totals[k] += v
+    res = {r.rid: r.result for r in done}
+    for rid, r in res.items():
+        if len(r.tokens) != n_new:
+            raise AssertionError(f"{engine} request {rid} got "
+                                 f"{len(r.tokens)} tokens")
+    if counts["flash_attention"] == 0:
+        raise AssertionError(f"{engine}: flash_attention not run")
+    return res, counts, wall
+
+
+def phase_seq_tiny(dev, totals) -> dict:
+    from repro_torch.training.pairs import get_pair
+    cache_dir = os.path.join(ROOT, ".cache", "pairs")
+    pair = get_pair("misaligned", device=dev, cache_dir=cache_dir)
+    prompts = SV.make_prompts(2)
+    n_new = 32
+    greedy = [RN.greedy_reference(pair[2], pair[3], p, n_new, max_len=512)
+              for p in prompts]
+    out = {}
+    for name in SEQ_ENGINES:
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=512)
+        res, counts, wall = seq_drive(pair, ecfg, name, prompts, n_new,
+                                      totals)
+        bad = [i for i in range(len(prompts)) if res[i].tokens != greedy[i]]
+        log(f"  seq tiny {name} greedy: wall={wall:.2f}s "
+            f"launches={counts['flash_attention']}")
+        if bad:
+            raise AssertionError(f"seq tiny {name}: requests {bad} differ "
+                                 "from the AR greedy decode")
+        out[name] = dict(wall_s=wall, launches=counts)
+    cpu = get_pair("misaligned", device="cpu", cache_dir=cache_dir)
+    for name in ("sps", "specbranch"):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=1.0, max_len=512)
+        res, counts, wall = seq_drive(pair, ecfg, name, prompts, n_new,
+                                      totals)
+        cres, _, cwall = SV.serve_sequential(cpu, ecfg, name, prompts,
+                                             n_new)
+        first = {}
+        for r in cres:
+            a, b = res[r.rid].tokens, r.result.tokens
+            first[r.rid] = next((j for j, (x, y) in enumerate(zip(a, b))
+                                 if x != y), None)
+        same = sum(v is None for v in first.values())
+        stats = sum(res[r.rid].stats == r.result.stats for r in cres)
+        log(f"  seq tiny {name} temp1 vs the same serve on the CPU "
+            f"({cwall:.1f}s): {same}/{len(prompts)} streams equal, {stats} "
+            f"GenStats equal, first divergence by request {first}")
+        out[name + " temp1"] = dict(wall_s=wall, launches=counts,
+                                    streams_equal=same, stats_equal=stats)
+    return out
+
+
+def phase_seq_full(dev, totals, pair) -> dict:
+    prompts = SV.make_prompts(2)
+    n_new = 32
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    greedy = [RN.greedy_reference(pair[2], pair[3], p, n_new,
+                                  max_len=max_len) for p in prompts]
+    out = {}
+    for name, temp, eps in (("autoregressive", 0.0, EPS),
+                            ("sps", 0.0, EPS), ("specbranch", 0.0, EPS),
+                            ("specbranch", 1.0, 0.0)):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
+                            epsilon=eps, max_len=max_len)
+        res, counts, wall = seq_drive(pair, ecfg, name, prompts, n_new,
+                                      totals)
+        toks = sum(len(r.tokens) for r in res.values())
+        rounds = sum(len(r.timeline) for r in res.values())
+        mean_acc = float(np.mean([r.stats.mean_accepted
+                                  for r in res.values()]))
+        label = f"{name} t={temp:g}"
+        log(f"  seq full {label}: {toks / wall:.1f} tok/s wall, "
+            f"rounds={rounds}, mean accepted={mean_acc:.2f}, "
+            f"flash launches={counts['flash_attention']}")
+        out[label] = dict(tokens_per_s=toks / wall, wall_s=wall,
+                          rounds=rounds, mean_accepted=mean_acc,
+                          launches=counts)
+        if temp == 0.0:
+            out[label]["teacher_forced"] = teacher_forced(
+                pair[2], pair[3], prompts, res, greedy, n_new)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
+    prof = busy_profile(lambda: SV.serve_sequential(pair, ecfg, "specbranch",
+                                                    prompts, 8))
+    log(f"  seq full profile (specbranch, 8 new tokens): card busy "
+        f"{prof['busy_share']:.3f} of {prof['wall_s']:.2f}s wall; device "
+        "time by kernel:")
+    for n, t in prof["top"]:
+        log(f"    {t * 1e3:9.2f} ms  {n}")
+    out["profile"] = prof
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -636,7 +866,12 @@ def main() -> int:
     log("[3] tiny committed pair, f32")
     phase_tiny(dev, totals)
     log("[4] full-width LLaMA-68M/7B pair, bf16, random weights")
-    phase_full(dev, totals)
+    pair = SV.load_pair("paper-llama", dev)
+    phase_full(dev, totals, pair)
+    log("[5] sequential engines, tiny committed pair, f32")
+    phase_seq_tiny(dev, totals)
+    log("[6] sequential engines, full-width LLaMA-68M/7B pair, bf16")
+    phase_seq_full(dev, totals, pair)
     for k, v in totals.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched on the "
@@ -644,7 +879,8 @@ def main() -> int:
     # one line per kernel: the main path's representative shape
     rep_case = {"paged_attention": "llama-7b B=8 T=8",
                 "verify_accept_batched": "llama V=32000 B=8 R=16",
-                "paged_gather": "zm swap ps=4 dim=512"}
+                "paged_gather": "zm swap ps=4 dim=512",
+                "flash_attention": "llama-7b B=1 T=5 S=512"}
     table = []
     for name, meta in KERNELS.items():
         c = next(r for r in cases[name] if r["case"] == rep_case[name])

@@ -25,7 +25,9 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-SOURCES = ("paged_attention.cu", "verify_accept.cu", "paged_gather.cu")
+SOURCES = ("paged_attention.cu", "verify_accept.cu", "paged_gather.cu",
+           "flash_attention.cu")
+HEADERS = ("attention.cuh",)   # included by sources; hashed with them
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -34,7 +36,8 @@ CFLAGS = ARCH + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 # launches per kernel name, added to by the wrappers in kernels/*.py
 LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "verify_accept_batched": 0,
-                            "paged_gather": 0}
+                            "paged_gather": 0,
+                            "flash_attention": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -57,7 +60,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -110,12 +113,16 @@ def lib() -> ctypes.CDLL:
         L.repro_paged_attention.argtypes = (
             [P] * 7 + [I] * 9 + [F, F, I, P])
         L.repro_paged_attention.restype = I
-        L.repro_paged_attention_smem.argtypes = [I, I, I]
+        L.repro_paged_attention_smem.argtypes = [I, I]
         L.repro_paged_attention_smem.restype = ctypes.c_size_t
         L.repro_verify_accept_batched.argtypes = [P] * 10 + [I] * 3 + [P]
         L.repro_verify_accept_batched.restype = I
         L.repro_paged_gather.argtypes = [P] * 3 + [I] * 4 + [P]
         L.repro_paged_gather.restype = I
+        L.repro_flash_attention.argtypes = [P] * 7 + [I] * 9 + [F, F, I, P]
+        L.repro_flash_attention.restype = I
+        L.repro_flash_attention_smem.argtypes = [I, I]
+        L.repro_flash_attention_smem.restype = ctypes.c_size_t
         _lib = L
     return _lib
 

@@ -12,12 +12,29 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged as _paged
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import verify_accept as _va
 
 LAUNCHES = build.LAUNCHES
 reset_launches = build.reset_launches
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    cap: Optional[float] = None, kv_chunk: int = 2048,
+                    q_ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over position-masked dense KV (see
+    kernels.flash_attention); ``kv_chunk`` sizes the plain version's
+    chunks only."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                       window=window, cap=cap,
+                                       kv_chunk=kv_chunk, q_ctx=q_ctx)
+    return _fa.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                               window=window, cap=cap, q_ctx=q_ctx)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

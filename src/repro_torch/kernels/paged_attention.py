@@ -6,7 +6,10 @@ Layout as in the reference: q (B, T, H, hd); k/v pages (P, ps, KV, hd)
 with the trash page last; table (B, n_max) int32; lens (B,) int32 valid
 KV length per row including the T query tokens; q_start (B,) int32
 absolute position of q[:, 0].  The kernel tiles T so that G * T_tile
-query rows share each page tile read (``ROWS_MAX`` rows per block).
+query rows share each K/V tile read (``ROWS_MAX`` rows per block).
+
+The kernel's tile loop (``csrc/attention.cuh``) is shared with the flash
+kernel, and so are the tiling limits and input checks here.
 """
 from __future__ import annotations
 
@@ -25,6 +28,18 @@ def t_tile(T: int, G: int) -> int:
     if G > ROWS_MAX:
         raise ValueError(f"{G} query heads per kv head exceed {ROWS_MAX}")
     return max(1, min(T, ROWS_MAX // G))
+
+
+def check_rows16(name: str, hd: int, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """The kernels load K/V 16 bytes at a time: a row of hd values must
+    span a multiple of 16 bytes and both tensors start 16-byte aligned."""
+    if (hd * k.element_size()) % 16:
+        raise ValueError(f"{name}: rows of hd={hd} {k.dtype} values are "
+                         "not a multiple of 16 bytes")
+    for x in (k, v):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: K/V storage is not 16-byte aligned")
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -55,11 +70,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         if x.dtype != torch.int32 or tuple(x.shape) != shape:
             raise ValueError(f"paged_attention: {name} must be int32 "
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
+    check_rows16("paged_attention", hd, k_pages, v_pages)
     tt = t_tile(T, H // KV)
     L = build.lib()
-    if L.repro_paged_attention_smem((H // KV) * tt, hd, ps) > SMEM_LIMIT:
-        raise ValueError("paged_attention: tile exceeds shared memory "
-                         f"(hd={hd}, ps={ps})")
+    if L.repro_paged_attention_smem((H // KV) * tt, hd) > SMEM_LIMIT:
+        raise ValueError(f"paged_attention: tile exceeds shared memory "
+                         f"(hd={hd})")
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out

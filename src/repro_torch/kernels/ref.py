@@ -6,8 +6,10 @@ arithmetic: ``paged_attention_ref`` is the gather form of
 ``repro.kernels.paged_attention.paged_decode_attention_xla`` (so a
 zero-length row returns zeros, as the kernels do),
 ``verify_accept_batched_ref`` is ``repro.kernels.ref.
-verify_accept_batched_ref`` and ``paged_gather_ref`` the contract of
-``repro.kernels.paged.paged_gather``.
+verify_accept_batched_ref``, ``paged_gather_ref`` the contract of
+``repro.kernels.paged.paged_gather``, and ``flash_attention_ref`` the
+chunked online softmax of ``repro.models.layers.attend`` (the function
+TPU kernel ``repro.kernels.flash_attention.flash_attention`` computes).
 """
 from __future__ import annotations
 
@@ -96,3 +98,61 @@ def paged_gather_ref(pages: torch.Tensor, table: torch.Tensor,
     out = pages[table.long()].reshape(-1, dim).clone()
     out[valid_len:] = 0
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        cap: Optional[float] = None, kv_chunk: int = 2048,
+                        q_ctx: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Online-softmax attention over ``kv_chunk``-wide key chunks.
+
+    q (B, T, H, hd); k, v (B, S, KV, hd); q_pos (B, T) and k_pos (B, S)
+    absolute positions (k_pos -1 marks an invalid slot); window > 0 masks
+    keys with q_pos - k_pos >= window; q_ctx (B, T), optional, is a
+    per-query causal horizon used instead of q_pos.  Returns (B, T, H, hd).
+    """
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if q_ctx is None:
+        q_ctx = q_pos
+    scale = 1.0 / math.sqrt(hd)
+    qf = (q.float() * scale).reshape(B, T, KV, G, hd)
+    n_chunks = max(1, math.ceil(S / kv_chunk))
+    pad = n_chunks * kv_chunk - S
+    if pad:
+        # pad slots are invalid keys (position -1) with zero values, as in
+        # the reference: a query that sees no key at all then averages
+        # over every slot of the padded width, as the reference does
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+    m = torch.full((B, KV, G, T), NEG_INF, device=q.device)
+    l = torch.zeros((B, KV, G, T), device=q.device)
+    acc = torch.zeros((B, T, KV, G, hd), device=q.device)
+    for c in range(n_chunks):
+        kb = k[:, c * kv_chunk:(c + 1) * kv_chunk].float()
+        vb = v[:, c * kv_chunk:(c + 1) * kv_chunk].float()
+        pb = k_pos[:, c * kv_chunk:(c + 1) * kv_chunk]
+        logits = torch.einsum("btkgh,bckh->bkgtc", qf, kb)
+        if cap is not None:
+            logits = cap * torch.tanh(logits / cap)
+        pbb = pb[:, None, None, None, :]
+        mask = pbb >= 0
+        if causal:
+            mask = mask & (pbb <= q_ctx[:, None, None, :, None])
+        if window > 0:
+            mask = mask & ((q_pos[:, None, None, :, None] - pbb) < window)
+        logits = torch.where(mask, logits,
+                             torch.full_like(logits, NEG_INF))
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bkgtc,bckh->btkgh", p, vb)
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+        m = m_new
+    l = l.clamp_min(1e-20).permute(0, 3, 1, 2)[..., None]
+    return (acc / l).reshape(B, T, H, hd).to(q.dtype)

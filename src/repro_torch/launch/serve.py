@@ -1,18 +1,29 @@
-"""Serving driver of the PyTorch port: batched SpecBranch over paged KV
-(port of ``repro.launch.serve``'s default path).
+"""Serving entry point of the PyTorch port (port of
+``repro.launch.serve``).
 
-Same flags and JSON report as the reference driver, plus ``--device``
+Two modes, with the reference's default rule (batched for the engines
+that have a batched implementation, sequential otherwise):
+
+  * ``--mode batched`` — batched SpecBranch over paged KV
+    (``repro_torch.serving``), the paged backend, the sequential draft
+    loop;
+  * ``--mode sequential`` — each request runs its engine
+    (``autoregressive``, ``sps``, ``adaedl``, ``lookahead``, ``pearl`` or
+    ``specbranch``) to completion in arrival order over the dense ring
+    cache (``runtime.scheduler``), with the reference's report.
+
+Same flags and reports as the reference's, plus ``--device``
 (default ``cuda``; ``cpu`` runs every kernel's plain PyTorch version).
-The slice of the port covers what the reference runs with no flags:
-``--engine specbranch``, batched mode, the paged backend, the sequential
-draft loop.  Other values of those flags exit with a message naming the
-later slice.  ``--pair`` also takes ``paper-llama``: the paper's
-LLaMA-68M draft / LLaMA-7B target at full width, bf16, with random
-weights from fixed seeds (no checkpoint is needed).
+Other values of its flags exit with a message naming the later slice.
+``--pair`` also takes ``paper-llama``: the paper's LLaMA-68M draft /
+LLaMA-7B target at full width, bf16, with random weights from fixed
+seeds (no checkpoint is needed).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
       --requests 8 --new-tokens 32 --pair paper-llama
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --mode sequential --engine specbranch
 """
 from __future__ import annotations
 
@@ -27,12 +38,31 @@ from repro_torch import resolve_device
 from repro_torch.configs.paper_pairs import PAPER_PAIRS
 from repro_torch.data.synthetic import ZipfMarkov
 from repro_torch.models import model as M
-from repro_torch.runtime.engines import EngineConfig
+from repro_torch.runtime import prng
+from repro_torch.runtime.cost_model import CostModel
+from repro_torch.runtime.engines import (AdaEDLEngine, AutoregressiveEngine,
+                                         EngineConfig, LookaheadEngine,
+                                         PEARLEngine, SpSEngine)
+from repro_torch.runtime.scheduler import (Request, Scheduler,
+                                           sequential_arrival_cost)
+from repro_torch.runtime.specbranch import SpecBranchEngine
 from repro_torch.serving import (BatchedSpecBranchEngine,
                                  ContinuousBatchScheduler, ServeRequest)
 from repro_torch.training.pairs import VOCAB, get_pair
 
 PAIRS = ("misaligned", "aligned", "paper-llama")
+
+ENGINES = {
+    "autoregressive": AutoregressiveEngine,
+    "sps": SpSEngine,
+    "adaedl": AdaEDLEngine,
+    "lookahead": LookaheadEngine,
+    "pearl": PEARLEngine,
+    "specbranch": SpecBranchEngine,
+}
+# engines the reference also runs batched (the default mode for them);
+# only SpecBranch is batched in the port so far
+BATCHED_ENGINES = ("sps", "specbranch")
 
 
 def load_pair(kind: str, device):
@@ -86,12 +116,66 @@ def serve(pair, ecfg: EngineConfig, prompts, new_tokens: int, *,
     return results, sched.report(), eng, time.time() - t0
 
 
+def build_engine(engine, pair, ecfg: EngineConfig):
+    """A sequential engine from its name in ``ENGINES`` or its class."""
+    cls = ENGINES[engine] if isinstance(engine, str) else engine
+    dp, dcfg, tp, tcfg = pair
+    if cls in (AutoregressiveEngine, LookaheadEngine):   # target only
+        return cls(tp, tcfg, ecfg)
+    return cls(dp, dcfg, tp, tcfg, ecfg)
+
+
+def serve_sequential(pair, ecfg: EngineConfig, engine, prompts,
+                     new_tokens: int, *, seed: int = 0):
+    """Run ``prompts`` one after another through the sequential
+    ``engine`` (a name in ``ENGINES`` or an engine class); request keys
+    split from ``PRNGKey(seed)`` as the reference's ``launch.serve`` does.
+    Returns (requests, scheduler, wall s)."""
+    eng = build_engine(engine, pair, ecfg)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    sched = Scheduler(eng)
+    t0 = time.time()
+    done = sched.run(reqs, key=prng.PRNGKey(seed))
+    return done, sched, time.time() - t0
+
+
+def run_sequential(args, ecfg: EngineConfig, prompts, pair, device) -> dict:
+    done, sched, wall = serve_sequential(pair, ecfg, args.engine, prompts,
+                                         args.new_tokens)
+    cost = CostModel(c=args.c)
+    agg = sched.aggregate(done, cost)
+    if args.arrival_interval > 0:
+        clock = sequential_arrival_cost(
+            [r.result.timeline for r in done], cost, args.arrival_interval)
+        agg["total_cost"] = clock
+        agg["tokens_per_cost"] = agg["total_tokens"] / max(clock, 1e-9)
+    agg["device"] = _device_name(device)
+    print(f"\n== sequential {args.engine} on {args.pair} pair "
+          f"({agg['device']}): {len(done)} requests, {wall:.1f}s wall ==")
+    for r in done:
+        rep = r.result.report(cost)
+        print(f"req {r.rid}: {rep['tokens']} tok  M={rep['M']:.2f} "
+              f"speedup={rep['speedup']:.2f}x  RB={rep['rollback_rate']:.2f}")
+    print(f"wall per request: p50={agg['wall_p50']:.2f}s "
+          f"p95={agg['wall_p95']:.2f}s")
+    print(f"aggregate tokens/s (modeled, t=1): "
+          f"{agg['tokens_per_cost']:.4f}")
+    print(f"wall tokens/s ({agg['device']}): "
+          f"{agg['total_tokens'] / max(wall, 1e-9):.1f}")
+    return agg
+
+
+def _device_name(device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
 def _unsupported(args) -> Optional[str]:
     checks = [
-        (args.mode not in (None, "batched"),
-         "--mode sequential (the sequential engines)"),
-        (args.engine != "specbranch",
-         f"--engine {args.engine} (only batched SpecBranch is ported)"),
+        (args.mode == "batched" and args.engine != "specbranch",
+         f"--mode batched --engine {args.engine} (only batched SpecBranch "
+         "is ported)"),
         (args.spec_predictor != "off", "--spec-predictor"),
         (args.draft_mode != "sequential", "--draft-mode parallel"),
         (args.attn_backend != "paged", "--attn-backend dense"),
@@ -110,9 +194,7 @@ def _unsupported(args) -> Optional[str]:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--engine", default="specbranch",
-                    choices=["autoregressive", "sps", "adaedl", "lookahead",
-                             "pearl", "specbranch"])
+    ap.add_argument("--engine", default="specbranch", choices=list(ENGINES))
     ap.add_argument("--mode", default=None,
                     choices=["sequential", "batched"])
     ap.add_argument("--pair", default="misaligned", choices=PAIRS,
@@ -146,6 +228,9 @@ def main(argv=None) -> None:
                     help="cuda (default) or cpu; a CUDA device without a "
                     "visible card is an error, never a CPU fallback")
     args = ap.parse_args(argv)
+    if args.mode is None:
+        args.mode = ("batched" if args.engine in BATCHED_ENGINES
+                     else "sequential")
     msg = _unsupported(args)
     if msg:
         raise SystemExit(msg)
@@ -163,13 +248,23 @@ def main(argv=None) -> None:
         pair = load_pair(args.pair, device)
     except FileNotFoundError as e:
         raise SystemExit(str(e))
+    if args.mode == "sequential":
+        rep = run_sequential(args, ecfg, prompts, pair, device)
+    else:
+        rep = run_batched(args, ecfg, prompts, pair, device)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rep, f, indent=2, default=float)
+        print(f"report written to {args.json}")
+
+
+def run_batched(args, ecfg: EngineConfig, prompts, pair, device) -> dict:
     results, rep, eng, wall = serve(
         pair, ecfg, prompts, args.new_tokens, device=device,
         max_batch=args.max_batch, page_size=args.page_size,
         pool_pages=args.pool_pages, swap_pages=args.swap_pages,
         arrival_interval=args.arrival_interval)
-    rep["device"] = (torch.cuda.get_device_name(device)
-                     if device.type == "cuda" else "cpu")
+    rep["device"] = _device_name(device)
     print(f"\n== batched specbranch on {args.pair} pair ({rep['device']}): "
           f"{len(results)} requests, max_batch={args.max_batch}, "
           f"{wall:.1f}s wall ==")
@@ -195,10 +290,7 @@ def main(argv=None) -> None:
           f"{rep['tokens_per_cost']:.4f}")
     print(f"wall tokens/s ({rep['device']}): "
           f"{rep['total_tokens'] / max(wall, 1e-9):.1f}")
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump(rep, f, indent=2, default=float)
-        print(f"report written to {args.json}")
+    return rep
 
 
 if __name__ == "__main__":

@@ -1,15 +1,14 @@
 """Neural-net primitives (port of ``repro.models.layers``).
 
 Parameters are nested dicts of tensors in the reference's layout (weights
-stored as (in, out), applied as ``x @ w``).  ``attend`` is the reference's
-chunked online-softmax attention in plain PyTorch (it is jnp in the
-reference too, not a Pallas kernel); the paged branch of ``attention``
-scatters new K/V into the page buffers in place and attends through
-``ops.paged_attention`` — the CUDA kernel on the card.
+stored as (in, out), applied as ``x @ w``).  ``attend`` runs through
+``ops.flash_attention`` (the CUDA flash kernel on the card, the chunked
+plain version on the CPU); ``attention`` writes new K/V in place into a
+dense ring cache (attending through ``attend``) or into paged buffers
+(attending through ``ops.paged_attention``).
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -18,8 +17,6 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
-
-NEG_INF = -1e30
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -67,73 +64,48 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool = True, window: int = 0,
            cap: Optional[float] = None, kv_chunk: int = 2048,
            q_ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Online-softmax attention over ``kv_chunk``-wide key chunks.
+    """Online-softmax attention over position-masked dense KV.
 
     q (B, T, H, hd); k, v (B, S, KV, hd); q_pos (B, T) and k_pos (B, S)
     absolute positions (k_pos -1 marks an invalid slot); window > 0 masks
     keys with q_pos - k_pos >= window; q_ctx (B, T), optional, is a
     per-query causal horizon used instead of q_pos.  Returns (B, T, H, hd).
+    Runs through ``ops.flash_attention``: the CUDA kernel on the card, the
+    chunked plain version (``kv_chunk`` wide) on the CPU.
     """
-    B, T, H, hd = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    if q_ctx is None:
-        q_ctx = q_pos
-    scale = 1.0 / math.sqrt(hd)
-    qf = (q.float() * scale).reshape(B, T, KV, G, hd)
-    n_chunks = max(1, math.ceil(S / kv_chunk))
-    pad = n_chunks * kv_chunk - S
-    if pad:
-        # pad slots are invalid keys (position -1) with zero values, as in
-        # the reference: a query that sees no key at all then averages
-        # over every slot of the padded width, as the reference does
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
-    m = torch.full((B, KV, G, T), NEG_INF, device=q.device)
-    l = torch.zeros((B, KV, G, T), device=q.device)
-    acc = torch.zeros((B, T, KV, G, hd), device=q.device)
-    for c in range(n_chunks):
-        kb = k[:, c * kv_chunk:(c + 1) * kv_chunk].float()
-        vb = v[:, c * kv_chunk:(c + 1) * kv_chunk].float()
-        pb = k_pos[:, c * kv_chunk:(c + 1) * kv_chunk]
-        logits = torch.einsum("btkgh,bckh->bkgtc", qf, kb)
-        logits = softcap(logits, cap)
-        pbb = pb[:, None, None, None, :]
-        mask = pbb >= 0
-        if causal:
-            mask = mask & (pbb <= q_ctx[:, None, None, :, None])
-        if window > 0:
-            mask = mask & ((q_pos[:, None, None, :, None] - pbb) < window)
-        logits = torch.where(mask, logits,
-                             torch.full_like(logits, NEG_INF))
-        m_new = torch.maximum(m, logits.amax(-1))
-        p = torch.exp(logits - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        pv = torch.einsum("bkgtc,bckh->btkgh", p, vb)
-        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
-        m = m_new
-    l = l.clamp_min(1e-20).permute(0, 3, 1, 2)[..., None]
-    return (acc / l).reshape(B, T, H, hd).to(q.dtype)
+    return ops.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                               window=window, cap=cap, kv_chunk=kv_chunk,
+                               q_ctx=q_ctx)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, cache: Optional[Params] = None,
               window: int = 0, kv_chunk: int = 2048,
+              cache_mode: str = "append",
               paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> torch.Tensor:
     """One attention block (pre-norm, residual outside).
 
-    With ``cache`` = {"k_pages": (P+1, ps, KV, hd), "v_pages": ...} (one
-    layer's paged buffers, updated IN PLACE) ``paged`` must carry the
-    call's page-table view ``(table (B, n_max) int32, lens (B,) int32)``:
-    new K/V land at page ``table[b, pos // ps]`` slot ``pos % ps``, writes
-    at positions >= lens (batch padding, idle rows) go to the trash page
-    (the last physical page), and attention runs over the pages through
-    ``ops.paged_attention`` with ``q_start = positions[:, 0]``.  Without a
-    cache the block attends over the chunk itself (the autoregressive
-    reference's path).  The dense ring-buffer cache is a later slice.
+    Dense ring cache ``{"k": (B, Sc, KV, hd), "v": ..., "pos": (B, Sc)
+    int32}`` (one layer's view, updated IN PLACE): the chunk's K/V land
+    at slot ``position % Sc`` (only its last Sc tokens when T > Sc), and
+    the queries attend through ``attend`` — the flash kernel on the card.
+    ``cache_mode`` "append" attends, for a windowed layer, over the
+    pre-write cache ∪ the chunk (writing first could evict slots still
+    inside earlier queries' windows; stale slots at or after the chunk
+    start, left by a rollback, are masked), and for a global layer over
+    the cache after the write (stale slots there are masked by
+    causality); "fresh" (prefill into an empty cache) attends over the
+    chunk alone and writes it.
+
+    Paged cache ``{"k_pages": (P+1, ps, KV, hd), "v_pages": ...}``:
+    ``paged`` must carry the call's page-table view ``(table (B, n_max)
+    int32, lens (B,) int32)``: new K/V land at page ``table[b, pos // ps]``
+    slot ``pos % ps``, writes at positions >= lens (batch padding, idle
+    rows) go to the trash page (the last physical page), and attention
+    runs over the pages through ``ops.paged_attention`` with ``q_start =
+    positions[:, 0]``.  Without a cache the block attends over the chunk
+    itself.
     """
     B, T, _D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -148,6 +120,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
 
+    if cache is not None and "k" in cache:
+        out = _attend_ring(q, k, v, positions, cache, cfg, window=window,
+                           kv_chunk=kv_chunk, cache_mode=cache_mode)
+        return out.reshape(B, T, H * hd) @ p["wo"]
     if cache is not None:
         if paged is None:
             raise ValueError("a paged cache needs the (table, lens) view")
@@ -171,6 +147,56 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     out = attend(q, k, v, positions, positions, causal=cfg.causal,
                  window=window, cap=cfg.attn_softcap, kv_chunk=kv_chunk)
     return out.reshape(B, T, H * hd) @ p["wo"]
+
+
+def _attend_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor, cache: Params, cfg: ModelConfig,
+                 *, window: int, kv_chunk: int, cache_mode: str
+                 ) -> torch.Tensor:
+    """Write the chunk into a dense ring cache in place and attend (see
+    ``attention``)."""
+    if cache_mode not in ("append", "fresh"):
+        raise ValueError(f"unknown cache_mode {cache_mode!r}")
+    B, T = positions.shape
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    Sc = ck.shape[1]
+    if cache_mode == "fresh":
+        k_all, v_all, kpos = k, v, positions
+    elif window > 0:
+        # read before the write below: the pre-write cache ∪ the chunk
+        old_pos = torch.where(cp >= positions[:, :1],
+                              torch.full_like(cp, -1), cp)
+        k_all = torch.cat([ck, k.to(ck.dtype)], dim=1)
+        v_all = torch.cat([cv, v.to(cv.dtype)], dim=1)
+        kpos = torch.cat([old_pos, positions.to(cp.dtype)], dim=1)
+    # only the chunk's tail survives a chunk longer than the ring: slice
+    # before the scatter so no slot is written twice
+    kw, vw, pw = ((k[:, -Sc:], v[:, -Sc:], positions[:, -Sc:]) if T > Sc
+                  else (k, v, positions))
+    slots = pw.long() % Sc
+    bidx = torch.arange(B, device=ck.device)[:, None]
+    ck[bidx, slots] = kw.to(ck.dtype)
+    cv[bidx, slots] = vw.to(cv.dtype)
+    cp[bidx, slots] = pw.to(cp.dtype)
+    if cache_mode == "append" and window == 0:
+        k_all, v_all, kpos = ck, cv, cp
+    return attend(q, k_all, v_all, positions, kpos, causal=cfg.causal,
+                  window=window, cap=cfg.attn_softcap, kv_chunk=kv_chunk)
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
+                    device, ring_slack: int = 0, stack: int = 1) -> Params:
+    """Dense ring cache of ``stack`` attention layers: (stack, batch, Sc,
+    KV, hd) K/V and (stack, batch, Sc) int32 positions, -1 where unwritten.
+    Sc = max_len for a global layer; ``min(window + ring_slack, max_len)``
+    for a windowed one (``ring_slack`` keeps keys that writes running
+    ahead of a row's length would evict, as the reference documents)."""
+    Sc = min(window + ring_slack, max_len) if window > 0 else max_len
+    shape = (stack, batch, Sc, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+            "pos": torch.full((stack, batch, Sc), -1, dtype=torch.int32,
+                              device=device)}
 
 
 def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,

@@ -4,8 +4,10 @@
 The parameter tree keeps the reference's layout: ``blocks[s]`` holds slot
 ``s`` of the period with every leaf stacked on a leading ``n_periods``
 axis, ``rem`` the unrolled remainder layers.  The reference scans the
-stacked periods; here a Python loop indexes them.  Paged caches keep the
-same leading stack axis and are updated in place by the forward.
+stacked periods; here a Python loop indexes them.  Caches (dense ring
+caches from ``init_cache``, paged ones from ``init_paged_cache``) keep
+the same leading stack axis and are updated IN PLACE by the forward,
+where the reference returns a new cache.
 """
 from __future__ import annotations
 
@@ -87,6 +89,46 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
 # cache
 # ---------------------------------------------------------------------------
 
+def _slot_window(cfg: ModelConfig, mixer: str) -> int:
+    return cfg.sliding_window if mixer == "local" else 0
+
+
+def _init_slot_cache(cfg: ModelConfig, slot, batch: int, max_len: int,
+                     device, stack: int, ring_slack: int = 0) -> Params:
+    return L.init_attn_cache(cfg, batch, max_len, _slot_window(cfg, slot[0]),
+                             device, ring_slack=ring_slack, stack=stack)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               ring_slack: int = 0) -> Params:
+    """Dense ring decode cache mirroring the params layout: every leaf has
+    a leading stack axis (n_periods for ``blocks``, 1 for ``rem``), so
+    batch is uniformly axis 1 — the runner's branch fork / select rely on
+    this.  ``ring_slack`` pads windowed rings (the reference's
+    ``ssm_ring`` doubles as that slack; mamba slots are a later slice)."""
+    check_supported(cfg)
+    return {"blocks": [_init_slot_cache(cfg, cfg.pattern[s], batch, max_len,
+                                        device, cfg.n_periods, ring_slack)
+                       for s in range(cfg.period)],
+            "rem": [_init_slot_cache(cfg, cfg.pattern[r], batch, max_len,
+                                     device, 1, ring_slack)
+                    for r in range(cfg.n_rem)]}
+
+
+def map_slot_caches(cache: Params, fn) -> Params:
+    """Apply ``fn`` to every slot cache dict (blocks + remainder),
+    preserving the layout."""
+    return {"blocks": [fn(c) for c in cache["blocks"]],
+            "rem": [fn(c) for c in cache["rem"]]}
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
+    """Bytes of ``init_cache(cfg, batch, max_len)``, from shapes alone."""
+    cache = init_cache(cfg, batch, max_len, device="meta")
+    return sum(x.numel() * x.element_size() for c in iter_slots(cache)
+               for x in c.values())
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device) -> Params:
     """Physically paged decode cache: every attention slot stores KV
@@ -116,11 +158,11 @@ def iter_slots(cache: Params):
 
 def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
                 positions: torch.Tensor, cache: Optional[Params],
-                paged, kv_chunk: int) -> torch.Tensor:
+                paged, kv_chunk: int, cache_mode: str) -> torch.Tensor:
     mixer, ffn_kind = slot
-    window = cfg.sliding_window if mixer == "local" else 0
     x = x + L.attention(p["mixer"], x, cfg, positions=positions,
-                        cache=cache, window=window, kv_chunk=kv_chunk,
+                        cache=cache, window=_slot_window(cfg, mixer),
+                        kv_chunk=kv_chunk, cache_mode=cache_mode,
                         paged=paged)
     if ffn_kind == "dense":
         x = x + L.ffn(p["ffn"], x, cfg)
@@ -133,11 +175,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
             feature_mode: Optional[str] = None,
             logits_mode: str = "all",
-            kv_chunk: int = 2048) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            kv_chunk: int = 2048,
+            cache_mode: str = "append"
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the model.
 
     tokens (B, T) int; positions (B, T) absolute positions (default
-    arange); cache from ``init_paged_cache`` (written in place) with
+    arange); cache (written in place) a dense ring cache from
+    ``init_cache`` (``cache_mode`` "append" or "fresh", see
+    ``layers.attention``), a paged cache from ``init_paged_cache`` with
     ``paged`` = (table (B, n_max) int32, lens (B,) int32), or None for a
     cache-less forward.  feature_mode "last" puts the final-position
     hidden state after every period / remainder layer in
@@ -164,13 +210,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             c = None if cache is None else _index(cache["blocks"][s], i)
             x = _apply_slot(_index(params["blocks"][s], i), x, cfg, slot,
                             positions=positions, cache=c, paged=paged,
-                            kv_chunk=kv_chunk)
+                            kv_chunk=kv_chunk, cache_mode=cache_mode)
         keep(x)
     for r in range(cfg.n_rem):
         c = None if cache is None else _index(cache["rem"][r], 0)
         x = _apply_slot(_index(params["rem"][r], 0), x, cfg, cfg.pattern[r],
                         positions=positions, cache=c, paged=paged,
-                        kv_chunk=kv_chunk)
+                        kv_chunk=kv_chunk, cache_mode=cache_mode)
         keep(x)
 
     if logits_mode == "last":
@@ -184,6 +230,25 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if feature_mode is not None:
         aux["features"] = torch.stack(feats)
     return logits, aux
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            cache: Params, kv_chunk: int = 2048
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Prefill: forward over the prompt writing the dense cache."""
+    return forward(params, cfg, tokens, cache=cache, kv_chunk=kv_chunk)
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                cache: Params, pos: torch.Tensor, kv_chunk: int = 2048
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Decode T new tokens (T = 1 for plain AR, T = gamma to verify);
+    pos (B,) int32 is the absolute position of the first one."""
+    T = tokens.shape[1]
+    positions = pos.to(torch.int32)[:, None] + torch.arange(
+        T, dtype=torch.int32, device=pos.device)[None]
+    return forward(params, cfg, tokens, cache=cache, positions=positions,
+                   kv_chunk=kv_chunk)
 
 
 @torch.no_grad()

@@ -1,19 +1,38 @@
-"""Engine configuration and per-request results (the dataclasses of
-``repro.runtime.engines``; the sequential engines themselves are a later
-slice of the port).
+"""Sequential serving engines (port of ``repro.runtime.engines``):
+Autoregressive, SpS, AdaEDL, ConfidenceSD, Lookahead and PEARL over the
+``ModelRunner`` substrate, plus the engine configuration and per-request
+results the batched engines share.  SpecBranch is in
+``runtime.specbranch``.
+
+Engine contract: ``generate(prompt, n_new, key)`` returns a ``GenResult``
+whose ``tokens`` are distributed exactly as target-model decoding
+(token-for-token identical under greedy), drawing every random number
+from the threefry key as the reference does, so a stream equals the
+reference's on the same weights.  ``prompt + ctx.out`` is the committed
+stream; after a rejection the runners are reset to ``len(prompt) +
+len(out) - 1`` with the newest token pending.
 
 Rollback accounting (Sec. 6 / E.3): ``rollback_tokens`` counts draft-forward
 tokens discarded after target verification at sequence-position
 granularity; tokens cut before verification are ``pruned_tokens``.
+
+Later slices (ROADMAP.md queue A): parallel drafting (``draft_mode
+"parallel"``, draft heads), the history predictor (``spec_predictor``),
+H-RAD, stub-frontend embeddings and trace events.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import prng
+from repro_torch.runtime import sampling as S
 from repro_torch.runtime.cost_model import CostModel, Round
+from repro_torch.runtime.runner import ModelRunner
 
 
 @dataclasses.dataclass
@@ -101,3 +120,352 @@ class GenResult:
             "draft_tokens": self.stats.draft_tokens,
             "target_calls": self.stats.target_calls,
         }
+
+
+class _Ctx:
+    def __init__(self, key: torch.Tensor):
+        self.out: List[int] = []
+        self.stats = GenStats()
+        self.timeline: List[Round] = []
+        self.key = key
+
+    def split(self) -> torch.Tensor:
+        self.key, k = prng.split(self.key)
+        return k
+
+
+def make_predictor(mode: str, gamma_max: int, k_max: int, eps_base: float):
+    """The reference factory's "off" branch (None: every engine path runs
+    the predictor-less code); the history predictor is a later slice."""
+    if mode in ("off", "", None):
+        return None
+    raise NotImplementedError(
+        f"spec_predictor={mode!r}: the history predictor is not in this "
+        "slice of the PyTorch port (ROADMAP.md queue A)")
+
+
+# ---------------------------------------------------------------------------
+# base
+# ---------------------------------------------------------------------------
+
+class Engine:
+    name = "base"
+
+    def __init__(self, draft_params, draft_cfg: Optional[ModelConfig],
+                 target_params, target_cfg: ModelConfig,
+                 ecfg: EngineConfig, hrad_params=None, draft_heads=None):
+        self.dp, self.dcfg = draft_params, draft_cfg
+        self.tp, self.tcfg = target_params, target_cfg
+        self.ecfg = ecfg
+        if ecfg.draft_mode != "sequential" or draft_heads is not None:
+            raise NotImplementedError(
+                "parallel drafting (draft_mode 'parallel', draft heads) is "
+                "not in this slice of the PyTorch port (ROADMAP.md queue A)")
+        if hrad_params is not None:
+            raise NotImplementedError(
+                "H-RAD is not in this slice of the PyTorch port (ROADMAP.md "
+                "queue A)")
+        # None for "off" (every path runs the predictor-less code); any
+        # other mode raises until the predictor is ported
+        make_predictor(ecfg.spec_predictor, ecfg.gamma, ecfg.k_max,
+                       ecfg.epsilon)
+
+    def _new_runners(self) -> Tuple[Optional[ModelRunner], ModelRunner]:
+        d = (ModelRunner(self.dp, self.dcfg, max_len=self.ecfg.max_len)
+             if self.dcfg is not None else None)
+        t = ModelRunner(self.tp, self.tcfg, max_len=self.ecfg.max_len)
+        return d, t
+
+    def _tprobs(self, logits: torch.Tensor) -> torch.Tensor:
+        return S.probs_from_logits(logits, self.ecfg.temperature)
+
+    def _qprobs(self, logits: torch.Tensor) -> torch.Tensor:
+        return S.probs_from_logits(logits, self.ecfg.draft_temperature)
+
+    def _qsignal(self, logits: torch.Tensor) -> torch.Tensor:
+        return S.probs_from_logits(logits, self.ecfg.signal_temperature)
+
+    def _sample(self, ctx: _Ctx, probs: torch.Tensor) -> int:
+        return int(S.sample(ctx.split(), probs))
+
+    def generate(self, prompt: Sequence[int], n_new: int,
+                 key: torch.Tensor, embeds=None) -> GenResult:
+        raise NotImplementedError
+
+    def _check_embeds(self, embeds) -> None:
+        if embeds is not None:
+            raise NotImplementedError(
+                "stub-frontend embeddings are not in this slice of the "
+                "PyTorch port (ROADMAP.md queue A)")
+
+    # shared target verification ------------------------------------------
+    def _verify(self, target: ModelRunner, drafts: List[int],
+                q_stack: Optional[torch.Tensor], ctx: _Ctx):
+        """Target-verify ``pending + drafts``; one target call.
+
+        Returns (n_accepted, next_token, all_accepted, bonus_probs).
+        p for drafts[i] is the target distribution after pending +
+        drafts[:i]; with nothing pending the distribution before drafts[0]
+        is the previous call's last logits (PEARL / SpecBranch steady
+        state).
+        """
+        npend = len(target.pending)
+        g = len(drafts)
+        pre = (self._tprobs(target.last_logits[0]) if npend == 0 else None)
+        logits = target.forward(drafts)
+        ctx.stats.target_calls += 1
+        row = logits[0]
+        bonus = self._tprobs(row[npend + g - 1]) if (npend + g) > 0 else pre
+        if g == 0:
+            return 0, -1, True, bonus
+        if npend == 0:
+            p_stack = torch.cat([pre[None], self._tprobs(row[:g - 1])])
+        else:
+            p_stack = self._tprobs(row[npend - 1: npend - 1 + g])
+        verdict = S.verify_chain(ctx.split(), p_stack, q_stack[:g], drafts)
+        return verdict.n_accepted, verdict.next_token, \
+            verdict.all_accepted, bonus
+
+    # lineage reset ---------------------------------------------------------
+    def _reset_lineage(self, runner: ModelRunner, prompt_len: int,
+                       ctx: _Ctx) -> None:
+        """Reset a runner to the committed stream, newest token pending
+        (its ingested lineage always covers the committed stream)."""
+        runner.reset_to(prompt_len + len(ctx.out) - 1)
+        runner.pending = [ctx.out[-1]]
+
+
+# ---------------------------------------------------------------------------
+# 1. Autoregressive (1.00x baseline)
+# ---------------------------------------------------------------------------
+
+class AutoregressiveEngine(Engine):
+    name = "autoregressive"
+
+    def __init__(self, target_params, target_cfg, ecfg: EngineConfig):
+        super().__init__(None, None, target_params, target_cfg, ecfg)
+
+    def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
+        self._check_embeds(embeds)
+        ctx = _Ctx(key)
+        _, target = self._new_runners()
+        target.forward(list(prompt))
+        ctx.stats.target_calls += 1
+        for _ in range(n_new):
+            tok = self._sample(ctx, self._tprobs(target.last_logits[0]))
+            ctx.out.append(tok)
+            target.forward([tok])
+            ctx.stats.target_calls += 1
+            ctx.timeline.append(("target", 0, 1))
+        ctx.stats.emitted = len(ctx.out)
+        ctx.stats.finish()
+        return GenResult(ctx.out, ctx.stats, ctx.timeline)
+
+
+# ---------------------------------------------------------------------------
+# 2/3. SpS (vanilla SD) and AdaEDL — serial draft-then-verify
+# ---------------------------------------------------------------------------
+
+class SpSEngine(Engine):
+    name = "sps"
+
+    def _stop_rule(self, q: torch.Tensor) -> bool:
+        return False
+
+    def _draft_round(self, draft: ModelRunner, ctx: _Ctx, gamma: int
+                     ) -> Tuple[List[int], torch.Tensor, List[float]]:
+        """Draft up to gamma tokens, ingesting all but the last.
+
+        Returns (drafted, q_stack (g, V), confidences).  Exactly g draft
+        forwards per round (the pending ingest doubles as the first one).
+        """
+        if draft.pending:
+            draft.forward([])
+        qs, drafted, confs = [], [], []
+        for i in range(gamma):
+            q = self._qprobs(draft.last_logits[0])
+            q_sig = self._qsignal(draft.last_logits[0])
+            tok = self._sample(ctx, q)
+            qs.append(q)
+            confs.append(float(q_sig.max()))
+            drafted.append(tok)
+            ctx.stats.draft_tokens += 1
+            if i == gamma - 1 or self._stop_rule(q_sig):
+                break
+            draft.forward([tok])
+        return drafted, torch.stack(qs), confs
+
+    def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
+        self._check_embeds(embeds)
+        ctx = _Ctx(key)
+        draft, target = self._new_runners()
+        draft.prefill(prompt)
+        target.prefill(prompt)
+        ctx.stats.target_calls += 1
+        plen = len(prompt)
+        while len(ctx.out) < n_new:
+            drafted, q_stack, _ = self._draft_round(draft, ctx,
+                                                    self.ecfg.gamma)
+            g = len(drafted)
+            n, nxt, all_acc, bonus = self._verify(target, drafted, q_stack,
+                                                  ctx)
+            ctx.timeline.append(("serial", g, 1))
+            if all_acc:
+                nxt = self._sample(ctx, bonus)
+                ctx.out.extend(drafted + [nxt])
+                ctx.stats.emitted += g + 1
+                ctx.stats.run_extend(g + 1)   # bonus continues the run
+                target.pending = [nxt]
+                draft.pending = [drafted[-1], nxt]
+            else:
+                ctx.out.extend(drafted[:n] + [nxt])
+                ctx.stats.emitted += n + 1
+                ctx.stats.run_extend(n)
+                ctx.stats.run_break()
+                ctx.stats.rollback_tokens += g - n
+                self._reset_lineage(target, plen, ctx)
+                self._reset_lineage(draft, plen, ctx)
+        ctx.stats.finish()
+        return GenResult(ctx.out[:n_new], ctx.stats, ctx.timeline)
+
+
+class AdaEDLEngine(SpSEngine):
+    name = "adaedl"
+
+    def _stop_rule(self, q: torch.Tensor) -> bool:
+        bound = float(S.entropy_bound(q, self.ecfg.adaedl_lambda))
+        return bound < self.ecfg.epsilon
+
+
+class ConfidenceSDEngine(SpSEngine):
+    """Implicit confidence early-stopping + vanilla SD (Table 4 baseline)."""
+    name = "confidence-sd"
+
+    def _stop_rule(self, q: torch.Tensor) -> bool:
+        return float(q.max()) < self.ecfg.epsilon
+
+
+# ---------------------------------------------------------------------------
+# 4. Lookahead-lite (n-gram pool, no draft model)
+# ---------------------------------------------------------------------------
+
+class LookaheadEngine(Engine):
+    name = "lookahead"
+
+    def __init__(self, target_params, target_cfg, ecfg: EngineConfig):
+        super().__init__(None, None, target_params, target_cfg, ecfg)
+
+    def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
+        self._check_embeds(embeds)
+        ctx = _Ctx(key)
+        _, target = self._new_runners()
+        target.prefill(prompt)
+        ctx.stats.target_calls += 1
+        plen = len(prompt)
+        n = self.ecfg.lookahead_n
+        pool: Dict[tuple, List[int]] = {}
+        hist = list(prompt)
+
+        def update_pool(seq):
+            for i in range(max(0, len(seq) - n)):
+                pool[tuple(seq[i:i + n - 1])] = \
+                    seq[i + n - 1: i + n - 1 + self.ecfg.gamma]
+
+        update_pool(hist)
+        while len(ctx.out) < n_new:
+            guess = pool.get(tuple(hist[-(n - 1):]), [])[:self.ecfg.gamma]
+            npend = len(target.pending)
+            logits = target.forward(list(guess))
+            ctx.stats.target_calls += 1
+            ctx.timeline.append(("serial", 0, 1))
+            row = logits[0]
+            n_ok = 0
+            for i, gtok in enumerate(guess):
+                p = self._tprobs(row[npend - 1 + i])
+                if int(torch.argmax(p)) != gtok:
+                    break
+                n_ok += 1
+            nxt = self._sample(ctx, self._tprobs(row[npend - 1 + n_ok]))
+            emitted = list(guess[:n_ok]) + [nxt]
+            ctx.out.extend(emitted)
+            ctx.stats.emitted += len(emitted)
+            ctx.stats.run_extend(n_ok)
+            ctx.stats.run_break()
+            ctx.stats.rollback_tokens += len(guess) - n_ok
+            self._reset_lineage(target, plen, ctx)
+            hist.extend(emitted)
+            update_pool(hist)
+        ctx.stats.finish()
+        return GenResult(ctx.out[:n_new], ctx.stats, ctx.timeline)
+
+
+# ---------------------------------------------------------------------------
+# 5. PEARL — chunk-level parallel drafting/verification
+# ---------------------------------------------------------------------------
+
+class PEARLEngine(SpSEngine):
+    """Parallel SD with pre/post-verify (PEARL, [25]).
+
+    Warm-up round: draft a chunk while the target pre-verifies its first
+    token.  Steady state: the target verifies the current chunk while the
+    draft generates the next one; a mid-chunk rejection dooms the whole
+    parallel chunk (Fig. 1a) — the rollback cost SpecBranch attacks.
+    """
+    name = "pearl"
+
+    def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
+        self._check_embeds(embeds)
+        ctx = _Ctx(key)
+        draft, target = self._new_runners()
+        draft.prefill(prompt)
+        target.prefill(prompt)
+        ctx.stats.target_calls += 1
+        plen = len(prompt)
+        gamma = self.ecfg.gamma
+        cur: List[int] = []
+        cur_q = None
+        while len(ctx.out) < n_new:
+            if not cur:
+                # ---- warm-up: draft chunk || pre-verify first token ----
+                cur, cur_q, _ = self._draft_round(draft, ctx, gamma)
+                draft.pending = [cur[-1]]
+                n, nxt, ok, _ = self._verify(target, cur[:1], cur_q[:1], ctx)
+                ctx.timeline.append(("parallel", len(cur), 1))
+                if not ok:
+                    ctx.stats.rollback_tokens += len(cur)
+                    ctx.stats.run_break()
+                    ctx.out.append(nxt)
+                    ctx.stats.emitted += 1
+                    self._reset_lineage(target, plen, ctx)
+                    self._reset_lineage(draft, plen, ctx)
+                    cur = []
+                    continue
+                ctx.out.append(cur[0])
+                ctx.stats.emitted += 1
+                ctx.stats.run_extend(1)
+                rest, rest_q = cur[1:], cur_q[1:]
+            else:
+                rest, rest_q = cur, cur_q
+
+            # ---- parallel: verify `rest` || draft next chunk ----
+            nxt_chunk, nxt_q, _ = self._draft_round(draft, ctx, gamma)
+            draft.pending = [nxt_chunk[-1]]
+            n, nxt, all_acc, bonus = self._verify(target, rest, rest_q, ctx)
+            ctx.timeline.append(("parallel", len(nxt_chunk), 1))
+            if all_acc:
+                ctx.out.extend(rest)
+                ctx.stats.emitted += len(rest)
+                ctx.stats.run_extend(len(rest))
+                cur, cur_q = nxt_chunk, nxt_q   # pipeline rolls on
+            else:
+                ctx.out.extend(rest[:n] + [nxt])
+                ctx.stats.emitted += n + 1
+                ctx.stats.run_extend(n)
+                ctx.stats.run_break()
+                # doomed: rest beyond n + the whole speculative next chunk
+                ctx.stats.rollback_tokens += (len(rest) - n) + len(nxt_chunk)
+                self._reset_lineage(target, plen, ctx)
+                self._reset_lineage(draft, plen, ctx)
+                cur = []
+        ctx.stats.finish()
+        return GenResult(ctx.out[:n_new], ctx.stats, ctx.timeline)

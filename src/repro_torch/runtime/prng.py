@@ -69,3 +69,55 @@ def uniform(key: torch.Tensor) -> torch.Tensor:
     bits = ((y0 ^ y1) >> 9) | 0x3F800000
     f = bits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(f, 0.0)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` for one (2,) key: key i hashes the
+    counter pair (0, i), so the result is (num, 2)."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def uniform_shaped(key: torch.Tensor, shape, minval: float = 0.0,
+                   maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` for a
+    (..., 2) batch of keys: element j of the flattened ``shape`` hashes
+    the counter pair (0, j) (partitionable threefry), its bits are
+    ``y0 ^ y1``, and the float is ``max(minval, f * (maxval - minval) +
+    minval)`` for the 23-bit mantissa draw f in [0, 1), all in float32.
+    Returns (..., *shape) on ``device`` (default: the key's)."""
+    shape = tuple(int(s) for s in shape)
+    n = 1
+    for s in shape:
+        n *= s
+    dev = key.device if device is None else torch.device(device)
+    key = key.to(dev)
+    j = torch.arange(n, dtype=torch.int64, device=dev)
+    lead = key.shape[:-1]
+    k0 = key[..., 0].reshape(lead + (1,))
+    k1 = key[..., 1].reshape(lead + (1,))
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(j), j)
+    bits = ((y0 ^ y1) >> 9) | 0x3F800000
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=dev)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
+    f = torch.maximum(lo, f * (hi - lo) + lo)
+    return f.reshape(lead + shape)
+
+
+TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis, gumbel
+    mode "low": ``argmax(logits - log(-log(u)))`` with u uniform on
+    [tiny, 1).  ``key`` is (2,) or a (..., 2) batch matching the leading
+    axes of ``logits`` (the ``vmap`` over split keys of the engines).  The
+    uniforms are bit-exact with JAX; the two logs may differ from XLA's
+    by one ulp, which can move an argmax only at a near tie."""
+    V = logits.shape[-1]
+    u = uniform_shaped(key, (V,), minval=TINY, maxval=1.0,
+                       device=logits.device)
+    g = -torch.log(-torch.log(u))
+    return torch.argmax(g + logits.float(), dim=-1)

@@ -1,0 +1,173 @@
+"""Host-side model runner (port of ``repro.runtime.runner``): owns the dense
+ring decode cache, logical position, pending tokens and last logits of one
+model instance (draft or target).
+
+Rollback is positional, as in the reference for attention-only models:
+stale slots beyond the kept length are masked by causality until the next
+write overwrites them, so ``reset_to`` is bookkeeping.  Branch forks
+replicate the cache on the batch axis (axis 1 of every leaf).  The cache
+is written IN PLACE by each forward; ``fork`` makes the branch rows a
+copy, so ``unfork`` restores the untouched pre-fork cache as the
+reference's immutable arrays do.
+
+Mamba layers (their checkpoint + replay rollback), the parallel-draft
+forward and stub-frontend embeddings are later slices of the port
+(ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+from typing import Any, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+
+def _later_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not in this slice of the PyTorch port (ROADMAP.md "
+        "queue A)")
+
+
+class ModelRunner:
+    """One model + its decode cache, driven token-by-token from the host.
+
+    Invariants:
+      * ``tokens[:pos]`` are ingested in the cache; ``pending`` are emitted
+        by the engine but not yet ingested.
+      * ``last_logits`` is the (B, V) distribution following ``tokens[pos-1]``.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096):
+        if any(m == "mamba" for m, _ in cfg.pattern):
+            raise _later_slice(f"{cfg.name}: mamba layers (the SSM "
+                               "architecture slice, queue A item 3)")
+        self.params = params
+        self.cfg = cfg
+        self.max_len = max_len
+        self.device = params["embed"].device
+        self.batch = 1
+        self.cache = M.init_cache(cfg, 1, max_len, self.device)
+        self.pos = 0
+        self.pending: List[int] = []
+        self.last_logits: Optional[torch.Tensor] = None     # (B, V)
+        self.tokens: List[int] = []
+        self.n_calls = 0
+        self.n_call_tokens = 0
+        self._prefork: Optional[Tuple[Any, int]] = None
+
+    @torch.no_grad()
+    def _fwd(self, tokens: torch.Tensor) -> torch.Tensor:
+        B, T = tokens.shape
+        positions = (self.pos + torch.arange(T, dtype=torch.int32,
+                                             device=self.device)
+                     ).expand(B, T).contiguous()
+        logits, _ = M.forward(self.params, self.cfg, tokens,
+                              cache=self.cache, positions=positions)
+        return logits
+
+    # -------------------------------------------------------------- forward
+    def forward(self, tokens: Sequence[int]) -> torch.Tensor:
+        """Ingest ``pending + tokens`` (batch 1).  Returns logits (1, T, V)."""
+        assert self.batch == 1
+        toks = list(self.pending) + [int(t) for t in tokens]
+        self.pending = []
+        assert toks, "forward of zero tokens"
+        logits = self._fwd(torch.tensor([toks], dtype=torch.int64,
+                                        device=self.device))
+        self.pos += len(toks)
+        self.tokens.extend(toks)
+        self.n_calls += 1
+        self.n_call_tokens += len(toks)
+        self.last_logits = logits[:, -1]
+        return logits
+
+    def forward_parallel(self, g: int, dhead) -> torch.Tensor:
+        raise _later_slice("the single-pass parallel draft forward")
+
+    def forward_embeds(self, embeds) -> torch.Tensor:
+        raise _later_slice("stub-frontend embeddings")
+
+    def forward_batched(self, token_rows: np.ndarray) -> torch.Tensor:
+        """Branch-mode forward: token_rows (k, T), one row per branch."""
+        assert not self.pending and self.batch == token_rows.shape[0]
+        logits = self._fwd(torch.as_tensor(np.asarray(token_rows),
+                                           dtype=torch.int64,
+                                           device=self.device))
+        self.pos += token_rows.shape[1]
+        self.n_calls += 1
+        self.n_call_tokens += int(np.prod(token_rows.shape))
+        self.last_logits = logits[:, -1]
+        return logits
+
+    def prefill(self, prompt: Sequence[int]) -> None:
+        """Ingest prompt[:-1]; the final prompt token becomes pending so the
+        first verification round always has >= 1 input token."""
+        prompt = list(prompt)
+        assert len(prompt) >= 2, "need a prompt of >= 2 tokens"
+        self.forward(prompt[:-1])
+        self.pending = [prompt[-1]]
+
+    # ----------------------------------------------------------- rollback
+    def reset_to(self, abs_len: int) -> None:
+        """Truncate the ingested stream to ``abs_len`` tokens (positional;
+        ``last_logits`` is invalidated — engines always refill ``pending``
+        after a reset, so the next forward regenerates it)."""
+        assert abs_len <= self.pos
+        self.pending = []
+        if abs_len == self.pos:
+            return
+        self.pos = abs_len
+        self.tokens = self.tokens[:abs_len]
+        self.last_logits = None
+
+    # ------------------------------------------------------------- branch
+    def fork(self, k: int) -> None:
+        """Replicate the (batch=1) cache into k branch rows."""
+        assert self.batch == 1
+        self._prefork = (self.cache, self.pos)
+        self.cache = M.map_slot_caches(self.cache, lambda c: {
+            n: a.repeat_interleave(k, dim=1) for n, a in c.items()})
+        self.batch = k
+
+    def select(self, i: int) -> None:
+        """Keep branch row i, collapse back to batch=1."""
+        self.cache = M.map_slot_caches(self.cache, lambda c: {
+            n: a[:, i:i + 1].clone() for n, a in c.items()})
+        if self.last_logits is not None:
+            self.last_logits = self.last_logits[i:i + 1]
+        self.batch = 1
+        self._prefork = None
+
+    def sync_lineage(self, toks: Sequence[int]) -> None:
+        """Back-fill the lineage with the winning branch's ingested tokens
+        (``forward_batched`` advances ``pos`` without extending
+        ``tokens``: rows diverge until a branch wins)."""
+        assert self.batch == 1 and self._prefork is None
+        self.tokens.extend(int(t) for t in toks)
+        assert len(self.tokens) == self.pos, (len(self.tokens), self.pos)
+
+    def unfork(self) -> None:
+        """Abandon all branches: restore the pre-fork cache."""
+        assert self._prefork is not None
+        self.cache, self.pos = self._prefork
+        self.tokens = self.tokens[:self.pos]
+        self.batch = 1
+        self.last_logits = None
+        self._prefork = None
+
+
+def greedy_reference(params, cfg: ModelConfig, prompt: Sequence[int],
+                     n_new: int, *, max_len: int = 4096) -> List[int]:
+    """Plain autoregressive greedy generation through the runner (the
+    oracle of the lossless tests)."""
+    r = ModelRunner(params, cfg, max_len=max_len)
+    r.forward(list(prompt))
+    out = []
+    for _ in range(n_new):
+        nxt = int(torch.argmax(r.last_logits[0]))
+        out.append(nxt)
+        r.forward([nxt])
+    return out

@@ -7,7 +7,9 @@ the periodic blocks stacked on a leading ``n_periods`` axis.  ``load``
 rebuilds that tree as torch tensors; ``from_numpy_params`` carries any
 tree of numpy arrays (for instance the reference's params after
 ``np.asarray``) into the port, so both frameworks can run on identical
-weights.  Saving is a later slice (training).
+weights; ``from_numpy_cache`` does the same for a dense decode cache, so
+both frameworks can also start from one mid-stream state.  Saving is a
+later slice (training).
 """
 from __future__ import annotations
 
@@ -60,6 +62,19 @@ def from_numpy_params(tree: Any, cfg: ModelConfig, device) -> Any:
         raise ValueError(f"{cfg.name}: embed {tuple(emb.shape)} does not "
                          f"match ({cfg.vocab_size}, {cfg.d_model})")
     return out
+
+
+def from_numpy_cache(tree: Any, cfg: ModelConfig, device) -> Any:
+    """A dense decode cache tree of numpy arrays (the reference's
+    ``init_cache`` layout after ``np.asarray``) as the port's cache: K/V
+    in ``cfg``'s dtype, positions int32, on ``device``."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: (torch.from_numpy(np.array(v, np.int32)).to(device)
+                        if k == "pos" else _to_tensor(v, cfg.tdtype, device))
+                    for k, v in node.items()}
+        return [conv(v) for v in node]
+    return {"blocks": conv(tree["blocks"]), "rem": conv(tree["rem"])}
 
 
 def load(path: str, cfg: ModelConfig, device) -> Any:

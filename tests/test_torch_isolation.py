@@ -23,18 +23,25 @@ SCRIPT = textwrap.dedent("""
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro")
                  and sys.modules[m] is not None)
+    bad += sorted(m for m in {need!r} if m not in names)
     print(len(names), bad)
     sys.exit(1 if bad else 0)
 """)
 
+# modules the walk must reach (a missing one is reported as bad)
+NEED = ["repro_torch.kernels.flash_attention", "repro_torch.runtime.runner",
+        "repro_torch.runtime.specbranch", "repro_torch.runtime.scheduler",
+        "repro_torch.runtime.engines", "repro_torch.launch.serve"]
+
 
 def test_port_imports_neither_jax_nor_the_reference():
-    out = subprocess.run([sys.executable, "-c", SCRIPT.format(root=ROOT)],
+    out = subprocess.run([sys.executable, "-c",
+                          SCRIPT.format(root=ROOT, need=NEED)],
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 25 and bad.strip() == "[]"
+    assert int(n_modules) >= 29 and bad.strip() == "[]"
 
 
 def test_port_sources_have_no_jax_or_reference_imports():

@@ -4,8 +4,9 @@ CPU routing of ``repro_torch.kernels.ops``, and the wrappers' refusal of
 CPU tensors.  The CUDA kernels against their plain versions are in
 ``test_torch_cuda.py``.
 
-Tolerances: paged attention f32 atol 1e-5 (the same math in another
-summation order); verify ints equal and floats rtol 1e-6; gather equal.
+Tolerances: paged and flash attention f32 atol 1e-5 (the same math in
+another summation order); verify ints equal and floats rtol 1e-6; gather
+equal.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,9 +14,12 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.models import layers as jlayers
 from repro.kernels import paged_attention as jpa
 from repro.kernels import verify_accept as jva
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
+from repro_torch.models import layers as tlayers
 from repro_torch.kernels import paged as tpg
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import verify_accept as tva
@@ -167,3 +171,91 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="cpu"):
         tpg.paged_gather(*_torch(np.ones((3, 2, 4), np.float32),
                                  np.asarray([2, 0], np.int32)), 3)
+    q, k, v, qp, kpos = _torch(*_flash_inputs(1, 1, 2, 8, 4, 2, 16, 20))
+    with pytest.raises(ValueError, match="cpu"):
+        tfa.flash_attention(q, k, v, qp, kpos)
+
+
+def _flash_inputs(seed, B, T, S, H, KV, hd, L, stale=0, dead=0):
+    """A dense ring of S slots after L tokens: slot s holds the newest
+    position p < L with p % S == s (the ring wraps when L > S), or -1;
+    ``dead`` random slots are reset to -1 and ``stale`` others hold
+    positions at or past L (left by a rollback).  The T queries sit at
+    L - T .. L - 1 and their own slots stay valid, so every query sees a
+    key."""
+    rng = np.random.default_rng(seed)
+    kpos = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        for p in range(max(0, L - S), L):
+            kpos[b, p % S] = p
+        own = {p % S for p in range(L - T, L)}
+        others = rng.permutation(np.asarray(
+            [s for s in range(S) if s not in own], np.int64))
+        kpos[b, others[:dead]] = -1
+        kpos[b, others[dead:dead + stale]] = L + rng.integers(
+            0, 8, size=min(stale, len(others) - dead))
+    qpos = np.broadcast_to(np.arange(L - T, L, dtype=np.int32), (B, T))
+    q = rng.normal(size=(B, T, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, hd)).astype(np.float32)
+    return q, k, v, np.ascontiguousarray(qpos), kpos
+
+
+FLASH_CASES = [
+    # decode on a fresh ring: most slots -1
+    dict(B=2, T=1, S=64, H=4, KV=2, hd=32, L=9),
+    # verify chunk on a wrapped ring with stale and dead slots, GQA
+    dict(B=2, T=5, S=24, H=4, KV=2, hd=16, L=61, stale=4, dead=3),
+    # sliding window over a wrapped ring, softcap, MHA
+    dict(B=1, T=4, S=16, H=2, KV=2, hd=32, L=40, stale=2, window=6,
+         cap=20.0),
+    # prefill-shaped: T = S = L, group of 4
+    dict(B=1, T=12, S=12, H=8, KV=2, hd=16, L=12, window=5),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[f"case{i}" for i in range(len(FLASH_CASES))])
+def test_plain_flash_attention_matches_pallas_and_attend(case):
+    case = dict(case)
+    kw = {k: case.pop(k) for k in ("window", "cap") if k in case}
+    q, k, v, qpos, kpos = _flash_inputs(3, **case)
+    got = tlayers.attend(*_torch(q, k, v, qpos, kpos), kv_chunk=8,
+                         **kw).numpy()
+    jargs = [jnp.asarray(a) for a in (q, k, v, qpos, kpos)]
+    pallas = jops.flash_attention(*jargs, bq=8, bk=8, interpret=True, **kw)
+    plain = jlayers.attend(*jargs, kv_chunk=8, **kw)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(plain), rtol=0, atol=1e-5)
+    assert np.isfinite(got).all()
+
+
+def test_flash_q_ctx_horizon_matches_attend():
+    q, k, v, qpos, kpos = _flash_inputs(4, 2, 6, 32, 4, 2, 16, 30)
+    qctx = np.minimum(qpos, 26).astype(np.int32)
+    got = ops.flash_attention(*_torch(q, k, v, qpos, kpos),
+                              q_ctx=torch.from_numpy(qctx)).numpy()
+    want = jlayers.attend(*[jnp.asarray(a) for a in (q, k, v, qpos, kpos)],
+                          q_ctx=jnp.asarray(qctx))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_flash_route_on_cpu_is_the_plain_version():
+    args = _torch(*_flash_inputs(5, 1, 3, 16, 4, 2, 16, 20, stale=2))
+    before = dict(ops.LAUNCHES)
+    assert torch.equal(ops.flash_attention(*args, window=4, kv_chunk=8),
+                       ref.flash_attention_ref(*args, window=4, kv_chunk=8))
+    assert ops.LAUNCHES == before and "flash_attention" in ops.LAUNCHES
+
+
+@pytest.mark.parametrize("hd,offset", [(6, 0), (32, 1)])
+def test_attention_wrappers_need_16_byte_rows(hd, offset):
+    """Both attention kernels load K/V 16 bytes at a time; the wrappers
+    refuse rows that are not a multiple of 16 bytes or storage that is
+    not 16-byte aligned, instead of reading past or across rows."""
+    flat = torch.zeros(4 * hd + 8)
+    k = flat[offset:offset + 4 * hd].view(1, 4, 1, hd)
+    with pytest.raises(ValueError, match="16"):
+        tpa.check_rows16("attention", hd, k, k)
+    tpa.check_rows16("attention", 32, torch.zeros(1, 4, 1, 32),
+                  torch.zeros(1, 4, 1, 32))

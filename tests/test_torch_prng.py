@@ -66,3 +66,72 @@ def test_uniform_grid_bit_equal(seed, width):
     assert got.dtype == np.float32 and got.shape == (6, width)
     assert got.tobytes() == want.tobytes()
     assert ((got >= 0) & (got < 1)).all()
+
+
+MANY_SEEDS = [0, 1, 2, 3, 42, 99, 1234, 65535, 123456789, 2**31 - 1,
+              2**32 - 1]
+
+
+@pytest.mark.parametrize("seed", MANY_SEEDS)
+def test_split_chain_bit_equal(seed):
+    """The engines' key discipline: ``_Ctx.split`` (split in two, keep the
+    first) and ``split(key, k)`` for branch rows."""
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    for n in (2, 2, 6, 1, 3):
+        sj, st = jax.random.split(kj, n), prng.split(kt, n)
+        np.testing.assert_array_equal(st.numpy(), _u32(sj))
+        kj, kt = sj[0], st[0]
+
+
+@pytest.mark.parametrize("seed", MANY_SEEDS)
+@pytest.mark.parametrize("shape", [(1,), (5,), (3, 7), (199,)])
+def test_shaped_uniform_bit_equal(seed, shape):
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    uj = np.asarray(jax.random.uniform(kj, shape))
+    ut = prng.uniform_shaped(kt, shape).numpy()
+    assert ut.dtype == np.float32 and uj.tobytes() == ut.tobytes()
+    tiny = float(jnp.finfo(jnp.float32).tiny)
+    uj = np.asarray(jax.random.uniform(kj, shape, minval=tiny, maxval=1.0))
+    ut = prng.uniform_shaped(kt, shape, minval=prng.TINY).numpy()
+    assert uj.tobytes() == ut.tobytes()
+
+
+@pytest.mark.parametrize("seed", MANY_SEEDS)
+def test_batched_keys_uniform_rows(seed):
+    keys = prng.split(prng.PRNGKey(seed), 4)
+    rows = prng.uniform_shaped(keys, (9,))
+    for i in range(4):
+        assert torch.equal(rows[i], prng.uniform_shaped(keys[i], (9,)))
+
+
+@pytest.mark.parametrize("seed", MANY_SEEDS)
+def test_gumbel_within_one_ulp(seed):
+    """The gumbel noise -log(-log(u)): the uniforms are bit-equal, the two
+    logs may differ from XLA's by one f32 ulp each, so the noise agrees
+    to 1e-6 absolute (one ulp at its largest magnitude, ~16)."""
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    gj = np.asarray(jax.random.gumbel(kj, (4096,)))
+    u = prng.uniform_shaped(kt, (4096,), minval=prng.TINY)
+    gt = (-torch.log(-torch.log(u))).numpy()
+    np.testing.assert_allclose(gt, gj, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", MANY_SEEDS)
+@pytest.mark.parametrize("V", [2, 199, 32000])
+def test_categorical_equal(seed, V):
+    """``jax.random.categorical`` on one key and vmapped over split keys
+    (the engines' draft and branch sampling), on logits of softmax
+    probabilities as ``sampling.sample`` forms them."""
+    rng = np.random.default_rng(seed % 977)
+    lg = rng.standard_normal((6, V)).astype(np.float32) * 3
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    one_j = int(jax.random.categorical(kj, jnp.asarray(lg[0])))
+    assert int(prng.categorical(kt, torch.from_numpy(lg[0]))) == one_j
+    keys_j = jax.random.split(kj, 6)
+    want = np.asarray(jax.vmap(jax.random.categorical)(keys_j,
+                                                       jnp.asarray(lg)))
+    got = prng.categorical(prng.split(kt, 6), torch.from_numpy(lg)).numpy()
+    np.testing.assert_array_equal(got, want)
+    pj = np.asarray(JS.sample(kj, jax.nn.softmax(jnp.asarray(lg[1]))))
+    pt = TS.sample(kt, torch.softmax(torch.from_numpy(lg[1]), -1))
+    assert int(pt) == int(pj)

@@ -161,7 +161,8 @@ def test_serve_cli_on_cpu_and_unsupported_flags(tmp_path, capsys):
     assert "batched specbranch on misaligned pair (cpu)" in text
     rep = __import__("json").loads(out.read_text())
     assert rep["total_tokens"] == 12 and rep["device"] == "cpu"
-    for flags in (["--mode", "sequential"], ["--engine", "sps"],
+    for flags in (["--mode", "batched", "--engine", "pearl"],
+                  ["--engine", "sps"],
                   ["--attn-backend", "dense"], ["--draft-mode", "parallel"]):
         with pytest.raises(SystemExit, match="not in this slice"):
             SV.main(["--device", "cpu"] + flags)
