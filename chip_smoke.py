@@ -42,6 +42,24 @@ Phases (any failure raises, so the script exits non-zero):
                teacher-forced as in phase 4) and SpecBranch at
                temperature 1 with epsilon 0; wall tokens/s and rounds per
                engine; one profiled SpecBranch serve for the busy share.
+  7. hybrid tiny — the falcon-shaped (Mamba) and jamba-shaped (Mamba +
+               attention + MoE) random-init pairs, f32: batched greedy
+               streams must equal the port's own target-only greedy
+               decode; temperature 1 (epsilon 0.3, then 0) is shadowed as
+               in phase 3 and compared with the same serve on the CPU; a
+               jamba-shaped serve with a small pool must preempt, swap its
+               attention half through the gather kernel, restore its ring
+               snapshots and give the same streams as without preemption;
+               sequential SpecBranch and SpS greedy must equal AR greedy.
+               The selective-scan kernel must have run.
+  8. falcon  — falcon-mamba-7b (64 Mamba layers, d_model 4096) with its
+               draft() at full width, bf16, random weights from fixed
+               seeds: batched SpecBranch, 8 requests x 32 new tokens,
+               greedy (teacher-forced as in phase 4) and temperature 1
+               with epsilon 0; wall tokens/s, rounds, mean accepted length
+               and launches; device memory of the weights and rings; one
+               profiled serve for the busy share and device time by
+               kernel.
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -52,6 +70,7 @@ Exits non-zero without a result when no CUDA device is visible.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -70,6 +89,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged as PG  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import ssm_scan as SS  # noqa: E402
 from repro_torch.kernels import verify_accept as VA  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -105,7 +125,14 @@ KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:102"),
+    "ssm_scan": dict(
+        route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:80"),
 }
+# the selective scan against its plain version: the tolerance the
+# reference's own tests hold its Pallas kernel to (both sides f32; only
+# exp's rounding and the FMA contraction differ)
+SSM_RTOL = SSM_ATOL = 2e-5
 
 
 def log(*a) -> None:
@@ -371,6 +398,40 @@ def check_flash(rng, label, B, T, S, H, KV, hd, L, dtype, stale=0,
                 plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
 
 
+def check_ssm(rng, label, B, T, E, N, xdtype, states):
+    """The selective-scan kernel against ``ssm_scan_ref`` on inputs shaped
+    like a Mamba layer's: dt = softplus(normal), A = -exp(0.2 normal)."""
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).cuda()
+    x = f(B, T, E).to(xdtype)
+    dt = F.softplus(f(B, T, E))
+    Bm, Cm, h0 = f(B, T, N), f(B, T, N), f(B, E, N)
+    A = -torch.exp(f(E, N) * 0.2)
+    D = torch.ones(E, device="cuda")
+    args = (x, dt, Bm, Cm, A, D, h0)
+    got = SS.ssm_scan(*args, return_states=states)
+    want = ref.ssm_scan_ref(*args, return_states=states)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("y", "hT", "hs"), got, want):
+        d = (g - w).abs()
+        if not bool((d <= SSM_ATOL + SSM_RTOL * w.abs()).all()):
+            raise AssertionError(f"ssm_scan {label}: {name} differs beyond "
+                                 f"rtol=atol={SSM_RTOL} (max "
+                                 f"{d.max().item():.3e})")
+        err = max(err, d.max().item())
+    nbytes = (x.numel() * x.element_size() + (dt.numel() + Bm.numel()
+              + Cm.numel() + A.numel() + D.numel() + h0.numel()) * 4
+              + sum(g.numel() for g in got) * 4)
+    bms, by = bound(nbytes, 7 * B * T * E * N, torch.float32)
+    ms = time_ms(lambda: SS.ssm_scan(*args, return_states=states))
+    plain = time_ms(lambda: ref.ssm_scan_ref(*args, return_states=states))
+    # no single PyTorch call computes a selective scan: library_ms null
+    return dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
 def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -420,7 +481,20 @@ def phase_kernels() -> dict:
                       16, 128, 4608, bf, window=4096, cap=50.0),
           check_flash(rng, "gemma2 window B=1 T=16 f32", 1, 16, 4608, 32, 16,
                       128, 4608, f32, window=4096, cap=50.0)]
-    for r in att + ver + gat + fl:
+    bf16 = torch.bfloat16
+    ss = [check_ssm(rng, "falcon-7b decode B=8 T=8", 8, 8, 8192, 16, bf16,
+                    True),
+          check_ssm(rng, "falcon-7b prefill B=8 T=16", 8, 16, 8192, 16,
+                    bf16, True),
+          check_ssm(rng, "falcon draft tick B=56 T=1", 56, 1, 1024, 16,
+                    bf16, True),
+          check_ssm(rng, "falcon-7b cache-less B=8 T=48", 8, 48, 8192, 16,
+                    bf16, False),
+          check_ssm(rng, "tiny f32 B=3 T=8 E=128", 3, 8, 128, 16, f32,
+                    True),
+          check_ssm(rng, "odd length B=1 T=130 E=32 N=8", 1, 130, 32, 8,
+                    f32, True)]
+    for r in att + ver + gat + fl + ss:
         lib = r["library_ms"]
         log(f"  {r['case']:32s} err={r['max_abs_err']:.2e} "
             + (f"({r['err_share']:.2f} of bound) "
@@ -431,7 +505,7 @@ def phase_kernels() -> dict:
             + (f" boundary={r['boundary_cases']}"
                if "boundary_cases" in r else ""))
     return {"paged_attention": att, "verify_accept_batched": ver,
-            "paged_gather": gat, "flash_attention": fl}
+            "paged_gather": gat, "flash_attention": fl, "ssm_scan": ss}
 
 
 # ---------------------------------------------------------------------------
@@ -518,7 +592,7 @@ def drive(pair, ecfg, prompts, n_new, dev, **kw):
         if len(r.tokens) != n_new:
             raise AssertionError(f"request {rid} got {len(r.tokens)} tokens")
     eng.pool.check()
-    return res, rep, counts, wall
+    return res, rep, counts, wall, eng
 
 
 def phase_tiny(dev, totals) -> dict:
@@ -538,8 +612,8 @@ def phase_tiny(dev, totals) -> dict:
         ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
                             epsilon=eps, max_len=max_len)
         with VerifyShadow() as sh:
-            res, rep, counts, wall = drive(pair, ecfg, prompts, n_new, dev,
-                                           **kw)
+            res, rep, counts, wall, _ = drive(pair, ecfg, prompts, n_new,
+                                              dev, **kw)
         for k, v in counts.items():
             totals[k] += v
         log(f"  tiny {name}: rounds={rep['rounds']} "
@@ -547,7 +621,8 @@ def phase_tiny(dev, totals) -> dict:
             f"launches={counts}")
         if temp > 0:
             check_shadow(f"tiny {name}", sh, counts, chains=eps == 0.0)
-            out[name + " cpu"] = compare_cpu(name, ecfg, prompts, n_new, res)
+            out[name + " cpu"] = compare_cpu(f"tiny {name}", ecfg, prompts,
+                                             n_new, res, cpu_pair())
         if temp == 0.0:
             bad = [i for i in range(len(prompts))
                    if res[i].tokens != greedy[i]]
@@ -581,14 +656,18 @@ def check_shadow(label, sh, counts, chains: bool) -> None:
                              "verify kernel")
 
 
-def compare_cpu(name, ecfg, prompts, n_new, res) -> dict:
-    """Serve the same drive on the CPU (every kernel's plain version) and
-    compare the streams.  Printed, not asserted: f32 logits of the card and
-    the CPU differ in the last bits, which can flip a draw that lands near a
-    cdf boundary; the kernel route itself is held exactly by VerifyShadow."""
+def cpu_pair():
     from repro_torch.training.pairs import get_pair
-    pair = get_pair("misaligned", device="cpu",
+    return get_pair("misaligned", device="cpu",
                     cache_dir=os.path.join(ROOT, ".cache", "pairs"))
+
+
+def compare_cpu(name, ecfg, prompts, n_new, res, pair) -> dict:
+    """Serve the same drive on the CPU (every kernel's plain version) with
+    the same weights and compare the streams.  Printed, not asserted: f32
+    logits of the card and the CPU differ in the last bits, which can flip
+    a draw that lands near a cdf boundary; the kernel route itself is held
+    exactly by VerifyShadow."""
     cres, _, _, wall = SV.serve(pair, ecfg, prompts, n_new, device="cpu")
     first = {}
     for i in range(len(prompts)):
@@ -597,7 +676,7 @@ def compare_cpu(name, ecfg, prompts, n_new, res) -> dict:
                         None if len(a) == len(b) else min(len(a), len(b)))
     same = sum(v is None for v in first.values())
     stats = sum(res[i].stats == cres[i].stats for i in range(len(prompts)))
-    log(f"  tiny {name} vs the same serve on the CPU ({wall:.1f}s): "
+    log(f"  {name} vs the same serve on the CPU ({wall:.1f}s): "
         f"{same}/{len(prompts)} streams equal, {stats} GenStats equal, "
         f"first divergence by request {first}")
     return dict(streams_equal=same, stats_equal=stats, first_divergence=first)
@@ -695,7 +774,8 @@ def phase_full(dev, totals, pair) -> dict:
         ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
                             epsilon=eps, max_len=max_len)
         with VerifyShadow() as sh:
-            res, rep, counts, wall = drive(pair, ecfg, prompts, n_new, dev)
+            res, rep, counts, wall, _ = drive(pair, ecfg, prompts, n_new,
+                                              dev)
         for k, v in counts.items():
             totals[k] += v
         toks = sum(len(r.tokens) for r in res.values())
@@ -741,10 +821,12 @@ SEQ_ENGINES = ["autoregressive", "sps", "adaedl", "confidence-sd",
 UNLISTED = {"confidence-sd": TE.ConfidenceSDEngine}
 
 
-def seq_drive(pair, ecfg, engine, prompts, n_new, totals=None):
+def seq_drive(pair, ecfg, engine, prompts, n_new, totals=None,
+              need=("flash_attention",)):
     """One sequential main-path drive through ``serve.serve_sequential``
     (the confidence-SD baseline, which the CLI does not list, by its class)
-    with the launch counters zeroed just before and read just after."""
+    with the launch counters zeroed just before and read just after; each
+    kernel in ``need`` must have launched."""
     ops.reset_launches()
     done, _, wall = SV.serve_sequential(
         pair, ecfg, UNLISTED.get(engine, engine), prompts, n_new)
@@ -757,8 +839,9 @@ def seq_drive(pair, ecfg, engine, prompts, n_new, totals=None):
         if len(r.tokens) != n_new:
             raise AssertionError(f"{engine} request {rid} got "
                                  f"{len(r.tokens)} tokens")
-    if counts["flash_attention"] == 0:
-        raise AssertionError(f"{engine}: flash_attention not run")
+    for k in need:
+        if counts[k] == 0:
+            raise AssertionError(f"{engine}: {k} not run")
     return res, counts, wall
 
 
@@ -844,6 +927,194 @@ def phase_seq_full(dev, totals, pair) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: SSM and hybrid serving
+# ---------------------------------------------------------------------------
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+class CountRestores:
+    """Counts ring-snapshot restores (``BatchedDecoder.restore``) while
+    active."""
+
+    def __init__(self):
+        from repro_torch.serving import batched_engine as BE
+        self.cls, self.n = BE.BatchedDecoder, 0
+        self._orig = self.cls.restore
+
+    def __enter__(self):
+        orig = self._orig
+
+        def restore(dec, *a):
+            self.n += 1
+            return orig(dec, *a)
+        self.cls.restore = restore
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.restore = self._orig
+
+
+def phase_hybrid(dev, totals) -> dict:
+    from repro_torch.training.pairs import HYBRID_KINDS
+    prompts = SV.make_prompts(4)
+    n_new = 32
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    out = {}
+    for kind in HYBRID_KINDS:
+        pair = SV.load_pair(kind, dev)
+        cpu = tree_to(pair, "cpu")
+        attn = kind == "jamba-shaped"
+        need = ["ssm_scan"] + (["paged_attention"] if attn else [])
+        greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
+        drives = [("greedy", 0.0, EPS, {}), ("temp1", 1.0, EPS, {}),
+                  ("temp1-chains", 1.0, 0.0, {})]
+        if attn:
+            drives.append(("preempt", 0.0, EPS,
+                           dict(page_size=4, pool_pages=160)))
+        for name, temp, eps, kw in drives:
+            label = f"{kind} {name}"
+            ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
+                                epsilon=eps, max_len=max_len)
+            with VerifyShadow() as sh, CountRestores() as cr:
+                res, rep, counts, wall, eng = drive(pair, ecfg, prompts,
+                                                    n_new, dev, **kw)
+            for k, v in counts.items():
+                totals[k] += v
+            log(f"  {label}: rounds={rep['rounds']} "
+                f"preemptions={rep['preemptions']} ring restores={cr.n} "
+                f"wall={wall:.2f}s launches={counts}")
+            for k in need + (["verify_accept_batched"] if temp > 0 else []):
+                if counts[k] == 0:
+                    raise AssertionError(f"{label}: {k} not launched")
+            if temp > 0:
+                check_shadow(label, sh, counts, chains=eps == 0.0)
+                out[label + " cpu"] = compare_cpu(label, ecfg, prompts,
+                                                  n_new, res, cpu)
+            else:
+                bad = [i for i in range(len(prompts))
+                       if res[i].tokens != greedy[i]]
+                if bad:
+                    raise AssertionError(f"{label}: requests {bad} differ "
+                                         "from greedy decoding")
+            if name == "preempt" and (rep["preemptions"] == 0
+                                      or counts["paged_gather"] == 0
+                                      or eng.swap is None or cr.n == 0):
+                raise AssertionError(f"{label}: no preemption, swap-in or "
+                                     "ring restore")
+            out[label] = dict(rounds=rep["rounds"], wall_s=wall,
+                              preemptions=rep["preemptions"],
+                              ring_restores=cr.n, launches=counts)
+        sprompts = prompts[:2]
+        ar = [RN.greedy_reference(pair[2], pair[3], p, n_new, max_len=512)
+              for p in sprompts]
+        for engine in ("sps", "specbranch"):
+            ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                                max_len=512)
+            res, counts, wall = seq_drive(
+                pair, ecfg, engine, sprompts, n_new, totals,
+                need=need[:1] + (["flash_attention"] if attn else []))
+            bad = [i for i in range(len(sprompts))
+                   if res[i].tokens != ar[i]]
+            log(f"  {kind} seq {engine} greedy: wall={wall:.2f}s "
+                f"launches={counts}")
+            if bad:
+                raise AssertionError(f"{kind} seq {engine}: requests {bad} "
+                                     "differ from the AR greedy decode")
+            out[f"{kind} seq {engine}"] = dict(wall_s=wall, launches=counts)
+    return out
+
+
+def free_device_memory() -> None:
+    """Drop what earlier phases left: an engine's pools hold its decoders'
+    COW listeners (a reference cycle), so an engine, and the weights it
+    holds, go only when the cycle collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_falcon(dev, totals) -> dict:
+    from repro_torch.configs import falcon_mamba_7b
+    free_device_memory()
+    base = torch.cuda.memory_allocated()
+    pair = SV.load_pair("falcon-mamba-7b", dev)
+    tcfg = pair[3]
+    if (tcfg.num_layers, tcfg.d_model) != (64, 4096) \
+            or tcfg != falcon_mamba_7b.CONFIG:
+        raise AssertionError("falcon-mamba-7b is not at full width")
+    wbytes = tree_bytes(pair[0]) + tree_bytes(pair[2])
+    log(f"  weights: target {tree_bytes(pair[2]) / 1e9:.2f} GB, draft "
+        f"{tree_bytes(pair[0]) / 1e9:.3f} GB "
+        f"({(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB allocated)")
+    prompts = SV.make_prompts(8)
+    n_new = 32
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    with torch.no_grad():
+        lg, _ = M.forward(pair[2], tcfg, torch.tensor(prompts, device=dev))
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("falcon: non-finite target logits")
+    greedy = M.greedy_reference(pair[2], tcfg, prompts, n_new)
+    out = {"weights_gb": wbytes / 1e9}
+    for name, temp, eps in (("greedy", 0.0, EPS), ("temp1-chains", 1.0, 0.0)):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, epsilon=eps,
+                            max_len=max_len)
+        torch.cuda.reset_peak_memory_stats()
+        with VerifyShadow() as sh:
+            res, rep, counts, wall, eng = drive(pair, ecfg, prompts, n_new,
+                                                dev)
+        peak = torch.cuda.max_memory_allocated()
+        rings = tree_bytes(eng.tgt_dec.cache) + tree_bytes(eng.dft_dec.cache)
+        del eng
+        free_device_memory()
+        for k, v in counts.items():
+            totals[k] += v
+        toks = sum(len(r.tokens) for r in res.values())
+        mean_acc = float(np.mean([r.stats.mean_accepted
+                                  for r in res.values()]))
+        log(f"  falcon {name}: {toks / wall:.1f} tok/s wall, "
+            f"rounds={rep['rounds']}, mean accepted={mean_acc:.2f}, "
+            f"ssm_scan launches={counts['ssm_scan']}, launches={counts}; "
+            f"rings {rings / 1e9:.2f} GB, peak allocated {peak / 1e9:.2f} "
+            "GB")
+        if counts["ssm_scan"] == 0:
+            raise AssertionError(f"falcon {name}: ssm_scan not launched")
+        out[name] = dict(tokens_per_s=toks / wall, wall_s=wall,
+                         rounds=rep["rounds"], mean_accepted=mean_acc,
+                         tokens=toks, launches=counts, rings_gb=rings / 1e9,
+                         peak_gb=peak / 1e9)
+        if temp == 0.0:
+            out["teacher_forced"] = teacher_forced(pair[2], tcfg, prompts,
+                                                   res, greedy, n_new)
+        else:
+            if counts["verify_accept_batched"] == 0:
+                raise AssertionError("falcon temp1: verify not launched")
+            check_shadow(f"falcon {name}", sh, counts, chains=True)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
+    prof = busy_profile(lambda: SV.serve(pair, ecfg, prompts, 8,
+                                         device=dev))
+    log(f"  falcon profile (greedy, 8 new tokens): card busy "
+        f"{prof['busy_share']:.3f} of {prof['wall_s']:.2f}s wall; device "
+        "time by kernel:")
+    for n, t in prof["top"]:
+        log(f"    {t * 1e3:9.2f} ms  {n}")
+    out["profile"] = prof
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -872,6 +1143,12 @@ def main() -> int:
     phase_seq_tiny(dev, totals)
     log("[6] sequential engines, full-width LLaMA-68M/7B pair, bf16")
     phase_seq_full(dev, totals, pair)
+    del pair
+    log("[7] SSM and hybrid tiny pairs (falcon-shaped, jamba-shaped), f32")
+    phase_hybrid(dev, totals)
+    log("[8] full-width falcon-mamba-7b with its draft, bf16, random "
+        "weights")
+    phase_falcon(dev, totals)
     for k, v in totals.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched on the "
@@ -880,7 +1157,8 @@ def main() -> int:
     rep_case = {"paged_attention": "llama-7b B=8 T=8",
                 "verify_accept_batched": "llama V=32000 B=8 R=16",
                 "paged_gather": "zm swap ps=4 dim=512",
-                "flash_attention": "llama-7b B=1 T=5 S=512"}
+                "flash_attention": "llama-7b B=1 T=5 S=512",
+                "ssm_scan": "falcon-7b decode B=8 T=8"}
     table = []
     for name, meta in KERNELS.items():
         c = next(r for r in cases[name] if r["case"] == rep_case[name])

@@ -15,6 +15,7 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged as _paged
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import verify_accept as _va
 
 LAUNCHES = build.LAUNCHES
@@ -68,3 +69,16 @@ def paged_gather(pages: torch.Tensor, table: torch.Tensor,
     if pages.device.type == "cpu":
         return ref.paged_gather_ref(pages, table, valid_len)
     return _paged.paged_gather(pages, table, valid_len)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+             h0: torch.Tensor, *, return_states: bool = False
+             ) -> Tuple[torch.Tensor, ...]:
+    """Mamba-1 selective scan (see kernels.ssm_scan); with
+    ``return_states`` also the post-step carry at every position."""
+    if x.device.type == "cpu":
+        return ref.ssm_scan_ref(x, dt, Bm, Cm, A, D, h0,
+                                return_states=return_states)
+    return _ssm.ssm_scan(x, dt, Bm, Cm, A, D, h0,
+                         return_states=return_states)

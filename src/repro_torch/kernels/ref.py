@@ -9,7 +9,8 @@ zero-length row returns zeros, as the kernels do),
 verify_accept_batched_ref``, ``paged_gather_ref`` the contract of
 ``repro.kernels.paged.paged_gather``, and ``flash_attention_ref`` the
 chunked online softmax of ``repro.models.layers.attend`` (the function
-TPU kernel ``repro.kernels.flash_attention.flash_attention`` computes).
+TPU kernel ``repro.kernels.flash_attention.flash_attention`` computes), and
+``ssm_scan_ref`` is ``repro.kernels.ref.ssm_scan_ref``.
 """
 from __future__ import annotations
 
@@ -156,3 +157,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     l = l.clamp_min(1e-20).permute(0, 3, 1, 2)[..., None]
     return (acc / l).reshape(B, T, H, hd).to(q.dtype)
+
+
+def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                 h0: torch.Tensor, *, return_states: bool = False
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Sequential selective scan, h_t = exp(dt_t A) h_{t-1} + (dt_t x_t)
+    B_t and y_t = <h_t, C_t> + D x_t, in float32.  x, dt (B, T, E); Bm,
+    Cm (B, T, N); A (E, N); D (E,); h0 (B, E, N).  Returns (y (B, T, E),
+    hT (B, E, N)); with ``return_states`` also hs (B, T, E, N), the
+    post-step carry after every position."""
+    xf = x.float()
+    dtf = dt.float()
+    decay = torch.exp(dtf[..., None] * A.float())              # (B,T,E,N)
+    drive = (dtf * xf)[..., None] * Bm.float()[:, :, None, :]
+    h = h0.float()
+    hs = []
+    for t in range(x.shape[1]):
+        h = decay[:, t] * h + drive[:, t]
+        hs.append(h)
+    hs_t = torch.stack(hs, dim=1) if hs else \
+        h.new_zeros((x.shape[0], 0) + tuple(h.shape[1:]))
+    y = torch.einsum("bten,btn->bte", hs_t, Cm.float()) + D.float() * xf
+    if return_states:
+        return y, h, hs_t
+    return y, h

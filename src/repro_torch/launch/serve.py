@@ -15,13 +15,21 @@ that have a batched implementation, sequential otherwise):
 Same flags and reports as the reference's, plus ``--device``
 (default ``cuda``; ``cpu`` runs every kernel's plain PyTorch version).
 Other values of its flags exit with a message naming the later slice.
-``--pair`` also takes ``paper-llama``: the paper's LLaMA-68M draft /
-LLaMA-7B target at full width, bf16, with random weights from fixed
-seeds (no checkpoint is needed).
+``--pair`` takes the reference's pairs — the committed Zipf-Markov
+``misaligned`` / ``aligned`` pairs and the tiny random-init SSM-bearing
+``falcon-shaped`` / ``jamba-shaped`` pairs (their mamba state rides the
+checkpoint ring in batched mode, checkpoint + replay in sequential
+mode) — and two configs the reference defines, served at full width with
+random weights from fixed seeds (target 0, draft 1; no checkpoint is
+needed): ``paper-llama``, the paper's LLaMA-68M draft / LLaMA-7B target,
+and ``falcon-mamba-7b`` with its ``draft()`` (2 Mamba layers, d 512),
+both bf16.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
       --requests 8 --new-tokens 32 --pair paper-llama
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
+      --requests 8 --new-tokens 32 --pair falcon-mamba-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --mode sequential --engine specbranch
 """
@@ -35,6 +43,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import falcon_mamba_7b
 from repro_torch.configs.paper_pairs import PAPER_PAIRS
 from repro_torch.data.synthetic import ZipfMarkov
 from repro_torch.models import model as M
@@ -48,9 +57,12 @@ from repro_torch.runtime.scheduler import (Request, Scheduler,
 from repro_torch.runtime.specbranch import SpecBranchEngine
 from repro_torch.serving import (BatchedSpecBranchEngine,
                                  ContinuousBatchScheduler, ServeRequest)
-from repro_torch.training.pairs import VOCAB, get_pair
+from repro_torch.training.pairs import (HYBRID_KINDS, VOCAB, get_pair,
+                                        hybrid_pair)
 
-PAIRS = ("misaligned", "aligned", "paper-llama")
+FULL_WIDTH = ("paper-llama", "falcon-mamba-7b")
+PAIRS = ("misaligned", "aligned") + HYBRID_KINDS + FULL_WIDTH
+SSM_PAIRS = HYBRID_KINDS + ("falcon-mamba-7b",)
 
 ENGINES = {
     "autoregressive": AutoregressiveEngine,
@@ -67,12 +79,20 @@ BATCHED_ENGINES = ("sps", "specbranch")
 
 def load_pair(kind: str, device):
     """(draft_params, draft_cfg, target_params, target_cfg): the committed
-    Zipf-Markov pairs, or the paper's LLaMA 68M/7B pair with random
-    weights drawn on ``device`` (target seed 0, draft seed 1)."""
-    if kind == "paper-llama":
-        dcfg, tcfg, _c = PAPER_PAIRS["llama"]
+    Zipf-Markov pairs, the tiny random-init SSM-bearing pairs, or a
+    full-width pair with random weights drawn on ``device`` (target seed
+    0, draft seed 1): the paper's LLaMA 68M/7B, or falcon-mamba-7b with
+    its ``draft()``."""
+    if kind in FULL_WIDTH:
+        if kind == "paper-llama":
+            dcfg, tcfg, _c = PAPER_PAIRS["llama"]
+        else:
+            tcfg = falcon_mamba_7b.CONFIG
+            dcfg = tcfg.draft()
         return (M.init_params(dcfg, 1, device), dcfg,
                 M.init_params(tcfg, 0, device), tcfg)
+    if kind in HYBRID_KINDS:
+        return hybrid_pair(kind, device=device)
     return get_pair(kind, device=device)
 
 
@@ -199,8 +219,10 @@ def main(argv=None) -> None:
                     choices=["sequential", "batched"])
     ap.add_argument("--pair", default="misaligned", choices=PAIRS,
                     help="misaligned/aligned: the reference's trained "
-                    "pairs (cached checkpoints); paper-llama: LLaMA "
-                    "68M/7B at full width, bf16, random weights")
+                    "pairs (cached checkpoints); falcon-shaped/"
+                    "jamba-shaped: tiny random-init SSM pairs; "
+                    "paper-llama, falcon-mamba-7b: full width, bf16, "
+                    "random weights")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=48)
     ap.add_argument("--gamma", type=int, default=4)
@@ -231,6 +253,10 @@ def main(argv=None) -> None:
     if args.mode is None:
         args.mode = ("batched" if args.engine in BATCHED_ENGINES
                      else "sequential")
+    if args.draft_mode == "parallel" and args.pair in SSM_PAIRS:
+        raise SystemExit("--draft-mode parallel needs an attention-only "
+                         f"draft model; --pair {args.pair} has mamba "
+                         "layers")
     msg = _unsupported(args)
     if msg:
         raise SystemExit(msg)

@@ -9,6 +9,7 @@ between the two packages by ``dataclasses.asdict``; ``tdtype`` maps the
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -58,6 +59,18 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.num_heads)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dtr(self) -> int:
+        return self.dt_rank or max(1, math.ceil(self.d_model / 16))
+
+    @property
+    def expert_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
     def period(self) -> int:
         return len(self.pattern)
 
@@ -78,19 +91,49 @@ class ModelConfig:
                      for i in range(self.num_layers))
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention stack (the only
-        family this slice of the port builds)."""
+        """Analytic parameter count (total, incl. all experts)."""
         D, F, V, hd = self.d_model, self.d_ff, self.vocab_size, self.hd
         n = V * D * (1 if self.tie_embeddings else 2) + D
-        for _mixer, ffn in self.layer_kinds():
-            n += D + D * self.num_heads * hd * 2 \
-                + 2 * D * self.num_kv_heads * hd
+        for mixer, ffn in self.layer_kinds():
+            n += D
+            if mixer in ("attn", "local"):
+                n += D * self.num_heads * hd * 2 \
+                    + 2 * D * self.num_kv_heads * hd
+                if self.qk_norm:
+                    n += 2 * hd
+            else:                                    # mamba
+                E, N, R = self.d_inner, self.ssm_state, self.dtr
+                n += D * 2 * E + self.ssm_conv * E + E + E * (R + 2 * N) \
+                    + R * E + E + E * N + E + E * D
             if ffn == "dense":
                 n += D + 3 * D * F
+            elif ffn == "moe":
+                n += D + D * self.num_experts \
+                    + self.num_experts * 3 * D * self.expert_ff
         return n
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def draft(self) -> "ModelConfig":
+        """Same-family scaled-down draft model for speculative decoding
+        (the reference's ``ModelConfig.draft``)."""
+        P = self.period
+        d = max(256, self.d_model // 8)
+        heads = max(2, self.num_heads // 8)
+        kv = max(1, min(self.num_kv_heads, heads))
+        return self.replace(
+            name=self.name + "-draft",
+            num_layers=min(self.num_layers, 2 * P),
+            d_model=d,
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=d // heads,
+            d_ff=(4 * d) if self.d_ff else 0,
+            moe_d_ff=d if self.num_experts else 0,
+            num_experts=min(self.num_experts, 4),
+            num_experts_per_tok=min(self.num_experts_per_tok, 2) or 0,
+        )
 
 
 def dense_pattern(local_ratio: int = 0) -> Tuple[Slot, ...]:
@@ -102,12 +145,13 @@ def dense_pattern(local_ratio: int = 0) -> Tuple[Slot, ...]:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the architecture features a later slice of the port
-    brings (mamba/MoE mixers, encoder-only stacks, stub frontends)."""
+    brings (encoder-only stacks, stub frontends, unknown slot kinds)."""
     for mixer, ffn in cfg.pattern:
-        if mixer not in ("attn", "local") or ffn not in ("dense", "none"):
+        if mixer not in ("attn", "local", "mamba") \
+                or ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
-                f"{cfg.name}: slot ({mixer}, {ffn}) — mamba and MoE "
-                "layers are ported in a later slice (ROADMAP.md queue A)")
+                f"{cfg.name}: slot ({mixer}, {ffn}) is not a layer kind "
+                "of the port")
     if not cfg.causal or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-only and stub-frontend configs are "

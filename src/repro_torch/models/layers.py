@@ -5,10 +5,14 @@ stored as (in, out), applied as ``x @ w``).  ``attend`` runs through
 ``ops.flash_attention`` (the CUDA flash kernel on the card, the chunked
 plain version on the CPU); ``attention`` writes new K/V in place into a
 dense ring cache (attending through ``attend``) or into paged buffers
-(attending through ``ops.paged_attention``).
+(attending through ``ops.paged_attention``).  ``mamba`` runs its scan
+through ``ops.ssm_scan`` (the CUDA selective-scan kernel on the card) and
+updates its carried state or checkpoint ring in place; ``moe_ffn`` is
+plain PyTorch, as the reference's is plain jnp.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -212,3 +216,180 @@ def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     return (silu(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN — capacity-based scatter dispatch (GShard-style, gather variant)
+# ---------------------------------------------------------------------------
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    c = math.ceil(n_tokens * cfg.num_experts_per_tok / cfg.num_experts
+                  * cfg.capacity_factor)
+    return max(4, min(c, n_tokens))
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k routed MoE (the reference's output; its load-balance loss is
+    a training term and is not computed here).  Each (token, choice) gets
+    its rank within its expert by a stable sort, tokens past the capacity
+    C are dropped, and the expert products run over the (E, C, D)
+    dispatch buffer.  ``torch.topk`` may order exactly tied probabilities
+    differently from ``jax.lax.top_k``."""
+    B, T, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    flat = h.reshape(B * T, D)
+    n = B * T
+    C = moe_capacity(cfg, n)
+    dev = x.device
+
+    probs = torch.softmax(flat.float() @ p["router"], dim=-1)   # (n, E)
+    gate, eidx = torch.topk(probs, K, dim=-1)                    # (n, K)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    e_flat = eidx.reshape(n * K)
+    order = torch.argsort(e_flat, stable=True)
+    counts = torch.bincount(e_flat, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts                    # exclusive
+    pos_sorted = torch.arange(n * K, device=dev) - starts[e_flat[order]]
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+    keep = pos < C
+    safe_pos = torch.where(keep, pos, torch.full_like(pos, C - 1))
+
+    src = flat.repeat_interleave(K, dim=0)
+    buf = torch.zeros((E, C, D), dtype=flat.dtype, device=dev)
+    buf.index_put_((e_flat, safe_pos),
+                   torch.where(keep[:, None], src, torch.zeros_like(src)),
+                   accumulate=True)
+    hg = torch.einsum("ecd,edf->ecf", buf, p["wg"])
+    hu = torch.einsum("ecd,edf->ecf", buf, p["wu"])
+    out_buf = torch.einsum("ecf,efd->ecd", silu(hg) * hu, p["wd"])
+
+    gathered = out_buf[e_flat, safe_pos]                         # (n*K, D)
+    w = (gate.reshape(n * K) * keep).to(flat.dtype)
+    y = (gathered * w[:, None]).reshape(n, K, D).sum(dim=1)
+    return y.reshape(B, T, D)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 block (selective scan)
+# ---------------------------------------------------------------------------
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, device, ring: int = 0,
+                     stack: int = 1) -> Params:
+    """Recurrent decode state of ``stack`` mamba layers.
+
+    ring == 0 (sequential decode): the carried state only, ``conv``
+    (stack, batch, Cv-1, E) and ``ssm`` (stack, batch, E, N) float32 —
+    rollback is checkpoint + replay (runtime/runner.py).
+
+    ring > 0 (batched serving): a position-indexed checkpoint ring,
+    ``h_ring`` (stack, batch, ring, E, N) float32 and ``conv_ring``
+    (stack, batch, ring, Cv-1, E).  Slot ``k % ring`` holds the post-step
+    state after the row's k-th token; a forward starting at position p0
+    loads slot ``p0 % ring`` (position 0 is the zero state), so rollback
+    is positional, as for attention."""
+    E, N, Cv = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    lead = (stack, batch) + ((ring,) if ring > 0 else ())
+    h = torch.zeros(lead + (E, N), dtype=torch.float32, device=device)
+    conv = torch.zeros(lead + (Cv - 1, E), dtype=cfg.tdtype, device=device)
+    if ring > 0:
+        return {"h_ring": h, "conv_ring": conv}
+    return {"conv": conv, "ssm": h}
+
+
+def _causal_conv(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d.  xp (B, T, E); w (Cv, E); prev (B, Cv-1,
+    E) or None (zeros).  Returns (out (B, T, E), the new Cv-1 tail)."""
+    Cv = w.shape[0]
+    T = xp.shape[1]
+    if prev is None:
+        prev = xp.new_zeros((xp.shape[0], Cv - 1, xp.shape[2]))
+    full = torch.cat([prev.to(xp.dtype), xp], dim=1)        # (B,T+Cv-1,E)
+    out = sum(full[:, i:i + T] * w[i] for i in range(Cv)) + b
+    return out, full[:, full.shape[1] - (Cv - 1):]
+
+
+def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+          cache: Optional[Params] = None,
+          positions: Optional[torch.Tensor] = None,
+          ring_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mamba-1 mixer.  x (B, T, D) -> (B, T, D).
+
+    With a ring cache (``init_mamba_cache`` with ring > 0) ``positions``
+    (B, T) are needed: each lane's initial state loads from the
+    checkpoint slot of its start position (position 0 = zero state) and
+    the post-step state of each of the trailing ``min(T, ring)`` steps is
+    written IN PLACE to slot ``(position + 1) % ring``.  Pad steps of a
+    batched call write future slots, which real writes overwrite before
+    any load sees them.  ``ring_rows`` (B,) maps lanes to ring rows
+    (default: lane i is row i); a lane with row -1 is a pad lane whose
+    writes are dropped.  A carry cache (ring == 0) is read and updated in
+    place; without a cache the scan starts from zeros."""
+    B, T, _D = x.shape
+    E, N, R = cfg.d_inner, cfg.ssm_state, cfg.dtr
+    Cv = cfg.ssm_conv
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    xp, z = (h @ p["in_proj"]).split(E, dim=-1)               # (B,T,E) each
+
+    ring = cache is not None and "h_ring" in cache
+    dev = x.device
+    if ring:
+        if positions is None:
+            raise ValueError("a ring SSM cache needs positions")
+        h_ring, conv_ring = cache["h_ring"], cache["conv_ring"]
+        Rg = h_ring.shape[1]
+        p0 = positions[:, 0].long()
+        rows = (torch.arange(B, device=dev) if ring_rows is None
+                else ring_rows.long())
+        rsafe = rows.clamp_min(0)
+        slot0 = p0 % Rg
+        fresh = (p0 == 0)[:, None, None]     # new row: zero state
+        h0 = torch.where(fresh, 0.0, h_ring[rsafe, slot0])
+        prev = torch.where(fresh, 0.0, conv_ring[rsafe, slot0])
+    else:
+        prev = cache["conv"] if cache is not None else None
+        h0 = (cache["ssm"] if cache is not None
+              else torch.zeros((B, E, N), dtype=torch.float32, device=dev))
+    xc, new_conv = _causal_conv(xp, p["conv_w"], p["conv_b"], prev)
+    xc = silu(xc)
+
+    dbc = xc @ p["x_db"]
+    dt_raw = dbc[..., :R]
+    Bmat = dbc[..., R:R + N].float().contiguous()                 # (B,T,N)
+    Cmat = dbc[..., R + N:].float().contiguous()
+    u = dt_raw @ p["dt_w"] + p["dt_b"]
+    delta = torch.logaddexp(u, torch.zeros((), dtype=u.dtype, device=dev)
+                            ).float().contiguous()                # softplus
+    A = -torch.exp(p["A_log"].float())                            # (E,N)
+    scan = ops.ssm_scan(xc.contiguous(), delta, Bmat, Cmat, A.contiguous(),
+                        p["Dskip"].float().contiguous(), h0.contiguous(),
+                        return_states=ring)
+    y, hT = scan[0], scan[1]
+    out = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
+
+    if ring:
+        # only the trailing min(T, Rg) steps are written: a longer span
+        # (prefill) laps the ring and the survivors are the last Rg
+        # checkpoints — slicing first keeps every written slot unique
+        hs = scan[2]
+        Tr = min(T, Rg)
+        t_idx = torch.arange(T - Tr, T, device=dev)                # (Tr,)
+        slots = (p0[:, None] + t_idx[None] + 1) % Rg               # (B,Tr)
+        full = torch.cat([prev.to(xp.dtype), xp], dim=1)
+        widx = t_idx[:, None] + 1 + torch.arange(Cv - 1, device=dev)[None]
+        tails = full[:, widx]                                  # (B,Tr,Cv-1,E)
+        hw = hs[:, T - Tr:]
+        if ring_rows is not None:
+            live = rows >= 0
+            rows, slots, hw, tails = (rows[live], slots[live], hw[live],
+                                      tails[live])
+        h_ring[rows[:, None], slots] = hw
+        conv_ring[rows[:, None], slots] = tails.to(conv_ring.dtype)
+    elif cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["ssm"].copy_(hT)
+    return out

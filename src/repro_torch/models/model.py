@@ -32,56 +32,93 @@ def _index(tree, i: int):
 # init
 # ---------------------------------------------------------------------------
 
+F32_LEAVES = ("A_log", "Dskip", "router")
+
+
+def param_dtype(name: str, cfg: ModelConfig) -> torch.dtype:
+    """The dtype the reference's init gives leaf ``name``: Mamba's
+    ``A_log`` and ``Dskip`` and the MoE ``router`` stay float32 whatever
+    the model's dtype; every other leaf is ``cfg.tdtype``."""
+    return torch.float32 if name in F32_LEAVES else cfg.tdtype
+
+
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
     """Random parameters from ``torch.Generator(seed)`` with the
-    reference's shapes and scales (normal weights scaled by
-    1/sqrt(fan_in), zero norm scales), drawn straight in the model's
-    dtype on ``device``.  The draws are not the reference's: runs that
-    compare the two frameworks carry the reference's weights over with
-    ``training.checkpoint.from_numpy_params``."""
+    reference's shapes, scales and per-leaf dtypes (normal weights scaled
+    by 1/sqrt(fan_in), zero norm scales, Mamba's A_log = log(1..N), Dskip
+    = 1 and dt bias -4.6), drawn on ``device``.  The draws are not the
+    reference's: runs that compare the two frameworks carry the
+    reference's weights over with ``training.checkpoint.from_numpy_params``."""
     check_supported(cfg)
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    dt = cfg.tdtype
     D, H, KV, hd, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
                        cfg.d_ff)
 
-    def normal(shape, fan_in):
-        return torch.randn(shape, generator=gen, device=dev, dtype=dt) \
+    def normal(name, shape, fan_in):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=param_dtype(name, cfg)) \
             .mul_(1.0 / math.sqrt(fan_in))
 
-    def zeros(shape):
-        return torch.zeros(shape, device=dev, dtype=dt)
+    def full(name, shape, value):
+        return torch.full(shape, value, device=dev,
+                          dtype=param_dtype(name, cfg))
+
+    def attn(lead) -> Params:
+        p = {"ln": full("ln", lead + (D,), 0.0),
+             "wq": normal("wq", lead + (D, H * hd), D),
+             "wk": normal("wk", lead + (D, KV * hd), D),
+             "wv": normal("wv", lead + (D, KV * hd), D),
+             "wo": normal("wo", lead + (H * hd, D), H * hd)}
+        if cfg.qk_norm:
+            p["q_norm"] = full("q_norm", lead + (hd,), 0.0)
+            p["k_norm"] = full("k_norm", lead + (hd,), 0.0)
+        return p
+
+    def mamba(lead) -> Params:
+        E, N, R, Cv = cfg.d_inner, cfg.ssm_state, cfg.dtr, cfg.ssm_conv
+        a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                       device=dev)).expand(lead + (E, N))
+        return {"ln": full("ln", lead + (D,), 0.0),
+                "in_proj": normal("in_proj", lead + (D, 2 * E), D),
+                "conv_w": normal("conv_w", lead + (Cv, E), Cv),
+                "conv_b": full("conv_b", lead + (E,), 0.0),
+                "x_db": normal("x_db", lead + (E, R + 2 * N), E),
+                "dt_w": normal("dt_w", lead + (R, E), R),
+                "dt_b": full("dt_b", lead + (E,), -4.6),
+                "A_log": a_log.contiguous(),
+                "Dskip": full("Dskip", lead + (E,), 1.0),
+                "out_proj": normal("out_proj", lead + (E, D), E)}
 
     def slot(n: int, kind) -> Params:
         mixer, ffn_kind = kind
         lead = (n,)
-        p: Params = {"mixer": {
-            "ln": zeros(lead + (D,)),
-            "wq": normal(lead + (D, H * hd), D),
-            "wk": normal(lead + (D, KV * hd), D),
-            "wv": normal(lead + (D, KV * hd), D),
-            "wo": normal(lead + (H * hd, D), H * hd)}}
-        if cfg.qk_norm:
-            p["mixer"]["q_norm"] = zeros(lead + (hd,))
-            p["mixer"]["k_norm"] = zeros(lead + (hd,))
+        p: Params = {"mixer": attn(lead) if mixer in ("attn", "local")
+                     else mamba(lead)}
         if ffn_kind == "dense":
-            p["ffn"] = {"ln": zeros(lead + (D,)),
-                        "wg": normal(lead + (D, F), D),
-                        "wu": normal(lead + (D, F), D),
-                        "wd": normal(lead + (F, D), F)}
+            p["ffn"] = {"ln": full("ln", lead + (D,), 0.0),
+                        "wg": normal("wg", lead + (D, F), D),
+                        "wu": normal("wu", lead + (D, F), D),
+                        "wd": normal("wd", lead + (F, D), F)}
+        elif ffn_kind == "moe":
+            Ex, Fe = cfg.num_experts, cfg.expert_ff
+            p["ffn"] = {"ln": full("ln", lead + (D,), 0.0),
+                        "router": normal("router", lead + (D, Ex), D),
+                        "wg": normal("wg", lead + (Ex, D, Fe), D),
+                        "wu": normal("wu", lead + (Ex, D, Fe), D),
+                        "wd": normal("wd", lead + (Ex, Fe, D), Fe)}
         return p
 
     params: Params = {
-        "embed": normal((cfg.vocab_size, D), D),
-        "final_norm": zeros((D,)),
+        "embed": normal("embed", (cfg.vocab_size, D), D),
+        "final_norm": full("final_norm", (D,), 0.0),
         "blocks": [slot(cfg.n_periods, cfg.pattern[s])
                    for s in range(cfg.period)],
         "rem": [slot(1, cfg.pattern[r]) for r in range(cfg.n_rem)],
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((D, cfg.vocab_size), D)
+        params["lm_head"] = normal("lm_head", (D, cfg.vocab_size), D)
     return params
 
 
@@ -94,24 +131,31 @@ def _slot_window(cfg: ModelConfig, mixer: str) -> int:
 
 
 def _init_slot_cache(cfg: ModelConfig, slot, batch: int, max_len: int,
-                     device, stack: int, ring_slack: int = 0) -> Params:
-    return L.init_attn_cache(cfg, batch, max_len, _slot_window(cfg, slot[0]),
-                             device, ring_slack=ring_slack, stack=stack)
+                     device, stack: int, ssm_ring: int = 0) -> Params:
+    mixer = slot[0]
+    if mixer in ("attn", "local"):
+        # the checkpoint-ring depth doubles as sliding-window slack: both
+        # bound how far ahead of a row's logical length writes may land
+        return L.init_attn_cache(cfg, batch, max_len,
+                                 _slot_window(cfg, mixer), device,
+                                 ring_slack=ssm_ring, stack=stack)
+    return L.init_mamba_cache(cfg, batch, device, ring=ssm_ring, stack=stack)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
-               ring_slack: int = 0) -> Params:
+               ssm_ring: int = 0) -> Params:
     """Dense ring decode cache mirroring the params layout: every leaf has
     a leading stack axis (n_periods for ``blocks``, 1 for ``rem``), so
     batch is uniformly axis 1 — the runner's branch fork / select rely on
-    this.  ``ring_slack`` pads windowed rings (the reference's
-    ``ssm_ring`` doubles as that slack; mamba slots are a later slice)."""
+    this.  ``ssm_ring`` > 0 gives every mamba slot a position-indexed
+    checkpoint ring of that depth (0: the carried state of the
+    sequential runner) and pads windowed attention rings by as much."""
     check_supported(cfg)
     return {"blocks": [_init_slot_cache(cfg, cfg.pattern[s], batch, max_len,
-                                        device, cfg.n_periods, ring_slack)
+                                        device, cfg.n_periods, ssm_ring)
                        for s in range(cfg.period)],
             "rem": [_init_slot_cache(cfg, cfg.pattern[r], batch, max_len,
-                                     device, 1, ring_slack)
+                                     device, 1, ssm_ring)
                     for r in range(cfg.n_rem)]}
 
 
@@ -130,20 +174,31 @@ def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device) -> Params:
+                     device, *, n_rows: int = 0, ssm_ring: int = 0) -> Params:
     """Physically paged decode cache: every attention slot stores KV
     scattered across ``num_pages`` pages (+ one trash page) addressed per
-    call through a page table.  Leaves keep the leading stack axis of
-    the parameter tree (n_periods for ``blocks``, 1 for ``rem``) and have
-    no batch axis: rows exist only as page-table views."""
+    call through a page table; those leaves keep the leading stack axis
+    of the parameter tree and have no batch axis (rows exist only as
+    page-table views).  Mamba slots cannot be paged: each carries a
+    per-row checkpoint ring (``n_rows`` rows of depth ``ssm_ring``), so
+    an SSM or hybrid config gets a mixed tree."""
     check_supported(cfg)
+    if any(m == "mamba" for m, _ in cfg.pattern) \
+            and (n_rows <= 0 or ssm_ring <= 0):
+        raise ValueError("mamba slots in a paged cache ride per-row "
+                         "checkpoint rings: pass n_rows > 0 and "
+                         "ssm_ring > 0")
 
-    def slot(n: int) -> Params:
-        return L.init_paged_attn_cache(cfg, num_pages, page_size, device,
-                                       stack=n)
+    def slot(kind, n: int) -> Params:
+        if kind[0] in ("attn", "local"):
+            return L.init_paged_attn_cache(cfg, num_pages, page_size,
+                                           device, stack=n)
+        return L.init_mamba_cache(cfg, n_rows, device, ring=ssm_ring,
+                                  stack=n)
 
-    return {"blocks": [slot(cfg.n_periods) for _ in range(cfg.period)],
-            "rem": [slot(1) for _ in range(cfg.n_rem)]}
+    return {"blocks": [slot(cfg.pattern[s], cfg.n_periods)
+                       for s in range(cfg.period)],
+            "rem": [slot(cfg.pattern[r], 1) for r in range(cfg.n_rem)]}
 
 
 def iter_slots(cache: Params):
@@ -158,14 +213,21 @@ def iter_slots(cache: Params):
 
 def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
                 positions: torch.Tensor, cache: Optional[Params],
-                paged, kv_chunk: int, cache_mode: str) -> torch.Tensor:
+                paged, kv_chunk: int, cache_mode: str,
+                ring_rows: Optional[torch.Tensor]) -> torch.Tensor:
     mixer, ffn_kind = slot
-    x = x + L.attention(p["mixer"], x, cfg, positions=positions,
-                        cache=cache, window=_slot_window(cfg, mixer),
-                        kv_chunk=kv_chunk, cache_mode=cache_mode,
-                        paged=paged)
+    if mixer in ("attn", "local"):
+        x = x + L.attention(p["mixer"], x, cfg, positions=positions,
+                            cache=cache, window=_slot_window(cfg, mixer),
+                            kv_chunk=kv_chunk, cache_mode=cache_mode,
+                            paged=paged)
+    else:
+        x = x + L.mamba(p["mixer"], x, cfg, cache=cache,
+                        positions=positions, ring_rows=ring_rows)
     if ffn_kind == "dense":
         x = x + L.ffn(p["ffn"], x, cfg)
+    elif ffn_kind == "moe":
+        x = x + L.moe_ffn(p["ffn"], x, cfg)
     return x
 
 
@@ -176,7 +238,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             feature_mode: Optional[str] = None,
             logits_mode: str = "all",
             kv_chunk: int = 2048,
-            cache_mode: str = "append"
+            cache_mode: str = "append",
+            ring_rows: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the model.
 
@@ -185,7 +248,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``init_cache`` (``cache_mode`` "append" or "fresh", see
     ``layers.attention``), a paged cache from ``init_paged_cache`` with
     ``paged`` = (table (B, n_max) int32, lens (B,) int32), or None for a
-    cache-less forward.  feature_mode "last" puts the final-position
+    cache-less forward.  ``ring_rows`` (B,) maps lanes to the rows of
+    mamba checkpoint rings (``layers.mamba``; default lane i = row i).  feature_mode "last" puts the final-position
     hidden state after every period / remainder layer in
     aux["features"] as (n_points, B, D); "all" keeps every position,
     (n_points, B, T, D); None skips them.  logits_mode "last" computes
@@ -210,13 +274,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             c = None if cache is None else _index(cache["blocks"][s], i)
             x = _apply_slot(_index(params["blocks"][s], i), x, cfg, slot,
                             positions=positions, cache=c, paged=paged,
-                            kv_chunk=kv_chunk, cache_mode=cache_mode)
+                            kv_chunk=kv_chunk, cache_mode=cache_mode,
+                            ring_rows=ring_rows)
         keep(x)
     for r in range(cfg.n_rem):
         c = None if cache is None else _index(cache["rem"][r], 0)
         x = _apply_slot(_index(params["rem"][r], 0), x, cfg, cfg.pattern[r],
                         positions=positions, cache=c, paged=paged,
-                        kv_chunk=kv_chunk, cache_mode=cache_mode)
+                        kv_chunk=kv_chunk, cache_mode=cache_mode,
+                        ring_rows=ring_rows)
         keep(x)
 
     if logits_mode == "last":

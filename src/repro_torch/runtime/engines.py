@@ -304,6 +304,7 @@ class SpSEngine(Engine):
         ctx.stats.target_calls += 1
         plen = len(prompt)
         while len(ctx.out) < n_new:
+            draft.checkpoint(), target.checkpoint()
             drafted, q_stack, _ = self._draft_round(draft, ctx,
                                                     self.ecfg.gamma)
             g = len(drafted)
@@ -373,6 +374,7 @@ class LookaheadEngine(Engine):
 
         update_pool(hist)
         while len(ctx.out) < n_new:
+            target.checkpoint()
             guess = pool.get(tuple(hist[-(n - 1):]), [])[:self.ecfg.gamma]
             npend = len(target.pending)
             logits = target.forward(list(guess))
@@ -425,6 +427,7 @@ class PEARLEngine(SpSEngine):
         cur: List[int] = []
         cur_q = None
         while len(ctx.out) < n_new:
+            draft.checkpoint(), target.checkpoint()
             if not cur:
                 # ---- warm-up: draft chunk || pre-verify first token ----
                 cur, cur_q, _ = self._draft_round(draft, ctx, gamma)

@@ -2,21 +2,31 @@
 ring decode cache, logical position, pending tokens and last logits of one
 model instance (draft or target).
 
-Rollback is positional, as in the reference for attention-only models:
-stale slots beyond the kept length are masked by causality until the next
-write overwrites them, so ``reset_to`` is bookkeeping.  Branch forks
-replicate the cache on the batch axis (axis 1 of every leaf).  The cache
-is written IN PLACE by each forward; ``fork`` makes the branch rows a
-copy, so ``unfork`` restores the untouched pre-fork cache as the
-reference's immutable arrays do.
+Rollback model, as in the reference:
 
-Mamba layers (their checkpoint + replay rollback), the parallel-draft
-forward and stub-frontend embeddings are later slices of the port
-(ROADMAP.md queue A).
+* Attention: positional.  Stale slots beyond the kept length are masked
+  by causality until the next write overwrites them, so ``reset_to`` is
+  bookkeeping.
+* Mamba layers carry recurrent state: rollback restores the latest
+  checkpoint <= the target length and replays the delta — a real extra
+  forward, logged in ``replay_calls``.
+
+Branch forks replicate the cache on the batch axis (axis 1 of every
+leaf).  The cache is written IN PLACE by each forward; ``fork`` makes the
+branch rows a copy, so ``unfork`` restores the untouched pre-fork cache
+as the reference's immutable arrays do, and ``checkpoint`` COPIES the
+Mamba carry leaves (the reference holds references to immutable arrays,
+which later in-place writes would mutate here).  The attention leaves are
+not copied: their rollback is positional, so the live cache serves any
+checkpoint.
+
+The parallel-draft forward and stub-frontend embeddings are later slices
+of the port (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +41,21 @@ def _later_slice(what: str) -> NotImplementedError:
         "queue A)")
 
 
+def _has_ssm(cfg: ModelConfig) -> bool:
+    return any(m == "mamba" for m, _ in cfg.pattern)
+
+
+def _is_ssm_slot(c: Dict[str, torch.Tensor]) -> bool:
+    return "ssm" in c
+
+
+@dataclasses.dataclass
+class _Checkpoint:
+    pos: int
+    ssm: List[Dict[str, torch.Tensor]]     # copies of the carry slots
+    last_logits: Optional[torch.Tensor]
+
+
 class ModelRunner:
     """One model + its decode cache, driven token-by-token from the host.
 
@@ -40,15 +65,15 @@ class ModelRunner:
       * ``last_logits`` is the (B, V) distribution following ``tokens[pos-1]``.
     """
 
+    MAX_CHECKPOINTS = 8
+
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096):
-        if any(m == "mamba" for m, _ in cfg.pattern):
-            raise _later_slice(f"{cfg.name}: mamba layers (the SSM "
-                               "architecture slice, queue A item 3)")
         self.params = params
         self.cfg = cfg
         self.max_len = max_len
         self.device = params["embed"].device
         self.batch = 1
+        self.has_ssm = _has_ssm(cfg)
         self.cache = M.init_cache(cfg, 1, max_len, self.device)
         self.pos = 0
         self.pending: List[int] = []
@@ -56,6 +81,8 @@ class ModelRunner:
         self.tokens: List[int] = []
         self.n_calls = 0
         self.n_call_tokens = 0
+        self.replay_calls = 0
+        self._ckpts: List[_Checkpoint] = []
         self._prefork: Optional[Tuple[Any, int]] = None
 
     @torch.no_grad()
@@ -109,19 +136,55 @@ class ModelRunner:
         assert len(prompt) >= 2, "need a prompt of >= 2 tokens"
         self.forward(prompt[:-1])
         self.pending = [prompt[-1]]
+        self.checkpoint()
 
     # ----------------------------------------------------------- rollback
+    @torch.no_grad()
+    def checkpoint(self) -> None:
+        """Record a restore point (round start, batch 1): a copy of every
+        Mamba carry slot; nothing for an attention-only model."""
+        if not self.has_ssm:
+            return
+        ssm = [{k: v.clone() for k, v in c.items()}
+               for c in M.iter_slots(self.cache) if _is_ssm_slot(c)]
+        self._ckpts.append(_Checkpoint(self.pos, ssm, self.last_logits))
+        if len(self._ckpts) > self.MAX_CHECKPOINTS:
+            self._ckpts.pop(0)
+
+    @torch.no_grad()
     def reset_to(self, abs_len: int) -> None:
-        """Truncate the ingested stream to ``abs_len`` tokens (positional;
-        ``last_logits`` is invalidated — engines always refill ``pending``
-        after a reset, so the next forward regenerates it)."""
+        """Truncate the ingested stream to ``abs_len`` tokens.
+
+        Attention-only: positional (free).  SSM: restore the latest
+        checkpoint <= abs_len and replay the delta (logged).
+        ``last_logits`` is invalidated unless recoverable — engines always
+        refill ``pending`` after a reset, so the next forward regenerates
+        it."""
         assert abs_len <= self.pos
         self.pending = []
         if abs_len == self.pos:
             return
-        self.pos = abs_len
-        self.tokens = self.tokens[:abs_len]
-        self.last_logits = None
+        replay = self.tokens[:abs_len]
+        if not self.has_ssm:
+            self.pos = abs_len
+            self.tokens = replay
+            self.last_logits = None
+            return
+        cks = [c for c in self._ckpts if c.pos <= abs_len]
+        assert cks, "no checkpoint available for SSM rollback"
+        ck = cks[-1]
+        saved = iter(ck.ssm)
+        self.cache = M.map_slot_caches(
+            self.cache, lambda c: ({k: v.clone() for k, v in
+                                    next(saved).items()}
+                                   if _is_ssm_slot(c) else c))
+        self.pos, self.last_logits = ck.pos, ck.last_logits
+        self.tokens = replay
+        delta = replay[ck.pos:]
+        if delta:
+            self.tokens = replay[:ck.pos]
+            self.forward(delta)
+            self.replay_calls += 1
 
     # ------------------------------------------------------------- branch
     def fork(self, k: int) -> None:

@@ -123,6 +123,7 @@ class SpecBranchEngine(Engine):
         q_b: Optional[torch.Tensor] = None
 
         while len(ctx.out) < n_new:
+            draft.checkpoint(), target.checkpoint()
             if mode == "draft":
                 # ---------------- DRAFT stage (serial) ----------------
                 chunk, chunk_q, q_b = self._serial_draft(draft, ctx)

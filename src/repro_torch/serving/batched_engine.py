@@ -8,7 +8,11 @@ writes land beyond a row's logical length (routed to the trash page),
 rollback is positional (shrink the row and reclaim the rejected tokens'
 pages), and SpecBranch branch forks are extra draft rows that share pages
 copy-on-write in the pool.  Every attention call runs the paged-attention
-kernel in place over the pages.
+kernel in place over the pages.  SSM and hybrid configs batch too: every
+mamba slot carries a per-row position-indexed checkpoint ring (its scan
+runs the selective-scan kernel), so per-row rollback is positional for
+both halves of the cache; a preempted hybrid row swaps its attention half
+through the paged store and its rings ride one snapshot.
 
 Engine contract: per-request token streams are distributed exactly as the
 target model (token-for-token the target's greedy stream at temperature
@@ -80,13 +84,18 @@ class BatchedDecoder:
 
     def __init__(self, params, cfg: ModelConfig, *, n_rows: int,
                  max_len: int, paged: PagedKVPool, device,
-                 prefill_lanes: int = 0, prefill_quantum: int = 8):
+                 ssm_ring: int = 0, prefill_lanes: int = 0,
+                 prefill_quantum: int = 8):
         self.cfg = cfg
         self.n_rows, self.max_len = n_rows, max_len
         self.device = device
         self.params = params
+        # checkpoint-ring depth of the mamba slots: bounds how far ahead
+        # of a row's logical length writes may land and how far back a
+        # rollback may reach
         self.state = DecodeState(cfg, n_rows=n_rows, max_len=max_len,
-                                 paged=paged, device=device)
+                                 paged=paged, device=device,
+                                 ssm_ring=ssm_ring)
         self.prefill_lanes = prefill_lanes or DL.bucket(n_rows)
         self.prefill_quantum = prefill_quantum
 
@@ -110,6 +119,10 @@ class BatchedDecoder:
     def swap_dim(self) -> int:
         return self.state.swap_dim
 
+    @property
+    def has_ssm(self) -> bool:
+        return self.state.has_ssm
+
     def bind_row(self, row: int, key: Any) -> None:
         """Attach a pool stream to a decoder row: every forward reads the
         row's page table and length live from the pool."""
@@ -131,12 +144,15 @@ class BatchedDecoder:
     def _forward(self, tokens, positions, rows=None) -> torch.Tensor:
         tab, lens = self.state.table_view(rows)
         dev = self.device
+        ring_rows = (None if rows is None or not self.has_ssm
+                     else torch.tensor(rows, dtype=torch.int64, device=dev))
         logits, _ = M.forward(
             self.params, self.cfg,
             torch.as_tensor(tokens).to(device=dev, dtype=torch.int64),
             cache=self.cache, positions=positions,
             paged=(torch.from_numpy(tab).to(dev),
-                   torch.from_numpy(lens).to(dev)))
+                   torch.from_numpy(lens).to(dev)),
+            ring_rows=ring_rows)
         return logits
 
     def step(self, tokens, pos) -> torch.Tensor:
@@ -155,7 +171,9 @@ class BatchedDecoder:
         """Batched bucketed prefill: each ``(row, tokens)`` prompt into its
         fresh row with ONE forward at a fixed ``(prefill_lanes,
         ladder-width)`` shape.  Lane i of the returned device logits is
-        ``parts[i]``'s; pad lanes and pad positions write the trash page."""
+        ``parts[i]``'s; pad lanes and pad positions write the trash page,
+        and lane i's ring writes land in row ``parts[i][0]`` (pad lanes'
+        are dropped)."""
         assert parts and len(parts) <= self.prefill_lanes
         G = self.prefill_lanes
         Tb = DL.prefill_bucket(max(len(t) for _, t in parts),
@@ -187,6 +205,22 @@ class BatchedDecoder:
     def unpack_row(self, row: int, rows: torch.Tensor) -> None:
         """Restore a row from packed token rows (inverse of pack_row)."""
         self.state.unpack_row(row, rows)
+
+    def snapshot(self, row: int, step: int,
+                 fetch: Callable[[torch.Tensor], np.ndarray]
+                 ) -> List[Dict[str, torch.Tensor]]:
+        """Host copy of one row's recurrent state at stream length
+        ``step`` (one {h, conv} dict per mamba slot), flattened on the
+        device and brought over in ONE ``fetch``.  Preemption uses it as
+        the rings' swap side-channel; ordinary rollback never needs it."""
+        return self.state.snapshot_split(
+            fetch(self.state.snapshot_flat(row, step)))
+
+    def restore(self, row: int, step: int,
+                snap: List[Dict[str, torch.Tensor]]) -> None:
+        """Write a ``snapshot`` back into the rings at ``step``; a forward
+        starting at position ``step`` then resumes from it."""
+        self.state.restore(row, step, snap)
 
 
 # ---------------------------------------------------------------------------
@@ -307,11 +341,17 @@ class BatchedEngineBase:
         self.pool = PoolGroup(self.pools)      # aggregate metrics view
         # prefill length-ladder quantum (pad span < quantum)
         self._pq = 8
+        # checkpoint ring deep enough for one worst-case round of forward
+        # progress (pending + chunk + branch continuation + bucket-ladder
+        # and prefill-ladder padding) plus the rollback span back across
+        # it, with slack
+        ssm_ring = (4 * (ecfg.gamma + ecfg.gamma_branch)
+                    + 2 * DL.bucket(ecfg.gamma + 2) + 16 + self._pq)
         lanes = DL.bucket(max_batch)   # admission groups are <= max_batch
         self.tgt_dec = BatchedDecoder(target_params, target_cfg,
                                       n_rows=max_batch, max_len=ecfg.max_len,
                                       paged=self.pools["t"],
-                                      device=self.device,
+                                      device=self.device, ssm_ring=ssm_ring,
                                       prefill_lanes=lanes,
                                       prefill_quantum=self._pq)
         self.dft_dec = BatchedDecoder(draft_params, draft_cfg,
@@ -319,7 +359,7 @@ class BatchedEngineBase:
                                       * self.draft_rows_per_seq,
                                       max_len=ecfg.max_len,
                                       paged=self.pools["d"],
-                                      device=self.device,
+                                      device=self.device, ssm_ring=ssm_ring,
                                       prefill_lanes=lanes,
                                       prefill_quantum=self._pq)
         # accounting COW (pool) -> physical COW, each in its own buffer
@@ -350,16 +390,17 @@ class BatchedEngineBase:
         return _count_fetch(self, arr)
 
     def _count_staged(self, nbytes: int) -> None:
-        """Host -> device admission traffic (prefill token frames)."""
+        """Host -> device admission traffic (prefill token frames, ring
+        snapshot restores)."""
         self.xfer_bytes += int(nbytes)
         self.xfer_fetches += 1
 
     @property
     def host_transfer_bytes(self) -> int:
-        """Bytes moved across the host boundary: packets plus prefill
-        staging.  Swap-out and swap-in are device-to-device here (the
-        swap store lives on the device) and do not count, so the
-        decoders never cross the boundary themselves."""
+        """Bytes moved across the host boundary: packets, ring snapshots
+        and their restores, plus prefill staging.  The attention half of
+        a swap is device-to-device here (the swap store lives on the
+        device) and does not count."""
         return self.xfer_bytes
 
     @property
@@ -498,6 +539,13 @@ class BatchedEngineBase:
         restored = False
         if meta is not None and meta.get("swap_key") is not None:
             self.tgt_dec.unpack_row(t_row, self.swap.get(meta["swap_key"]))
+            if meta.get("ssm_snap") is not None:
+                # the rings' swap side-channel: restore the checkpoint the
+                # preemption took at the packed length
+                self.tgt_dec.restore(t_row, L, meta["ssm_snap"])
+                self._count_staged(sum(a.numel() * a.element_size()
+                                       for d in meta["ssm_snap"]
+                                       for a in d.values()))
             self.swap.drop(meta["swap_key"])
             restored = True
         seq.tgt = _Stream(row=t_row, ing=L, pending=[toks[-1]])
@@ -545,16 +593,20 @@ class BatchedEngineBase:
     def preempt_youngest(self) -> _Seq:
         """Evict the most recently admitted request (FIFO-preserving) and
         release its rows and pages; its target KV is parked in the swap
-        store when possible, else recomputed at re-admission."""
+        store when possible (a hybrid row's rings as one snapshot beside
+        it), else recomputed at re-admission."""
         victim = max(self.active, key=lambda s: s.admit_order)
         self.active.remove(victim)
-        meta = {"seq": victim, "swap_key": None}
+        meta = {"seq": victim, "swap_key": None, "ssm_snap": None}
         if self.swap is not None and victim.tgt.ing > 0:
             key = ("swap", victim.rid, victim.admit_order)
             try:
                 self.swap.put(key, self.tgt_dec.pack_row(victim.tgt.row,
                                                          victim.tgt.ing))
                 meta["swap_key"] = key
+                if self.tgt_dec.has_ssm:
+                    meta["ssm_snap"] = self.tgt_dec.snapshot(
+                        victim.tgt.row, victim.tgt.ing, self._fetch)
             except PoolExhausted:
                 pass
         tk, dk = self._pool_keys(victim.rid)

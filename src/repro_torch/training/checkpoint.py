@@ -7,7 +7,8 @@ the periodic blocks stacked on a leading ``n_periods`` axis.  ``load``
 rebuilds that tree as torch tensors; ``from_numpy_params`` carries any
 tree of numpy arrays (for instance the reference's params after
 ``np.asarray``) into the port, so both frameworks can run on identical
-weights; ``from_numpy_cache`` does the same for a dense decode cache, so
+weights; ``from_numpy_cache`` does the same for a decode cache (dense
+attention rings, Mamba carries and checkpoint rings), so
 both frameworks can also start from one mid-stream state.  Saving is a
 later slice (training).
 """
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import param_dtype
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
@@ -47,14 +49,17 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def from_numpy_params(tree: Any, cfg: ModelConfig, device) -> Any:
-    """The same tree with every array a tensor in ``cfg``'s dtype on
-    ``device``; ``blocks`` keeps an empty ``rem`` list when absent."""
-    def conv(node):
+    """The same tree with every array a tensor on ``device`` in the dtype
+    the reference's init gives its leaf (``model.param_dtype``: float32
+    for Mamba's ``A_log`` / ``Dskip`` and the MoE ``router``, ``cfg``'s
+    dtype otherwise); ``blocks`` keeps an empty ``rem`` list when
+    absent."""
+    def conv(node, name=""):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
-        return _to_tensor(node, cfg.tdtype, device)
+        return _to_tensor(node, param_dtype(name, cfg), device)
     out = conv(tree)
     out.setdefault("rem", [])
     emb = out["embed"]
@@ -64,14 +69,19 @@ def from_numpy_params(tree: Any, cfg: ModelConfig, device) -> Any:
     return out
 
 
+_CACHE_DTYPES = {"pos": torch.int32, "ssm": torch.float32,
+                 "h_ring": torch.float32}
+
+
 def from_numpy_cache(tree: Any, cfg: ModelConfig, device) -> Any:
-    """A dense decode cache tree of numpy arrays (the reference's
-    ``init_cache`` layout after ``np.asarray``) as the port's cache: K/V
-    in ``cfg``'s dtype, positions int32, on ``device``."""
+    """A decode cache tree of numpy arrays (the reference's ``init_cache``
+    layout after ``np.asarray``) as the port's cache on ``device``: K/V
+    and Mamba conv tails in ``cfg``'s dtype, positions int32, SSM carries
+    and checkpoint rings float32."""
     def conv(node):
         if isinstance(node, dict):
-            return {k: (torch.from_numpy(np.array(v, np.int32)).to(device)
-                        if k == "pos" else _to_tensor(v, cfg.tdtype, device))
+            return {k: _to_tensor(v, _CACHE_DTYPES.get(k, cfg.tdtype),
+                                  device)
                     for k, v in node.items()}
         return [conv(v) for v in node]
     return {"blocks": conv(tree["blocks"]), "rem": conv(tree["rem"])}

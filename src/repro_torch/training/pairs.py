@@ -1,17 +1,20 @@
-"""The committed draft/target pairs on the Zipf-Markov language (load side
-of ``repro.training.pairs``).
+"""The draft/target pairs on the Zipf-Markov language (load side of
+``repro.training.pairs``).
 
 ``get_pair`` reads the reference's cached checkpoints
 (``.cache/pairs/zm-target.npz`` and ``zm-draft-mis.npz``, committed with
 the repo) through ``training.checkpoint.load``.  Training a pair whose
 checkpoint is missing (the aligned draft trains on first use in the
-reference) is a later slice of the port.
+reference) is a later slice of the port.  ``hybrid_pair`` builds the
+reference's tiny random-init SSM-bearing pairs (same configs, weights
+drawn by the port's own generator).
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Tuple
 
+from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, dense_pattern
 from repro_torch.training import checkpoint as ckpt
 
@@ -55,3 +58,52 @@ def get_pair(kind: str = "misaligned", device="cuda",
         raise ValueError(kind)
     tgt = _get(TARGET_CFG, cache_dir, device)
     return _get(dcfg, cache_dir, device), dcfg, tgt, TARGET_CFG
+
+
+HYBRID_KINDS = ("falcon-shaped", "jamba-shaped")
+
+
+def hybrid_configs(kind: str) -> Tuple[ModelConfig, ModelConfig]:
+    """(draft_cfg, target_cfg) of a tiny SSM-bearing pair, the
+    reference's ``hybrid_pair`` configs:
+
+      * "falcon-shaped" — attention-free Mamba-1 stack (falcon-mamba-7b's
+        family, arXiv:2410.05355);
+      * "jamba-shaped"  — hybrid Mamba + attention with MoE FFNs
+        (jamba-1.5's family), with a drop-free MoE capacity so outputs
+        do not depend on the batch's composition."""
+    common = dict(vocab_size=VOCAB, dtype="float32")
+    if kind == "falcon-shaped":
+        tcfg = ModelConfig(
+            name="hy-falcon-t", family="ssm", num_layers=2, d_model=64,
+            num_heads=2, num_kv_heads=1, d_ff=0,
+            pattern=(("mamba", "none"),), **common)
+        dcfg = ModelConfig(
+            name="hy-falcon-d", family="ssm", num_layers=1, d_model=32,
+            num_heads=2, num_kv_heads=1, d_ff=0,
+            pattern=(("mamba", "none"),), **common)
+    elif kind == "jamba-shaped":
+        tcfg = ModelConfig(
+            name="hy-jamba-t", family="hybrid", num_layers=2, d_model=64,
+            num_heads=2, num_kv_heads=1, d_ff=256,
+            pattern=(("mamba", "dense"), ("attn", "moe")),
+            num_experts=4, num_experts_per_tok=2, moe_d_ff=64,
+            capacity_factor=2.0, **common)
+        dcfg = ModelConfig(
+            name="hy-jamba-d", family="hybrid", num_layers=1, d_model=32,
+            num_heads=2, num_kv_heads=1, d_ff=128,
+            pattern=(("mamba", "dense"),), **common)
+    else:
+        raise ValueError(kind)
+    return dcfg, tcfg
+
+
+def hybrid_pair(kind: str, seed: int = 0, device="cuda"
+                ) -> Tuple[Any, ModelConfig, Any, ModelConfig]:
+    """(draft_params, draft_cfg, target_params, target_cfg): random-init
+    weights from ``init_params`` (target ``seed``, draft ``seed + 1``).
+    Greedy losslessness and rollback correctness are properties of the
+    engine, not of model quality, so no training is needed."""
+    dcfg, tcfg = hybrid_configs(kind)
+    return (M.init_params(dcfg, seed + 1, device), dcfg,
+            M.init_params(tcfg, seed, device), tcfg)

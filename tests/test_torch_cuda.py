@@ -11,7 +11,8 @@ min(2e-2, 1.6e-2 * |want| + 1e-3 * rms(want)), two bf16 spacings of the
 value (another summation order, then bf16 output rounding); the runner's
 logits on the card against the CPU, f32, atol 1e-4; verify accept flags
 equal, p_tok/q_tok rtol 1e-5, residual tokens equal but for a draw within f32
-rounding of a cdf boundary; gather bitwise.
+rounding of a cdf boundary; gather bitwise; selective scan rtol = atol =
+2e-5 (the reference's own Pallas-vs-oracle tolerance).
 """
 import os
 
@@ -244,3 +245,52 @@ def test_sequential_engines_on_the_card_are_greedy_lossless(cuda):
         res = cls(*pair, ecfg).generate(prompt, 12, prng.PRNGKey(0))
         assert res.tokens == want
         assert ops.LAUNCHES["flash_attention"] > 0
+
+
+SSM_CASES = [(8, 8, 256, 16, True), (3, 130, 32, 8, True),
+             (56, 1, 1024, 16, True), (2, 48, 200, 4, False)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSM_CASES,
+                         ids=lambda c: "B{}T{}E{}N{}{}".format(
+                             *c[:4], "s" if c[4] else ""))
+def test_ssm_scan_kernel_matches_plain(cuda, case, dtype):
+    B, T, E, N, states = case
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def f(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    x = f(B, T, E).to(getattr(torch, dtype))
+    args = (x, torch.nn.functional.softplus(f(B, T, E)), f(B, T, N),
+            f(B, T, N), -torch.exp(0.2 * f(E, N)), f(E), f(B, E, N))
+    n0 = ops.LAUNCHES["ssm_scan"]
+    got = ops.ssm_scan(*args, return_states=states)
+    want = ref.ssm_scan_ref(*args, return_states=states)
+    assert ops.LAUNCHES["ssm_scan"] == n0 + 1
+    assert len(got) == len(want) == (3 if states else 2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ops.ssm_scan(x.transpose(0, 2).contiguous().transpose(0, 2),
+                     *args[1:])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["falcon-shaped", "jamba-shaped"])
+def test_hybrid_pairs_on_the_card_are_greedy_lossless(cuda, kind):
+    """Batched SpecBranch and sequential SpecBranch on the SSM-bearing
+    pairs: greedy streams equal the target's greedy decode, and the scan
+    ran on the card."""
+    pair = SV.load_pair(kind, cuda)
+    prompts = SV.make_prompts(2)
+    want = M.greedy_reference(pair[2], pair[3], prompts, 12)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=256)
+    ops.reset_launches()
+    res, _, _, _ = SV.serve(pair, ecfg, prompts, 12, device=cuda)
+    assert [res[i].tokens for i in range(2)] == want
+    assert ops.LAUNCHES["ssm_scan"] > 0
+    done, _, _ = SV.serve_sequential(pair, ecfg, "specbranch", prompts, 12)
+    assert [r.result.tokens for r in sorted(done, key=lambda r: r.rid)] \
+        == want

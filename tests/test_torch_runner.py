@@ -121,7 +121,7 @@ def test_cache_layout_and_bytes_match_reference(window):
                              pattern=j_dense_pattern(2 if window else 0))
     tcfg = _tcfg(jcfg)
     jc = JM.init_cache(jcfg, 3, 40, ssm_ring=4)
-    tc = TM.init_cache(tcfg, 3, 40, "cpu", ring_slack=4)
+    tc = TM.init_cache(tcfg, 3, 40, "cpu", ssm_ring=4)
     for js, ts in zip(jc["blocks"] + jc["rem"], tc["blocks"] + tc["rem"]):
         assert {k: v.shape for k, v in js.items()} == \
             {k: tuple(v.shape) for k, v in ts.items()}
@@ -259,10 +259,8 @@ def test_runner_queries_always_see_a_key(pair, monkeypatch):
 
 def test_later_slice_paths_raise(pair):
     _, (tdp, tdcfg, _, _) = pair
-    mamba = tdcfg.replace(pattern=(("mamba", "dense"),))
-    with pytest.raises(NotImplementedError, match="mamba"):
-        TR.ModelRunner(tdp, mamba, max_len=16)
     r = TR.ModelRunner(tdp, tdcfg, max_len=16)
+    assert not r.has_ssm          # mamba runners: tests/test_torch_ssm.py
     for call in (lambda: r.forward_parallel(2, None),
                  lambda: r.forward_embeds(None)):
         with pytest.raises(NotImplementedError, match="later|slice"):
