@@ -12,7 +12,12 @@ Phases (any failure raises, so the script exits non-zero):
                and the tiny committed pair), with the tolerance stated per
                check; median device times (CUDA events) beside the least
                time the card could take (bound) and a library call where
-               one exists.
+               one exists.  The shared-prefix branch decode and the
+               single-request verify lie on no engine path, in either
+               package: their path is the kernel API (``kernels.ops``, as
+               the reference's benchmarks/kernels_bench.py drives it),
+               driven here once per checked shape with the counters
+               zeroed before and read after.
   3. tiny    — the committed Zipf-Markov pair (f32) served through
                ContinuousBatchScheduler: greedy streams must equal the
                port's own target-only greedy decode; temperature 1 (with
@@ -60,6 +65,21 @@ Phases (any failure raises, so the script exits non-zero):
                and launches; device memory of the weights and rings; one
                profiled serve for the busy share and device time by
                kernel.
+  9. H-RAD and SpS tiny — the committed pair with an H-RAD MLP from the
+               port's init_mlp (generator seed HRAD_SEED): batched SpS,
+               batched SpecBranch with H-RAD (also under a preempting
+               200-page pool of page size 4) and sequential SpecBranch
+               with H-RAD; greedy streams must equal the target's greedy
+               decode; temperature 1 is shadowed as in phase 3 and
+               compared with the same serve on the CPU (printed); the
+               H-RAD signal histogram must hold all three classes.
+ 10. H-RAD and SpS full — the LLaMA-68M/7B pair again: batched SpS 8 x 32
+               greedy and temperature 1, batched SpecBranch with H-RAD
+               8 x 32 greedy, sequential SpecBranch with H-RAD 2 x 32
+               greedy, each greedy serve teacher-forced as in phase 4;
+               wall tokens/s, rounds, mean accepted length, signal
+               histogram, peak memory and a profiled serve's busy share,
+               beside the same serves without H-RAD from phases 4 and 6.
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -85,6 +105,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.core import hrad as H  # noqa: E402
+from repro_torch.kernels import branch_attention as BA  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged as PG  # noqa: E402
@@ -128,7 +150,16 @@ KERNELS = {
     "ssm_scan": dict(
         route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:80"),
+    "branch_decode_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/branch_attention.cu",
+        replaces="src/repro/kernels/ops.py:38"),
+    "verify_accept": dict(
+        route="cuda", source="src/repro_torch/csrc/verify_accept.cu",
+        replaces="src/repro/kernels/verify_accept.py:74"),
 }
+# the H-RAD MLP of phases 9-10: the port's init_mlp under this generator
+# seed (untrained; on the tiny pair it gives all three signal classes)
+HRAD_SEED = 0
 # the selective scan against its plain version: the tolerance the
 # reference's own tests hold its Pallas kernel to (both sides f32; only
 # exp's rounding and the FMA contraction differ)
@@ -269,6 +300,21 @@ def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0):
                 plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
 
 
+def cdf_distance(p_lg, q_lg, tok_a, tok_b, w) -> float:
+    """Distance, in f64, from the residual uniform w to the nearest cdf
+    entry between two residual tokens of one draft position (p_lg, q_lg
+    its (V,) logits): where it is below BOUNDARY_EPS the two draws differ
+    only by float summation order."""
+    p = torch.softmax(p_lg.double(), -1)
+    qq = torch.softmax(q_lg.double(), -1)
+    rr = (p - qq).clamp_min(0)
+    rr = rr / rr.sum() if rr.sum() > 1e-12 else p
+    cdf = torch.cumsum(rr, 0)
+    cdf = (cdf / cdf[-1]).cpu()
+    lo, hi = sorted((int(tok_a), int(tok_b)))
+    return float((cdf[max(lo - 1, 0):hi] - float(w)).abs().min())
+
+
 def check_verify(rng, label, B, R, V):
     dev = "cuda"
     pl = torch.from_numpy(3 * rng.standard_normal((B, R, V), np.float32)
@@ -297,15 +343,8 @@ def check_verify(rng, label, B, R, V):
     boundary = 0
     for b, r in zip(*torch.nonzero(res != res_w, as_tuple=True)):
         b, r = int(b), int(r)
-        p = torch.softmax(pl[b, r].double(), -1)
-        qq = torch.softmax(ql[b, r].double(), -1)
-        rr = (p - qq).clamp_min(0)
-        rr = rr / rr.sum() if rr.sum() > 1e-12 else p
-        cdf = torch.cumsum(rr, 0)
-        cdf = (cdf / cdf[-1]).cpu()
-        lo, hi = sorted((int(res[b, r]), int(res_w[b, r])))
-        near = (cdf[max(lo - 1, 0):hi] - float(w[b, r])).abs().min()
-        if near > 1e-6:
+        if cdf_distance(pl[b, r], ql[b, r], res[b, r], res_w[b, r],
+                        w[b, r]) > BOUNDARY_EPS:
             raise AssertionError(f"verify {label}: residual token differs "
                                  f"at ({b},{r}) away from a cdf boundary")
         boundary += 1
@@ -432,6 +471,127 @@ def check_ssm(rng, label, B, T, E, N, xdtype, states):
                 library_ms=None, bound_ms=bms, bound_by=by)
 
 
+def branch_case(rng, kb, Tq, Sp, Ss, Hh, KV, hd, dtype, dead=0):
+    """k branches over one shared prefix of Sp keys (``dead`` of them
+    unwritten, position -1) and Ss suffix keys each; the Tq queries of
+    each branch sit at the last positions, so Tq > 1 cuts the suffix
+    causally."""
+    dev = "cuda"
+    ppos = np.arange(Sp, dtype=np.int32)[None].copy()
+    ppos[0, 1:1 + dead] = -1
+    spos = np.ascontiguousarray(np.broadcast_to(
+        np.arange(Sp, Sp + Ss, dtype=np.int32), (kb, Ss)))
+    qpos = np.ascontiguousarray(np.broadcast_to(
+        np.arange(Sp + Ss - Tq + 1, Sp + Ss + 1, dtype=np.int32), (kb, Tq)))
+    q, pk, pv, sk, sv = (
+        torch.from_numpy(rng.standard_normal(shape, np.float32)
+                         ).to(dev, dtype)
+        for shape in ((kb, Tq, Hh, hd), (1, Sp, KV, hd), (1, Sp, KV, hd),
+                      (kb, Ss, KV, hd), (kb, Ss, KV, hd)))
+    return (q, pk, pv, torch.from_numpy(ppos).to(dev), sk, sv,
+            torch.from_numpy(spos).to(dev), torch.from_numpy(qpos).to(dev))
+
+
+def check_branch(rng, label, kb, Tq, Sp, Ss, Hh, KV, hd, dtype, dead=0,
+                 cap=None):
+    args = branch_case(rng, kb, Tq, Sp, Ss, Hh, KV, hd, dtype, dead)
+    q, pk, pv, ppos, sk, sv, spos, qpos = args
+    out = BA.branch_decode_attention(*args, cap=cap)
+    want = ref.branch_decode_ref(*args, cap=cap)
+    torch.cuda.synchronize()
+    err, share = check_close(f"branch_decode_attention {label}", out, want)
+    # the work these inputs need: the prefix keys some query of some
+    # branch sees, read ONCE; each branch's visible suffix keys
+    qpl = qpos.long()[:, :, None]
+    pvis = (ppos.long()[:, None, :] >= 0) & (ppos.long()[:, None, :] <= qpl)
+    svis = (spos.long()[:, None, :] >= 0) & (spos.long()[:, None, :] <= qpl)
+    es = q.element_size()
+    nbytes = ((int(pvis.any(1).any(0).sum()) + int(svis.any(1).sum()))
+              * 2 * KV * hd * es + 2 * q.numel() * es
+              + (ppos.numel() + spos.numel() + qpos.numel()) * 4)
+    flops = 4 * hd * Hh * (int(pvis.sum()) + int(svis.sum()))
+    bms, by = bound(nbytes, flops, dtype)
+    ms = time_ms(lambda: BA.branch_decode_attention(*args, cap=cap))
+    plain = time_ms(lambda: ref.branch_decode_ref(*args, cap=cap))
+    lib = None
+    if cap is None:
+        # library yardstick: masked SDPA over the prefix concatenated with
+        # each branch's suffix, heads expanded for the group; the
+        # concatenation is built outside the timed region
+        G = Hh // KV
+        kd = torch.cat([pk.expand(kb, -1, -1, -1), sk], 1)
+        vd = torch.cat([pv.expand(kb, -1, -1, -1), sv], 1)
+        kd = kd.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        vd = vd.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        qd = q.transpose(1, 2).contiguous()
+        mask = torch.cat([pvis.expand(kb, -1, -1), svis], -1)[:, None]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+    return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                args=args, cap=cap)
+
+
+def check_single_verify(rng, label, R, V, dtype):
+    """The single-request (R, V) verify: accept flags and residual tokens
+    equal (a residual may differ only where w lies within BOUNDARY_EPS of
+    a cdf boundary), p_tok / q_tok within 1e-6."""
+    dev = "cuda"
+    pl, ql = (torch.from_numpy(2 * rng.standard_normal((R, V), np.float32)
+                               ).to(dev, dtype) for _ in range(2))
+    tok = torch.from_numpy(rng.integers(0, V, R).astype(np.int32)).to(dev)
+    u, w = (torch.from_numpy(rng.random(R, np.float32)).to(dev)
+            for _ in range(2))
+    args = (pl, ql, tok, u, w)
+    got = [x.cpu() for x in VA.verify_accept(*args)]
+    want = [x.cpu() for x in ref.verify_accept_ref(*args)]
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"verify_accept {label}: accept flags differ")
+    err = max((got[i] - want[i]).abs().max().item() for i in (2, 3))
+    if err > 1e-6:
+        raise AssertionError(f"verify_accept {label}: p_tok/q_tok differ "
+                             f"by {err:.2e} > 1e-6")
+    boundary = 0
+    for r in torch.nonzero(got[1] != want[1])[:, 0].tolist():
+        if cdf_distance(pl[r], ql[r], got[1][r], want[1][r],
+                        w[r]) > BOUNDARY_EPS:
+            raise AssertionError(f"verify_accept {label}: residual token "
+                                 f"differs at row {r} away from a cdf "
+                                 "boundary")
+        boundary += 1
+    es = pl.element_size()
+    bms, by = bound(2 * R * V * es + R * (3 * 4 + 4 * 4), 8 * R * V,
+                    torch.float32)
+    ms = time_ms(lambda: VA.verify_accept(*args))
+    plain = time_ms(lambda: ref.verify_accept_ref(*args))
+    # no single PyTorch call computes the verdict: library_ms null
+    return dict(case=label, max_abs_err=err, boundary_cases=boundary, ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
+                args=args)
+
+
+def phase_kernel_api(cases, totals) -> dict:
+    """The path of the two kernels no engine calls, in either package: the
+    kernel API ``kernels.ops``, driven once per checked shape (as the
+    reference's benchmarks/kernels_bench.py drives ``repro.kernels.ops``),
+    the counters zeroed just before and read just after."""
+    ops.reset_launches()
+    for c in cases["branch_decode_attention"]:
+        ops.branch_decode_attention(*c["args"], cap=c["cap"])
+    for c in cases["verify_accept"]:
+        ops.verify_accept(*c["args"])
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    for k, v in counts.items():
+        totals[k] += v
+    log(f"  kernel API drive: launches={counts}")
+    for k in ("branch_decode_attention", "verify_accept"):
+        if counts[k] == 0:
+            raise AssertionError(f"kernel API drive: {k} not launched")
+    return counts
+
+
 def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -494,7 +654,14 @@ def phase_kernels() -> dict:
                     True),
           check_ssm(rng, "odd length B=1 T=130 E=32 N=8", 1, 130, 32, 8,
                     f32, True)]
-    for r in att + ver + gat + fl + ss:
+    br = [check_branch(rng, "llama-7b k=6 Sp=504 Ss=8", 6, 1, 504, 8, 32,
+                       32, 128, bf),
+          check_branch(rng, "tiny f32 k=3 Tq=3 Sp=29 Ss=5", 3, 3, 29, 5, 4,
+                       2, 32, f32, dead=2),
+          check_branch(rng, "llama-7b cap k=6 Sp=504 Ss=8", 6, 1, 504, 8,
+                       32, 32, 128, bf, cap=50.0)]
+    sv = [check_single_verify(rng, "llama V=32000 R=9", 9, 32000, f32)]
+    for r in att + ver + gat + fl + ss + br + sv:
         lib = r["library_ms"]
         log(f"  {r['case']:32s} err={r['max_abs_err']:.2e} "
             + (f"({r['err_share']:.2f} of bound) "
@@ -505,7 +672,8 @@ def phase_kernels() -> dict:
             + (f" boundary={r['boundary_cases']}"
                if "boundary_cases" in r else ""))
     return {"paged_attention": att, "verify_accept_batched": ver,
-            "paged_gather": gat, "flash_attention": fl, "ssm_scan": ss}
+            "paged_gather": gat, "flash_attention": fl, "ssm_scan": ss,
+            "branch_decode_attention": br, "verify_accept": sv}
 
 
 # ---------------------------------------------------------------------------
@@ -526,31 +694,42 @@ class VerifyShadow:
     def __init__(self):
         self.calls = self.rows = self.positions = self.boundary = 0
         self._bv, self._cv = DL.branch_verify, DL._chain_via_kernel
+        self._sv = DL.sps_verify
         self._inputs = None
 
     def __enter__(self):
         DL.branch_verify, DL._chain_via_kernel = self._verify, self._chain
+        DL.sps_verify = self._sps
         return self
 
     def __exit__(self, *exc):
         DL.branch_verify, DL._chain_via_kernel = self._bv, self._cv
+        DL.sps_verify = self._sv
 
     def _chain(self, *a):
         self._inputs = a
         return self._cv(*a)
 
     def _verify(self, *a, **kw):
+        return self._shadow(self._bv, "branch stage", *a, **kw)
+
+    def _sps(self, *a, **kw):
+        # the SpS packet's columns past the chain verdict are the drafted
+        # tokens, the same on both routes
+        return self._shadow(self._sv, "drafted tokens", *a, **kw)
+
+    def _shadow(self, fn, tail, *a, **kw):
         self._inputs = None
-        got = self._bv(*a, **kw)
+        got = fn(*a, **kw)
         if not kw.get("kernel"):
             return got
         launched = self._inputs is not None    # a chunk reached the kernel
-        want = self._bv(*a, **dict(kw, kernel=False))
+        want = fn(*a, **dict(kw, kernel=False))
         self.calls += launched
         self.rows += got.shape[0] if launched else 0
         self.positions += int(self._inputs[3].sum()) if launched else 0
         if not torch.equal(got[:, 3:], want[:, 3:]):
-            raise AssertionError("verify shadow: branch stage differs")
+            raise AssertionError(f"verify shadow: {tail} differs")
         for s in torch.nonzero((got[:, :3] != want[:, :3]).any(1))[:, 0]:
             if not launched or not self._near_boundary(int(s), got[s],
                                                        want[s]):
@@ -662,13 +841,15 @@ def cpu_pair():
                     cache_dir=os.path.join(ROOT, ".cache", "pairs"))
 
 
-def compare_cpu(name, ecfg, prompts, n_new, res, pair) -> dict:
+def compare_cpu(name, ecfg, prompts, n_new, res, pair, **kw) -> dict:
     """Serve the same drive on the CPU (every kernel's plain version) with
     the same weights and compare the streams.  Printed, not asserted: f32
     logits of the card and the CPU differ in the last bits, which can flip
-    a draw that lands near a cdf boundary; the kernel route itself is held
-    exactly by VerifyShadow."""
-    cres, _, _, wall = SV.serve(pair, ecfg, prompts, n_new, device="cpu")
+    a draw that lands near a cdf boundary (or an H-RAD signal whose MLP
+    logits lie within that noise of each other); the kernel route itself
+    is held exactly by VerifyShadow."""
+    cres, _, _, wall = SV.serve(pair, ecfg, prompts, n_new, device="cpu",
+                                **kw)
     first = {}
     for i in range(len(prompts)):
         a, b = res[i].tokens, cres[i].tokens
@@ -676,10 +857,14 @@ def compare_cpu(name, ecfg, prompts, n_new, res, pair) -> dict:
                         None if len(a) == len(b) else min(len(a), len(b)))
     same = sum(v is None for v in first.values())
     stats = sum(res[i].stats == cres[i].stats for i in range(len(prompts)))
+    sig = sum(res[i].stats.hrad_signals == cres[i].stats.hrad_signals
+              for i in range(len(prompts)))
     log(f"  {name} vs the same serve on the CPU ({wall:.1f}s): "
         f"{same}/{len(prompts)} streams equal, {stats} GenStats equal, "
-        f"first divergence by request {first}")
-    return dict(streams_equal=same, stats_equal=stats, first_divergence=first)
+        f"{sig} H-RAD signal sequences equal, first divergence by request "
+        f"{first}")
+    return dict(streams_equal=same, stats_equal=stats, signals_equal=sig,
+                first_divergence=first)
 
 
 def teacher_forced(tp, tcfg, prompts, res, greedy, n_new) -> dict:
@@ -822,14 +1007,15 @@ UNLISTED = {"confidence-sd": TE.ConfidenceSDEngine}
 
 
 def seq_drive(pair, ecfg, engine, prompts, n_new, totals=None,
-              need=("flash_attention",)):
+              need=("flash_attention",), hrad_params=None):
     """One sequential main-path drive through ``serve.serve_sequential``
     (the confidence-SD baseline, which the CLI does not list, by its class)
     with the launch counters zeroed just before and read just after; each
     kernel in ``need`` must have launched."""
     ops.reset_launches()
     done, _, wall = SV.serve_sequential(
-        pair, ecfg, UNLISTED.get(engine, engine), prompts, n_new)
+        pair, ecfg, UNLISTED.get(engine, engine), prompts, n_new,
+        hrad_params=hrad_params)
     counts = dict(ops.LAUNCHES)
     if totals is not None:
         for k, v in counts.items():
@@ -1115,6 +1301,201 @@ def phase_falcon(dev, totals) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 9-10: H-RAD hybrid drafting and batched SpS
+# ---------------------------------------------------------------------------
+
+def hrad_mlp(tcfg, dev):
+    """The untrained H-RAD MLP of phases 9-10, drawn on the CPU under
+    HRAD_SEED (so the card and the CPU get the same parameters)."""
+    return H.init_mlp((EngineConfig.hrad_k_layers + 1) * tcfg.d_model,
+                      generator=torch.Generator().manual_seed(HRAD_SEED),
+                      device=dev)
+
+
+def signal_hist(results) -> list:
+    hist = [0, 0, 0]
+    for r in results:
+        for s in r.stats.hrad_signals:
+            hist[s] += 1
+    return hist
+
+
+def phase_hrad_tiny(dev, totals) -> dict:
+    from repro_torch.training.pairs import get_pair
+    pair = get_pair("misaligned", device=dev,
+                    cache_dir=os.path.join(ROOT, ".cache", "pairs"))
+    cpu = cpu_pair()
+    hp, hp_cpu = hrad_mlp(pair[3], dev), hrad_mlp(cpu[3], "cpu")
+    prompts = SV.make_prompts(4)
+    n_new = 48
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
+    hist = [0, 0, 0]
+    out = {}
+    for name, engine, temp, kw in (
+            ("sps greedy", "sps", 0.0, {}),
+            ("sps temp1", "sps", 1.0, {}),
+            ("hrad greedy", "specbranch", 0.0, {}),
+            ("hrad preempt", "specbranch", 0.0,
+             dict(page_size=4, pool_pages=200)),
+            ("hrad temp1", "specbranch", 1.0, {})):
+        label = f"tiny {name}"
+        hrad = engine == "specbranch"
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, max_len=max_len)
+        with VerifyShadow() as sh:
+            res, rep, counts, wall, _ = drive(
+                pair, ecfg, prompts, n_new, dev, engine=engine,
+                hrad_params=hp if hrad else None, **kw)
+        for k, v in counts.items():
+            totals[k] += v
+        h = signal_hist(res.values())
+        hist = [a + b for a, b in zip(hist, h)]
+        log(f"  {label}: rounds={rep['rounds']} "
+            f"preemptions={rep['preemptions']} s_t histogram={h} "
+            f"wall={wall:.2f}s launches={counts}")
+        if counts["paged_attention"] == 0:
+            raise AssertionError(f"{label}: paged_attention not run")
+        if temp > 0:
+            if counts["verify_accept_batched"] == 0:
+                raise AssertionError(f"{label}: verify kernel not launched")
+            # SpS drafts gamma tokens every round: its chains always reach
+            # the kernel
+            check_shadow(label, sh, counts, chains=engine == "sps")
+            out[name + " cpu"] = compare_cpu(
+                label, ecfg, prompts, n_new, res, cpu, engine=engine,
+                hrad_params=hp_cpu if hrad else None)
+        else:
+            bad = [i for i in range(len(prompts))
+                   if res[i].tokens != greedy[i]]
+            if bad:
+                raise AssertionError(f"{label}: requests {bad} differ from "
+                                     "greedy decoding")
+        if name == "hrad preempt" and (rep["preemptions"] == 0
+                                       or counts["paged_gather"] == 0):
+            raise AssertionError(f"{label}: no preemption / swap-in")
+        out[name] = dict(rounds=rep["rounds"], preemptions=rep["preemptions"],
+                         signals=h, wall_s=wall, launches=counts)
+    sprompts = prompts[:2]
+    ar = [RN.greedy_reference(pair[2], pair[3], p, 32, max_len=512)
+          for p in sprompts]
+    for temp in (0.0, 1.0):
+        label = f"tiny seq hrad t={temp:g}"
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, max_len=512)
+        res, counts, wall = seq_drive(pair, ecfg, "specbranch", sprompts,
+                                      32, totals, hrad_params=hp)
+        h = signal_hist(res.values())
+        hist = [a + b for a, b in zip(hist, h)]
+        log(f"  {label}: s_t histogram={h} wall={wall:.2f}s "
+            f"flash launches={counts['flash_attention']}")
+        if temp == 0.0:
+            bad = [i for i in range(len(sprompts))
+                   if res[i].tokens != ar[i]]
+            if bad:
+                raise AssertionError(f"{label}: requests {bad} differ from "
+                                     "the AR greedy decode")
+        else:
+            cres, _, _ = SV.serve_sequential(cpu, ecfg, "specbranch",
+                                             sprompts, 32,
+                                             hrad_params=hp_cpu)
+            same = sum(res[r.rid].tokens == r.result.tokens for r in cres)
+            sig = sum(res[r.rid].stats.hrad_signals
+                      == r.result.stats.hrad_signals for r in cres)
+            log(f"  {label} vs the same serve on the CPU: {same}/"
+                f"{len(sprompts)} streams equal, {sig} signal sequences "
+                "equal")
+        out[label] = dict(signals=h, wall_s=wall, launches=counts)
+    log(f"  tiny s_t histogram over phase 9 (all-reject, confidence, "
+        f"all-accept): {hist}")
+    if min(hist) == 0:
+        raise AssertionError(f"tiny H-RAD: a signal class never occurred "
+                             f"({hist})")
+    out["signals"] = hist
+    return out
+
+
+def phase_hrad_full(dev, totals, pair, without) -> dict:
+    """``without``: phase 4's and phase 6's results, the same serves
+    without H-RAD, printed beside."""
+    prompts = SV.make_prompts(8)
+    n_new = 32
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
+    hp = hrad_mlp(pair[3], dev)
+    out = {}
+    for name, engine, temp, hrad in (("sps greedy", "sps", 0.0, None),
+                                     ("sps temp1", "sps", 1.0, None),
+                                     ("specbranch+hrad greedy", "specbranch",
+                                      0.0, hp)):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
+                            max_len=max_len)
+        torch.cuda.reset_peak_memory_stats()
+        with VerifyShadow() as sh:
+            res, rep, counts, wall, eng = drive(
+                pair, ecfg, prompts, n_new, dev, engine=engine,
+                hrad_params=hrad)
+        peak = torch.cuda.max_memory_allocated()
+        del eng
+        free_device_memory()
+        for k, v in counts.items():
+            totals[k] += v
+        toks = sum(len(r.tokens) for r in res.values())
+        mean_acc = float(np.mean([r.stats.mean_accepted
+                                  for r in res.values()]))
+        prof = busy_profile(lambda: SV.serve(
+            pair, ecfg, prompts, 8, device=dev, engine=engine,
+            hrad_params=hrad))
+        h = signal_hist(res.values())
+        log(f"  full {name}: {toks / wall:.1f} tok/s wall, "
+            f"rounds={rep['rounds']}, mean accepted={mean_acc:.2f}, "
+            f"s_t histogram={h}, peak allocated {peak / 1e9:.2f} GB, "
+            f"profiled 8-token serve busy {prof['busy_share']:.3f} of "
+            f"{prof['wall_s']:.2f}s, launches={counts}")
+        if counts["paged_attention"] == 0:
+            raise AssertionError(f"full {name}: paged_attention not run")
+        out[name] = dict(tokens_per_s=toks / wall, wall_s=wall,
+                         rounds=rep["rounds"], mean_accepted=mean_acc,
+                         signals=h, peak_gb=peak / 1e9,
+                         busy_share=prof["busy_share"], launches=counts)
+        if temp == 0.0:
+            out[name]["teacher_forced"] = teacher_forced(
+                pair[2], pair[3], prompts, res, greedy, n_new)
+        else:
+            if counts["verify_accept_batched"] == 0:
+                raise AssertionError(f"full {name}: verify not launched")
+            check_shadow(f"full {name}", sh, counts, chains=True)
+    sprompts = prompts[:2]
+    ar = [RN.greedy_reference(pair[2], pair[3], p, n_new, max_len=max_len)
+          for p in sprompts]
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = seq_drive(pair, ecfg, "specbranch", sprompts, n_new,
+                                  totals, hrad_params=hp)
+    peak = torch.cuda.max_memory_allocated()
+    toks = sum(len(r.tokens) for r in res.values())
+    rounds = sum(len(r.timeline) for r in res.values())
+    mean_acc = float(np.mean([r.stats.mean_accepted for r in res.values()]))
+    prof = busy_profile(lambda: SV.serve_sequential(
+        pair, ecfg, "specbranch", sprompts, 8, hrad_params=hp))
+    h = signal_hist(res.values())
+    log(f"  full seq specbranch+hrad greedy: {toks / wall:.1f} tok/s wall, "
+        f"rounds={rounds}, mean accepted={mean_acc:.2f}, s_t histogram={h}, "
+        f"peak allocated {peak / 1e9:.2f} GB, profiled 8-token serve busy "
+        f"{prof['busy_share']:.3f} of {prof['wall_s']:.2f}s")
+    out["seq specbranch+hrad greedy"] = dict(
+        tokens_per_s=toks / wall, wall_s=wall, rounds=rounds,
+        mean_accepted=mean_acc, signals=h, peak_gb=peak / 1e9,
+        busy_share=prof["busy_share"], launches=counts,
+        teacher_forced=teacher_forced(pair[2], pair[3], sprompts, res, ar,
+                                      n_new))
+    b, q = without["batched"]["greedy"], without["seq"]["specbranch t=0"]
+    log(f"  without H-RAD in this run (not a claim): batched specbranch "
+        f"greedy {b['tokens_per_s']:.1f} tok/s, {b['rounds']} rounds "
+        f"(phase 4); sequential specbranch greedy {q['tokens_per_s']:.1f} "
+        f"tok/s, {q['rounds']} rounds (phase 6)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1134,21 +1515,28 @@ def main() -> int:
     log("[2] kernels vs plain versions")
     cases = phase_kernels()
     totals = {k: 0 for k in KERNELS}
+    phase_kernel_api(cases, totals)
     log("[3] tiny committed pair, f32")
     phase_tiny(dev, totals)
     log("[4] full-width LLaMA-68M/7B pair, bf16, random weights")
     pair = SV.load_pair("paper-llama", dev)
-    phase_full(dev, totals, pair)
+    without = {"batched": phase_full(dev, totals, pair)}
     log("[5] sequential engines, tiny committed pair, f32")
     phase_seq_tiny(dev, totals)
     log("[6] sequential engines, full-width LLaMA-68M/7B pair, bf16")
-    phase_seq_full(dev, totals, pair)
+    without["seq"] = phase_seq_full(dev, totals, pair)
     del pair
     log("[7] SSM and hybrid tiny pairs (falcon-shaped, jamba-shaped), f32")
     phase_hybrid(dev, totals)
     log("[8] full-width falcon-mamba-7b with its draft, bf16, random "
         "weights")
     phase_falcon(dev, totals)
+    log(f"[9] H-RAD (init seed {HRAD_SEED}) and batched SpS, tiny "
+        "committed pair, f32")
+    phase_hrad_tiny(dev, totals)
+    log("[10] H-RAD and batched SpS, full-width LLaMA-68M/7B pair, bf16")
+    free_device_memory()
+    phase_hrad_full(dev, totals, SV.load_pair("paper-llama", dev), without)
     for k, v in totals.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched on the "
@@ -1158,7 +1546,9 @@ def main() -> int:
                 "verify_accept_batched": "llama V=32000 B=8 R=16",
                 "paged_gather": "zm swap ps=4 dim=512",
                 "flash_attention": "llama-7b B=1 T=5 S=512",
-                "ssm_scan": "falcon-7b decode B=8 T=8"}
+                "ssm_scan": "falcon-7b decode B=8 T=8",
+                "branch_decode_attention": "llama-7b k=6 Sp=504 Ss=8",
+                "verify_accept": "llama V=32000 R=9"}
     table = []
     for name, meta in KERNELS.items():
         c = next(r for r in cases[name] if r["case"] == rep_case[name])

@@ -1,12 +1,16 @@
-// The tile loop shared by the port's two attention kernels for Hopper
-// (sm_90a): flash_attention.cu (dense KV with per-key positions) and
-// paged_attention.cu (KV pages read through a page table).  They differ
-// only in where key s of row b lives and what its position is; each
-// source gives that as a small addressing struct `Keys`:
+// The tile loop shared by the port's three attention kernels for Hopper
+// (sm_90a): flash_attention.cu (dense KV with per-key positions),
+// paged_attention.cu (KV pages read through a page table) and
+// branch_attention.cu (a shared prefix plus one suffix per branch).  They
+// differ only in where key s of row b lives and what its position is;
+// each source gives that as a small addressing struct `Keys`:
 //
 //   int n_keys(b)      keys of row b the block walks (s in [0, n_keys))
 //   int k_pos(b, s)    position of key s, -1 for an invalid slot
-//   int kv_row(b, s)   its row in K/V, which hold (rows, KV, hd) values
+//   int kv_buf(b, s)   which K/V pair holds key s: 0 for (k, v), 1 for
+//                      (k2, v2); branch decode keeps its shared prefix
+//                      and its per-branch suffixes in two pairs
+//   int kv_row(b, s)   its row in that pair, which holds (rows, KV, hd)
 //   int q_pos(b, t)    position of query token t (window reference)
 //   int q_ctx(b, t)    causal horizon of query token t
 //
@@ -103,7 +107,8 @@ __host__ __device__ inline size_t smem_bytes(int rows, int t_tile, int hd) {
 template <typename scalar_t, typename Keys>
 __global__ void __launch_bounds__(kThreads) attention_kernel(
     const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
-    const scalar_t* __restrict__ v, scalar_t* __restrict__ out,
+    const scalar_t* __restrict__ v, const scalar_t* __restrict__ k2,
+    const scalar_t* __restrict__ v2, scalar_t* __restrict__ out,
     const Keys keys, int T, int H, int KV, int hd, int t_tile, int causal,
     int window, float cap, float scale) {
   extern __shared__ float smem[];
@@ -178,8 +183,9 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
       if (o < n) {
         const size_t off =
             ((size_t)keys.kv_row(b, s0 + o) * KV + kvh) * hd + d;
-        load16(k + off, kx);
-        load16(v + off, vx);
+        const bool second = keys.kv_buf(b, s0 + o);
+        load16((second ? k2 : k) + off, kx);
+        load16((second ? v2 : v) + off, vx);
       } else {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) kx[i] = vx[i] = 0.f;
@@ -268,7 +274,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
 }
 
 template <typename scalar_t, typename Keys>
-int launch_typed(const void* q, const void* k, const void* v, void* out,
+int launch_typed(const void* q, const void* k, const void* v,
+                 const void* k2, const void* v2, void* out,
                  const Keys& keys, int B, int T, int H, int KV, int hd,
                  int t_tile, int causal, int window, float cap, float scale,
                  cudaStream_t stream) {
@@ -280,26 +287,30 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(B, KV, (T + t_tile - 1) / t_tile);
   attention_kernel<scalar_t, Keys><<<grid, kThreads, smem, stream>>>(
       static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
-      static_cast<const scalar_t*>(v), static_cast<scalar_t*>(out), keys, T,
+      static_cast<const scalar_t*>(v), static_cast<const scalar_t*>(k2),
+      static_cast<const scalar_t*>(v2), static_cast<scalar_t*>(out), keys, T,
       H, KV, hd, t_tile, causal, window, cap, scale);
   return (int)cudaGetLastError();
 }
 
 // Launches the kernel on bf16 (is_bf16) or f32 storage; q, out (B, T, H,
-// hd).  cap <= 0 means no softcap, window <= 0 no window.  Returns
-// cudaGetLastError().
+// hd).  (k2, v2) is the second K/V pair that Keys::kv_buf may name
+// (nullptr where it never does).  cap <= 0 means no softcap, window <= 0
+// no window.  Returns cudaGetLastError().
 template <typename Keys>
 int launch_attention(const void* q, const void* k, const void* v, void* out,
                      const Keys& keys, int B, int T, int H, int KV, int hd,
                      int t_tile, int causal, int window, float cap,
-                     float scale, int is_bf16, void* stream) {
+                     float scale, int is_bf16, void* stream,
+                     const void* k2 = nullptr, const void* v2 = nullptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return launch_typed<__nv_bfloat16>(q, k, v, out, keys, B, T, H, KV, hd,
-                                       t_tile, causal, window, cap, scale, s);
+    return launch_typed<__nv_bfloat16>(q, k, v, k2, v2, out, keys, B, T, H,
+                                       KV, hd, t_tile, causal, window, cap,
+                                       scale, s);
   }
-  return launch_typed<float>(q, k, v, out, keys, B, T, H, KV, hd, t_tile,
-                             causal, window, cap, scale, s);
+  return launch_typed<float>(q, k, v, k2, v2, out, keys, B, T, H, KV, hd,
+                             t_tile, causal, window, cap, scale, s);
 }
 
 }  // namespace

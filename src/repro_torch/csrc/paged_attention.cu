@@ -29,6 +29,7 @@ struct PagedKeys {
     return min(max(lens[b], 0), n_max * ps);
   }
   __device__ int k_pos(int, int s) const { return s; }
+  __device__ int kv_buf(int, int) const { return 0; }
   __device__ int kv_row(int b, int s) const {
     return table[(size_t)b * n_max + s / ps] * ps + s % ps;
   }

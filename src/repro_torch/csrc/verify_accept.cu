@@ -1,8 +1,14 @@
-// Fused batched speculative verification for Hopper (sm_90a).
+// Fused speculative verification for Hopper (sm_90a), two entry points
+// over one per-row body:
 //
-// Replaces the Pallas TPU kernel
-// src/repro/kernels/verify_accept.py::verify_accept_batched (body
-// _batched_kernel).  For each (row b, draft position r < lens[b]):
+// - repro_verify_accept_batched replaces the Pallas TPU kernel
+//   src/repro/kernels/verify_accept.py::verify_accept_batched (body
+//   _batched_kernel): (B, R, V) f32 logits with ragged lens;
+// - repro_verify_accept replaces the single-request Pallas TPU kernel
+//   src/repro/kernels/verify_accept.py::verify_accept (body _kernel):
+//   (R, V) logits, f32 or bf16 (read as f32), every row valid.
+//
+// For each (row b, draft position r < lens[b]):
 // softmax of the target logits p and draft logits q over V; accept =
 // u <= p[t] / max(q[t], 1e-30); p_tok = p[t], q_tok = q[t]; residual token
 // = inverse CDF of norm(max(p - q, 0)) (p itself when that mass is
@@ -21,6 +27,7 @@
 // (the cdf's last entry), and each thread then counts cdf / total <= w
 // within its own chunk.  Split-V across blocks is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -83,47 +90,43 @@ __device__ void block_exclusive_scan(float v, float* tot, float* excl,
   *total = tot[32];
 }
 
-__global__ void __launch_bounds__(kThreads) verify_accept_kernel(
-    const float* __restrict__ p_logits, const float* __restrict__ q_logits,
-    const int* __restrict__ tokens, const int* __restrict__ lens,
-    const float* __restrict__ u, const float* __restrict__ w,
-    int* __restrict__ acc, int* __restrict__ res, float* __restrict__ ptok,
-    float* __restrict__ qtok, int R, int V) {
+__device__ __forceinline__ float ld(const float* x, int i) { return x[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* x, int i) {
+  return __bfloat162float(x[i]);
+}
+
+// The verdict of one draft position: p, q its target and draft logit rows
+// (V,), t the drafted token, uv the accept uniform, wv the residual
+// uniform; the four outputs go to index `at`.  Every thread of the block
+// calls it (it has block-wide barriers).
+template <typename T>
+__device__ void verify_row(const T* __restrict__ p, const T* __restrict__ q,
+                           int t, float uv, float wv, int V, int at,
+                           int* __restrict__ acc, int* __restrict__ res,
+                           float* __restrict__ ptok,
+                           float* __restrict__ qtok) {
   __shared__ float red[33];
   __shared__ float tot[33];
-  const int br = blockIdx.x;
-  const int b = br / R, r = br - b * R;
   const int tid = threadIdx.x;
-  if (r >= lens[b]) {  // uniform over the block: no barrier is skipped
-    if (tid == 0) {
-      acc[br] = 0;
-      res[br] = 0;
-      ptok[br] = 0.f;
-      qtok[br] = 0.f;
-    }
-    return;
-  }
-  const float* p = p_logits + (size_t)br * V;
-  const float* q = q_logits + (size_t)br * V;
 
   float pm = -INFINITY, qm = -INFINITY;
   for (int v = tid; v < V; v += blockDim.x) {
-    pm = fmaxf(pm, p[v]);
-    qm = fmaxf(qm, q[v]);
+    pm = fmaxf(pm, ld(p, v));
+    qm = fmaxf(qm, ld(q, v));
   }
   pm = block_reduce<true>(pm, red);
   qm = block_reduce<true>(qm, red);
   float ps = 0.f, qs = 0.f;
   for (int v = tid; v < V; v += blockDim.x) {
-    ps += expf(p[v] - pm);
-    qs += expf(q[v] - qm);
+    ps += expf(ld(p, v) - pm);
+    qs += expf(ld(q, v) - qm);
   }
   ps = block_reduce<false>(ps, red);
   qs = block_reduce<false>(qs, red);
 
   float z = 0.f;
   for (int v = tid; v < V; v += blockDim.x) {
-    z += fmaxf(expf(p[v] - pm) / ps - expf(q[v] - qm) / qs, 0.f);
+    z += fmaxf(expf(ld(p, v) - pm) / ps - expf(ld(q, v) - qm) / qs, 0.f);
   }
   z = block_reduce<false>(z, red);
   const bool residual = z > 1e-12f;
@@ -134,29 +137,60 @@ __global__ void __launch_bounds__(kThreads) verify_accept_kernel(
   const int v0 = min(V, tid * chunk), v1 = min(V, v0 + chunk);
   float csum = 0.f;
   for (int v = v0; v < v1; ++v) {
-    const float pv = expf(p[v] - pm) / ps;
-    csum += residual ? fmaxf(pv - expf(q[v] - qm) / qs, 0.f) / zden : pv;
+    const float pv = expf(ld(p, v) - pm) / ps;
+    csum += residual ? fmaxf(pv - expf(ld(q, v) - qm) / qs, 0.f) / zden : pv;
   }
   float excl, total;
   block_exclusive_scan(csum, tot, &excl, &total);
   const float den = fmaxf(total, 1e-30f);  // the cdf's last entry
-  const float wv = w[br];
   float run = excl, cnt = 0.f;
   for (int v = v0; v < v1; ++v) {
-    const float pv = expf(p[v] - pm) / ps;
-    run += residual ? fmaxf(pv - expf(q[v] - qm) / qs, 0.f) / zden : pv;
+    const float pv = expf(ld(p, v) - pm) / ps;
+    run += residual ? fmaxf(pv - expf(ld(q, v) - qm) / qs, 0.f) / zden : pv;
     if (run / den <= wv) cnt += 1.f;
   }
   cnt = block_reduce<false>(cnt, red);
   if (tid == 0) {
-    const int t = tokens[br];
-    const float p_t = expf(p[t] - pm) / ps;
-    const float q_t = expf(q[t] - qm) / qs;
-    acc[br] = u[br] <= p_t / fmaxf(q_t, 1e-30f) ? 1 : 0;
-    res[br] = min((int)cnt, V - 1);
-    ptok[br] = p_t;
-    qtok[br] = q_t;
+    const float p_t = expf(ld(p, t) - pm) / ps;
+    const float q_t = expf(ld(q, t) - qm) / qs;
+    acc[at] = uv <= p_t / fmaxf(q_t, 1e-30f) ? 1 : 0;
+    res[at] = min((int)cnt, V - 1);
+    ptok[at] = p_t;
+    qtok[at] = q_t;
   }
+}
+
+__global__ void __launch_bounds__(kThreads) verify_accept_batched_kernel(
+    const float* __restrict__ p_logits, const float* __restrict__ q_logits,
+    const int* __restrict__ tokens, const int* __restrict__ lens,
+    const float* __restrict__ u, const float* __restrict__ w,
+    int* __restrict__ acc, int* __restrict__ res, float* __restrict__ ptok,
+    float* __restrict__ qtok, int R, int V) {
+  const int br = blockIdx.x;
+  const int b = br / R, r = br - b * R;
+  if (r >= lens[b]) {  // uniform over the block: no barrier is skipped
+    if (threadIdx.x == 0) {
+      acc[br] = 0;
+      res[br] = 0;
+      ptok[br] = 0.f;
+      qtok[br] = 0.f;
+    }
+    return;
+  }
+  verify_row(p_logits + (size_t)br * V, q_logits + (size_t)br * V,
+             tokens[br], u[br], w[br], V, br, acc, res, ptok, qtok);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) verify_accept_kernel(
+    const T* __restrict__ p_logits, const T* __restrict__ q_logits,
+    const int* __restrict__ tokens, const float* __restrict__ u,
+    const float* __restrict__ w, int* __restrict__ acc,
+    int* __restrict__ res, float* __restrict__ ptok,
+    float* __restrict__ qtok, int V) {
+  const int r = blockIdx.x;
+  verify_row(p_logits + (size_t)r * V, q_logits + (size_t)r * V, tokens[r],
+             u[r], w[r], V, r, acc, res, ptok, qtok);
 }
 
 }  // namespace
@@ -168,8 +202,31 @@ extern "C" int repro_verify_accept_batched(
     const float* p_logits, const float* q_logits, const int* tokens,
     const int* lens, const float* u, const float* w, int* acc, int* res,
     float* ptok, float* qtok, int B, int R, int V, void* stream) {
-  verify_accept_kernel<<<B * R, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  verify_accept_batched_kernel<<<B * R, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
       p_logits, q_logits, tokens, lens, u, w, acc, res, ptok, qtok, R, V);
+  return (int)cudaGetLastError();
+}
+
+// p_logits, q_logits (R,V), f32 or bf16 (is_bf16); tokens (R,) i32; u, w
+// (R,) f32; outputs acc, res (R,) i32 and ptok, qtok (R,) f32.  Returns
+// cudaGetLastError().
+extern "C" int repro_verify_accept(const void* p_logits, const void* q_logits,
+                                   const int* tokens, const float* u,
+                                   const float* w, int* acc, int* res,
+                                   float* ptok, float* qtok, int R, int V,
+                                   int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    verify_accept_kernel<<<R, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(p_logits),
+        static_cast<const __nv_bfloat16*>(q_logits), tokens, u, w, acc, res,
+        ptok, qtok, V);
+  } else {
+    verify_accept_kernel<<<R, kThreads, 0, s>>>(
+        static_cast<const float*>(p_logits),
+        static_cast<const float*>(q_logits), tokens, u, w, acc, res, ptok,
+        qtok, V);
+  }
   return (int)cudaGetLastError();
 }

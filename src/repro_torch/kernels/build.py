@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 SOURCES = ("paged_attention.cu", "verify_accept.cu", "paged_gather.cu",
-           "flash_attention.cu", "ssm_scan.cu")
+           "flash_attention.cu", "ssm_scan.cu", "branch_attention.cu")
 HEADERS = ("attention.cuh",)   # included by sources; hashed with them
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -38,7 +38,9 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "verify_accept_batched": 0,
                             "paged_gather": 0,
                             "flash_attention": 0,
-                            "ssm_scan": 0}
+                            "ssm_scan": 0,
+                            "branch_decode_attention": 0,
+                            "verify_accept": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -126,6 +128,12 @@ def lib() -> ctypes.CDLL:
         L.repro_flash_attention_smem.restype = ctypes.c_size_t
         L.repro_ssm_scan.argtypes = [P] * 10 + [I] * 5 + [P]
         L.repro_ssm_scan.restype = I
+        L.repro_branch_attention.argtypes = [P] * 9 + [I] * 8 + [F, F, I, P]
+        L.repro_branch_attention.restype = I
+        L.repro_branch_attention_smem.argtypes = [I, I]
+        L.repro_branch_attention_smem.restype = ctypes.c_size_t
+        L.repro_verify_accept.argtypes = [P] * 9 + [I] * 3 + [P]
+        L.repro_verify_accept.restype = I
         _lib = L
     return _lib
 

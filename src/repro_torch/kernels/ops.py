@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import branch_attention as _ba
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged as _paged
@@ -38,6 +39,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                window=window, cap=cap, q_ctx=q_ctx)
 
 
+def branch_decode_attention(q: torch.Tensor, prefix_k: torch.Tensor,
+                            prefix_v: torch.Tensor, prefix_pos: torch.Tensor,
+                            suffix_k: torch.Tensor, suffix_v: torch.Tensor,
+                            suffix_pos: torch.Tensor, q_pos: torch.Tensor, *,
+                            cap: Optional[float] = None) -> torch.Tensor:
+    """Shared-prefix branch decode (Eq. 8): q (k, Tq, H, hd), one row per
+    branch; prefix K/V (1, Sp, KV, hd) stored once; suffix K/V (k, Ss, KV,
+    hd) per branch (see kernels.branch_attention)."""
+    if q.device.type == "cpu":
+        return ref.branch_decode_ref(q, prefix_k, prefix_v, prefix_pos,
+                                     suffix_k, suffix_v, suffix_pos, q_pos,
+                                     cap=cap)
+    return _ba.branch_decode_attention(q, prefix_k, prefix_v, prefix_pos,
+                                       suffix_k, suffix_v, suffix_pos, q_pos,
+                                       cap=cap)
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, table: torch.Tensor,
                     lens: torch.Tensor, q_start: torch.Tensor, *,
@@ -49,6 +67,18 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                        q_start, window=window, cap=cap)
     return _pa.paged_attention(q, k_pages, v_pages, table, lens, q_start,
                                window=window, cap=cap)
+
+
+def verify_accept(p_logits: torch.Tensor, q_logits: torch.Tensor,
+                  tokens: torch.Tensor, uniforms: torch.Tensor,
+                  res_uniforms: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Single-request verification of (R, V) logits (see
+    kernels.verify_accept)."""
+    if p_logits.device.type == "cpu":
+        return ref.verify_accept_ref(p_logits, q_logits, tokens, uniforms,
+                                     res_uniforms)
+    return _va.verify_accept(p_logits, q_logits, tokens, uniforms,
+                             res_uniforms)
 
 
 def verify_accept_batched(p_logits: torch.Tensor, q_logits: torch.Tensor,

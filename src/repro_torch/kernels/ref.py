@@ -9,8 +9,11 @@ zero-length row returns zeros, as the kernels do),
 verify_accept_batched_ref``, ``paged_gather_ref`` the contract of
 ``repro.kernels.paged.paged_gather``, and ``flash_attention_ref`` the
 chunked online softmax of ``repro.models.layers.attend`` (the function
-TPU kernel ``repro.kernels.flash_attention.flash_attention`` computes), and
-``ssm_scan_ref`` is ``repro.kernels.ref.ssm_scan_ref``.
+TPU kernel ``repro.kernels.flash_attention.flash_attention`` computes),
+``ssm_scan_ref`` is ``repro.kernels.ref.ssm_scan_ref``,
+``branch_decode_ref`` is ``repro.kernels.ref.branch_decode_ref`` (the
+broadcast prefix concatenated with each branch's suffix) and
+``verify_accept_ref`` is ``repro.kernels.ref.verify_accept_ref``.
 """
 from __future__ import annotations
 
@@ -183,3 +186,38 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     if return_states:
         return y, h, hs_t
     return y, h
+
+
+def branch_decode_ref(q: torch.Tensor, prefix_k: torch.Tensor,
+                      prefix_v: torch.Tensor, prefix_pos: torch.Tensor,
+                      suffix_k: torch.Tensor, suffix_v: torch.Tensor,
+                      suffix_pos: torch.Tensor, q_pos: torch.Tensor, *,
+                      cap: Optional[float] = None) -> torch.Tensor:
+    """Shared-prefix branch decode (Eq. 8): the prefix (1, Sp, KV, hd),
+    broadcast to the k branches, concatenated with each branch's suffix
+    (k, Ss, KV, hd) (positions likewise), then causal attention.  q (k,
+    Tq, H, hd); q_pos (k, Tq).  Returns (k, Tq, H, hd) in q's dtype."""
+    kb = q.shape[0]
+
+    def cat(pre, suf):
+        return torch.cat([pre.expand((kb,) + tuple(pre.shape[1:])), suf],
+                         dim=1)
+    return flash_attention_ref(q, cat(prefix_k, suffix_k),
+                               cat(prefix_v, suffix_v), q_pos,
+                               cat(prefix_pos, suffix_pos), causal=True,
+                               cap=cap)
+
+
+def verify_accept_ref(p_logits: torch.Tensor, q_logits: torch.Tensor,
+                      tokens: torch.Tensor, uniforms: torch.Tensor,
+                      res_uniforms: torch.Tensor
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Single-request verification: every one of the R rows of (R, V)
+    logits is a valid draft position.  Returns (accept (R,) i32, residual
+    token (R,) i32, p_tok, q_tok (R,) f32)."""
+    R = p_logits.shape[0]
+    lens = torch.full((1,), R, dtype=torch.int32, device=p_logits.device)
+    out = verify_accept_batched_ref(p_logits[None], q_logits[None],
+                                    tokens[None], lens, uniforms[None],
+                                    res_uniforms[None])
+    return tuple(x[0] for x in out)

@@ -1,11 +1,16 @@
-"""Wrapper of the CUDA fused batched verification kernel
-(``csrc/verify_accept.cu``), the port of the Pallas TPU kernel
-``repro.kernels.verify_accept.verify_accept_batched``.
+"""Wrappers of the CUDA fused verification kernels
+(``csrc/verify_accept.cu``), the ports of the Pallas TPU kernels
+``repro.kernels.verify_accept.verify_accept_batched`` and
+``repro.kernels.verify_accept.verify_accept`` (one per-row body, two
+entry points).
 
-p_logits, q_logits (B, R, V) f32; tokens (B, R) int32; lens (B,) int32;
-uniforms, res_uniforms (B, R) f32.  Returns (accept (B, R) i32, residual
-token (B, R) i32, p_tok (B, R) f32, q_tok (B, R) f32); positions
+Batched: p_logits, q_logits (B, R, V) f32; tokens (B, R) int32; lens (B,)
+int32; uniforms, res_uniforms (B, R) f32.  Returns (accept (B, R) i32,
+residual token (B, R) i32, p_tok (B, R) f32, q_tok (B, R) f32); positions
 r >= lens[b] are zeros.
+
+Single request: p_logits, q_logits (R, V) f32 or bf16; tokens (R,) int32;
+uniforms, res_uniforms (R,) f32.  Returns the same four outputs at (R,).
 """
 from __future__ import annotations
 
@@ -16,28 +21,31 @@ import torch
 from repro_torch.kernels import build
 
 
+def _check(fn: str, args) -> None:
+    """Raise unless every (name, tensor, dtype, shape) is a contiguous
+    CUDA tensor of that dtype and shape."""
+    for name, x, dtype, shape in args:
+        if x.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} is on {x.device}")
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{fn}: {name} must be {dtype} {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+
+
 def verify_accept_batched(p_logits: torch.Tensor, q_logits: torch.Tensor,
                           tokens: torch.Tensor, lens: torch.Tensor,
                           uniforms: torch.Tensor, res_uniforms: torch.Tensor
                           ) -> Tuple[torch.Tensor, ...]:
     B, R, V = p_logits.shape
-    args = (("p_logits", p_logits, torch.float32, (B, R, V)),
+    _check("verify_accept_batched",
+           (("p_logits", p_logits, torch.float32, (B, R, V)),
             ("q_logits", q_logits, torch.float32, (B, R, V)),
             ("tokens", tokens, torch.int32, (B, R)),
             ("lens", lens, torch.int32, (B,)),
             ("uniforms", uniforms, torch.float32, (B, R)),
-            ("res_uniforms", res_uniforms, torch.float32, (B, R)))
-    for name, x, dtype, shape in args:
-        if x.device.type != "cuda":
-            raise ValueError(f"verify_accept_batched: {name} is on "
-                             f"{x.device}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"verify_accept_batched: {name} must be "
-                             f"{dtype} {shape}, got {x.dtype} "
-                             f"{tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"verify_accept_batched: {name} is not "
-                             "contiguous")
+            ("res_uniforms", res_uniforms, torch.float32, (B, R))))
     dev = p_logits.device
     acc = torch.empty((B, R), dtype=torch.int32, device=dev)
     res = torch.empty((B, R), dtype=torch.int32, device=dev)
@@ -54,4 +62,37 @@ def verify_accept_batched(p_logits: torch.Tensor, q_logits: torch.Tensor,
             B, R, V, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "verify_accept_batched")
     build.LAUNCHES["verify_accept_batched"] += 1
+    return acc, res, ptok, qtok
+
+
+def verify_accept(p_logits: torch.Tensor, q_logits: torch.Tensor,
+                  tokens: torch.Tensor, uniforms: torch.Tensor,
+                  res_uniforms: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    R, V = p_logits.shape
+    dt = p_logits.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"verify_accept: logits dtype {dt} unsupported")
+    _check("verify_accept",
+           (("p_logits", p_logits, dt, (R, V)),
+            ("q_logits", q_logits, dt, (R, V)),
+            ("tokens", tokens, torch.int32, (R,)),
+            ("uniforms", uniforms, torch.float32, (R,)),
+            ("res_uniforms", res_uniforms, torch.float32, (R,))))
+    dev = p_logits.device
+    acc = torch.empty((R,), dtype=torch.int32, device=dev)
+    res = torch.empty((R,), dtype=torch.int32, device=dev)
+    ptok = torch.empty((R,), dtype=torch.float32, device=dev)
+    qtok = torch.empty((R,), dtype=torch.float32, device=dev)
+    if R == 0:
+        return acc, res, ptok, qtok
+    L = build.lib()
+    with torch.cuda.device(dev):
+        rc = L.repro_verify_accept(
+            p_logits.data_ptr(), q_logits.data_ptr(), tokens.data_ptr(),
+            uniforms.data_ptr(), res_uniforms.data_ptr(), acc.data_ptr(),
+            res.data_ptr(), ptok.data_ptr(), qtok.data_ptr(), R, V,
+            int(dt == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "verify_accept")
+    build.LAUNCHES["verify_accept"] += 1
     return acc, res, ptok, qtok

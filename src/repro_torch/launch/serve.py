@@ -4,7 +4,7 @@
 Two modes, with the reference's default rule (batched for the engines
 that have a batched implementation, sequential otherwise):
 
-  * ``--mode batched`` — batched SpecBranch over paged KV
+  * ``--mode batched`` — batched SpS or SpecBranch over paged KV
     (``repro_torch.serving``), the paged backend, the sequential draft
     loop;
   * ``--mode sequential`` — each request runs its engine
@@ -32,6 +32,11 @@ Usage:
       --requests 8 --new-tokens 32 --pair falcon-mamba-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --mode sequential --engine specbranch
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --mode batched --engine sps
+
+H-RAD has no flag, as in the reference: it is reached through the
+engines' ``hrad_params`` (``serve(..., hrad_params=...)`` here).
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ from repro_torch.runtime.engines import (AdaEDLEngine, AutoregressiveEngine,
 from repro_torch.runtime.scheduler import (Request, Scheduler,
                                            sequential_arrival_cost)
 from repro_torch.runtime.specbranch import SpecBranchEngine
-from repro_torch.serving import (BatchedSpecBranchEngine,
+from repro_torch.serving import (BatchedSpecBranchEngine, BatchedSpSEngine,
                                  ContinuousBatchScheduler, ServeRequest)
 from repro_torch.training.pairs import (HYBRID_KINDS, VOCAB, get_pair,
                                         hybrid_pair)
@@ -72,9 +77,11 @@ ENGINES = {
     "pearl": PEARLEngine,
     "specbranch": SpecBranchEngine,
 }
-# engines the reference also runs batched (the default mode for them);
-# only SpecBranch is batched in the port so far
-BATCHED_ENGINES = ("sps", "specbranch")
+# engines that also run batched (the default mode for them)
+BATCHED_ENGINES = {
+    "sps": BatchedSpSEngine,
+    "specbranch": BatchedSpecBranchEngine,
+}
 
 
 def load_pair(kind: str, device):
@@ -114,14 +121,16 @@ def auto_max_len(prompts: Sequence[Sequence[int]], new_tokens: int,
 def serve(pair, ecfg: EngineConfig, prompts, new_tokens: int, *,
           device, max_batch: int = 8, page_size: int = 16,
           pool_pages: Optional[int] = None, swap_pages: int = 256,
-          arrival_interval: float = 0.0):
-    """Build the engine and scheduler and serve ``prompts``.  Returns
-    (results by rid, scheduler report, engine, wall seconds)."""
+          arrival_interval: float = 0.0, engine: str = "specbranch",
+          hrad_params=None):
+    """Build the batched ``engine`` (a name in ``BATCHED_ENGINES``; with
+    an H-RAD MLP for SpecBranch) and its scheduler and serve ``prompts``.
+    Returns (results by rid, scheduler report, engine, wall seconds)."""
     dp, dcfg, tp, tcfg = pair
-    eng = BatchedSpecBranchEngine(
+    eng = BATCHED_ENGINES[engine](
         dp, dcfg, tp, tcfg, ecfg, max_batch=max_batch,
         page_size=page_size, pool_pages=pool_pages, swap_pages=swap_pages,
-        device=device)
+        hrad_params=hrad_params, device=device)
     sched = ContinuousBatchScheduler(eng)
     reqs = [ServeRequest(rid=i, prompt=p, max_new_tokens=new_tokens,
                          arrival=i * arrival_interval)
@@ -136,22 +145,25 @@ def serve(pair, ecfg: EngineConfig, prompts, new_tokens: int, *,
     return results, sched.report(), eng, time.time() - t0
 
 
-def build_engine(engine, pair, ecfg: EngineConfig):
-    """A sequential engine from its name in ``ENGINES`` or its class."""
+def build_engine(engine, pair, ecfg: EngineConfig, hrad_params=None):
+    """A sequential engine from its name in ``ENGINES`` or its class
+    (SpecBranch with the H-RAD MLP ``hrad_params``, if given)."""
     cls = ENGINES[engine] if isinstance(engine, str) else engine
     dp, dcfg, tp, tcfg = pair
     if cls in (AutoregressiveEngine, LookaheadEngine):   # target only
         return cls(tp, tcfg, ecfg)
+    if cls is SpecBranchEngine:
+        return cls(dp, dcfg, tp, tcfg, ecfg, hrad_params=hrad_params)
     return cls(dp, dcfg, tp, tcfg, ecfg)
 
 
 def serve_sequential(pair, ecfg: EngineConfig, engine, prompts,
-                     new_tokens: int, *, seed: int = 0):
+                     new_tokens: int, *, seed: int = 0, hrad_params=None):
     """Run ``prompts`` one after another through the sequential
     ``engine`` (a name in ``ENGINES`` or an engine class); request keys
     split from ``PRNGKey(seed)`` as the reference's ``launch.serve`` does.
     Returns (requests, scheduler, wall s)."""
-    eng = build_engine(engine, pair, ecfg)
+    eng = build_engine(engine, pair, ecfg, hrad_params)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
     sched = Scheduler(eng)
@@ -193,9 +205,6 @@ def _device_name(device) -> str:
 
 def _unsupported(args) -> Optional[str]:
     checks = [
-        (args.mode == "batched" and args.engine != "specbranch",
-         f"--mode batched --engine {args.engine} (only batched SpecBranch "
-         "is ported)"),
         (args.spec_predictor != "off", "--spec-predictor"),
         (args.draft_mode != "sequential", "--draft-mode parallel"),
         (args.attn_backend != "paged", "--attn-backend dense"),
@@ -257,6 +266,10 @@ def main(argv=None) -> None:
         raise SystemExit("--draft-mode parallel needs an attention-only "
                          f"draft model; --pair {args.pair} has mamba "
                          "layers")
+    if args.mode == "batched" and args.engine not in BATCHED_ENGINES:
+        raise SystemExit(
+            f"--mode batched supports {sorted(BATCHED_ENGINES)}; "
+            f"run --engine {args.engine} with --mode sequential")
     msg = _unsupported(args)
     if msg:
         raise SystemExit(msg)
@@ -289,9 +302,9 @@ def run_batched(args, ecfg: EngineConfig, prompts, pair, device) -> dict:
         pair, ecfg, prompts, args.new_tokens, device=device,
         max_batch=args.max_batch, page_size=args.page_size,
         pool_pages=args.pool_pages, swap_pages=args.swap_pages,
-        arrival_interval=args.arrival_interval)
+        arrival_interval=args.arrival_interval, engine=args.engine)
     rep["device"] = _device_name(device)
-    print(f"\n== batched specbranch on {args.pair} pair ({rep['device']}): "
+    print(f"\n== batched {args.engine} on {args.pair} pair ({rep['device']}): "
           f"{len(results)} requests, max_batch={args.max_batch}, "
           f"{wall:.1f}s wall ==")
     for rid in sorted(results):

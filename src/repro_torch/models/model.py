@@ -236,6 +236,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
             feature_mode: Optional[str] = None,
+            feature_points: int = 0,
+            feature_index: Optional[torch.Tensor] = None,
             logits_mode: str = "all",
             kv_chunk: int = 2048,
             cache_mode: str = "append",
@@ -249,10 +251,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``layers.attention``), a paged cache from ``init_paged_cache`` with
     ``paged`` = (table (B, n_max) int32, lens (B,) int32), or None for a
     cache-less forward.  ``ring_rows`` (B,) maps lanes to the rows of
-    mamba checkpoint rings (``layers.mamba``; default lane i = row i).  feature_mode "last" puts the final-position
-    hidden state after every period / remainder layer in
-    aux["features"] as (n_points, B, D); "all" keeps every position,
-    (n_points, B, T, D); None skips them.  logits_mode "last" computes
+    mamba checkpoint rings (``layers.mamba``; default lane i = row i).
+    feature_mode "last" puts the final-position hidden state after every
+    period / remainder layer in aux["features"] as (n_points, B, D); "at"
+    the hidden state at position ``feature_index[b]`` (B,) of each row,
+    also (n_points, B, D); "all" keeps every position, (n_points, B, T,
+    D); None skips them.  ``feature_points`` > 0 keeps only the last that
+    many points (H-RAD reads its last K).  logits_mode "last" computes
     only the final position's logits.  Returns (logits (B, T', V) f32,
     aux).
     """
@@ -264,10 +269,20 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = torch.arange(T, dtype=torch.int32,
                                  device=x.device).expand(B, T)
     feats: List[torch.Tensor] = []
+    n_points = cfg.n_periods + cfg.n_rem
+    first = n_points - feature_points if feature_points > 0 else 0
+    point = 0
 
     def keep(x):
-        if feature_mode is not None:
-            feats.append(x[:, -1, :] if feature_mode == "last" else x)
+        nonlocal point
+        if feature_mode is not None and point >= first:
+            if feature_mode == "last":
+                x = x[:, -1, :]
+            elif feature_mode == "at":
+                x = x[torch.arange(B, device=x.device),
+                      feature_index.to(x.device).long()]
+            feats.append(x)
+        point += 1
 
     for i in range(cfg.n_periods):
         for s, slot in enumerate(cfg.pattern):

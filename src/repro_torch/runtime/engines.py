@@ -16,9 +16,11 @@ Rollback accounting (Sec. 6 / E.3): ``rollback_tokens`` counts draft-forward
 tokens discarded after target verification at sequence-position
 granularity; tokens cut before verification are ``pruned_tokens``.
 
-Later slices (ROADMAP.md queue A): parallel drafting (``draft_mode
-"parallel"``, draft heads), the history predictor (``spec_predictor``),
-H-RAD, stub-frontend embeddings and trace events.
+``hrad_params`` (an H-RAD MLP, ``core.hrad``) is used by SpecBranch;
+the target runner then captures the last ``hrad_k_layers`` feature points
+of every forward.  Later slices (ROADMAP.md queue A): parallel drafting
+(``draft_mode "parallel"``, draft heads), the history predictor
+(``spec_predictor``), stub-frontend embeddings and trace events.
 """
 from __future__ import annotations
 
@@ -161,10 +163,11 @@ class Engine:
             raise NotImplementedError(
                 "parallel drafting (draft_mode 'parallel', draft heads) is "
                 "not in this slice of the PyTorch port (ROADMAP.md queue A)")
-        if hrad_params is not None:
-            raise NotImplementedError(
-                "H-RAD is not in this slice of the PyTorch port (ROADMAP.md "
-                "queue A)")
+        # the MLP in float32 beside the target's weights
+        self.hrad_params = (None if hrad_params is None else
+                            {k: v.to(device=target_params["embed"].device,
+                                     dtype=torch.float32)
+                             for k, v in hrad_params.items()})
         # None for "off" (every path runs the predictor-less code); any
         # other mode raises until the predictor is ported
         make_predictor(ecfg.spec_predictor, ecfg.gamma, ecfg.k_max,
@@ -173,7 +176,11 @@ class Engine:
     def _new_runners(self) -> Tuple[Optional[ModelRunner], ModelRunner]:
         d = (ModelRunner(self.dp, self.dcfg, max_len=self.ecfg.max_len)
              if self.dcfg is not None else None)
-        t = ModelRunner(self.tp, self.tcfg, max_len=self.ecfg.max_len)
+        # only H-RAD reads features, and only the target's
+        hrad = self.hrad_params is not None and self.ecfg.use_hrad
+        t = ModelRunner(self.tp, self.tcfg, max_len=self.ecfg.max_len,
+                        feature_points=self.ecfg.hrad_k_layers if hrad
+                        else 0)
         return d, t
 
     def _tprobs(self, logits: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,14 @@ which later in-place writes would mutate here).  The attention leaves are
 not copied: their rollback is positional, so the live cache serves any
 checkpoint.
 
+``last_features`` holds what H-RAD reads of the last forward: the
+hidden state after each of the last ``feature_points`` feature points at
+the final position, (K, B, D), where the reference keeps every point at
+every position; it follows the reference's lifecycle (set by every
+forward, saved by ``checkpoint``, sliced by ``select``, cleared by
+``reset_to`` and ``unfork``).  A runner built with ``feature_points`` 0
+captures nothing.
+
 The parallel-draft forward and stub-frontend embeddings are later slices
 of the port (ROADMAP.md queue A).
 """
@@ -54,6 +62,7 @@ class _Checkpoint:
     pos: int
     ssm: List[Dict[str, torch.Tensor]]     # copies of the carry slots
     last_logits: Optional[torch.Tensor]
+    last_features: Optional[torch.Tensor]
 
 
 class ModelRunner:
@@ -67,10 +76,12 @@ class ModelRunner:
 
     MAX_CHECKPOINTS = 8
 
-    def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096):
+    def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096,
+                 feature_points: int = 0):
         self.params = params
         self.cfg = cfg
         self.max_len = max_len
+        self.feature_points = feature_points
         self.device = params["embed"].device
         self.batch = 1
         self.has_ssm = _has_ssm(cfg)
@@ -78,6 +89,7 @@ class ModelRunner:
         self.pos = 0
         self.pending: List[int] = []
         self.last_logits: Optional[torch.Tensor] = None     # (B, V)
+        self.last_features: Optional[torch.Tensor] = None   # (K, B, D)
         self.tokens: List[int] = []
         self.n_calls = 0
         self.n_call_tokens = 0
@@ -91,8 +103,12 @@ class ModelRunner:
         positions = (self.pos + torch.arange(T, dtype=torch.int32,
                                              device=self.device)
                      ).expand(B, T).contiguous()
-        logits, _ = M.forward(self.params, self.cfg, tokens,
-                              cache=self.cache, positions=positions)
+        capture = self.feature_points > 0
+        logits, aux = M.forward(self.params, self.cfg, tokens,
+                                cache=self.cache, positions=positions,
+                                feature_mode="last" if capture else None,
+                                feature_points=self.feature_points)
+        self.last_features = aux["features"] if capture else None
         return logits
 
     # -------------------------------------------------------------- forward
@@ -147,7 +163,8 @@ class ModelRunner:
             return
         ssm = [{k: v.clone() for k, v in c.items()}
                for c in M.iter_slots(self.cache) if _is_ssm_slot(c)]
-        self._ckpts.append(_Checkpoint(self.pos, ssm, self.last_logits))
+        self._ckpts.append(_Checkpoint(self.pos, ssm, self.last_logits,
+                                       self.last_features))
         if len(self._ckpts) > self.MAX_CHECKPOINTS:
             self._ckpts.pop(0)
 
@@ -169,6 +186,7 @@ class ModelRunner:
             self.pos = abs_len
             self.tokens = replay
             self.last_logits = None
+            self.last_features = None
             return
         cks = [c for c in self._ckpts if c.pos <= abs_len]
         assert cks, "no checkpoint available for SSM rollback"
@@ -179,6 +197,7 @@ class ModelRunner:
                                     next(saved).items()}
                                    if _is_ssm_slot(c) else c))
         self.pos, self.last_logits = ck.pos, ck.last_logits
+        self.last_features = ck.last_features
         self.tokens = replay
         delta = replay[ck.pos:]
         if delta:
@@ -201,6 +220,8 @@ class ModelRunner:
             n: a[:, i:i + 1].clone() for n, a in c.items()})
         if self.last_logits is not None:
             self.last_logits = self.last_logits[i:i + 1]
+        if self.last_features is not None:
+            self.last_features = self.last_features[:, i:i + 1]
         self.batch = 1
         self._prefork = None
 
@@ -219,6 +240,7 @@ class ModelRunner:
         self.tokens = self.tokens[:self.pos]
         self.batch = 1
         self.last_logits = None
+        self.last_features = None
         self._prefork = None
 
 

@@ -1,11 +1,14 @@
 """SpecBranch engine (port of ``repro.runtime.specbranch``) — hybrid
 drafting + rollback-aware branch parallelism (Sec. 5, Algorithm 1).
 
-DRAFT stage (serial; target idle): draft per the signal s_t.  Without
-H-RAD parameters s_t = 1 (the implicit confidence signal, as in the
-reference when ``hrad_params`` is None): draft until the draft
-confidence max q < epsilon, or gamma tokens; the stop position is the
-branch point and the drafted prefix the verification chunk.
+DRAFT stage (serial; target idle): H-RAD predicts s_t from the target
+features of the previous target call and the embedding of the newest
+token (``core.hrad``).  s_t = 0 (all-reject) drafts nothing and branches
+at once; s_t = 1 (confidence) drafts until the draft confidence max q <
+epsilon, or gamma tokens; s_t = 2 (all-accept) drafts gamma tokens.  The
+stop position is the branch point and the drafted prefix the
+verification chunk.  Without H-RAD parameters (or with ``use_hrad``
+off) s_t = 1, the implicit confidence signal.
 
 BRANCH stage (parallel): spawn k = max(1, floor(k_max * (1 - q(x_b))))
 candidates from q(x_b) (Eq. 7), fork the draft cache and draft a
@@ -13,14 +16,15 @@ gamma_branch-token continuation on every branch (batched) while the
 target verifies the chunk in the same modeled slot.  A mid-chunk
 rejection rolls back and returns to DRAFT; an accepted chunk verifies the
 branch point by branch speculative sampling (Algorithm 2): an accepted
-branch is kept (its continuation is cut at its first low-confidence
-position, which becomes the next branch point) and the engine stays in
-BRANCH; no accepted branch emits the residual sample and returns to
-DRAFT.
+branch is kept and the engine stays in BRANCH, where the posterior H-RAD
+signal (Sec. 5.2, on this verification's features) chooses how much of
+its continuation to keep: all of it (s = 2), none (s = 0: pruned, the
+branch point is its first token) or up to its first low-confidence
+position (s = 1).  No accepted branch emits the residual sample and
+returns to DRAFT.
 
-H-RAD (s_t in {0, 2}), the history predictor and parallel drafting are
-later slices of the port (ROADMAP.md queue A); the engine raises when
-asked for them.
+The history predictor and parallel drafting are later slices of the port
+(ROADMAP.md queue A); the engine raises when asked for them.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import hrad as H
 from repro_torch.runtime import prng
 from repro_torch.runtime import sampling as S
 from repro_torch.runtime.engines import Engine, GenResult, _Ctx
@@ -38,6 +43,30 @@ from repro_torch.runtime.runner import ModelRunner
 class SpecBranchEngine(Engine):
     name = "specbranch"
 
+    # ------------------------------------------------------------ helpers
+    def _hrad_signal(self, feats: Optional[torch.Tensor], token: int,
+                     ctx: _Ctx) -> int:
+        """s_t from the H-RAD MLP on (feats, embedding of ``token``); the
+        soft signal (1) without one."""
+        if (not self.ecfg.use_hrad or self.hrad_params is None
+                or feats is None):
+            return 1
+        z = H.build_feature(feats, self._embed_of(token),
+                            self.ecfg.hrad_k_layers)
+        s = int(H.predict(self.hrad_params, z)[0])
+        ctx.stats.hrad_signals.append(s)
+        return s
+
+    def _feats_last(self, runner: ModelRunner) -> Optional[torch.Tensor]:
+        """The runner's captured points at the last position, batch row
+        0: (K, 1, D)."""
+        f = runner.last_features
+        return None if f is None else f[:, 0:1]
+
+    def _embed_of(self, token: int) -> torch.Tensor:
+        return H.token_embedding(
+            self.tp, torch.tensor([token], device=self.tp["embed"].device))
+
     def _branch_k(self, q_b: torch.Tensor) -> int:
         if not self.ecfg.use_branch:
             return 1
@@ -45,10 +74,10 @@ class SpecBranchEngine(Engine):
         return min(cap, S.adaptive_k(float(q_b.max()), cap))
 
     # ----------------------------------------------------------- drafting
-    def _serial_draft(self, draft: ModelRunner, ctx: _Ctx
+    def _serial_draft(self, draft: ModelRunner, ctx: _Ctx, s: int
                       ) -> Tuple[List[int], List[torch.Tensor],
                                  torch.Tensor]:
-        """DRAFT-stage drafting under s_t = 1 (Eq. 6).
+        """DRAFT-stage drafting per the signal s (Eq. 6).
 
         Returns (chunk, q_list for the chunk, q_b at the branch point).
         Every drafted chunk token is ingested.
@@ -57,11 +86,14 @@ class SpecBranchEngine(Engine):
         if draft.pending:
             draft.forward([])
         chunk, qs = [], []
+        if s == 0:
+            ctx.stats.draft_tokens += 1      # the branch-point distribution
+            return chunk, qs, self._qsignal(draft.last_logits[0])
         for _ in range(gamma):
             q = self._qprobs(draft.last_logits[0])
             q_sig = self._qsignal(draft.last_logits[0])
             ctx.stats.draft_tokens += 1
-            if float(q_sig.max()) < epsilon:
+            if s == 1 and float(q_sig.max()) < epsilon:
                 return chunk, qs, q_sig      # branch point found
             tok = self._sample(ctx, q)
             chunk.append(tok)
@@ -126,7 +158,11 @@ class SpecBranchEngine(Engine):
             draft.checkpoint(), target.checkpoint()
             if mode == "draft":
                 # ---------------- DRAFT stage (serial) ----------------
-                chunk, chunk_q, q_b = self._serial_draft(draft, ctx)
+                # the newest committed token
+                e_tok = (draft.pending[-1] if draft.pending
+                         else target.pending[-1])
+                s = self._hrad_signal(self._feats_last(target), e_tok, ctx)
+                chunk, chunk_q, q_b = self._serial_draft(draft, ctx, s)
                 ctx.timeline.append(("serial", len(chunk) + 1, 0))
                 mode = "branch"
                 continue
@@ -183,18 +219,32 @@ class SpecBranchEngine(Engine):
             draft.select(i)
             draft.sync_lineage([int(cands[i])] + [int(t) for t in conts[i]])
 
-            # keep the continuation up to its first low-confidence position
+            # posterior H-RAD (Sec. 5.2): features from THIS verification
+            s = self._hrad_signal(self._feats_last(target), tok_b, ctx)
             cont_i = [int(t) for t in conts[i]]
             q_i = [cq[i] for cq in cont_q]
-            j = next((jj for jj in range(gb) if confs[i, jj] < eps), gb)
-            if j == gb:
+            if s == 2:
+                # the draft cache already holds the whole continuation
                 chunk, chunk_q = cont_i, q_i
                 q_b = self._qsignal(draft.last_logits[0])
+            elif s == 0:
+                # prune the whole continuation; branch at its first token
+                chunk, chunk_q = [], []
+                q_b = cont_sig[0][i]
+                ctx.stats.pruned_tokens += gb
+                draft.reset_to(plen + len(ctx.out))   # lineage incl. tok_b
             else:
-                chunk, chunk_q = cont_i[:j], q_i[:j]
-                q_b = cont_sig[j][i]
-                ctx.stats.pruned_tokens += gb - j
-                draft.reset_to(plen + len(ctx.out) + j)
+                # keep it up to its first low-confidence position
+                j = next((jj for jj in range(gb) if confs[i, jj] < eps),
+                         gb)
+                if j == gb:
+                    chunk, chunk_q = cont_i, q_i
+                    q_b = self._qsignal(draft.last_logits[0])
+                else:
+                    chunk, chunk_q = cont_i[:j], q_i[:j]
+                    q_b = cont_sig[j][i]
+                    ctx.stats.pruned_tokens += gb - j
+                    draft.reset_to(plen + len(ctx.out) + j)
             mode = "branch"
 
         ctx.stats.finish()

@@ -1,6 +1,7 @@
-"""Batched SpecBranch serving over paged KV (port of
-``repro.serving.batched_engine``: ``BatchedDecoder``, the engine base and
-``BatchedSpecBranchEngine``'s sequential-draft round).
+"""Batched serving over paged KV (port of
+``repro.serving.batched_engine``: ``BatchedDecoder``, the engine base,
+``BatchedSpSEngine`` and ``BatchedSpecBranchEngine``, sequential-draft
+rounds).
 
 ``BatchedDecoder`` is one model plus a paged decode state with per-row
 positions, so requests at different lengths share every forward: pad
@@ -34,9 +35,15 @@ length ladder and each rung is ONE forward.  At temperature > 0 the chain
 verdict runs through the fused verify kernel; preemption parks a row's KV
 in a paged swap store on the device, read back by the gather kernel.
 
+H-RAD (``hrad_params``, ``core.hrad``): the target decoder then captures
+the hidden states of its last ``hrad_k_layers`` feature points (every
+position of a step, each lane's last prompt position of a prefill), each
+request keeps those of its newest verification (``_Seq.feats_last``),
+and every signal costs one 4-byte host fetch, as in the reference.
+
 Not in this slice (each raises ``NotImplementedError``): the dense
-backend, parallel drafting, the prefix cache, H-RAD inference, the history
-predictor, mesh serving, and the batched SpS engine.
+backend, parallel drafting, the prefix cache, the history predictor and
+mesh serving.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import hrad as H
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import NULL_RECORDER
@@ -80,13 +88,16 @@ class BatchedDecoder:
     positions and returns DEVICE logits; ``prefill_rows`` ingests a group
     of prompts into fresh rows with one forward per prefill-ladder rung.
     Pad tokens land beyond a row's logical length and go to the trash
-    page, so ladder padding never touches live KV."""
+    page, so ladder padding never touches live KV.  With
+    ``feature_points`` > 0 both also return the hidden states of the last
+    that many feature points (H-RAD's input), else None."""
 
     def __init__(self, params, cfg: ModelConfig, *, n_rows: int,
                  max_len: int, paged: PagedKVPool, device,
                  ssm_ring: int = 0, prefill_lanes: int = 0,
-                 prefill_quantum: int = 8):
+                 prefill_quantum: int = 8, feature_points: int = 0):
         self.cfg = cfg
+        self.feature_points = feature_points
         self.n_rows, self.max_len = n_rows, max_len
         self.device = device
         self.params = params
@@ -141,24 +152,33 @@ class BatchedDecoder:
         self.state.fork(src, dst)
 
     @torch.no_grad()
-    def _forward(self, tokens, positions, rows=None) -> torch.Tensor:
+    def _forward(self, tokens, positions, rows=None, feature_index=None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         tab, lens = self.state.table_view(rows)
         dev = self.device
         ring_rows = (None if rows is None or not self.has_ssm
                      else torch.tensor(rows, dtype=torch.int64, device=dev))
-        logits, _ = M.forward(
+        capture = self.feature_points > 0
+        mode = None if not capture else (
+            "all" if feature_index is None else "at")
+        logits, aux = M.forward(
             self.params, self.cfg,
             torch.as_tensor(tokens).to(device=dev, dtype=torch.int64),
             cache=self.cache, positions=positions,
             paged=(torch.from_numpy(tab).to(dev),
                    torch.from_numpy(lens).to(dev)),
-            ring_rows=ring_rows)
-        return logits
+            ring_rows=ring_rows, feature_mode=mode,
+            feature_points=self.feature_points,
+            feature_index=(None if feature_index is None
+                           else torch.from_numpy(feature_index).to(dev)))
+        return logits, aux["features"] if capture else None
 
-    def step(self, tokens, pos) -> torch.Tensor:
+    def step(self, tokens, pos
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Batched forward: tokens (n_rows, T) (numpy OR device — sampled
         tokens chain straight back in), pos (n_rows,) start positions.
-        Returns DEVICE logits (n_rows, T, V)."""
+        Returns DEVICE (logits (n_rows, T, V), features (K, n_rows, T, D)
+        or None)."""
         assert tokens.shape[0] == self.n_rows
         T = tokens.shape[1]
         positions = (torch.from_numpy(np.asarray(pos, np.int32)).to(
@@ -167,13 +187,14 @@ class BatchedDecoder:
         return self._forward(tokens, positions)
 
     def prefill_rows(self, parts: Sequence[Tuple[int, Sequence[int]]]
-                     ) -> torch.Tensor:
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Batched bucketed prefill: each ``(row, tokens)`` prompt into its
         fresh row with ONE forward at a fixed ``(prefill_lanes,
-        ladder-width)`` shape.  Lane i of the returned device logits is
-        ``parts[i]``'s; pad lanes and pad positions write the trash page,
-        and lane i's ring writes land in row ``parts[i][0]`` (pad lanes'
-        are dropped)."""
+        ladder-width)`` shape.  Lane i of the returned device (logits,
+        features) is ``parts[i]``'s — its features (K, lanes, D) at the
+        prompt's last position; pad lanes and pad positions write the
+        trash page, and lane i's ring writes land in row ``parts[i][0]``
+        (pad lanes' are dropped)."""
         assert parts and len(parts) <= self.prefill_lanes
         G = self.prefill_lanes
         Tb = DL.prefill_bucket(max(len(t) for _, t in parts),
@@ -182,20 +203,23 @@ class BatchedDecoder:
             raise RuntimeError(
                 f"prefill bucket {Tb} overflows max_len={self.max_len}")
         toks = np.zeros((G, Tb), np.int32)
+        last = np.zeros(G, np.int64)
         for i, (_row, t) in enumerate(parts):
             L = len(t)
             assert 1 <= L <= Tb
             toks[i, :L] = t
             if L < Tb:
                 toks[i, L:] = t[-1]
+            last[i] = L - 1
         positions = torch.arange(Tb, dtype=torch.int32,
                                  device=self.device).expand(G, Tb)
-        logits = self._forward(
+        out = self._forward(
             toks, positions,
-            [row for row, _ in parts] + [-1] * (G - len(parts)))
+            [row for row, _ in parts] + [-1] * (G - len(parts)),
+            feature_index=last)
         for row, t in parts:
             self.state.row_pos[row] = len(t)
-        return logits
+        return out
 
     def pack_row(self, row: int, length: int) -> torch.Tensor:
         """The row's first ``length`` KV slots as (L, swap_dim) float32 rows
@@ -249,6 +273,9 @@ class _Seq:
     streamed: int = 0                # tokens already delivered via callback
     admit_order: int = -1
     done: bool = False
+    # H-RAD input: the target's last K feature points at the newest
+    # verified position, (K, 1, D) on the device; None without H-RAD
+    feats_last: Optional[torch.Tensor] = None
     # SpecBranch carried state — distributions stay on the device
     mode: str = "draft"
     chunk: List[int] = dataclasses.field(default_factory=list)
@@ -289,7 +316,6 @@ class BatchedEngineBase:
             "draft_mode='parallel' / draft_heads":
                 ecfg.draft_mode != "sequential" or draft_heads is not None,
             "prefix_cache=True": prefix_cache,
-            "hrad_params (H-RAD inference)": hrad_params is not None,
             f"spec_predictor={ecfg.spec_predictor!r}":
                 ecfg.spec_predictor != "off",
             "mesh serving": mesh is not None,
@@ -303,6 +329,13 @@ class BatchedEngineBase:
         self.dp, self.dcfg = draft_params, draft_cfg
         self.tp, self.tcfg = target_params, target_cfg
         self.ecfg = ecfg
+        # the H-RAD MLP in float32 on the device; the target decoder then
+        # captures the points it reads
+        self.hrad_params = (None if hrad_params is None else
+                            {k: v.to(device=self.device, dtype=torch.float32)
+                             for k, v in hrad_params.items()})
+        hrad_points = (ecfg.hrad_k_layers if ecfg.use_hrad
+                       and self.hrad_params is not None else 0)
         self.max_batch = max_batch
         self.attn_backend = attn_backend
         self.debug_check = debug_check
@@ -353,7 +386,8 @@ class BatchedEngineBase:
                                       paged=self.pools["t"],
                                       device=self.device, ssm_ring=ssm_ring,
                                       prefill_lanes=lanes,
-                                      prefill_quantum=self._pq)
+                                      prefill_quantum=self._pq,
+                                      feature_points=hrad_points)
         self.dft_dec = BatchedDecoder(draft_params, draft_cfg,
                                       n_rows=max_batch
                                       * self.draft_rows_per_seq,
@@ -407,9 +441,38 @@ class BatchedEngineBase:
     def host_fetches(self) -> int:
         return self.xfer_fetches
 
+    # ------------------------------------------------------------ H-RAD
+    def _embed_of(self, token: int) -> torch.Tensor:
+        return H.token_embedding(
+            self.tp, torch.tensor([token], device=self.device))
+
+    def _hrad_signal(self, seq: _Seq, token: int) -> int:
+        """s_t from the H-RAD MLP on the request's newest features and the
+        embedding of ``token``: one 4-byte fetch; 1 without H-RAD."""
+        if (not self.ecfg.use_hrad or self.hrad_params is None
+                or seq.feats_last is None):
+            return 1
+        z = H.build_feature(seq.feats_last, self._embed_of(token),
+                            self.ecfg.hrad_k_layers)
+        s = int(self._fetch(H.predict(self.hrad_params, z))[0])
+        seq.stats.hrad_signals.append(s)
+        return s
+
+    def _by_row(self, n_rows: int, entries
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """(rids, ctrs) indexed by decoder row for the tick functions;
+        rows not listed keep (0, 0) and compute garbage the host ignores."""
+        rids = np.zeros(n_rows, np.int32)
+        ctrs = np.zeros(n_rows, np.int32)
+        for row, rid, ctr in entries:
+            rids[row] = rid
+            ctrs[row] = ctr
+        return rids, ctrs
+
     # ---------------------------------------------------------- batched fwd
     def _batched(self, dec: BatchedDecoder,
-                 parts: List[Tuple[int, List[int], int]]) -> torch.Tensor:
+                 parts: List[Tuple[int, List[int], int]]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One batched forward with host-staged tokens.  parts: (row,
         real_tokens, start_pos); the width pads up the bucket ladder and
         unlisted rows tick in place at their write head."""
@@ -424,26 +487,28 @@ class BatchedEngineBase:
             if len(t) < T:
                 toks[row, len(t):] = t[-1]
             pos[row] = p0
-        logits = dec.step(toks, pos)
+        out = dec.step(toks, pos)
         for row, t, p0 in parts:
             dec.row_pos[row] = p0 + len(t)
-        return logits
+        return out
 
     def _ingest(self, dec: BatchedDecoder,
                 triples: List[Tuple[_Stream, Any, List[int]]]
-                ) -> torch.Tensor:
-        """Batched ingest of per-stream token lists + pool accounting."""
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Batched ingest of per-stream token lists + pool accounting;
+        returns the step's device (logits, features)."""
         for st, pool_key, toks in triples:
             self._pool_of(pool_key).extend(pool_key, len(toks))
-        logits = self._batched(dec, [(st.row, toks, st.ing)
-                                     for st, _, toks in triples])
+        out = self._batched(dec, [(st.row, toks, st.ing)
+                                  for st, _, toks in triples])
         for st, _, toks in triples:
             st.ing += len(toks)
-        return logits
+        return out
 
     def _ingest_dev(self, dec: BatchedDecoder,
                     pairs: List[Tuple[_Stream, Any]],
-                    tokens_by_row: torch.Tensor) -> torch.Tensor:
+                    tokens_by_row: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Single-token batched ingest with DEVICE tokens: each listed
         stream consumes tokens_by_row[stream.row] straight from the
         previous tick's sample.  Unlisted rows park at their write head."""
@@ -456,11 +521,11 @@ class BatchedEngineBase:
                     f"row {st.row} overflows max_len={dec.max_len}")
             mask[st.row] = True
             pos[st.row] = st.ing
-        logits = dec.step(DL.masked_token_column(tokens_by_row, mask), pos)
+        out = dec.step(DL.masked_token_column(tokens_by_row, mask), pos)
         for st, _ in pairs:
             st.ing += 1
             dec.row_pos[st.row] = st.ing
-        return logits
+        return out
 
     # ----------------------------------------------------------- admission
     def _pool_keys(self, rid: int) -> Tuple[Any, Any]:
@@ -547,6 +612,7 @@ class BatchedEngineBase:
                                        for d in meta["ssm_snap"]
                                        for a in d.values()))
             self.swap.drop(meta["swap_key"])
+            seq.feats_last = meta["feats_last"]
             restored = True
         seq.tgt = _Stream(row=t_row, ing=L, pending=[toks[-1]])
         seq.dft = _Stream(row=d_row, ing=L, pending=[toks[-1]])
@@ -576,13 +642,18 @@ class BatchedEngineBase:
                 tparts = [(seq.tgt.row, toks)
                           for seq, toks, restored in chunk if not restored]
                 if tparts:
-                    self.tgt_dec.prefill_rows(tparts)
+                    _, feats = self.tgt_dec.prefill_rows(tparts)
                     # the staged (lanes, width) int32 token frame crosses
                     # host -> device once per prefill forward
                     self._count_staged(lanes * width * 4)
+                    lane = 0
                     for seq, _toks, restored in chunk:
-                        if not restored:
-                            seq.stats.target_calls += 1
+                        if restored:
+                            continue
+                        if feats is not None:
+                            seq.feats_last = feats[:, lane:lane + 1]
+                        seq.stats.target_calls += 1
+                        lane += 1
                 self.dft_dec.prefill_rows([(seq.dft.row, toks)
                                            for seq, toks, _ in chunk])
                 self._count_staged(lanes * width * 4)
@@ -597,7 +668,8 @@ class BatchedEngineBase:
         it), else recomputed at re-admission."""
         victim = max(self.active, key=lambda s: s.admit_order)
         self.active.remove(victim)
-        meta = {"seq": victim, "swap_key": None, "ssm_snap": None}
+        meta = {"seq": victim, "swap_key": None, "ssm_snap": None,
+                "feats_last": victim.feats_last}
         if self.swap is not None and victim.tgt.ing > 0:
             key = ("swap", victim.rid, victim.admit_order)
             try:
@@ -695,6 +767,136 @@ class BatchedEngineBase:
 
 
 # ---------------------------------------------------------------------------
+# batched SpS
+# ---------------------------------------------------------------------------
+
+class BatchedSpSEngine(BatchedEngineBase):
+    """Vanilla speculative decoding, continuous-batched: gamma batched
+    draft ticks then one batched target verification per round, all on
+    the device.  Draft tokens chain from tick to tick as device tensors
+    (the host never sees them mid-round); the round's only fetch is the
+    (B, 3 + gamma) verdict packet."""
+    name = "batched-sps"
+
+    @torch.no_grad()
+    def step_round(self) -> Dict[str, Any]:
+        seqs = [s for s in self.active if not s.done]
+        if not seqs:
+            return {"committed": {}, "preempted": []}
+        g = self.ecfg.gamma
+
+        def fits(ss):
+            return (self.pools["d"].has_room(
+                        [(("d", s.rid), len(s.dft.pending) + g - 1)
+                         for s in ss])
+                    and self.pools["t"].has_room(
+                        [(("t", s.rid), len(s.tgt.pending) + g)
+                         for s in ss]))
+
+        preempted = self._make_room(seqs, fits)
+        if not seqs:
+            return {"committed": {}, "preempted": preempted}
+        n_d = self.dft_dec.n_rows
+        B = self.max_batch
+
+        # ---- draft stage: batched pending ingest + gamma sampling ticks,
+        # sampled ids chained on the device tick to tick
+        lg, _ = self._ingest(
+            self.dft_dec,
+            [(s.dft, ("d", s.rid), list(s.dft.pending)) for s in seqs])
+        # pending lengths differ (1 after a reject, 2 after an all-accept):
+        # each row's logits are read at its REAL last token
+        last = np.zeros(n_d, np.int32)
+        for s in seqs:
+            last[s.dft.row] = len(s.dft.pending) - 1
+            s.dft.pending = []
+        tok_ticks, q_ticks = [], []
+        for i in range(g):
+            rids, ctrs = self._by_row(
+                n_d, [(s.dft.row, s.rid, s.ctr) for s in seqs])
+            toks, qsl, _ = DL.tick_sample(lg, last, rids, ctrs, self._key,
+                                          dtemp=self._dt, stemp=self._st)
+            tok_ticks.append(toks)
+            q_ticks.append(qsl)
+            for s in seqs:
+                s.ctr += 1
+                s.stats.draft_tokens += 1
+            if i < g - 1:
+                lg, _ = self._ingest_dev(
+                    self.dft_dec, [(s.dft, ("d", s.rid)) for s in seqs],
+                    toks)
+                last[:] = 0
+        tok_stack = torch.stack(tok_ticks)        # (g, n_d) device
+        q_stack = torch.stack(q_ticks)            # (g, n_d, V) device
+
+        # ---- verify stage: ONE batched target call + fused verdict
+        pends = {s.rid: list(s.tgt.pending) for s in seqs}
+        npend = np.zeros(B, np.int32)
+        pend_arr = np.zeros((B, 2), np.int32)
+        trows = np.full(B, self.tgt_dec.n_rows, np.int32)  # OOB = pad lane
+        drows = np.zeros(B, np.int32)
+        rid_l = np.zeros(B, np.int32)
+        ctr_l = np.zeros(B, np.int32)
+        for i, s in enumerate(seqs):
+            p = pends[s.rid]
+            npend[i] = len(p)
+            pend_arr[i, :len(p)] = p
+            trows[i] = s.tgt.row
+            drows[i] = s.dft.row
+            rid_l[i] = s.rid
+            ctr_l[i] = s.ctr
+        Tb = DL.bucket(int(npend.max()) + g)
+        toks_full = DL.compose_verify_tokens(
+            pend_arr, npend, tok_stack, drows, trows,
+            n_rows=self.tgt_dec.n_rows, Tb=Tb)
+        # staging mirrors _ingest/_batched for a device-composed frame:
+        # pool-extend by the REAL count, overflow-check the PADDED width
+        pos = np.minimum(self.tgt_dec.row_pos,
+                         self.tgt_dec.max_len - Tb).astype(np.int32)
+        for s in seqs:
+            self.pools["t"].extend(("t", s.rid), len(pends[s.rid]) + g)
+            if s.tgt.ing + Tb > self.tgt_dec.max_len:
+                raise RuntimeError(f"row {s.tgt.row} overflows max_len")
+            pos[s.tgt.row] = s.tgt.ing
+        tlg, feats = self.tgt_dec.step(toks_full, pos)
+        for s in seqs:
+            s.tgt.ing += len(pends[s.rid]) + g
+            self.tgt_dec.row_pos[s.tgt.row] = s.tgt.ing
+        packet_dev = DL.sps_verify(
+            tlg, q_stack, tok_stack, trows, drows, npend, rid_l, ctr_l,
+            self._key, g=g, ttemp=self._tt, dtemp=self._dt,
+            kernel=self._use_kernel)
+        for s in seqs:
+            s.ctr += g + 1
+        pk = self._fetch(packet_dev)       # the round's ONLY host fetch
+        now = self.clock + self.cost.round_cost(("serial", g, 1))
+        committed: Dict[int, int] = {}
+        for i, s in enumerate(seqs):
+            n, nxt, all_acc = int(pk[i, 0]), int(pk[i, 1]), bool(pk[i, 2])
+            dr = [int(x) for x in pk[i, 3:3 + g]]
+            before = min(len(s.out), s.max_new)
+            s.stats.target_calls += 1
+            if feats is not None:
+                s.feats_last = feats[:, s.tgt.row:s.tgt.row + 1,
+                                     len(pends[s.rid]) + g - 1]
+            s.tgt.pending = []
+            if all_acc:
+                self._commit(s, dr + [nxt], now)
+                s.stats.run_extend(g + 1)
+                s.tgt.pending = [nxt]
+                s.dft.pending = [dr[-1], nxt]
+            else:
+                self._commit(s, dr[:n] + [nxt], now)
+                s.stats.run_extend(n)
+                s.stats.run_break()
+                s.stats.rollback_tokens += g - n
+                self._rollback_streams(s)
+            committed[s.rid] = min(len(s.out), s.max_new) - before
+        self._finish_round("serial", g, 1)
+        return {"committed": committed, "preempted": preempted}
+
+
+# ---------------------------------------------------------------------------
 # batched SpecBranch
 # ---------------------------------------------------------------------------
 
@@ -751,16 +953,6 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
             self.dft_dec.unbind_row(st.row)
             self.dft_dec.free_rows.append(st.row)
 
-    def _by_row(self, n_rows: int, entries) -> Tuple[np.ndarray, np.ndarray]:
-        """(rids, ctrs) indexed by decoder row for the tick functions;
-        rows not listed keep (0, 0) and compute garbage the host ignores."""
-        rids = np.zeros(n_rows, np.int32)
-        ctrs = np.zeros(n_rows, np.int32)
-        for row, rid, ctr in entries:
-            rids[row] = rid
-            ctrs[row] = ctr
-        return rids, ctrs
-
     # --------------------------------------------------------------- round
     @torch.no_grad()
     def step_round(self) -> Dict[str, Any]:
@@ -804,6 +996,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
         # the draft ticks below (asynchronous dispatch)
         bsets: Dict[int, _BranchSet] = {}
         packet_dev = None
+        tfeats = None
         pends: Dict[int, List[int]] = {}
         ks: Dict[int, int] = {}
         if branchers:
@@ -837,7 +1030,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                     bset.final_conf.append(0.0)
                 bsets[s.rid] = bset
             pends = {s.rid: list(s.tgt.pending) for s in branchers}
-            tlg = self._ingest(
+            tlg, tfeats = self._ingest(
                 self.tgt_dec,
                 [(s.tgt, ("t", s.rid), s.tgt.pending + s.chunk)
                  for s in branchers])
@@ -870,9 +1063,12 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                 s.ctr += self._W
 
         # ---- PHASE A: all draft-model work, interleaved batched ticks ----
-        # (H-RAD's prior signal is 1 without H-RAD parameters: every
-        # DRAFT-mode request runs the confidence-threshold stop rule)
+        # H-RAD's prior signal decides each DRAFT-mode request's stop rule
+        # (1, the confidence threshold, without H-RAD parameters)
+        sig: Dict[int, int] = {}
         for s in serial:
+            e_tok = s.dft.pending[0] if s.dft.pending else s.tgt.pending[0]
+            sig[s.rid] = self._hrad_signal(s, e_tok)
             s.chunk, s.chunk_q = [], []
 
         # tick 0: serial rows ingest pending; branch rows their candidates
@@ -886,7 +1082,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                 triples.append((st, self._bkey(s.rid, i),
                                 [int(bset.cands[i])]))
             s.stats.draft_tokens += 1      # batched candidate ingest step
-        lg = self._ingest(self.dft_dec, triples)
+        lg, _ = self._ingest(self.dft_dec, triples)
         last = np.zeros(n_d, np.int32)
         for st, _, toks in triples:
             last[st.row] = len(toks) - 1
@@ -913,9 +1109,9 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                 row = s.dft.row
                 conf = float(pkt[row, 1])
                 over = False
-                if i >= g:
+                if sig[s.rid] == 0 or i >= g:
                     stop = True                  # deterministic: no ingest
-                elif conf < eps:
+                elif sig[s.rid] == 1 and conf < eps:
                     stop = True
                     over = True                  # token i rode optimism
                 else:
@@ -953,7 +1149,8 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
         pend = None        # the dispatched-but-unresolved tick
         while True:
             readers = [s for s in serial
-                       if live[s.rid] and reads[s.rid] <= g]
+                       if live[s.rid] and reads[s.rid] <= g
+                       and not (sig[s.rid] == 0 and reads[s.rid] >= 1)]
             br_read = [s for s in branchers if branch_j[s.rid] <= gb]
             if not readers and not br_read:
                 if pend is not None:
@@ -990,14 +1187,15 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
             # chains its sample straight into the next forward
             ingest_pairs = []
             for s, i in srd:
-                if live[s.rid] and i < g:
+                if live[s.rid] and sig[s.rid] != 0 and i < g:
                     ingest_pairs.append((s.dft, ("d", s.rid)))
             for s, j in brd:
                 if j < gb:
                     for i, st in enumerate(bsets[s.rid].streams):
                         ingest_pairs.append((st, self._bkey(s.rid, i)))
             if ingest_pairs:
-                lg = self._ingest_dev(self.dft_dec, ingest_pairs, toks_dev)
+                lg, _ = self._ingest_dev(self.dft_dec, ingest_pairs,
+                                         toks_dev)
                 last[:] = 0
                 ticks += 1
 
@@ -1012,7 +1210,8 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
             for i, s in enumerate(branchers):
                 s.tgt.pending = []
                 before = min(len(s.out), s.max_new)
-                self._branch_verdict(s, bsets[s.rid], pk[i], now)
+                self._branch_verdict(s, bsets[s.rid], pk[i], tfeats,
+                                     len(pends[s.rid]), now)
                 committed[s.rid] = min(len(s.out), s.max_new) - before
         for s in serial:
             s.mode = "branch"
@@ -1021,6 +1220,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
 
     # --------------------------------------------------- verdict (packet)
     def _branch_verdict(self, s: _Seq, bset: _BranchSet, pk_row,
+                        feats: Optional[torch.Tensor], npend: int,
                         now: float) -> None:
         """Commit/rollback bookkeeping from the (5,) int32 verdict packet
         [n_acc, chain_next, all_acc, accepted_branch, branch_token]."""
@@ -1028,6 +1228,9 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
         gchunk = len(s.chunk)
         n_acc, chain_next, all_acc, acc_b, tok_b = (int(x) for x in pk_row)
         s.stats.target_calls += 1
+        if feats is not None:
+            s.feats_last = feats[:, s.tgt.row:s.tgt.row + 1,
+                                 npend + gchunk - 1]
 
         if not all_acc:
             # mid-chunk rejection: every branch is doomed (Fig. 1a)
@@ -1066,25 +1269,39 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
         self.dft_dec.unbind_row(win.row)
         self.dft_dec.free_rows.append(win.row)
 
-        # the continuation is cut at its first low-confidence token (the
-        # posterior H-RAD signal is 1 without H-RAD parameters)
+        # posterior H-RAD on THIS verification's features (Sec. 5.2)
+        sgn = self._hrad_signal(s, tok_b)
         cont, q_i, confs = bset.conts[i], bset.cont_q[i], bset.confs[i]
-        j = next((jj for jj in range(gb) if confs[jj] < self.ecfg.epsilon),
-                 gb)
-        if j == gb:
+        if sgn == 2:
             s.chunk, s.chunk_q = list(cont), list(q_i)
             s.q_b = bset.final_sig[i]
             s.q_b_conf = bset.final_conf[i]
+        elif sgn == 0:
+            # prune the whole continuation; branch at its first token
+            s.chunk, s.chunk_q = [], []
+            s.q_b = q_i[0]
+            s.q_b_conf = confs[0]
+            s.stats.pruned_tokens += gb
+            self._prune_draft(s, s.committed)
         else:
-            s.chunk, s.chunk_q = list(cont[:j]), list(q_i[:j])
-            s.q_b = q_i[j]
-            s.q_b_conf = confs[j]
-            s.stats.pruned_tokens += gb - j
-            self._prune_draft(s, s.committed + j)
+            # cut at the continuation's first low-confidence token
+            j = next((jj for jj in range(gb)
+                      if confs[jj] < self.ecfg.epsilon), gb)
+            if j == gb:
+                s.chunk, s.chunk_q = list(cont), list(q_i)
+                s.q_b = bset.final_sig[i]
+                s.q_b_conf = bset.final_conf[i]
+            else:
+                s.chunk, s.chunk_q = list(cont[:j]), list(q_i[:j])
+                s.q_b = q_i[j]
+                s.q_b_conf = confs[j]
+                s.stats.pruned_tokens += gb - j
+                self._prune_draft(s, s.committed + j)
         s.mode = "branch"
 
     def _prune_draft(self, s: _Seq, keep: int) -> None:
-        """Pre-verify pruning: positional reset of the draft stream."""
+        """H-RAD pre-verify pruning: positional reset of the draft
+        stream."""
         if s.dft.ing > keep:
             self.pools["d"].truncate(("d", s.rid), keep, "prune")
             s.dft.ing = keep

@@ -23,7 +23,7 @@ from repro_torch.runtime import sampling as S
 
 __all__ = ["bucket", "prefill_bucket", "prefill_rungs", "kernel_route",
            "tick_sample", "masked_token_column", "compose_verify_tokens",
-           "draw_cands", "branch_verify"]
+           "sps_verify", "draw_cands", "branch_verify"]
 
 
 def bucket(n: int) -> int:
@@ -142,6 +142,49 @@ def compose_verify_tokens(pend, npend, tok_stack: torch.Tensor, drows,
     tr = _dev(trows, dev, torch.int64).clamp(0, n_rows)
     full[tr] = vals.to(torch.int32)
     return full[:n_rows]
+
+
+@torch.no_grad()
+def sps_verify(tlg: torch.Tensor, q_stack: torch.Tensor,
+               tok_stack: torch.Tensor, trows, drows, npend, rids, ctrs,
+               base_key, *, g: int, ttemp: float, dtemp: float,
+               kernel: bool = False) -> torch.Tensor:
+    """Fused SpS verification: target-forward logits in, one small packet
+    out.  tlg (n_rows, Tb, V); q_stack (g, n_draft_rows, V) raw draft
+    logits from the ticks; tok_stack (g, n_draft_rows); trows/drows/
+    npend (S,) target row, draft row and pending count per lane.  Row s
+    uses uniforms (rid_s, ctr_s + 0..g): g accept tests and the residual
+    or bonus draw.  ``kernel`` sends the accept/residual pass through the
+    batched verify kernel on temperature-prescaled logits.  Returns the
+    packet (S, 3 + g) i32 [n_acc, next_token, all_acc, drafted tokens]."""
+    dev = tlg.device
+    # pad lanes carry an out-of-range row: they read the last row, as the
+    # reference's clamped gather does, and the host ignores them
+    trows = _dev(trows, dev, torch.int64).clamp_max(tlg.shape[0] - 1)
+    drows = _dev(drows, dev, torch.int64)
+    npend = _dev(npend, dev, torch.int64)
+    rowlg = tlg[trows]                                    # (S, Tb, V)
+    S_, Tb, V = rowlg.shape
+    j = torch.arange(g + 1, device=dev)[None]
+    idx = (npend[:, None] - 1 + j).clamp(0, Tb - 1)
+    pall = torch.gather(rowlg, 1, idx[..., None].expand(S_, g + 1, V))
+    q_raw = q_stack[:, drows].transpose(0, 1)             # (S, g, V)
+    drafted = tok_stack[:, drows].T.to(torch.int32)       # (S, g)
+    ugrid = _ugrid(base_key, rids, ctrs, g + 1, dev)
+    lens = torch.full((S_,), g, dtype=torch.int32, device=dev)
+    bonus = S.probs_from_logits(pall[:, g], ttemp)
+    if kernel:
+        n_acc, nxt, all_acc = _chain_via_kernel(
+            pall[:, :g] / ttemp, q_raw / dtemp, drafted, lens, ugrid)
+        nxt = torch.where(all_acc,
+                          S.categorical_from_uniform(bonus, ugrid[:, g])
+                          .to(torch.int32), nxt)
+    else:
+        n_acc, nxt, all_acc = S.verify_chain_device(
+            S.probs_from_logits(pall[:, :g], ttemp),
+            S.probs_from_logits(q_raw, dtemp), drafted, lens, ugrid, bonus)
+    return torch.cat([n_acc[:, None], nxt[:, None],
+                      all_acc.to(torch.int32)[:, None], drafted], dim=1)
 
 
 @torch.no_grad()

@@ -9,8 +9,9 @@ tree of numpy arrays (for instance the reference's params after
 ``np.asarray``) into the port, so both frameworks can run on identical
 weights; ``from_numpy_cache`` does the same for a decode cache (dense
 attention rings, Mamba carries and checkpoint rings), so
-both frameworks can also start from one mid-stream state.  Saving is a
-later slice (training).
+both frameworks can also start from one mid-stream state;
+``from_numpy_hrad`` carries an H-RAD MLP (``core.hrad``) the same way.
+Saving is a later slice (training).
 """
 from __future__ import annotations
 
@@ -67,6 +68,15 @@ def from_numpy_params(tree: Any, cfg: ModelConfig, device) -> Any:
         raise ValueError(f"{cfg.name}: embed {tuple(emb.shape)} does not "
                          f"match ({cfg.vocab_size}, {cfg.d_model})")
     return out
+
+
+def from_numpy_hrad(params: Dict[str, Any], device
+                    ) -> Dict[str, torch.Tensor]:
+    """An H-RAD MLP's parameters (``w0``, ``b0``, ... as numpy arrays, for
+    instance the reference's ``init_mlp`` after ``np.asarray``) as float32
+    tensors on ``device``, whatever the model's dtype."""
+    return {k: _to_tensor(v, torch.float32, device)
+            for k, v in params.items()}
 
 
 _CACHE_DTYPES = {"pos": torch.int32, "ssm": torch.float32,

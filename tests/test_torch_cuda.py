@@ -12,7 +12,9 @@ value (another summation order, then bf16 output rounding); the runner's
 logits on the card against the CPU, f32, atol 1e-4; verify accept flags
 equal, p_tok/q_tok rtol 1e-5, residual tokens equal but for a draw within f32
 rounding of a cdf boundary; gather bitwise; selective scan rtol = atol =
-2e-5 (the reference's own Pallas-vs-oracle tolerance).
+2e-5 (the reference's own Pallas-vs-oracle tolerance); branch decode as
+the other attention kernels; the single-request verify as the batched
+one, p_tok/q_tok atol 1e-6.
 """
 import os
 
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import hrad as H
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as SV
 from repro_torch.models import model as M
@@ -294,3 +297,88 @@ def test_hybrid_pairs_on_the_card_are_greedy_lossless(cuda, kind):
     done, _, _ = SV.serve_sequential(pair, ecfg, "specbranch", prompts, 12)
     assert [r.result.tokens for r in sorted(done, key=lambda r: r.rid)] \
         == want
+
+
+# (k branches, Tq, Sp, Ss, H, KV, hd): the 7B branch-decode width, a GQA
+# case with odd lengths and Tq > 1, a tile straddling the boundary
+BRANCH_CASES = [(6, 1, 504, 8, 32, 32, 128), (3, 3, 29, 5, 4, 2, 32),
+                (4, 2, 70, 13, 8, 2, 64)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BRANCH_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_branch_decode_kernel_matches_plain(cuda, case, dtype):
+    kb, Tq, Sp, Ss, Hh, KV, hd = case
+    rng = np.random.default_rng(8)
+    ppos = np.arange(Sp, dtype=np.int32)[None].copy()
+    ppos[0, 2:4] = -1                              # unwritten slots
+    qpos = np.broadcast_to(np.arange(Sp + Ss - Tq + 1, Sp + Ss + 1,
+                                     dtype=np.int32), (kb, Tq))
+    spos = np.broadcast_to(np.arange(Sp, Sp + Ss, dtype=np.int32),
+                           (kb, Ss))
+    dt = getattr(torch, dtype)
+    q, pk, pv, sk, sv = (x.to(dt) for x in _dev(
+        [rng.normal(size=s).astype(np.float32)
+         for s in ((kb, Tq, Hh, hd), (1, Sp, KV, hd), (1, Sp, KV, hd),
+                   (kb, Ss, KV, hd), (kb, Ss, KV, hd))], cuda))
+    ppos, spos, qpos = _dev([ppos, spos, qpos], cuda)
+    for cap in (None, 30.0):
+        n0 = ops.LAUNCHES["branch_decode_attention"]
+        got = ops.branch_decode_attention(q, pk, pv, ppos, sk, sv, spos,
+                                          qpos, cap=cap)
+        want = ref.branch_decode_ref(q, pk, pv, ppos, sk, sv, spos, qpos,
+                                     cap=cap)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["branch_decode_attention"] == n0 + 1
+        assert got.dtype == dt and got.shape == q.shape
+        _assert_attn_close(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,V", [(1, 32), (9, 1024), (9, 32000)])
+def test_single_verify_kernel_matches_plain(cuda, R, V, dtype):
+    rng = np.random.default_rng(4)
+    pl, ql, tok, u, w = _dev(
+        [(2 * rng.normal(size=(R, V))).astype(np.float32),
+         (2 * rng.normal(size=(R, V))).astype(np.float32),
+         rng.integers(0, V, size=R).astype(np.int32),
+         rng.random(R, dtype=np.float32), rng.random(R, dtype=np.float32)],
+        cuda)
+    pl, ql = pl.to(getattr(torch, dtype)), ql.to(getattr(torch, dtype))
+    n0 = ops.LAUNCHES["verify_accept"]
+    got = ops.verify_accept(pl, ql, tok, u, w)
+    want = ref.verify_accept_ref(pl, ql, tok, u, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["verify_accept"] == n0 + 1
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-6)
+    assert (got[1] != want[1]).sum().item() <= 1
+
+
+@pytest.mark.requires_cuda
+def test_sps_and_hrad_engines_on_the_card_are_greedy_lossless(cuda):
+    """Batched SpS, and batched and sequential SpecBranch with an H-RAD
+    MLP, serve the target's greedy decode on the card."""
+    pair = get_pair("misaligned", device=cuda,
+                    cache_dir=os.path.join(ROOT, ".cache", "pairs"))
+    prompts = SV.make_prompts(2)
+    want = M.greedy_reference(pair[2], pair[3], prompts, 12)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=512)
+    hrad = H.init_mlp(5 * pair[3].d_model,
+                      generator=torch.Generator().manual_seed(0),
+                      device=cuda)
+    for engine, hp in (("sps", None), ("specbranch", hrad)):
+        ops.reset_launches()
+        res, _, _, _ = SV.serve(pair, ecfg, prompts, 12, device=cuda,
+                                engine=engine, hrad_params=hp)
+        assert [res[i].tokens for i in range(2)] == want, engine
+        assert ops.LAUNCHES["paged_attention"] > 0
+        if hp is not None:
+            assert any(res[i].stats.hrad_signals for i in range(2))
+    seq = SpecBranchEngine(*pair, ecfg, hrad_params=hrad).generate(
+        prompts[0], 12, prng.PRNGKey(0))
+    assert seq.tokens == want[0] and seq.stats.hrad_signals

@@ -10,19 +10,25 @@ import json
 
 import jax
 import pytest
+import torch
 
 from repro.launch import serve as JSV
 from repro.runtime import engines as JE
 from repro.runtime import scheduler as JS
-from repro.runtime.runner import greedy_reference as j_greedy
 from repro.training import pairs as JP
 from repro_torch.launch import serve as TSV
 from repro_torch.runtime import engines as TE
 from repro_torch.runtime import prng
+from repro_torch.runtime import runner as TR
 from repro_torch.runtime import scheduler as TS
 from repro_torch.runtime.cost_model import CostModel
 from repro_torch.runtime.specbranch import SpecBranchEngine
 from repro_torch.training import pairs as TP
+
+# One intra-op thread: the tiny models gain nothing from more, and the
+# test workers share the machine's cores (eight threads in each of six
+# workers slow every small op here many times over).
+torch.set_num_threads(1)
 
 N_NEW = 16
 PROMPTS = TSV.make_prompts(2)
@@ -55,9 +61,13 @@ def pairs():
 
 @pytest.fixture(scope="module")
 def greedy(pairs):
+    """Every engine once per package, and plain AR greedy decoding by the
+    port's runner (held against the reference's in
+    test_torch_runner.py), which costs no second reference run."""
     jpair, tpair = pairs
     from repro.runtime.specbranch import SpecBranchEngine as JSB
-    ref = j_greedy(jpair[2], jpair[3], PROMPTS[0], N_NEW, max_len=128)
+    ref = TR.greedy_reference(tpair[2], tpair[3], PROMPTS[0], N_NEW,
+                              max_len=128)
     out = {}
     for name in ENGINES:
         j = _build(name, JE, JSB, jpair, _ecfg(JE, 0.0)).generate(
@@ -137,7 +147,6 @@ def test_later_slice_engine_options_raise(pairs):
     _, (dp, dcfg, tp, tcfg) = pairs
     for ecfg, kw in ((TE.EngineConfig(draft_mode="parallel"), {}),
                      (TE.EngineConfig(spec_predictor="on"), {}),
-                     (TE.EngineConfig(), dict(hrad_params={})),
                      (TE.EngineConfig(), dict(draft_heads={}))):
         with pytest.raises(NotImplementedError, match="slice"):
             SpecBranchEngine(dp, dcfg, tp, tcfg, ecfg, **kw)

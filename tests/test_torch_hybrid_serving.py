@@ -31,6 +31,11 @@ from repro_torch.serving.decode_state import DecodeState
 from repro_torch.serving.kv_pool import PagedKVPool
 from repro_torch.training.checkpoint import from_numpy_params
 
+# One intra-op thread: the tiny models gain nothing from more, and the
+# test workers share the machine's cores (eight threads in each of six
+# workers slow every small op here many times over).
+torch.set_num_threads(1)
+
 N_REQ, N_NEW = 3, 16
 PREEMPT = dict(page_size=4, pool_pages=110, swap_pages=64)
 CASES = {

@@ -5,8 +5,10 @@ CPU tensors.  The CUDA kernels against their plain versions are in
 ``test_torch_cuda.py``.
 
 Tolerances: paged and flash attention f32 atol 1e-5 (the same math in
-another summation order); verify ints equal and floats rtol 1e-6; gather
-equal.
+another summation order); branch decode atol 2e-5 f32 and 2e-2 bf16 (the
+reference rounds each of its two passes to bf16 before the merge, the
+plain version once); verify ints equal and floats rtol 1e-6 (batched) or
+atol 1e-6 (single request); gather equal.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,12 +19,18 @@ from repro.kernels import ops as jops
 from repro.models import layers as jlayers
 from repro.kernels import paged_attention as jpa
 from repro.kernels import verify_accept as jva
+from repro_torch.kernels import branch_attention as tba
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as tlayers
 from repro_torch.kernels import paged as tpg
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import verify_accept as tva
+
+# One intra-op thread: the tiny models gain nothing from more, and the
+# test workers share the machine's cores (eight threads in each of six
+# workers slow every small op here many times over).
+torch.set_num_threads(1)
 
 
 def _layout(rng, lens, ps, n_phys=None):
@@ -174,6 +182,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q, k, v, qp, kpos = _torch(*_flash_inputs(1, 1, 2, 8, 4, 2, 16, 20))
     with pytest.raises(ValueError, match="cpu"):
         tfa.flash_attention(q, k, v, qp, kpos)
+    with pytest.raises(ValueError, match="cpu"):
+        tba.branch_decode_attention(*_torch(*_branch_inputs(
+            1, 2, 1, 8, 3, 2, 16)))
+    with pytest.raises(ValueError, match="cpu"):
+        tva.verify_accept(*_torch(*_single_verify_inputs(1, 3, 50)))
 
 
 def _flash_inputs(seed, B, T, S, H, KV, hd, L, stale=0, dead=0):
@@ -259,3 +272,88 @@ def test_attention_wrappers_need_16_byte_rows(hd, offset):
         tpa.check_rows16("attention", hd, k, k)
     tpa.check_rows16("attention", 32, torch.zeros(1, 4, 1, 32),
                   torch.zeros(1, 4, 1, 32))
+
+
+# (k branches, Tq, Sp, Ss, KV, hd): the reference's sweep
+# (tests/test_kernels.py) with one query after every key, then odd
+# lengths with Tq > 1, so the suffix is causally cut, and invalid prefix
+# slots
+BRANCH_CASES = [(2, 1, 16, 4, 2, 32), (4, 1, 33, 7, 4, 64),
+                (6, 1, 8, 1, 1, 16), (3, 3, 29, 5, 2, 32),
+                (5, 2, 13, 11, 1, 16)]
+
+
+def _branch_inputs(seed, kb, Tq, Sp, Ss, KV, hd, dead=0):
+    rng = np.random.default_rng(seed)
+    H = 2 * KV
+    pk, pv = (rng.normal(size=(1, Sp, KV, hd)).astype(np.float32)
+              for _ in range(2))
+    ppos = np.arange(Sp, dtype=np.int32)[None].copy()
+    ppos[0, 1:1 + dead] = -1                      # unwritten prefix slots
+    sk, sv = (rng.normal(size=(kb, Ss, KV, hd)).astype(np.float32)
+              for _ in range(2))
+    spos = np.broadcast_to(np.arange(Sp, Sp + Ss, dtype=np.int32),
+                           (kb, Ss)).copy()
+    q = rng.normal(size=(kb, Tq, H, hd)).astype(np.float32)
+    qpos = np.broadcast_to(np.arange(Sp + Ss - Tq + 1, Sp + Ss + 1,
+                                     dtype=np.int32), (kb, Tq)).copy()
+    return q, pk, pv, ppos, sk, sv, spos, qpos
+
+
+@pytest.mark.parametrize(
+    "case,dtype,cap",
+    [(c, d, None) for c in BRANCH_CASES for d in ("float32", "bfloat16")]
+    + [(BRANCH_CASES[1], "float32", 5.0), (BRANCH_CASES[3], "bfloat16", 5.0)],
+    ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else str(x))
+def test_plain_branch_decode_matches_pallas(case, dtype, cap):
+    """The plain version against the reference's two flash passes merged
+    by (m, l), run in interpret mode."""
+    args = _branch_inputs(11, *case, dead=2 if case[1] > 1 else 0)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    fl = (0, 1, 2, 4, 5)                          # q and K/V arrays
+    jargs = [jnp.asarray(a).astype(jd) if i in fl else jnp.asarray(a)
+             for i, a in enumerate(args)]
+    targs = [x.to(td) if i in fl else x
+             for i, x in enumerate(_torch(*args))]
+    want = jops.branch_decode_attention(*jargs, cap=cap, interpret=True)
+    got = ref.branch_decode_ref(*targs, cap=cap)
+    assert got.dtype == td
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), rtol=0,
+                               atol=2e-5 if dtype == "float32" else 2e-2)
+    assert torch.equal(ops.branch_decode_attention(*targs, cap=cap), got)
+
+
+def _single_verify_inputs(seed, R, V):
+    rng = np.random.default_rng(seed)
+    pl = (2 * rng.normal(size=(R, V))).astype(np.float32)
+    ql = (2 * rng.normal(size=(R, V))).astype(np.float32)
+    tok = rng.integers(0, V, size=R).astype(np.int32)
+    u = rng.random(R, dtype=np.float32)
+    w = rng.random(R, dtype=np.float32)
+    return pl, ql, tok, u, w
+
+
+@pytest.mark.parametrize("R,V,dtype", [(1, 32, "float32"),
+                                       (5, 211, "float32"),
+                                       (9, 1024, "float32"),
+                                       (9, 1024, "bfloat16")])
+def test_plain_single_verify_matches_pallas(R, V, dtype):
+    """The single-request (R, V) verify against the reference's
+    ``verify_accept`` kernel in interpret mode (the sweep of
+    tests/test_kernels.py; bf16 logits are read as f32 by both)."""
+    args = _single_verify_inputs(5, R, V)
+    jargs = [jnp.asarray(a) for a in args]
+    targs = list(_torch(*args))
+    if dtype == "bfloat16":
+        jargs[:2] = [a.astype(jnp.bfloat16) for a in jargs[:2]]
+        targs[:2] = [x.bfloat16() for x in targs[:2]]
+    want = [np.asarray(x) for x in jva.verify_accept(*jargs,
+                                                     interpret=True)]
+    got = [x.numpy() for x in ref.verify_accept_ref(*targs)]
+    np.testing.assert_array_equal(got[0], want[0])           # accept
+    np.testing.assert_array_equal(got[1], want[1])           # residual
+    np.testing.assert_allclose(got[2], want[2], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[3], want[3], rtol=0, atol=1e-6)
+    for a, b in zip(ops.verify_accept(*targs), ref.verify_accept_ref(*targs)):
+        assert torch.equal(a, b)

@@ -22,6 +22,11 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.training import checkpoint as TC
 from repro_torch.training import pairs as TP
 
+# One intra-op thread: the tiny models gain nothing from more, and the
+# test workers share the machine's cores (eight threads in each of six
+# workers slow every small op here many times over).
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 
 

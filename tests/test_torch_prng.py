@@ -11,6 +11,11 @@ from repro.runtime import sampling as JS
 from repro_torch.runtime import prng
 from repro_torch.runtime import sampling as TS
 
+# One intra-op thread: the tiny models gain nothing from more, and the
+# test workers share the machine's cores (eight threads in each of six
+# workers slow every small op here many times over).
+torch.set_num_threads(1)
+
 SEEDS = [0, 1, 42, 123456789, 2**31 - 1]
 
 

@@ -33,6 +33,11 @@ from repro_torch.runtime.specbranch import SpecBranchEngine
 from repro_torch.training import checkpoint as TC
 from repro_torch.training import pairs as TP
 
+# One intra-op thread: the tiny models gain nothing from more, and the
+# test workers share the machine's cores (eight threads in each of six
+# workers slow every small op here many times over).
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 # the reference layer jitted per call shape (eager JAX recompiles its
 # scan on every call, several times slower)

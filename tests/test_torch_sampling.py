@@ -14,6 +14,11 @@ from repro_torch.runtime import prng
 from repro_torch.runtime import sampling as TS
 from repro_torch.serving import device_loop as TDL
 
+# One intra-op thread: the tiny models gain nothing from more, and the
+# test workers share the machine's cores (eight threads in each of six
+# workers slow every small op here many times over).
+torch.set_num_threads(1)
+
 KEY_SEED = 3
 
 

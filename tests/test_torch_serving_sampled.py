@@ -28,6 +28,11 @@ from repro_torch.serving import (BatchedSpecBranchEngine,
 from repro_torch.serving.kv_pool import PagedStore
 from repro_torch.training.checkpoint import from_numpy_params
 
+# One intra-op thread: the tiny models gain nothing from more, and the
+# test workers share the machine's cores (eight threads in each of six
+# workers slow every small op here many times over).
+torch.set_num_threads(1)
+
 N_REQ, N_NEW = 3, 24
 CASES = {
     "temp1": dict(temperature=1.0, engine={}),
@@ -117,7 +122,7 @@ def test_paged_store_roundtrip_matches_reference():
 def test_later_slice_options_raise(pair):
     _, tpair, _ = pair
     for kw in (dict(attn_backend="dense"), dict(prefix_cache=True),
-               dict(hrad_params={}), dict(mesh=object())):
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             BatchedSpecBranchEngine(*tpair, EngineConfig(max_len=128),
                                     device="cpu", **kw)
@@ -142,8 +147,10 @@ def test_serve_cli_on_cpu_and_unsupported_flags(tmp_path, capsys):
     assert "batched specbranch on misaligned pair (cpu)" in text
     rep = __import__("json").loads(out.read_text())
     assert rep["total_tokens"] == 12 and rep["device"] == "cpu"
-    for flags in (["--mode", "batched", "--engine", "pearl"],
-                  ["--engine", "sps"],
-                  ["--attn-backend", "dense"], ["--draft-mode", "parallel"]):
+    for flags in (["--attn-backend", "dense"], ["--draft-mode", "parallel"]):
         with pytest.raises(SystemExit, match="not in this slice"):
             SV.main(["--device", "cpu"] + flags)
+    # as in the reference: only SpS and SpecBranch have a batched form
+    with pytest.raises(SystemExit, match="--mode batched supports"):
+        SV.main(["--device", "cpu", "--mode", "batched", "--engine",
+                 "pearl"])

@@ -40,6 +40,11 @@ from repro_torch.runtime.specbranch import SpecBranchEngine as TSpecBranch
 from repro_torch.training import checkpoint as TC
 from repro_torch.training import pairs as TP
 
+# One intra-op thread: the tiny models gain nothing from more, and the
+# test workers share the machine's cores (eight threads in each of six
+# workers slow every small op here many times over).
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 VOCAB = 61
 # the reference layers jitted per call shape (eager JAX dispatches and
