@@ -11,13 +11,18 @@ Phases (any failure raises, so the script exits non-zero):
                the shapes the main path gives it (full-width LLaMA-68M/7B
                and the tiny committed pair), with the tolerance stated per
                check; median device times (CUDA events) beside the least
-               time the card could take (bound) and a library call where
-               one exists.  The shared-prefix branch decode and the
-               single-request verify lie on no engine path, in either
-               package: their path is the kernel API (``kernels.ops``, as
-               the reference's benchmarks/kernels_bench.py drives it),
-               driven here once per checked shape with the counters
-               zeroed before and read after.
+               time the card could take (bound), a library call where
+               one exists, the split count of the decode kernels (paged,
+               branch) and the timing floor (a one-element add and a
+               10 MB copy under the same timer); besides the main path's
+               shapes, page tables as wide as a serve's, a long row at
+               B = 1 and a 2048-key shared prefix.  The shared-prefix
+               branch decode and the single-request verify lie on no
+               engine path, in either package: their path is the kernel
+               API (``kernels.ops``, as the reference's
+               benchmarks/kernels_bench.py drives it), driven here once
+               per checked shape with the counters zeroed before and read
+               after.
   3. tiny    — the committed Zipf-Markov pair (f32) served through
                ContinuousBatchScheduler: greedy streams must equal the
                port's own target-only greedy decode; temperature 1 (with
@@ -87,6 +92,13 @@ table as one JSON object and the card's name and power limit; the last
 line is the device JSON.
 
 Exits non-zero without a result when no CUDA device is visible.
+
+Modes that give no smoke result (exit 3): ``--kernels`` stops after
+phase 2; ``--probe`` times the attention tile loops phase by phase from
+variants built with -DREPRO_ATTN_STOP (1: K/V loads only, 2: loads and
+logits, 0: whole kernel) beside the timing floor; ``--profile`` runs
+phase 4's profiled serve only, and with ``--src DIR`` imports the port
+from DIR (another checkout's src) to compare two commits in one run.
 """
 from __future__ import annotations
 
@@ -99,7 +111,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+# ``--src DIR`` imports the port from another checkout's src (a parent
+# commit unpacked beside this one) for ``--profile``; default: this one's
+SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv
+       else os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.abspath(SRC))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -108,6 +124,10 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.core import hrad as H  # noqa: E402
 from repro_torch.kernels import branch_attention as BA  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+try:                        # absent from checkouts before the decode loop
+    from repro_torch.kernels import decode_attention as DA  # noqa: E402
+except ImportError:
+    DA = None
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged as PG  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
@@ -183,13 +203,17 @@ def nvidia_smi() -> str:
 _FLUSH = None
 
 
-def time_ms(fn, iters: int = 21, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 21, warmup: int = 3,
+            flush: str = "dirty") -> float:
     """Median device time of one call, from CUDA events recorded right
     before and after it.  A spin kernel holds the card while the host
     enqueues every call, so the calls then run back to back and the events
     time device work, not host launch overhead.  The 50 MB L2 is flushed
     (a bitwise_not pass over 64 MB, outside the events) before every call,
-    as the main path finds its inputs cold."""
+    as the main path finds its inputs cold; that pass leaves L2 full of
+    dirty lines.  ``flush="clean"`` flushes with a read-only pass (a max
+    over the 64 MB) instead and ``"none"`` not at all (``--probe`` reads
+    the harness's own share from the three)."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
@@ -200,7 +224,10 @@ def time_ms(fn, iters: int = 21, warmup: int = 3) -> float:
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda._sleep(100_000_000)          # ~50 ms of device spin
     for a, b in ev:
-        _FLUSH.bitwise_not_()
+        if flush == "dirty":
+            _FLUSH.bitwise_not_()
+        elif flush == "clean":
+            _FLUSH.max()
         a.record()
         fn()
         b.record()
@@ -238,15 +265,19 @@ def bound(nbytes: float, ops_: float, dtype) -> tuple:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def attn_case(rng, B, T, H, KV, hd, ps, dtype, n_idle=0, max_len=112):
+def attn_case(rng, B, T, H, KV, hd, ps, dtype, n_idle=0, max_len=112,
+              min_len=17, n_max=None):
     """Fragmented page tables over random ragged rows; ``n_idle`` rows are
-    unbound (lens 0), as most draft rows are on the main path."""
-    lens = [int(rng.integers(max(T, 17), max_len + 1)) for _ in range(B)]
+    unbound (lens 0), as most draft rows are on the main path.  ``n_max``
+    widens the tables (trash-padded) to a serve's width, which covers its
+    longest request, not the rows at hand."""
+    lens = [int(rng.integers(max(T, min_len), max_len + 1))
+            for _ in range(B)]
     for b in range(B - n_idle, B):
         lens[b] = 0
     n_pages = [-(-ln // ps) for ln in lens]
     P = sum(n_pages)
-    n_max = max(max(n_pages), 1)
+    n_max = max(max(n_pages), 1, n_max or 0)
     table = np.full((B, n_max), P, np.int32)
     perm = rng.permutation(P)
     off = 0
@@ -265,9 +296,10 @@ def attn_case(rng, B, T, H, KV, hd, ps, dtype, n_idle=0, max_len=112):
     return q, kp, vp, torch.from_numpy(table).to(dev), lens_t, qs
 
 
-def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0):
+def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0,
+                    **lens_kw):
     q, kp, vp, table, lens, qs = attn_case(rng, B, T, H, KV, hd, ps, dtype,
-                                           n_idle)
+                                           n_idle, **lens_kw)
     out = PA.paged_attention(q, kp, vp, table, lens, qs)
     want = ref.paged_attention_ref(q, kp, vp, table, lens, qs)
     torch.cuda.synchronize()
@@ -296,8 +328,11 @@ def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0):
     qd = q.transpose(1, 2).contiguous()
     lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
                                                          attn_mask=mask))
+    splits = PA.split_plan(B, T, H, KV, table.shape[1], ps_,
+                           DA.sm_count(q.device))[0]
     return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
-                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                splits=splits)
 
 
 def cdf_distance(p_lg, q_lg, tok_a, tok_b, w) -> float:
@@ -527,9 +562,11 @@ def check_branch(rng, label, kb, Tq, Sp, Ss, Hh, KV, hd, dtype, dead=0,
         mask = torch.cat([pvis.expand(kb, -1, -1), svis], -1)[:, None]
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask))
+    splits = BA.split_plan(kb, Tq, Hh, KV, Sp, Ss,
+                           DA.sm_count(q.device))[0]
     return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
                 plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-                args=args, cap=cap)
+                args=args, cap=cap, splits=splits)
 
 
 def check_single_verify(rng, label, R, V, dtype):
@@ -569,6 +606,94 @@ def check_single_verify(rng, label, R, V, dtype):
     return dict(case=label, max_abs_err=err, boundary_cases=boundary, ms=ms,
                 plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
                 args=args)
+
+
+def timing_floor(flush: str = "dirty") -> dict:
+    """What ``time_ms`` shows for next to no work: a one-element add, and
+    a device copy of 10 MB (about the attention kernels' byte bounds);
+    each kernel's bound is read against these."""
+    one = torch.zeros(1, device="cuda")
+    src = torch.ones(5 << 20, dtype=torch.bfloat16, device="cuda")
+    dst = torch.empty_like(src)
+    out = dict(one_element_ms=time_ms(lambda: one.add_(1.0), flush=flush),
+               copy_10mb_ms=time_ms(lambda: dst.copy_(src), flush=flush),
+               copy_10mb_bound_ms=2 * src.numel() * 2 / HBM_BYTES_PER_S
+               * 1e3)
+    log(f"  timing floor ({flush} L2 flush): one-element add "
+        f"{out['one_element_ms']:.4f} ms, 10 MB device copy "
+        f"{out['copy_10mb_ms']:.4f} ms (bound "
+        f"{out['copy_10mb_bound_ms']:.4f})")
+    return out
+
+
+def phase_probe() -> dict:
+    """``--probe``: the attention kernels' tile loop timed phase by phase
+    at the 7B shapes, from variants built with ``-DREPRO_ATTN_STOP``:
+    1 stops every tile after its K/V loads, 2 after its logits, 0 is the
+    whole kernel; the timing floor and three kernel calls after a dirty
+    L2 flush (the default), a clean one and none; the split plan's size
+    knob."""
+    import ctypes
+    floor = {f: timing_floor(f) for f in ("dirty", "clean", "none")}
+    bf = torch.bfloat16
+    rng = np.random.default_rng(0)
+    paged = {T: attn_case(rng, 8, T, 32, 32, 128, 16, bf) for T in (1, 8)}
+    branch = branch_case(rng, 6, 1, 504, 8, 32, 32, 128, bf)
+    flash = flash_case(rng, 1, 5, 512, 32, 32, 128, 40, bf, 3)
+    srcs = ("paged_attention.cu", "branch_attention.cu",
+            "flash_attention.cu")
+    out = {}
+    saved = build._lib
+    try:
+        for stop, what in ((1, "loads only"), (2, "loads + logits"),
+                           (0, "whole kernel")):
+            build._lib = build.bind(ctypes.CDLL(str(build.build(
+                srcs, (f"-DREPRO_ATTN_STOP={stop}",)))))
+            for T, a in paged.items():
+                ms = time_ms(lambda: PA.paged_attention(*a))
+                out[f"paged 7B B=8 T={T} {what}"] = ms
+            ms = time_ms(lambda: BA.branch_decode_attention(*branch))
+            out[f"branch 7B k=6 Sp=504 Ss=8 {what}"] = ms
+            ms = time_ms(lambda: FA.flash_attention(*flash))
+            out[f"flash 7B B=1 T=5 S=512 {what}"] = ms
+    finally:
+        build._lib = saved
+    for k, v in out.items():
+        log(f"  probe {k:40s} ms={v:.4f}")
+    long_row = attn_case(rng, 1, 1, 32, 32, 128, 16, bf, max_len=4096,
+                         min_len=3968)
+    # the harness's share: the same calls after each flush
+    for name, fn in (("paged 7B B=8 T=8", lambda: PA.paged_attention(
+                         *paged[8])),
+                     ("branch 7B Sp=504", lambda: BA.branch_decode_attention(
+                         *branch)),
+                     ("paged long row", lambda: PA.paged_attention(
+                         *long_row))):
+        t = {f: time_ms(fn, flush=f) for f in ("dirty", "clean", "none")}
+        out[f"flush {name}"] = t
+        log(f"  flush {name:18s} dirty {t['dirty']:.4f} clean "
+            f"{t['clean']:.4f} none {t['none']:.4f} ms")
+    # the split plan's size knob at the shapes that split
+    br2048 = branch_case(rng, 6, 1, 2048, 8, 32, 32, 128, bf)
+    sweep = {}
+    saved = DA.MIN_SPLIT_KEYS
+    try:
+        for mk in (128, 256, 512, 1024):
+            DA.MIN_SPLIT_KEYS = mk
+            for name, fn in (
+                    ("paged long row", lambda: PA.paged_attention(
+                        *long_row)),
+                    ("branch Sp=504", lambda: BA.branch_decode_attention(
+                        *branch)),
+                    ("branch Sp=2048", lambda: BA.branch_decode_attention(
+                        *br2048))):
+                sweep[(mk, name)] = time_ms(fn)
+    finally:
+        DA.MIN_SPLIT_KEYS = saved
+    for (mk, name), v in sweep.items():
+        log(f"  split sweep min_keys={mk:4d} {name:16s} ms={v:.4f}")
+    return dict(floor=floor, phases=out,
+                sweep={f"{a} {b}": v for (a, b), v in sweep.items()})
 
 
 def phase_kernel_api(cases, totals) -> dict:
@@ -661,6 +786,20 @@ def phase_kernels() -> dict:
           check_branch(rng, "llama-7b cap k=6 Sp=504 Ss=8", 6, 1, 504, 8,
                        32, 32, 128, bf, cap=50.0)]
     sv = [check_single_verify(rng, "llama V=32000 R=9", 9, 32000, f32)]
+    # cases after the earlier slices' (their inputs stay the same draws):
+    # page tables as wide as a serve's, a long row at B = 1 and a long
+    # shared prefix, which split the key axis
+    for T in (1, 5):
+        att.append(check_attention(rng, f"llama-7b B=8 T={T} 32-page table",
+                                   8, T, 32, 32, 128, 16, bf, n_max=32))
+    att.append(check_attention(rng, "llama-68m B=56 T=1 32-page table", 56,
+                               1, 12, 12, 64, 16, bf, n_idle=40, n_max=32))
+    att.append(check_attention(rng, "llama-7b B=1 T=1 long row", 1, 1, 32,
+                               32, 128, 16, bf, max_len=4096,
+                               min_len=3968))
+    br.append(check_branch(rng, "llama-7b k=6 Sp=2048 Ss=8", 6, 1, 2048, 8,
+                           32, 32, 128, bf))
+    timing_floor()
     for r in att + ver + gat + fl + ss + br + sv:
         lib = r["library_ms"]
         log(f"  {r['case']:32s} err={r['max_abs_err']:.2e} "
@@ -670,7 +809,8 @@ def phase_kernels() -> dict:
             f"({r['bound_by']}) plain={r['plain_ms']:.4f} "
             f"lib={'null' if lib is None else f'{lib:.4f}'}"
             + (f" boundary={r['boundary_cases']}"
-               if "boundary_cases" in r else ""))
+               if "boundary_cases" in r else "")
+            + (f" splits={r['splits']}" if "splits" in r else ""))
     return {"paged_attention": att, "verify_accept_batched": ver,
             "paged_gather": gat, "flash_attention": fl, "ssm_scan": ss,
             "branch_decode_attention": br, "verify_accept": sv}
@@ -938,9 +1078,50 @@ def busy_profile(run) -> dict:
         by_name[e.name()[:60]] = by_name.get(e.name()[:60], 0) \
             + e.duration_ns()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    paged = [e.duration_ns() for e in evs if "PagedKeys" in e.name()]
     return dict(wall_s=wall, busy_share=busy / 1e9 / wall,
                 device_s=sum(by_name.values()) / 1e9,
-                top=[(n, t / 1e9) for n, t in top])
+                top=[(n, t / 1e9) for n, t in top],
+                paged_ms=sum(paged) / 1e6, paged_launches=len(paged))
+
+
+def log_paged(prof) -> None:
+    log(f"    paged_attention kernel: {prof['paged_ms']:.2f} ms device time "
+        f"over {prof['paged_launches']} launches")
+
+
+def phase_profile(dev) -> dict:
+    """``--profile``: phase 4's profiled greedy serve (full-width
+    LLaMA-68M/7B, 8 requests x 8 new tokens) after one unprofiled serve,
+    twice; with ``--src`` against another checkout's port."""
+    pair = SV.load_pair("paper-llama", dev)
+    prompts = SV.make_prompts(8)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                        max_len=SV.auto_max_len(prompts, 32, 4, 10.0))
+    SV.serve(pair, ecfg, prompts, 8, device=dev)
+    out = []
+    for _ in range(2):
+        prof = busy_profile(lambda: SV.serve(pair, ecfg, prompts, 8,
+                                             device=dev))
+        log(f"  profile: card busy {prof['busy_share']:.3f} of "
+            f"{prof['wall_s']:.2f}s wall, device {prof['device_s']:.4f}s")
+        log_paged(prof)
+        out.append(prof)
+    # the paged kernel at the serve's shapes (tables as wide as its
+    # longest request), with its inputs in L2 as a forward leaves them,
+    # and after the default dirty flush
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    for label, case in (
+            ("7B B=8 T=1", (8, 1, 32, 32, 128)),
+            ("7B B=8 T=5", (8, 5, 32, 32, 128)),
+            ("68M B=8 T=1", (8, 1, 12, 12, 64))):
+        args = attn_case(rng, *case, 16, bf, n_max=32)
+        t = {f: time_ms(lambda: PA.paged_attention(*args), flush=f)
+             for f in ("none", "dirty")}
+        log(f"  paged {label} 32-page table: {t['none']:.4f} ms warm, "
+            f"{t['dirty']:.4f} ms after the dirty flush")
+    return out
 
 
 def phase_full(dev, totals, pair) -> dict:
@@ -992,6 +1173,7 @@ def phase_full(dev, totals, pair) -> dict:
         f"{prof['wall_s']:.2f}s wall; device time by kernel:")
     for n, t in prof["top"]:
         log(f"    {t * 1e3:9.2f} ms  {n}")
+    log_paged(prof)
     out["profile"] = prof
     return out
 
@@ -1451,6 +1633,7 @@ def phase_hrad_full(dev, totals, pair, without) -> dict:
             f"s_t histogram={h}, peak allocated {peak / 1e9:.2f} GB, "
             f"profiled 8-token serve busy {prof['busy_share']:.3f} of "
             f"{prof['wall_s']:.2f}s, launches={counts}")
+        log_paged(prof)
         if counts["paged_attention"] == 0:
             raise AssertionError(f"full {name}: paged_attention not run")
         out[name] = dict(tokens_per_s=toks / wall, wall_s=wall,
@@ -1512,10 +1695,20 @@ def main() -> int:
     ptx = str(build.BUILD_INFO.get("ptxas", ""))
     log("\n".join("  " + ln for ln in ptx.splitlines()
                   if "registers" in ln or "spill" in ln))
+    if "--profile" in sys.argv[1:]:
+        log(f"[profile] phase 4's profiled serve, port from {SRC}")
+        phase_profile(dev)
+        return 3                # a profile run gives no smoke result
+    if "--probe" in sys.argv[1:]:
+        log("[probe] attention tile loop phase by phase")
+        phase_probe()
+        return 3                # a probe run gives no smoke result
     log("[2] kernels vs plain versions")
     cases = phase_kernels()
     totals = {k: 0 for k in KERNELS}
     phase_kernel_api(cases, totals)
+    if "--kernels" in sys.argv[1:]:
+        return 3                # phases 1-2 only: no smoke result
     log("[3] tiny committed pair, f32")
     phase_tiny(dev, totals)
     log("[4] full-width LLaMA-68M/7B pair, bf16, random weights")

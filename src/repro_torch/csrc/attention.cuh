@@ -1,16 +1,12 @@
-// The tile loop shared by the port's three attention kernels for Hopper
-// (sm_90a): flash_attention.cu (dense KV with per-key positions),
-// paged_attention.cu (KV pages read through a page table) and
-// branch_attention.cu (a shared prefix plus one suffix per branch).  They
-// differ only in where key s of row b lives and what its position is;
-// each source gives that as a small addressing struct `Keys`:
+// The tile loop of the flash-attention kernel for Hopper (sm_90a),
+// flash_attention.cu (dense KV with per-key positions); it serves that
+// kernel alone (the paged and branch-decode kernels run the decode loop
+// of decode_attention.cuh).  Where key s of row b lives and what its
+// position is comes from a small addressing struct `Keys`:
 //
 //   int n_keys(b)      keys of row b the block walks (s in [0, n_keys))
 //   int k_pos(b, s)    position of key s, -1 for an invalid slot
-//   int kv_buf(b, s)   which K/V pair holds key s: 0 for (k, v), 1 for
-//                      (k2, v2); branch decode keeps its shared prefix
-//                      and its per-branch suffixes in two pairs
-//   int kv_row(b, s)   its row in that pair, which holds (rows, KV, hd)
+//   int kv_row(b, s)   its row in (k, v), which hold (rows, KV, hd)
 //   int q_pos(b, t)    position of query token t (window reference)
 //   int q_ctx(b, t)    causal horizon of query token t
 //
@@ -33,9 +29,15 @@
 // running max/mass and the accumulator stay in f32 in shared memory; each
 // warp reduces whole query rows with shuffles, and the dot products keep
 // four independent sums to shorten their dependency chains.  This
-// version runs on the CUDA cores; tensor cores (wgmma), TMA loads and
-// split-KV for long rows at B = 1 are later work.
+// version runs on the CUDA cores; the decode loop's cp.async ring, tensor
+// cores and split-KV (decode_attention.cuh) are later work here.
 #pragma once
+
+// REPRO_ATTN_STOP (a -D flag; 0 by default) cuts every tile short for
+// `chip_smoke.py --probe`: 1 after the K/V loads, 2 after the logits.
+#ifndef REPRO_ATTN_STOP
+#define REPRO_ATTN_STOP 0
+#endif
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,8 +109,7 @@ __host__ __device__ inline size_t smem_bytes(int rows, int t_tile, int hd) {
 template <typename scalar_t, typename Keys>
 __global__ void __launch_bounds__(kThreads) attention_kernel(
     const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
-    const scalar_t* __restrict__ v, const scalar_t* __restrict__ k2,
-    const scalar_t* __restrict__ v2, scalar_t* __restrict__ out,
+    const scalar_t* __restrict__ v, scalar_t* __restrict__ out,
     const Keys keys, int T, int H, int KV, int hd, int t_tile, int causal,
     int window, float cap, float scale) {
   extern __shared__ float smem[];
@@ -183,9 +184,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
       if (o < n) {
         const size_t off =
             ((size_t)keys.kv_row(b, s0 + o) * KV + kvh) * hd + d;
-        const bool second = keys.kv_buf(b, s0 + o);
-        load16((second ? k2 : k) + off, kx);
-        load16((second ? v2 : v) + off, vx);
+        load16(k + off, kx);
+        load16(v + off, vx);
       } else {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) kx[i] = vx[i] = 0.f;
@@ -200,6 +200,9 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
       Kp[o] = o < n ? keys.k_pos(b, s0 + o) : -1;
     }
     __syncthreads();
+#if REPRO_ATTN_STOP == 1
+    continue;
+#endif
     for (int e = tid; e < rows * kTile; e += blockDim.x) {
       const int r = e / kTile, o = e - r * kTile;
       const int tl = r % t_tile;
@@ -226,6 +229,9 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
       Sc[r * kScStride + o] = s;
     }
     __syncthreads();
+#if REPRO_ATTN_STOP == 2
+    continue;
+#endif
     // one warp per query row: lane l owns keys l and l + 32 of the tile
     const int lane = tid & 31;
     for (int r = tid >> 5; r < rows; r += blockDim.x >> 5) {
@@ -274,8 +280,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
 }
 
 template <typename scalar_t, typename Keys>
-int launch_typed(const void* q, const void* k, const void* v,
-                 const void* k2, const void* v2, void* out,
+int launch_typed(const void* q, const void* k, const void* v, void* out,
                  const Keys& keys, int B, int T, int H, int KV, int hd,
                  int t_tile, int causal, int window, float cap, float scale,
                  cudaStream_t stream) {
@@ -287,30 +292,26 @@ int launch_typed(const void* q, const void* k, const void* v,
   const dim3 grid(B, KV, (T + t_tile - 1) / t_tile);
   attention_kernel<scalar_t, Keys><<<grid, kThreads, smem, stream>>>(
       static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
-      static_cast<const scalar_t*>(v), static_cast<const scalar_t*>(k2),
-      static_cast<const scalar_t*>(v2), static_cast<scalar_t*>(out), keys, T,
+      static_cast<const scalar_t*>(v), static_cast<scalar_t*>(out), keys, T,
       H, KV, hd, t_tile, causal, window, cap, scale);
   return (int)cudaGetLastError();
 }
 
 // Launches the kernel on bf16 (is_bf16) or f32 storage; q, out (B, T, H,
-// hd).  (k2, v2) is the second K/V pair that Keys::kv_buf may name
-// (nullptr where it never does).  cap <= 0 means no softcap, window <= 0
-// no window.  Returns cudaGetLastError().
+// hd).  cap <= 0 means no softcap, window <= 0 no window.  Returns
+// cudaGetLastError().
 template <typename Keys>
 int launch_attention(const void* q, const void* k, const void* v, void* out,
                      const Keys& keys, int B, int T, int H, int KV, int hd,
                      int t_tile, int causal, int window, float cap,
-                     float scale, int is_bf16, void* stream,
-                     const void* k2 = nullptr, const void* v2 = nullptr) {
+                     float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return launch_typed<__nv_bfloat16>(q, k, v, k2, v2, out, keys, B, T, H,
-                                       KV, hd, t_tile, causal, window, cap,
-                                       scale, s);
+    return launch_typed<__nv_bfloat16>(q, k, v, out, keys, B, T, H, KV, hd,
+                                       t_tile, causal, window, cap, scale, s);
   }
-  return launch_typed<float>(q, k, v, k2, v2, out, keys, B, T, H, KV, hd,
-                             t_tile, causal, window, cap, scale, s);
+  return launch_typed<float>(q, k, v, out, keys, B, T, H, KV, hd, t_tile,
+                             causal, window, cap, scale, s);
 }
 
 }  // namespace

@@ -7,63 +7,69 @@
 // jnp.  k branches share one prefix K/V (1, Sp, KV, hd), stored once; each
 // branch b has its own suffix K/V (k, Ss, KV, hd).  Query t of branch b
 // sees key s when k_pos >= 0 and k_pos <= q_pos[b, t] (causal), with the
-// optional tanh softcap; the scale 1/sqrt(hd) multiplies q in f32; the sum
-// is f32 and the output q's dtype.  A query that sees no key at all
-// writes zeros.
+// optional tanh softcap; the scale 1/sqrt(hd) is applied to the f32
+// logits; the sum is f32 and the output q's dtype.  A query that sees no
+// key at all writes zeros.
 //
-// One fused pass: the tile loop of attention.cuh, with this file's
-// addressing, walks key s < Sp as prefix row s (the pair (k, v), shared by
-// every branch) and key s >= Sp as suffix row b * Ss + s - Sp (the pair
-// (k2, v2)), in ONE online softmax per (branch, kv head, T tile) block.
-// Nothing round-trips through device memory between the two halves: no
-// (m, l) outputs, no merge launches.  A 64-key tile may straddle the
-// boundary; each key is addressed on its own.
+// One fused pass: the tile loop of decode_attention.cuh, with this file's
+// addressing.  A block holds the query rows of every branch of its row
+// tile (all k branches at the 7B width: k * G * Tq = 6 rows) for one kv
+// head, so each prefix tile is read once per kv head, not once per
+// branch.  Its key range is the prefix (pair (k, v)) followed by the
+// suffixes of its branches (pair (k2, v2)); a suffix key is owned by its
+// branch and masked to that branch's rows.  Nothing round-trips through
+// device memory between the two halves; when the host splits the key
+// axis, the splits merge inside the launch, through shared memory.
 //
 // What bounds it on the H100: memory.  The least traffic reads the prefix
-// K/V once, every suffix once and q once; the blocks of the k branches
-// re-read the prefix tiles of their kv head, which the 50 MB L2 serves
-// after the first read at the 7B decode widths (k = 6, Sp ~ 500: 8.3 MB of
-// prefix).
+// K/V once, every suffix once and q once, which this layout does.
 
-#include "attention.cuh"
+#include "decode_attention.cuh"
 
 namespace {
 
 struct BranchKeys {
   const int* pp;  // prefix_pos (Sp,)
   const int* sp;  // suffix_pos (k, Ss)
-  const int* qp;  // q_pos (k, T)
-  int T, Sp, Ss;
-  __device__ int n_keys(int) const { return Sp + Ss; }
-  __device__ int k_pos(int b, int s) const {
-    return s < Sp ? pp[s] : sp[(size_t)b * Ss + s - Sp];
+  const int* qp;  // q_pos (k, Tq), token tl = b * Tq + t
+  int Tq, Sp, Ss;
+  struct Blk {
+    int b0, nb;  // the row tile's first branch and its branch count
+  };
+  __device__ Tok token(int, int tl) const {
+    const int p = qp[tl];
+    return {p, p, tl / Tq};
   }
-  __device__ int kv_buf(int, int s) const { return s >= Sp; }
-  __device__ int kv_row(int b, int s) const {
-    return s < Sp ? s : b * Ss + s - Sp;
+  __device__ Blk block(int, int tl0, int tl1) const {
+    return {tl0 / Tq, tl1 / Tq - tl0 / Tq + 1};
   }
-  __device__ int q_pos(int b, int t) const { return qp[(size_t)b * T + t]; }
-  __device__ int q_ctx(int b, int t) const { return qp[(size_t)b * T + t]; }
+  __device__ int bound(const Blk& k) const { return Sp + k.nb * Ss; }
+  __device__ int limit(const Blk& k) const { return bound(k); }
+  __device__ Key key(const Blk& k, int s) const {
+    if (s < Sp) return {pp[s], -1, 0, s};
+    const int j = s - Sp, bi = k.b0 + j / Ss;
+    const int row = bi * Ss + (j - (j / Ss) * Ss);
+    return {sp[row], bi, 1, row};
+  }
 };
 
 }  // namespace
 
-extern "C" size_t repro_branch_attention_smem(int rows, int hd) {
-  return smem_bytes(rows, rows, hd);  // t_tile <= rows: an upper bound
-}
-
 // q (k,T,H,hd); prefix k/v (Sp,KV,hd); prefix_pos (Sp,); suffix k/v
-// (k,Ss,KV,hd); suffix_pos (k,Ss); q_pos (k,T); out (k,T,H,hd).  is_bf16
-// selects bf16 storage, else f32.  cap <= 0 means no softcap.  Returns
+// (k,Ss,KV,hd); suffix_pos (k,Ss); q_pos (k,T); out (k,T,H,hd).  The key
+// axis runs in n_split (<= 8) splits of split_len keys.  is_bf16 selects
+// bf16 storage, else f32.  cap <= 0 means no softcap.  Returns
 // cudaGetLastError().
 extern "C" int repro_branch_attention(
     const void* q, const void* prefix_k, const void* prefix_v,
     const int* prefix_pos, const void* suffix_k, const void* suffix_v,
     const int* suffix_pos, const int* q_pos, void* out, int nb, int T,
-    int Sp, int Ss, int H, int KV, int hd, int t_tile, float cap,
-    float scale, int is_bf16, void* stream) {
+    int Sp, int Ss, int H, int KV, int hd, int n_split, int split_len,
+    float cap, float scale, int is_bf16, void* stream) {
   const BranchKeys keys{prefix_pos, suffix_pos, q_pos, T, Sp, Ss};
-  return launch_attention(q, prefix_k, prefix_v, out, keys, nb, T, H, KV, hd,
-                          t_tile, /*causal=*/1, /*window=*/0, cap, scale,
-                          is_bf16, stream, suffix_k, suffix_v);
+  const int G = H / KV;
+  const DecodeArgs a{q, prefix_k, prefix_v, suffix_k, suffix_v, out,
+                     nb * T, H, KV, G, (nb * T * G + kRows - 1) / kRows,
+                     n_split, split_len, /*window=*/0, cap, scale};
+  return decode_launch(keys, a, 1, hd, is_bf16, stream);
 }

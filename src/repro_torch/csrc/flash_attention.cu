@@ -29,7 +29,6 @@ struct DenseKeys {
   int T, S;
   __device__ int n_keys(int) const { return S; }
   __device__ int k_pos(int b, int s) const { return kp[(size_t)b * S + s]; }
-  __device__ int kv_buf(int, int) const { return 0; }
   __device__ int kv_row(int b, int s) const { return b * S + s; }
   __device__ int q_pos(int b, int t) const { return qp[(size_t)b * T + t]; }
   __device__ int q_ctx(int b, int t) const { return qc[(size_t)b * T + t]; }

@@ -6,17 +6,21 @@
 // table.  Key position = j * ps + o for slot o of logical page j; a key is
 // visible to query token t of row b when kpos < lens[b] and
 // kpos <= q_start[b] + t (plus the optional sliding window and tanh
-// softcap); the scale is 1/sqrt(hd).  Fully masked keys add zero mass and
-// a zero-length row writes zeros, as the TPU kernel does.
+// softcap); the scale is 1/sqrt(hd), applied to the f32 logits.  Fully
+// masked keys add zero mass and a zero-length row writes zeros, as the
+// TPU kernel does.
 //
-// The tile loop, and what bounds it, is attention.cuh's; this file gives
-// it the paged addressing: key s of row b is slot s % ps of page
-// table[b, s / ps], and the block walks only the row's first lens[b]
-// keys, so short rows cost nothing past their length.  T is tiled
-// because bucketed prefill sends whole prompt rungs through this kernel,
-// not only verify chunks.
+// The tile loop, and what bounds it, is decode_attention.cuh's; this file
+// gives it the paged addressing: key s of row b is slot s % ps of page
+// table[b, s / ps].  A block's key range is planned from n_max * ps,
+// which the host knows; the loop walks only the row's first lens[b] keys
+// (a serve's tables are as wide as its longest request), and the first
+// page-table entries are read together with lens, so no K/V copy waits
+// on lens.  T is tiled (16 rows of G heads x tokens per
+// block) because bucketed prefill sends whole prompt rungs through this
+// kernel, not only verify chunks.
 
-#include "attention.cuh"
+#include "decode_attention.cuh"
 
 namespace {
 
@@ -25,34 +29,40 @@ struct PagedKeys {
   const int* lens;     // (B,) valid keys per row, the T queries included
   const int* q_start;  // (B,) position of the row's first query token
   int ps, n_max;
-  __device__ int n_keys(int b) const {
-    return min(max(lens[b], 0), n_max * ps);
+  struct Blk {
+    int b, lim;
+  };
+  __device__ Tok token(int b, int t) const {
+    const int p = q_start[b] + t;
+    return {p, p, 0};
   }
-  __device__ int k_pos(int, int s) const { return s; }
-  __device__ int kv_buf(int, int) const { return 0; }
-  __device__ int kv_row(int b, int s) const {
-    return table[(size_t)b * n_max + s / ps] * ps + s % ps;
+  __device__ Blk block(int b, int, int) const {
+    return {b, min(max(lens[b], 0), n_max * ps)};
   }
-  __device__ int q_pos(int b, int t) const { return q_start[b] + t; }
-  __device__ int q_ctx(int b, int t) const { return q_start[b] + t; }
+  __device__ int bound(const Blk&) const { return n_max * ps; }
+  __device__ int limit(const Blk& k) const { return k.lim; }
+  __device__ Key key(const Blk& k, int s) const {
+    const int page = table[(size_t)k.b * n_max + s / ps];
+    return {s < k.lim ? s : -1, -1, 0, page * ps + s % ps};
+  }
 };
 
 }  // namespace
 
-extern "C" size_t repro_paged_attention_smem(int rows, int hd) {
-  return smem_bytes(rows, rows, hd);  // t_tile <= rows: an upper bound
-}
-
 // q (B,T,H,hd); k/v pages (P,ps,KV,hd); table (B,n_max); lens, q_start
-// (B,); out (B,T,H,hd).  is_bf16 selects bf16 storage, else f32.  cap <= 0
+// (B,); out (B,T,H,hd).  The key axis runs in n_split (<= 8) splits of
+// split_len keys.  is_bf16 selects bf16 storage, else f32.  cap <= 0
 // means no softcap, window <= 0 no window.  Returns cudaGetLastError().
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
-    const int* table, const int* lens, const int* q_start, void* out,
-    int B, int T, int H, int KV, int hd, int ps, int n_max, int t_tile,
-    int window, float cap, float scale, int is_bf16, void* stream) {
+    const int* table, const int* lens, const int* q_start, void* out, int B,
+    int T, int H, int KV, int hd, int ps, int n_max, int n_split,
+    int split_len, int window, float cap, float scale, int is_bf16,
+    void* stream) {
   const PagedKeys keys{table, lens, q_start, ps, n_max};
-  return launch_attention(q, k_pages, v_pages, out, keys, B, T, H, KV, hd,
-                          t_tile, /*causal=*/1, window, cap, scale, is_bf16,
-                          stream);
+  const int G = H / KV;
+  const DecodeArgs a{q, k_pages, v_pages, k_pages, v_pages, out, T, H, KV,
+                     G, (T * G + kRows - 1) / kRows, n_split, split_len,
+                     window, cap, scale};
+  return decode_launch(keys, a, B, hd, is_bf16, stream);
 }

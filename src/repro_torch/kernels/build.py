@@ -27,7 +27,7 @@ from typing import Dict, Optional
 
 SOURCES = ("paged_attention.cu", "verify_accept.cu", "paged_gather.cu",
            "flash_attention.cu", "ssm_scan.cu", "branch_attention.cu")
-HEADERS = ("attention.cuh",)   # included by sources; hashed with them
+HEADERS = ("attention.cuh", "decode_attention.cuh")  # hashed with the sources
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -61,18 +61,20 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for name in SOURCES + HEADERS:
+def _digest(sources=SOURCES, defines=()) -> str:
+    h = hashlib.sha256(" ".join(CFLAGS + list(defines)).encode())
+    for name in tuple(sources) + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
+def build(sources=SOURCES, defines=()) -> Path:
     """Compile the sources (in parallel) and link the library; returns its
-    path.  Reuses an existing library built from identical sources."""
-    so = BUILD_DIR / f"libreprotorch_{_digest()}.so"
+    path.  Reuses an existing library built from identical sources.
+    ``defines`` (``-D`` flags) build a variant, as ``chip_smoke.py
+    --probe`` does to time the attention tile loop phase by phase."""
+    so = BUILD_DIR / f"libreprotorch_{_digest(sources, defines)}.so"
     if so.exists():
         BUILD_INFO.setdefault("seconds", 0.0)
         return so
@@ -81,9 +83,10 @@ def build() -> Path:
     cc = nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for name in SOURCES:
+        for name in sources:
             obj = os.path.join(tmp, name.replace(".cu", ".o"))
-            cmd = [cc, *CFLAGS, "-Xptxas", "-v", "-c", str(CSRC / name),
+            cmd = [cc, *CFLAGS, *defines, "-Xptxas", "-v", "-c",
+                   str(CSRC / name),
                    "-o", obj]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -111,31 +114,33 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first call)."""
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(str(build()))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        L.repro_paged_attention.argtypes = (
-            [P] * 7 + [I] * 9 + [F, F, I, P])
-        L.repro_paged_attention.restype = I
-        L.repro_paged_attention_smem.argtypes = [I, I]
-        L.repro_paged_attention_smem.restype = ctypes.c_size_t
-        L.repro_verify_accept_batched.argtypes = [P] * 10 + [I] * 3 + [P]
-        L.repro_verify_accept_batched.restype = I
-        L.repro_paged_gather.argtypes = [P] * 3 + [I] * 4 + [P]
-        L.repro_paged_gather.restype = I
-        L.repro_flash_attention.argtypes = [P] * 7 + [I] * 9 + [F, F, I, P]
-        L.repro_flash_attention.restype = I
-        L.repro_flash_attention_smem.argtypes = [I, I]
-        L.repro_flash_attention_smem.restype = ctypes.c_size_t
-        L.repro_ssm_scan.argtypes = [P] * 10 + [I] * 5 + [P]
-        L.repro_ssm_scan.restype = I
-        L.repro_branch_attention.argtypes = [P] * 9 + [I] * 8 + [F, F, I, P]
-        L.repro_branch_attention.restype = I
-        L.repro_branch_attention_smem.argtypes = [I, I]
-        L.repro_branch_attention_smem.restype = ctypes.c_size_t
-        L.repro_verify_accept.argtypes = [P] * 9 + [I] * 3 + [P]
-        L.repro_verify_accept.restype = I
-        _lib = L
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib
+
+
+def _signatures() -> Dict[str, tuple]:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    S = ctypes.c_size_t
+    return {  # entry: (argtypes, restype)
+        "repro_paged_attention": ([P] * 7 + [I] * 10 + [F, F, I, P], I),
+        "repro_verify_accept_batched": ([P] * 10 + [I] * 3 + [P], I),
+        "repro_paged_gather": ([P] * 3 + [I] * 4 + [P], I),
+        "repro_flash_attention": ([P] * 7 + [I] * 9 + [F, F, I, P], I),
+        "repro_flash_attention_smem": ([I, I], S),
+        "repro_ssm_scan": ([P] * 10 + [I] * 5 + [P], I),
+        "repro_branch_attention": ([P] * 9 + [I] * 9 + [F, F, I, P], I),
+        "repro_verify_accept": ([P] * 9 + [I] * 3 + [P], I),
+    }
+
+
+def bind(L: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' signatures on a loaded library (a variant built
+    from some of the sources lacks the others' entries)."""
+    for name, (args, res) in _signatures().items():
+        if hasattr(L, name):
+            fn = getattr(L, name)
+            fn.argtypes, fn.restype = args, res
+    return L
 
 
 def check(rc: int, name: str) -> None:

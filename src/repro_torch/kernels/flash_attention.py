@@ -9,9 +9,8 @@ q_pos, q_ctx (B, T) and k_pos (B, S) int32 absolute positions, k_pos -1
 marking an invalid slot.  A key s is visible to query t when
 ``k_pos >= 0``, ``k_pos <= q_ctx`` (causal) and ``q_pos - k_pos < window``
 (window > 0).  The kernel tiles T so that G * T_tile query rows share
-each K/V tile it reads (``paged_attention.ROWS_MAX`` rows per block);
-its tile loop (``csrc/attention.cuh``) is the paged kernel's, with dense
-addressing.
+each K/V tile it reads (``ROWS_MAX`` rows per block); its tile loop is
+``csrc/attention.cuh``, which serves this kernel alone.
 
 A query that sees no key at all gets zeros (the plain version averages V
 over its padded width there); the sequential runner never produces one,
@@ -25,8 +24,16 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import (SMEM_LIMIT, check_rows16,
-                                                 t_tile)
+from repro_torch.kernels.paged_attention import check_rows16
+
+ROWS_MAX = 64                  # query rows (G * T_tile) per block
+SMEM_LIMIT = 232_448           # bytes a block may use on sm_90
+
+
+def t_tile(T: int, G: int) -> int:
+    if G > ROWS_MAX:
+        raise ValueError(f"{G} query heads per kv head exceed {ROWS_MAX}")
+    return max(1, min(T, ROWS_MAX // G))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

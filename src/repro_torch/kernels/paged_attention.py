@@ -5,41 +5,44 @@
 Layout as in the reference: q (B, T, H, hd); k/v pages (P, ps, KV, hd)
 with the trash page last; table (B, n_max) int32; lens (B,) int32 valid
 KV length per row including the T query tokens; q_start (B,) int32
-absolute position of q[:, 0].  The kernel tiles T so that G * T_tile
-query rows share each K/V tile read (``ROWS_MAX`` rows per block).
+absolute position of q[:, 0].  A block holds 16 query rows (G heads x
+tokens, so T is tiled) of one kv head, and the key axis is split when
+those blocks would leave SMs idle (``kernels.decode_attention``).
 
-The kernel's tile loop (``csrc/attention.cuh``) is shared with the flash
-kernel, and so are the tiling limits and input checks here.
+The kernel's tile loop (``csrc/decode_attention.cuh``) is shared with
+the branch-decode kernel; ``check_rows16`` serves all three attention
+wrappers.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-
-ROWS_MAX = 64                  # query rows (G * T_tile) per block
-SMEM_LIMIT = 232_448           # bytes a block may use on sm_90
-
-
-def t_tile(T: int, G: int) -> int:
-    if G > ROWS_MAX:
-        raise ValueError(f"{G} query heads per kv head exceed {ROWS_MAX}")
-    return max(1, min(T, ROWS_MAX // G))
+from repro_torch.kernels import decode_attention as DA
 
 
 def check_rows16(name: str, hd: int, k: torch.Tensor,
                  v: torch.Tensor) -> None:
-    """The kernels load K/V 16 bytes at a time: a row of hd values must
-    span a multiple of 16 bytes and both tensors start 16-byte aligned."""
+    """The kernels load K/V (and the decode kernels q) 16 bytes at a time:
+    a row of hd values must span a multiple of 16 bytes and both tensors
+    start 16-byte aligned."""
     if (hd * k.element_size()) % 16:
         raise ValueError(f"{name}: rows of hd={hd} {k.dtype} values are "
                          "not a multiple of 16 bytes")
     for x in (k, v):
         if x.data_ptr() % 16:
-            raise ValueError(f"{name}: K/V storage is not 16-byte aligned")
+            raise ValueError(f"{name}: storage is not 16-byte aligned")
+
+
+def split_plan(B: int, T: int, H: int, KV: int, n_max: int, ps: int,
+               sm_count: int) -> Tuple[int, int]:
+    """(n_split, split_len) of a call: B x row tiles x kv heads blocks,
+    the key axis planned from ``n_max * ps``."""
+    return DA.plan_splits(B * DA.row_tiles(T * (H // KV)) * KV, n_max * ps,
+                          sm_count)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -47,8 +50,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     lens: torch.Tensor, q_start: torch.Tensor, *,
                     window: int = 0, cap: Optional[float] = None
                     ) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns (B, T, H, hd) in q's
-    dtype.  Raises on a CPU tensor, a bad dtype/shape or a launch error."""
+    """Launch the kernel (one launch, split-KV included) on CUDA tensors;
+    returns (B, T, H, hd) in q's dtype.  Raises on a CPU tensor, a bad
+    dtype/shape/head dim or a launch error."""
     B, T, H, hd = q.shape
     P, ps, KV, hd_k = k_pages.shape
     n_max = table.shape[1]
@@ -71,20 +75,21 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             raise ValueError(f"paged_attention: {name} must be int32 "
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
     check_rows16("paged_attention", hd, k_pages, v_pages)
-    tt = t_tile(T, H // KV)
+    check_rows16("paged_attention", hd, q, q)
+    DA.check_head_dim("paged_attention", hd)
     L = build.lib()
-    if L.repro_paged_attention_smem((H // KV) * tt, hd) > SMEM_LIMIT:
-        raise ValueError(f"paged_attention: tile exceeds shared memory "
-                         f"(hd={hd})")
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    n_split, split_len = split_plan(B, T, H, KV, n_max, ps,
+                                    DA.sm_count(q.device))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = L.repro_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             table.data_ptr(), lens.data_ptr(), q_start.data_ptr(),
-            out.data_ptr(), B, T, H, KV, hd, ps, n_max, tt, int(window),
+            out.data_ptr(), B, T, H, KV, hd, ps, n_max, n_split, split_len,
+            int(window),
             float(cap) if cap is not None else 0.0, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16), stream)
     build.check(rc, "paged_attention")

@@ -23,7 +23,10 @@ import pytest
 import torch
 
 from repro_torch.core import hrad as H
+from repro_torch.kernels import branch_attention as BA
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as PA
 from repro_torch.launch import serve as SV
 from repro_torch.models import model as M
 from repro_torch.runtime import prng
@@ -42,11 +45,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _attn_inputs(seed, B, T, H, KV, hd, ps, zero_rows=0):
+def _attn_inputs(seed, B, T, H, KV, hd, ps, zero_rows=0, lens=None):
+    """Random fragmented page tables over ragged rows; ``lens`` overrides
+    the random lengths (0 for a zero-length row)."""
     rng = np.random.default_rng(seed)
-    lens = [int(rng.integers(T + 1, 6 * ps)) for _ in range(B)]
-    for b in range(B - zero_rows, B):
-        lens[b] = 0
+    if lens is None:
+        lens = [int(rng.integers(T + 1, 6 * ps)) for _ in range(B)]
+        for b in range(B - zero_rows, B):
+            lens[b] = 0
     n_pages = [-(-ln // ps) for ln in lens]
     P = sum(n_pages) + 2
     table = np.full((B, max(max(n_pages), 1)), P, np.int32)
@@ -83,7 +89,18 @@ ATTN_CASES = [
     dict(B=2, T=7, H=8, KV=2, hd=64, ps=16, window=5),
     dict(B=2, T=3, H=6, KV=3, hd=32, ps=4, cap=20.0),
     dict(B=3, T=2, H=4, KV=2, hd=16, ps=8, zero_rows=2),
-    dict(B=4, T=70, H=4, KV=2, hd=128, ps=16),       # T tiled (64 rows)
+    dict(B=4, T=70, H=4, KV=2, hd=128, ps=16),       # T tiled (140 rows)
+    # G * T rows of 8, 16, 17 and 64 at head dims 64, 32, 16 and 128
+    dict(B=2, T=8, H=2, KV=2, hd=64, ps=16),
+    dict(B=2, T=16, H=4, KV=4, hd=32, ps=8),
+    dict(B=3, T=17, H=2, KV=2, hd=16, ps=8),
+    dict(B=2, T=16, H=8, KV=2, hd=128, ps=16),
+    # a long row at B = 1, 7B head width: the key axis splits
+    dict(B=1, T=1, H=32, KV=32, hd=128, ps=16, lens=[4000]),
+    # a window that leaves whole splits dead
+    dict(B=1, T=4, H=32, KV=32, hd=128, ps=16, lens=[4096], window=700),
+    # a zero-length row beside a split one
+    dict(B=2, T=1, H=8, KV=8, hd=64, ps=16, lens=[3000, 0]),
 ]
 
 
@@ -104,6 +121,50 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype):
     assert ops.LAUNCHES["paged_attention"] == n0 + 1
     assert got.dtype == dt and got.shape == q.shape
     _assert_attn_close(got, want)
+
+
+@pytest.mark.requires_cuda
+def test_split_decode_calls_are_one_launch_without_host_sync(cuda):
+    """A call whose key axis splits is one launch, reads nothing back to
+    the host (sync debug mode raises on a synchronising op) and allocates
+    nothing on the card but its output (the splits merge in shared
+    memory)."""
+    q, kp, vp, table, lens, qs = _dev(
+        _attn_inputs(9, 1, 2, 32, 32, 128, 16, lens=[4000]), cuda)
+    q, kp, vp = (x.bfloat16() for x in (q, kp, vp))
+    assert PA.split_plan(1, 2, 32, 32, table.shape[1], 16,
+                         DA.sm_count(q.device))[0] > 1
+    rng = np.random.default_rng(2)
+    bq, pk, pv, sk, sv = (torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(cuda, torch.bfloat16) for s in (
+            (6, 1, 32, 128), (1, 2048, 32, 128), (1, 2048, 32, 128),
+            (6, 8, 32, 128), (6, 8, 32, 128)))
+    ppos, spos, qpos = _dev([np.arange(2048, dtype=np.int32)[None],
+                             np.tile(np.arange(2048, 2056, dtype=np.int32),
+                                     (6, 1)),
+                             np.full((6, 1), 2055, np.int32)], cuda)
+    assert BA.split_plan(6, 1, 32, 32, 2048, 8, DA.sm_count(q.device))[0] > 1
+    bargs = (bq, pk, pv, ppos, sk, sv, spos, qpos)
+    ops.paged_attention(q, kp, vp, table, lens, qs)      # build, warm up
+    ops.branch_decode_attention(*bargs)
+    n0 = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.paged_attention(q, kp, vp, table, lens, qs)
+        bgot = ops.branch_decode_attention(*bargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.LAUNCHES["paged_attention"] == n0["paged_attention"] + 1
+    assert (ops.LAUNCHES["branch_decode_attention"]
+            == n0["branch_decode_attention"] + 1)
+    torch.cuda.synchronize()
+    assert (torch.cuda.memory_allocated() - mem0
+            <= 2 * (got.numel() + bgot.numel()) + 1024)
+    _assert_attn_close(got, ref.paged_attention_ref(q, kp, vp, table, lens,
+                                                    qs))
+    _assert_attn_close(bgot, ref.branch_decode_ref(*bargs))
 
 
 @pytest.mark.requires_cuda
@@ -300,9 +361,12 @@ def test_hybrid_pairs_on_the_card_are_greedy_lossless(cuda, kind):
 
 
 # (k branches, Tq, Sp, Ss, H, KV, hd): the 7B branch-decode width, a GQA
-# case with odd lengths and Tq > 1, a tile straddling the boundary
+# case with odd lengths and Tq > 1, a tile straddling the boundary;
+# k * G * Tq = 36 rows (three row tiles) with Sp not a multiple of the
+# 16-key tile; a long prefix that splits; head dim 16
 BRANCH_CASES = [(6, 1, 504, 8, 32, 32, 128), (3, 3, 29, 5, 4, 2, 32),
-                (4, 2, 70, 13, 8, 2, 64)]
+                (4, 2, 70, 13, 8, 2, 64), (6, 3, 70, 5, 8, 4, 64),
+                (6, 1, 2048, 8, 32, 32, 128), (4, 2, 45, 3, 4, 4, 16)]
 
 
 @pytest.mark.requires_cuda

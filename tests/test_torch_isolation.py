@@ -34,7 +34,8 @@ NEED = ["repro_torch.kernels.flash_attention", "repro_torch.runtime.runner",
         "repro_torch.runtime.engines", "repro_torch.launch.serve",
         "repro_torch.kernels.ssm_scan", "repro_torch.configs.falcon_mamba_7b",
         "repro_torch.serving.decode_state", "repro_torch.training.pairs",
-        "repro_torch.core.hrad", "repro_torch.kernels.branch_attention"]
+        "repro_torch.core.hrad", "repro_torch.kernels.branch_attention",
+        "repro_torch.kernels.decode_attention"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -44,7 +45,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                          env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 45 and bad.strip() == "[]"
+    assert int(n_modules) >= 46 and bad.strip() == "[]"
 
 
 def test_port_sources_have_no_jax_or_reference_imports():

@@ -5,7 +5,8 @@ CPU tensors.  The CUDA kernels against their plain versions are in
 ``test_torch_cuda.py``.
 
 Tolerances: paged and flash attention f32 atol 1e-5 (the same math in
-another summation order); branch decode atol 2e-5 f32 and 2e-2 bf16 (the
+another summation order), and so the split-KV emulation of the decode
+kernels; branch decode atol 2e-5 f32 and 2e-2 bf16 (the
 reference rounds each of its two passes to bf16 before the merge, the
 plain version once); verify ints equal and floats rtol 1e-6 (batched) or
 atol 1e-6 (single request); gather equal.
@@ -15,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import flash_attention as jfa
 from repro.kernels import ops as jops
 from repro.models import layers as jlayers
 from repro.kernels import paged_attention as jpa
 from repro.kernels import verify_accept as jva
 from repro_torch.kernels import branch_attention as tba
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as tlayers
@@ -357,3 +360,230 @@ def test_plain_single_verify_matches_pallas(R, V, dtype):
     np.testing.assert_allclose(got[3], want[3], rtol=0, atol=1e-6)
     for a, b in zip(ops.verify_accept(*targs), ref.verify_accept_ref(*targs)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# split-KV: the decode kernels' split-and-merge arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+def _split_partial(q, k, v, q_pos, k_pos, lo, hi, window=0, cap=None):
+    """One split of the decode kernel: attention of q (N, T, H, hd) over
+    keys [lo, hi) of k, v (N, S, KV, hd) with positions k_pos (N, S) (-1
+    invalid), causal by q_pos (N, T).  Returns (o, m, l) as the kernel
+    writes them: o = sum p v / max(l, 1e-20), m = -1e30 and l = 0 where
+    the split shows a query no key."""
+    N, T, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    kk = k[:, lo:hi].float()
+    vv = v[:, lo:hi].float()
+    kp = k_pos[:, lo:hi].long()[:, None, :]                   # (N, 1, s)
+    qp = q_pos.long()[:, :, None]                             # (N, T, 1)
+    qr = q.float().reshape(N, T, KV, G, hd)
+    x = torch.einsum("ntkgh,nskh->nkgts", qr, kk) / np.sqrt(hd)
+    if cap is not None:
+        x = cap * torch.tanh(x / cap)
+    vis = (kp >= 0) & (kp <= qp)
+    if window > 0:
+        vis &= (qp - kp) < window
+    vis = vis[:, None, None]                                  # (N,1,1,T,s)
+    x = torch.where(vis, x, torch.full_like(x, -float("inf")))
+    m = x.amax(-1).clamp_min(ref.NEG_INF) if x.shape[-1] else \
+        torch.full(x.shape[:-1], ref.NEG_INF)
+    p = torch.where(vis, torch.exp(x - m[..., None]), torch.zeros_like(x))
+    l = p.sum(-1)
+    o = torch.einsum("nkgts,nskh->nkgth", p, vv) / l.clamp_min(1e-20)[
+        ..., None]
+    return o, m, l
+
+
+def _merge(parts):
+    """The merging block's combine: weights l * exp(m - M), M the largest
+    m; zeros where every split has l = 0.  parts: [(o (N, KV, G, T, hd),
+    m, l (N, KV, G, T))]; returns (N, KV, G, T, hd)."""
+    M = torch.stack([m for _, m, _ in parts]).amax(0)
+    ws = [l * torch.exp(m - M) for _, m, l in parts]
+    den = torch.stack(ws).sum(0).clamp_min(1e-20)
+    return sum(o * w[..., None] for (o, _, _), w in zip(parts, ws)) / \
+        den[..., None]
+
+
+def _split_merge(q, k, v, q_pos, k_pos, n_split, split_len, **kw):
+    """Attention computed split by split and merged as the kernel merges;
+    (N, T, H, hd) f32."""
+    S = k.shape[1]
+    parts = [_split_partial(q, k, v, q_pos, k_pos, z * split_len,
+                            min(S, (z + 1) * split_len), **kw)
+             for z in range(n_split)]
+    N, T, H, hd = q.shape
+    return _merge(parts).permute(0, 3, 1, 2, 4).reshape(N, T, H, hd)
+
+
+def _paged_dense(kp, vp, table, lens):
+    """The paged inputs as dense per-row K/V over n_max * ps slots, key
+    positions -1 at and past lens (what the kernel's key() returns)."""
+    B, n_max = table.shape
+    ps, KV, hd = kp.shape[1:]
+    S = n_max * ps
+    k = kp[table.long()].reshape(B, S, KV, hd)
+    v = vp[table.long()].reshape(B, S, KV, hd)
+    pos = torch.arange(S)[None].expand(B, S)
+    return k, v, torch.where(pos < lens.long()[:, None], pos, -1)
+
+
+@pytest.mark.parametrize("units,max_keys,want", [
+    (256, 112, (1, 112)),          # 7B decode B=8: the grid fills the card
+    (672, 112, (1, 112)),          # 68M B=56
+    (32, 4096, (4, 1024)),         # 7B B=1 long row
+    (32, 552, (3, 192)),           # 7B branch decode k=6, Sp=504, Ss=8
+    (32, 2056, (4, 576)),          # 7B branch decode, Sp=2048
+    (4, 100, (1, 100)),            # too few keys to split
+    (128, 512, (1, 512)),          # 7B B=4: the grid covers the SMs
+    (64, 1024, (2, 512)),          # 7B B=2: half the SMs idle
+    (1, 1 << 20, (8, 131072)),     # capped at MAX_SPLITS (a cluster)
+    (0, 50, (1, 50)),
+])
+def test_split_plan(units, max_keys, want):
+    got = tda.plan_splits(units, max_keys, H100_SMS)
+    assert got == want
+    n, length = got
+    assert n * length >= max_keys and (n - 1) * length < max_keys
+    assert n <= tda.MAX_SPLITS
+    if n > 1:
+        assert length % tda.SPLIT_ALIGN == 0 and length >= tda.MIN_SPLIT_KEYS
+
+
+def test_split_plans_of_the_wrappers():
+    """The wrappers' plans: blocks = 16-row tiles x kv heads; the branch
+    plan covers the prefix and the suffixes of its fullest row tile."""
+    assert tpa.split_plan(8, 8, 32, 32, 7, 16, H100_SMS) == (1, 112)
+    assert tpa.split_plan(1, 17, 4, 2, 80, 16, H100_SMS) == (7, 192)
+    assert tba.split_plan(6, 1, 32, 32, 504, 8, H100_SMS) == (3, 192)
+    assert tba.split_plan(6, 1, 32, 32, 2048, 8, H100_SMS) == (4, 576)
+    assert tba.max_branches_per_tile(6, 1, 1) == 6
+    assert tba.max_branches_per_tile(6, 3, 1) == 6      # 18 rows, 2 tiles
+    assert tba.max_branches_per_tile(6, 3, 4) == 2      # 12 rows a branch
+    assert tba.max_branches_per_tile(2, 9, 2) == 2
+    assert tda.row_tiles(17) == 2 and tda.row_tiles(16) == 1
+
+
+# (B, T, H, KV, hd, ps, lens, window): long rows at B = 1 split as the
+# wrapper plans them; a window that leaves whole splits dead; a
+# zero-length row; a T tile over 16 rows
+PAGED_SPLIT_CASES = [
+    (1, 1, 4, 4, 16, 16, [1500], 0),
+    (1, 3, 4, 2, 16, 16, [1020], 100),
+    (2, 1, 2, 2, 32, 16, [1200, 0], 0),
+    (1, 9, 4, 2, 16, 8, [1100], 40),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES,
+                         ids=[f"case{i}" for i in range(len(PAGED_SPLIT_CASES))])
+def test_split_merge_emulation_matches_plain_paged(case):
+    B, T, H, KV, hd, ps, lens, window = case
+    rng = np.random.default_rng(21)
+    table, P = _layout(rng, lens, ps, sum(-(-n // ps) for n in lens) + 1)
+    q, kp, vp = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 for s in ((B, T, H, hd), (P + 1, ps, KV, hd),
+                           (P + 1, ps, KV, hd)))
+    table = torch.from_numpy(table)
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    q_start = torch.clamp(lens_t - T, min=0).to(torch.int32)
+    n_split, split_len = tpa.split_plan(
+        B, T, H, KV, table.shape[1], ps, H100_SMS)
+    assert n_split > 1
+    k, v, kpos = _paged_dense(kp, vp, table, lens_t)
+    qpos = q_start.long()[:, None] + torch.arange(T)[None]
+    got = _split_merge(q, k, v, qpos, kpos, n_split, split_len,
+                       window=window)
+    want = ref.paged_attention_ref(q, kp, vp, table, lens_t, q_start,
+                                   window=window)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+    if window:
+        # some split shows every query no key: it must weigh nothing
+        first = _split_partial(q, k, v, qpos, kpos, 0, split_len,
+                               window=window)
+        assert (first[2] == 0).all() and torch.isfinite(first[0]).all()
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert (got[b] == 0).all()
+
+
+def _branch_block(q, pk, pv, ppos, sk, sv, spos):
+    """The branch kernel's view of one row tile holding every branch: the
+    key sequence is the prefix then each branch's suffix; a suffix key is
+    invisible to other branches' rows (position -1 in their copy)."""
+    kb, Ss = sk.shape[:2]
+    k = torch.cat([pk[0], sk.reshape(kb * Ss, *sk.shape[2:])])
+    v = torch.cat([pv[0], sv.reshape(kb * Ss, *sv.shape[2:])])
+    pos = []
+    for b in range(kb):
+        own = torch.full((kb, Ss), -1, dtype=spos.dtype)
+        own[b] = spos[b]
+        pos.append(torch.cat([ppos[0], own.reshape(-1)]))
+    return (k[None].expand(kb, -1, -1, -1), v[None].expand(kb, -1, -1, -1),
+            torch.stack(pos))
+
+
+@pytest.mark.parametrize("case,cap", [((3, 2, 1100, 5, 2, 16), None),
+                                      ((6, 1, 1030, 8, 4, 32), 5.0)])
+def test_split_merge_emulation_matches_plain_branch(case, cap):
+    """Branch decode as the kernel splits it: one block per kv head over
+    the prefix and every branch's suffix, at the wrapper's plan."""
+    kb, Tq, Sp, Ss, KV, hd = case
+    args = _torch(*_branch_inputs(13, *case, dead=3))
+    q, pk, pv, ppos, sk, sv, spos, qpos = args
+    H = q.shape[2]
+    n_split, split_len = tba.split_plan(kb, Tq, H, KV, Sp, Ss, H100_SMS)
+    assert n_split > 1
+    k, v, kpos = _branch_block(q, pk, pv, ppos, sk, sv, spos)
+    got = _split_merge(q, k, v, qpos, kpos, n_split, split_len, cap=cap)
+    want = ref.branch_decode_ref(*args, cap=cap)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+def test_split_merge_emulation_matches_the_jax_merge():
+    """Two splits, the first the prefix: the emulation against the
+    reference's own merge (ops.branch_decode_attention, two flash passes
+    with out_stats, interpret mode)."""
+    case = (4, 2, 40, 9, 2, 16)
+    args = _branch_inputs(17, *case, dead=2)
+    targs = _torch(*args)
+    q, pk, pv, ppos, sk, sv, spos, qpos = targs
+    k, v, kpos = _branch_block(q, pk, pv, ppos, sk, sv, spos)
+    got = _split_merge(q, k, v, qpos, kpos, 2, case[2])
+    want = jops.branch_decode_attention(*[jnp.asarray(a) for a in args],
+                                        interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+def test_merge_of_jax_flash_stats_matches_plain():
+    """The merge fed by the JAX flash kernel's per-split out_stats
+    (interpret mode), one split showing every query no key: the kernel's
+    combine gives the plain version's output."""
+    q, k, v, qpos, kpos = _flash_inputs(19, 2, 3, 48, 4, 2, 16, 48)
+    window = 20                        # keys 0..24 are seen by no query
+    parts = []
+    for lo, hi in ((0, 16), (16, 32), (32, 48)):
+        o, m, l = jfa.flash_attention(
+            jnp.asarray(q), jnp.asarray(k[:, lo:hi]), jnp.asarray(v[:, lo:hi]),
+            jnp.asarray(qpos), jnp.asarray(kpos[:, lo:hi]), window=window,
+            out_stats=True, bq=8, bk=8, interpret=True)
+        B, T, H, hd = q.shape
+        KV = k.shape[2]
+        o = torch.from_numpy(np.array(o)).reshape(
+            B, T, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+        parts.append((o, torch.from_numpy(np.array(m)),
+                      torch.from_numpy(np.array(l))))
+    got = _merge(parts).permute(0, 3, 1, 2, 4).reshape(q.shape)
+    want = ref.flash_attention_ref(*_torch(q, k, v, qpos, kpos),
+                                   window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+    emu = _split_merge(*_torch(q, k, v, qpos, kpos), 3, 16, window=window)
+    np.testing.assert_allclose(emu.numpy(), want.numpy(), rtol=0, atol=1e-5)
