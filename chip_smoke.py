@@ -106,6 +106,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -297,34 +298,44 @@ def attn_case(rng, B, T, H, KV, hd, ps, dtype, n_idle=0, max_len=112,
 
 
 def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0,
-                    **lens_kw):
+                    window=0, **lens_kw):
     q, kp, vp, table, lens, qs = attn_case(rng, B, T, H, KV, hd, ps, dtype,
                                            n_idle, **lens_kw)
-    out = PA.paged_attention(q, kp, vp, table, lens, qs)
-    want = ref.paged_attention_ref(q, kp, vp, table, lens, qs)
+    kw = dict(window=window)
+    out = PA.paged_attention(q, kp, vp, table, lens, qs, **kw)
+    want = ref.paged_attention_ref(q, kp, vp, table, lens, qs, **kw)
     torch.cuda.synchronize()
     err, share = check_close(f"paged_attention {label}", out, want)
     es = kp.element_size()
     ps_ = kp.shape[1]
-    pages = int(sum(-(-int(n) // ps_) for n in lens.tolist()))
-    nbytes = (2 * pages * ps_ * KV * hd * es + 2 * q.numel() * es
-              + (table.numel() + 2 * B) * 4)
-    keys = sum(int(n) for n in lens.tolist())
-    flops = 4 * T * H * hd * keys
-    bms, by = bound(nbytes, flops, dtype)
-    ms = time_ms(lambda: PA.paged_attention(q, kp, vp, table, lens, qs))
-    plain = time_ms(lambda: ref.paged_attention_ref(q, kp, vp, table, lens,
-                                                    qs))
-    # library yardstick: SDPA over the pre-gathered dense KV (timed only)
     S = table.shape[1] * ps_
+    kpos = torch.arange(S, device="cuda")
+    qpos = qs.long()[:, None] + torch.arange(T, device="cuda")[None]
+    vis = ((kpos[None, None] < lens.long()[:, None, None])
+           & (kpos[None, None] <= qpos[:, :, None]))
+    if window > 0:
+        # the work a window leaves: the keys some query sees, read once
+        vis &= (qpos[:, :, None] - kpos[None, None]) < window
+        nbytes = (2 * int(vis.any(1).sum()) * KV * hd * es
+                  + 2 * q.numel() * es + (table.numel() + 2 * B) * 4)
+        flops = 4 * H * hd * int(vis.sum())
+    else:
+        pages = int(sum(-(-int(n) // ps_) for n in lens.tolist()))
+        nbytes = (2 * pages * ps_ * KV * hd * es + 2 * q.numel() * es
+                  + (table.numel() + 2 * B) * 4)
+        keys = sum(int(n) for n in lens.tolist())
+        flops = 4 * T * H * hd * keys
+    bms, by = bound(nbytes, flops, dtype)
+    ms = time_ms(lambda: PA.paged_attention(q, kp, vp, table, lens, qs,
+                                            **kw))
+    plain = time_ms(lambda: ref.paged_attention_ref(q, kp, vp, table, lens,
+                                                    qs, **kw))
+    # library yardstick: SDPA over the pre-gathered dense KV (timed only)
     kd = kp[table.long()].reshape(B, S, KV, hd).transpose(1, 2)
     vd = vp[table.long()].reshape(B, S, KV, hd).transpose(1, 2)
     kd = kd.repeat_interleave(H // KV, dim=1).contiguous()
     vd = vd.repeat_interleave(H // KV, dim=1).contiguous()
-    kpos = torch.arange(S, device="cuda")
-    qpos = qs.long()[:, None] + torch.arange(T, device="cuda")[None]
-    mask = ((kpos[None, None] < lens.long()[:, None, None])
-            & (kpos[None, None] <= qpos[:, :, None]))[:, None]
+    mask = vis[:, None]
     qd = q.transpose(1, 2).contiguous()
     lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
                                                          attn_mask=mask))
@@ -436,9 +447,9 @@ def flash_case(rng, B, T, S, H, KV, hd, L, dtype, stale=0):
 
 
 def check_flash(rng, label, B, T, S, H, KV, hd, L, dtype, stale=0,
-                window=0, cap=None):
+                window=0, cap=None, causal=True):
     q, k, v, qp, kp = flash_case(rng, B, T, S, H, KV, hd, L, dtype, stale)
-    kw = dict(window=window, cap=cap)
+    kw = dict(window=window, cap=cap, causal=causal)
     out = FA.flash_attention(q, k, v, qp, kp, **kw)
     want = ref.flash_attention_ref(q, k, v, qp, kp, **kw)
     torch.cuda.synchronize()
@@ -446,7 +457,7 @@ def check_flash(rng, label, B, T, S, H, KV, hd, L, dtype, stale=0,
     # the work these positions need: per query the keys it sees; per
     # (row, kv head) the K/V of keys some query of the row sees
     kpl, qpl = kp.long()[:, None, :], qp.long()[:, :, None]
-    vis = (kpl >= 0) & (kpl <= qpl)
+    vis = (kpl >= 0) & ((kpl <= qpl) if causal else True)
     if window > 0:
         vis &= (qpl - kpl) < window
     G = H // KV
@@ -468,8 +479,10 @@ def check_flash(rng, label, B, T, S, H, KV, hd, L, dtype, stale=0,
         mask = vis[:, None]
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask))
+    splits = FA.split_plan(B, T, H, KV, S, DA.sm_count(q.device))[0]
     return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
-                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                splits=splits)
 
 
 def check_ssm(rng, label, B, T, E, N, xdtype, states):
@@ -639,7 +652,17 @@ def phase_probe() -> dict:
     rng = np.random.default_rng(0)
     paged = {T: attn_case(rng, 8, T, 32, 32, 128, 16, bf) for T in (1, 8)}
     branch = branch_case(rng, 6, 1, 504, 8, 32, 32, 128, bf)
-    flash = flash_case(rng, 1, 5, 512, 32, 32, 128, 40, bf, 3)
+    flash = {"7B B=1 T=5 S=512": (flash_case(rng, 1, 5, 512, 32, 32, 128,
+                                             40, bf, 3), {}),
+             "7B B=6 T=10 S=512": (flash_case(rng, 6, 10, 512, 32, 32, 128,
+                                              300, bf, 5), {}),
+             "7B cache-less T=S=512": (flash_case(rng, 1, 512, 512, 32, 32,
+                                                  128, 512, bf), {}),
+             "gemma2 window T=16": (flash_case(rng, 1, 16, 4608, 32, 16,
+                                               128, 4608, bf),
+                                    dict(window=4096))}
+    gemma3 = attn_case(rng, 8, 4, 8, 4, 256, 16, bf, max_len=2048,
+                       min_len=1500)
     srcs = ("paged_attention.cu", "branch_attention.cu",
             "flash_attention.cu")
     out = {}
@@ -652,10 +675,13 @@ def phase_probe() -> dict:
             for T, a in paged.items():
                 ms = time_ms(lambda: PA.paged_attention(*a))
                 out[f"paged 7B B=8 T={T} {what}"] = ms
+            ms = time_ms(lambda: PA.paged_attention(*gemma3, window=1024))
+            out[f"paged gemma3 hd256 B=8 T=4 {what}"] = ms
             ms = time_ms(lambda: BA.branch_decode_attention(*branch))
             out[f"branch 7B k=6 Sp=504 Ss=8 {what}"] = ms
-            ms = time_ms(lambda: FA.flash_attention(*flash))
-            out[f"flash 7B B=1 T=5 S=512 {what}"] = ms
+            for name, (a, kw) in flash.items():
+                ms = time_ms(lambda: FA.flash_attention(*a, **kw))
+                out[f"flash {name} {what}"] = ms
     finally:
         build._lib = saved
     for k, v in out.items():
@@ -799,6 +825,23 @@ def phase_kernels() -> dict:
                                min_len=3968))
     br.append(check_branch(rng, "llama-7b k=6 Sp=2048 Ss=8", 6, 1, 2048, 8,
                            32, 32, 128, bf))
+    # head dims 80 and 256 on the decode loop, a 512-token cache-less
+    # prefill and the long windowed row without a cap (SDPA's yardstick)
+    fl.append(check_flash(rng, "llama-7b cache-less B=1 T=S=512", 1, 512,
+                          512, 32, 32, 128, 512, bf))
+    fl.append(check_flash(rng, "gemma2 window B=1 T=16 no cap", 1, 16, 4608,
+                          32, 16, 128, 4608, bf, window=4096))
+    fl.append(check_flash(rng, "gemma3-4b window B=1 T=5 S=2048", 1, 5, 2048,
+                          8, 4, 256, 1800, bf, stale=3, window=1024))
+    fl.append(check_flash(rng, "hubert-xl hd80 B=2 T=S=256 bidir", 2, 256,
+                          256, 16, 16, 80, 256, bf, causal=False))
+    att.append(check_attention(rng, "gemma3-4b B=8 T=4 window 1024", 8, 4, 8,
+                               4, 256, 16, bf, window=1024, max_len=2048,
+                               min_len=1500))
+    br.append(check_branch(rng, "gemma3-4b k=6 Sp=504 Ss=8", 6, 1, 504, 8,
+                           8, 4, 256, bf))
+    br.append(check_branch(rng, "hd80 H=16 k=6 Sp=504 Ss=8", 6, 1, 504, 8,
+                           16, 16, 80, bf))
     timing_floor()
     for r in att + ver + gat + fl + ss + br + sv:
         lib = r["library_ms"]
@@ -1078,11 +1121,15 @@ def busy_profile(run) -> dict:
         by_name[e.name()[:60]] = by_name.get(e.name()[:60], 0) \
             + e.duration_ns()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the attention kernels by their addressing struct (the same names in
+    # the parent's tile loops, so an A/B reads both)
     paged = [e.duration_ns() for e in evs if "PagedKeys" in e.name()]
+    flash = [e.duration_ns() for e in evs if "DenseKeys" in e.name()]
     return dict(wall_s=wall, busy_share=busy / 1e9 / wall,
                 device_s=sum(by_name.values()) / 1e9,
                 top=[(n, t / 1e9) for n, t in top],
-                paged_ms=sum(paged) / 1e6, paged_launches=len(paged))
+                paged_ms=sum(paged) / 1e6, paged_launches=len(paged),
+                flash_ms=sum(flash) / 1e6, flash_launches=len(flash))
 
 
 def log_paged(prof) -> None:
@@ -1090,10 +1137,17 @@ def log_paged(prof) -> None:
         f"over {prof['paged_launches']} launches")
 
 
+def log_flash(prof) -> None:
+    log(f"    flash_attention kernel: {prof['flash_ms']:.2f} ms device time "
+        f"over {prof['flash_launches']} launches")
+
+
 def phase_profile(dev) -> dict:
     """``--profile``: phase 4's profiled greedy serve (full-width
-    LLaMA-68M/7B, 8 requests x 8 new tokens) after one unprofiled serve,
-    twice; with ``--src`` against another checkout's port."""
+    LLaMA-68M/7B, 8 requests x 8 new tokens) and phase 6's profiled
+    sequential SpecBranch serve (2 requests x 8 new tokens), each after
+    one unprofiled serve, twice; with ``--src`` against another
+    checkout's port."""
     pair = SV.load_pair("paper-llama", dev)
     prompts = SV.make_prompts(8)
     ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
@@ -1106,6 +1160,23 @@ def phase_profile(dev) -> dict:
         log(f"  profile: card busy {prof['busy_share']:.3f} of "
             f"{prof['wall_s']:.2f}s wall, device {prof['device_s']:.4f}s")
         log_paged(prof)
+        out.append(prof)
+    # the sequential serve runs flash on every attention call (dense ring)
+    sprompts = SV.make_prompts(2)
+    secfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                         max_len=SV.auto_max_len(sprompts, 32, 4, 10.0))
+
+    def seq():
+        done, _, wall = SV.serve_sequential(pair, secfg, "specbranch",
+                                            sprompts, 8)
+        toks = sum(len(r.result.tokens) for r in done)
+        log(f"  seq serve: {toks} tokens, {toks / wall:.2f} wall tokens/s")
+    seq()
+    for _ in range(2):
+        prof = busy_profile(seq)
+        log(f"  seq profile: card busy {prof['busy_share']:.3f} of "
+            f"{prof['wall_s']:.2f}s wall, device {prof['device_s']:.4f}s")
+        log_flash(prof)
         out.append(prof)
     # the paged kernel at the serve's shapes (tables as wide as its
     # longest request), with its inputs in L2 as a forward leaves them,
@@ -1120,6 +1191,17 @@ def phase_profile(dev) -> dict:
         t = {f: time_ms(lambda: PA.paged_attention(*args), flush=f)
              for f in ("none", "dirty")}
         log(f"  paged {label} 32-page table: {t['none']:.4f} ms warm, "
+            f"{t['dirty']:.4f} ms after the dirty flush")
+    # flash at the sequential serve's shapes: a 512-slot ring early in a
+    # request, the 7B verify chunk, the fork and the 68M draft tick
+    for label, case in (
+            ("7B B=1 T=5 S=512 L=40", (1, 5, 512, 32, 32, 128, 40)),
+            ("7B B=6 T=1 S=512 L=41", (6, 1, 512, 32, 32, 128, 41)),
+            ("68M B=1 T=1 S=512 L=40", (1, 1, 512, 12, 12, 64, 40))):
+        args = flash_case(rng, *case, bf)
+        t = {f: time_ms(lambda: FA.flash_attention(*args), flush=f)
+             for f in ("none", "dirty")}
+        log(f"  flash {label}: {t['none']:.4f} ms warm, "
             f"{t['dirty']:.4f} ms after the dirty flush")
     return out
 
@@ -1291,6 +1373,7 @@ def phase_seq_full(dev, totals, pair) -> dict:
         "time by kernel:")
     for n, t in prof["top"]:
         log(f"    {t * 1e3:9.2f} ms  {n}")
+    log_flash(prof)
     out["profile"] = prof
     return out
 
@@ -1679,6 +1762,27 @@ def phase_hrad_full(dev, totals, pair, without) -> dict:
     return out
 
 
+def log_ptxas(ptx: str) -> None:
+    """Registers and spills of every kernel the build compiled, from
+    ``nvcc -Xptxas -v``; the decode loop's variants (decode, and flash's
+    wide block) by addressing struct, dtype, head dim and ring stages."""
+    name, spill = "?", ""
+    for ln in ptx.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            m = re.search(r"(decode|wide)_attention_kernelI(\w+?)Li(\d+)E"
+                          r"Li(\d+)ENS_\d+(\w+?)Keys", name)
+            if m:
+                dt = "bf16" if "bfloat" in m.group(2) else "f32"
+                name = (f"{m.group(1)} {m.group(5)}Keys {dt} "
+                        f"hd={m.group(3)} stages={m.group(4)}")
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            log(f"  ptxas {name[:60]:60s} {regs:>3s} regs; {spill}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1692,9 +1796,7 @@ def main() -> int:
     build.lib()
     log(f"[1] build: {build.BUILD_INFO.get('seconds', 0.0):.1f}s "
         f"({time.time() - t0:.1f}s with load); card: {smi}")
-    ptx = str(build.BUILD_INFO.get("ptxas", ""))
-    log("\n".join("  " + ln for ln in ptx.splitlines()
-                  if "registers" in ln or "spill" in ln))
+    log_ptxas(str(build.BUILD_INFO.get("ptxas", "")))
     if "--profile" in sys.argv[1:]:
         log(f"[profile] phase 4's profiled serve, port from {SRC}")
         phase_profile(dev)

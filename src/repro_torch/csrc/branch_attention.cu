@@ -11,11 +11,12 @@
 // logits; the sum is f32 and the output q's dtype.  A query that sees no
 // key at all writes zeros.
 //
-// One fused pass: the tile loop of decode_attention.cuh, with this file's
-// addressing.  A block holds the query rows of every branch of its row
-// tile (all k branches at the 7B width: k * G * Tq = 6 rows) for one kv
-// head, so each prefix tile is read once per kv head, not once per
-// branch.  Its key range is the prefix (pair (k, v)) followed by the
+// One fused pass: the tile loop of decode_attention.cuh (shared with the
+// paged and flash kernels, head dims 16, 32, 64, 80, 128 and 256), with
+// this file's addressing.  A block holds the query rows of every branch
+// of its row tile (all k branches at the 7B width: k * G * Tq = 6 rows)
+// for one kv head, so each prefix tile is read once per kv head, not
+// once per branch.  Its key range is the prefix (pair (k, v)) followed by the
 // suffixes of its branches (pair (k2, v2)); a suffix key is owned by its
 // branch and masked to that branch's rows.  Nothing round-trips through
 // device memory between the two halves; when the host splits the key
@@ -29,6 +30,7 @@
 namespace {
 
 struct BranchKeys {
+  static constexpr int kAhead = 1;  // prefix and suffix tiles are live
   const int* pp;  // prefix_pos (Sp,)
   const int* sp;  // suffix_pos (k, Ss)
   const int* qp;  // q_pos (k, Tq), token tl = b * Tq + t
@@ -71,5 +73,5 @@ extern "C" int repro_branch_attention(
   const DecodeArgs a{q, prefix_k, prefix_v, suffix_k, suffix_v, out,
                      nb * T, H, KV, G, (nb * T * G + kRows - 1) / kRows,
                      n_split, split_len, /*window=*/0, cap, scale};
-  return decode_launch(keys, a, 1, hd, is_bf16, stream);
+  return decode_launch<false>(keys, a, 1, hd, is_bf16, stream);
 }

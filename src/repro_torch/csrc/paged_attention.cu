@@ -10,9 +10,10 @@
 // masked keys add zero mass and a zero-length row writes zeros, as the
 // TPU kernel does.
 //
-// The tile loop, and what bounds it, is decode_attention.cuh's; this file
-// gives it the paged addressing: key s of row b is slot s % ps of page
-// table[b, s / ps].  A block's key range is planned from n_max * ps,
+// The tile loop, and what bounds it, is decode_attention.cuh's (shared
+// with branch_attention.cu and flash_attention.cu, head dims 16, 32, 64,
+// 80, 128 and 256); this file gives it the paged addressing: key s of row
+// b is slot s % ps of page table[b, s / ps].  A block's key range is planned from n_max * ps,
 // which the host knows; the loop walks only the row's first lens[b] keys
 // (a serve's tables are as wide as its longest request), and the first
 // page-table entries are read together with lens, so no K/V copy waits
@@ -25,6 +26,7 @@
 namespace {
 
 struct PagedKeys {
+  static constexpr int kAhead = 1;  // a row's tiles up to its length are live
   const int* table;    // (B, n_max) physical page of each logical page
   const int* lens;     // (B,) valid keys per row, the T queries included
   const int* q_start;  // (B,) position of the row's first query token
@@ -64,5 +66,5 @@ extern "C" int repro_paged_attention(
   const DecodeArgs a{q, k_pages, v_pages, k_pages, v_pages, out, T, H, KV,
                      G, (T * G + kRows - 1) / kRows, n_split, split_len,
                      window, cap, scale};
-  return decode_launch(keys, a, B, hd, is_bf16, stream);
+  return decode_launch<false>(keys, a, B, hd, is_bf16, stream);
 }

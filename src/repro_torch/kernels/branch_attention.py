@@ -8,10 +8,10 @@ prefix_k/v (1, Sp, KV, hd), stored once and shared by every branch;
 prefix_pos (1, Sp); suffix_k/v (k, Ss, KV, hd); suffix_pos (k, Ss);
 q_pos (k, Tq); positions int32, -1 marking an invalid slot.  Query t of
 branch b sees a key when its position is >= 0 and <= q_pos[b, t].  The
-kernel's tile loop (``csrc/decode_attention.cuh``) is the paged
-kernel's: one block holds the query rows of every branch of its 16-row
-tile for one kv head, so the prefix is read once per kv head; the key
-axis is split when those blocks would leave SMs idle.  A query that
+kernel's tile loop (``csrc/decode_attention.cuh``) is the paged and
+flash kernels': one block holds the query rows of every branch of its
+16-row tile for one kv head, so the prefix is read once per kv head; the
+key axis is split when those blocks would leave SMs idle.  A query that
 sees no key gets zeros.
 """
 from __future__ import annotations

@@ -27,7 +27,7 @@ from typing import Dict, Optional
 
 SOURCES = ("paged_attention.cu", "verify_accept.cu", "paged_gather.cu",
            "flash_attention.cu", "ssm_scan.cu", "branch_attention.cu")
-HEADERS = ("attention.cuh", "decode_attention.cuh")  # hashed with the sources
+HEADERS = ("decode_attention.cuh",)  # hashed with the sources
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -120,13 +120,11 @@ def lib() -> ctypes.CDLL:
 
 def _signatures() -> Dict[str, tuple]:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    S = ctypes.c_size_t
     return {  # entry: (argtypes, restype)
         "repro_paged_attention": ([P] * 7 + [I] * 10 + [F, F, I, P], I),
         "repro_verify_accept_batched": ([P] * 10 + [I] * 3 + [P], I),
         "repro_paged_gather": ([P] * 3 + [I] * 4 + [P], I),
-        "repro_flash_attention": ([P] * 7 + [I] * 9 + [F, F, I, P], I),
-        "repro_flash_attention_smem": ([I, I], S),
+        "repro_flash_attention": ([P] * 7 + [I] * 11 + [F, F, I, P], I),
         "repro_ssm_scan": ([P] * 10 + [I] * 5 + [P], I),
         "repro_branch_attention": ([P] * 9 + [I] * 9 + [F, F, I, P], I),
         "repro_verify_accept": ([P] * 9 + [I] * 3 + [P], I),

@@ -1,14 +1,18 @@
 """Host side of the decode tile loop (``csrc/decode_attention.cuh``) that
-the paged and branch-decode kernels share: the row tiling and the
-split-KV plan.
+the paged, branch-decode and flash kernels share: the row tiling, the
+split-KV plan and the head dims the loop is built for.
 
-A block holds ``ROWS`` query rows (G heads x tokens) of one kv head.
+A block holds ``ROWS`` query rows (G heads x tokens) of one kv head;
+the flash kernel gives an item's rows to blocks of ``WIDE_ROWS`` rows
+when it has at least that many (prefill, cache-less and bidirectional
+calls), so that 64 rows share each K/V tile the block reads.
 When those blocks would leave SMs idle, the key axis is split: the plan
 is a pure function of shapes the host knows (``n_max * ps`` for paged,
-``Sp + branches * Ss`` for branch decode), never of ``lens``, which lives
-on the card.  The splits of a (row tile, kv head) run as one
-thread-block cluster and merge through shared memory inside the launch,
-so a split call needs no scratch and keeps no state.
+``Sp + branches * Ss`` for branch decode, the ring's S for flash), never
+of ``lens`` or key positions, which live on the card.  The splits of a
+(row tile, kv head) run as one thread-block cluster and merge through
+shared memory inside the launch, so a split call needs no scratch and
+keeps no state.
 """
 from __future__ import annotations
 
@@ -17,17 +21,19 @@ from typing import Dict, Tuple
 import torch
 
 ROWS = 16                 # query rows per block: one m16 tensor-core tile
+WIDE_ROWS = 64            # query rows of a wide block: a 16-row tile a warp
 SPLIT_ALIGN = 64          # keys the block's four warps walk in one pass
 MIN_SPLIT_KEYS = 128      # fewer keys per split do not repay the merge
 MAX_SPLITS = 8            # a cluster's portable size
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the repo's configs' head dims
 
 _SM_COUNT: Dict[int, int] = {}
 
 
-def row_tiles(rows: int) -> int:
-    """16-row tiles of ``rows`` query rows (G heads x tokens)."""
-    return -(-rows // ROWS)
+def row_tiles(rows: int, per: int = ROWS) -> int:
+    """Blocks of ``per`` query rows over ``rows`` rows (G heads x
+    tokens)."""
+    return -(-rows // per)
 
 
 def plan_splits(units: int, max_keys: int, sm_count: int

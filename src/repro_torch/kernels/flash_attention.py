@@ -8,9 +8,11 @@ Layout as in ``layers.attend``: q (B, T, H, hd); k, v (B, S, KV, hd);
 q_pos, q_ctx (B, T) and k_pos (B, S) int32 absolute positions, k_pos -1
 marking an invalid slot.  A key s is visible to query t when
 ``k_pos >= 0``, ``k_pos <= q_ctx`` (causal) and ``q_pos - k_pos < window``
-(window > 0).  The kernel tiles T so that G * T_tile query rows share
-each K/V tile it reads (``ROWS_MAX`` rows per block); its tile loop is
-``csrc/attention.cuh``, which serves this kernel alone.
+(window > 0).  The kernel's tile loop (``csrc/decode_attention.cuh``) is
+the paged and branch-decode kernels': one block holds 16 query rows (G
+heads x tokens, so T is tiled) of one kv head, or 64 (its wide block)
+when an item has that many, and the key axis is split when those blocks
+would leave SMs idle, planned from S (``kernels.decode_attention``).
 
 A query that sees no key at all gets zeros (the plain version averages V
 over its padded width there); the sequential runner never produces one,
@@ -19,21 +21,28 @@ because every query's own key is written before it attends.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels.paged_attention import check_rows16
 
-ROWS_MAX = 64                  # query rows (G * T_tile) per block
-SMEM_LIMIT = 232_448           # bytes a block may use on sm_90
+
+def block_rows(T: int, H: int, KV: int) -> int:
+    """Query rows a block holds: ``WIDE_ROWS`` when an item has that many
+    rows per kv head (G heads x T tokens), else ``ROWS``."""
+    return DA.WIDE_ROWS if T * (H // KV) >= DA.WIDE_ROWS else DA.ROWS
 
 
-def t_tile(T: int, G: int) -> int:
-    if G > ROWS_MAX:
-        raise ValueError(f"{G} query heads per kv head exceed {ROWS_MAX}")
-    return max(1, min(T, ROWS_MAX // G))
+def split_plan(B: int, T: int, H: int, KV: int, S: int,
+               sm_count: int) -> Tuple[int, int]:
+    """(n_split, split_len) of a call: B x row blocks x kv heads blocks,
+    the key axis planned from S."""
+    rows = block_rows(T, H, KV)
+    return DA.plan_splits(B * DA.row_tiles(T * (H // KV), rows) * KV, S,
+                          sm_count)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,9 +50,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     cap: Optional[float] = None,
                     q_ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns (B, T, H, hd) in q's
-    dtype.  Non-contiguous inputs are copied, positions cast to int32;
-    raises on a CPU tensor, a bad dtype/shape or a launch error."""
+    """Launch the kernel (one launch, split-KV included) on CUDA tensors;
+    returns (B, T, H, hd) in q's dtype.  Non-contiguous inputs are copied,
+    positions cast to int32; raises on a CPU tensor, a bad
+    dtype/shape/head dim or a launch error."""
     B, T, H, hd = q.shape
     Bk, S, KV, hd_k = k.shape
     if q_ctx is None:
@@ -70,20 +80,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos, k_pos, q_ctx = (x.to(torch.int32).contiguous()
                            for x in (q_pos, k_pos, q_ctx))
     check_rows16("flash_attention", hd, k, v)
-    tt = t_tile(T, H // KV)
+    check_rows16("flash_attention", hd, q, q)
+    DA.check_head_dim("flash_attention", hd)
     L = build.lib()
-    if L.repro_flash_attention_smem((H // KV) * tt, hd) > SMEM_LIMIT:
-        raise ValueError(f"flash_attention: tile exceeds shared memory "
-                         f"(hd={hd})")
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    n_split, split_len = split_plan(B, T, H, KV, S, DA.sm_count(q.device))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = L.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             q_ctx.data_ptr(), k_pos.data_ptr(), out.data_ptr(),
-            B, T, S, H, KV, hd, tt, int(causal), int(window),
+            B, T, S, H, KV, hd, int(block_rows(T, H, KV) == DA.WIDE_ROWS),
+            n_split, split_len, int(causal), int(window),
             float(cap) if cap is not None else 0.0, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16), stream)
     build.check(rc, "flash_attention")

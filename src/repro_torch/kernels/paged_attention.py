@@ -10,8 +10,9 @@ tokens, so T is tiled) of one kv head, and the key axis is split when
 those blocks would leave SMs idle (``kernels.decode_attention``).
 
 The kernel's tile loop (``csrc/decode_attention.cuh``) is shared with
-the branch-decode kernel; ``check_rows16`` serves all three attention
-wrappers.
+the branch-decode and flash kernels, built for the head dims in
+``decode_attention.HEAD_DIMS``; ``check_rows16`` serves all three
+attention wrappers.
 """
 from __future__ import annotations
 

@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import hrad as H
 from repro_torch.kernels import branch_attention as BA
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.launch import serve as SV
@@ -101,6 +102,11 @@ ATTN_CASES = [
     dict(B=1, T=4, H=32, KV=32, hd=128, ps=16, lens=[4096], window=700),
     # a zero-length row beside a split one
     dict(B=2, T=1, H=8, KV=8, hd=64, ps=16, lens=[3000, 0]),
+    # head dim 80 (hubert-xlarge) over 32 rows; head dim 256 (gemma3-4b
+    # widths: GQA 2, window) unsplit and over a long row that splits
+    dict(B=2, T=16, H=16, KV=8, hd=80, ps=16),
+    dict(B=3, T=4, H=8, KV=4, hd=256, ps=16, window=9),
+    dict(B=1, T=2, H=8, KV=4, hd=256, ps=16, lens=[3000], window=1024),
 ]
 
 
@@ -250,6 +256,20 @@ FLASH_CASES = [
     dict(B=2, T=3, S=40, H=2, KV=1, hd=16, L=33),          # tiny draft
     dict(B=1, T=16, S=4608, H=32, KV=16, hd=128, L=4608, window=4096,
          cap=50.0),                                        # gemma2 widths
+    # hubert-xlarge: head dim 80, bidirectional, 3 row tiles per item
+    dict(B=2, T=40, S=40, H=16, KV=16, hd=80, L=40, causal=False),
+    # gemma3-4b widths: head dim 256, GQA 2, window, a ring that splits
+    dict(B=1, T=5, S=2048, H=8, KV=4, hd=256, L=1800, stale=3,
+         window=1024),
+    # wide blocks (64 rows of an item per kv head): split over a wrapped
+    # ring with a window; bidirectional hd 80 with a 6-row last block;
+    # hd 256 GQA over two blocks, split; a group of 4 with a softcap
+    dict(B=1, T=64, S=1024, H=8, KV=2, hd=64, L=1500, stale=4,
+         window=300),
+    dict(B=2, T=70, S=70, H=16, KV=16, hd=80, L=70, causal=False),
+    dict(B=1, T=40, S=512, H=8, KV=4, hd=256, L=500, window=128),
+    dict(B=2, T=33, S=48, H=8, KV=2, hd=32, L=60, stale=3, dead=2,
+         cap=20.0),
 ]
 
 
@@ -259,7 +279,7 @@ FLASH_CASES = [
                          ids=[f"case{i}" for i in range(len(FLASH_CASES))])
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     case = dict(case)
-    kw = {k: case.pop(k) for k in ("window", "cap") if k in case}
+    kw = {k: case.pop(k) for k in ("window", "cap", "causal") if k in case}
     q, k, v, qp, kp = _dev(_flash_inputs(6, **case), cuda)
     dt = getattr(torch, dtype)
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
@@ -270,6 +290,40 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert ops.LAUNCHES["flash_attention"] == n0 + 1
     assert got.dtype == dt and got.shape == q.shape
     _assert_attn_close(got, want)
+
+
+@pytest.mark.requires_cuda
+def test_split_flash_call_is_one_launch_without_host_sync(cuda):
+    """A flash call whose key axis splits (the 7B verify chunk on a
+    512-slot ring, mostly -1; a prefill of wide blocks) is one launch,
+    reads nothing back to the host and allocates nothing on the card but
+    its output."""
+    q, k, v, qp, kp = _dev(_flash_inputs(7, 1, 5, 512, 32, 32, 128, 40,
+                                         stale=3), cuda)
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    assert FA.split_plan(1, 5, 32, 32, 512, DA.sm_count(q.device))[0] > 1
+    # and a prefill of wide blocks (64 rows each) that splits
+    wargs = [x.bfloat16() if i < 3 else x for i, x in enumerate(_dev(
+        _flash_inputs(8, 1, 64, 1024, 8, 2, 64, 1100), cuda))]
+    assert FA.block_rows(64, 8, 2) == DA.WIDE_ROWS
+    assert FA.split_plan(1, 64, 8, 2, 1024, DA.sm_count(q.device))[0] > 1
+    ops.flash_attention(q, k, v, qp, kp)                 # build, warm up
+    ops.flash_attention(*wargs)
+    n0 = ops.LAUNCHES["flash_attention"]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.flash_attention(q, k, v, qp, kp)
+        wgot = ops.flash_attention(*wargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.LAUNCHES["flash_attention"] == n0 + 2
+    torch.cuda.synchronize()
+    assert (torch.cuda.memory_allocated() - mem0
+            <= 2 * (got.numel() + wgot.numel()) + 1024)
+    _assert_attn_close(got, ref.flash_attention_ref(q, k, v, qp, kp))
+    _assert_attn_close(wgot, ref.flash_attention_ref(*wargs))
 
 
 @pytest.mark.requires_cuda
@@ -363,10 +417,11 @@ def test_hybrid_pairs_on_the_card_are_greedy_lossless(cuda, kind):
 # (k branches, Tq, Sp, Ss, H, KV, hd): the 7B branch-decode width, a GQA
 # case with odd lengths and Tq > 1, a tile straddling the boundary;
 # k * G * Tq = 36 rows (three row tiles) with Sp not a multiple of the
-# 16-key tile; a long prefix that splits; head dim 16
+# 16-key tile; a long prefix that splits; head dims 16, 80 and 256
 BRANCH_CASES = [(6, 1, 504, 8, 32, 32, 128), (3, 3, 29, 5, 4, 2, 32),
                 (4, 2, 70, 13, 8, 2, 64), (6, 3, 70, 5, 8, 4, 64),
-                (6, 1, 2048, 8, 32, 32, 128), (4, 2, 45, 3, 4, 4, 16)]
+                (6, 1, 2048, 8, 32, 32, 128), (4, 2, 45, 3, 4, 4, 16),
+                (6, 1, 504, 8, 16, 16, 80), (4, 2, 70, 13, 8, 4, 256)]
 
 
 @pytest.mark.requires_cuda

@@ -227,6 +227,14 @@ FLASH_CASES = [
          cap=20.0),
     # prefill-shaped: T = S = L, group of 4
     dict(B=1, T=12, S=12, H=8, KV=2, hd=16, L=12, window=5),
+    # hubert-xlarge-shaped: head dim 80, bidirectional (no horizon)
+    dict(B=1, T=6, S=6, H=2, KV=2, hd=80, L=6, causal=False),
+    # gemma3-4b-shaped: head dim 256, GQA 2, window over a wrapped ring
+    dict(B=1, T=3, S=20, H=4, KV=2, hd=256, L=30, stale=2, window=7),
+    # B >= 2 with T x G > 16 query rows of a kv head (two row tiles)
+    dict(B=2, T=9, S=24, H=8, KV=4, hd=16, L=40, stale=3, dead=2),
+    # prefill-shaped at head dim 80: 24 rows a kv head, window, softcap
+    dict(B=3, T=6, S=16, H=12, KV=3, hd=80, L=16, window=5, cap=10.0),
 ]
 
 
@@ -234,7 +242,7 @@ FLASH_CASES = [
                          ids=[f"case{i}" for i in range(len(FLASH_CASES))])
 def test_plain_flash_attention_matches_pallas_and_attend(case):
     case = dict(case)
-    kw = {k: case.pop(k) for k in ("window", "cap") if k in case}
+    kw = {k: case.pop(k) for k in ("window", "cap", "causal") if k in case}
     q, k, v, qpos, kpos = _flash_inputs(3, **case)
     got = tlayers.attend(*_torch(q, k, v, qpos, kpos), kv_chunk=8,
                          **kw).numpy()
@@ -369,12 +377,13 @@ def test_plain_single_verify_matches_pallas(R, V, dtype):
 H100_SMS = 132
 
 
-def _split_partial(q, k, v, q_pos, k_pos, lo, hi, window=0, cap=None):
+def _split_partial(q, k, v, q_pos, k_pos, lo, hi, window=0, cap=None,
+                   causal=True):
     """One split of the decode kernel: attention of q (N, T, H, hd) over
     keys [lo, hi) of k, v (N, S, KV, hd) with positions k_pos (N, S) (-1
-    invalid), causal by q_pos (N, T).  Returns (o, m, l) as the kernel
-    writes them: o = sum p v / max(l, 1e-20), m = -1e30 and l = 0 where
-    the split shows a query no key."""
+    invalid), causal by q_pos (N, T) unless ``causal`` is False.  Returns
+    (o, m, l) as the kernel writes them: o = sum p v / max(l, 1e-20),
+    m = -1e30 and l = 0 where the split shows a query no key."""
     N, T, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -386,7 +395,8 @@ def _split_partial(q, k, v, q_pos, k_pos, lo, hi, window=0, cap=None):
     x = torch.einsum("ntkgh,nskh->nkgts", qr, kk) / np.sqrt(hd)
     if cap is not None:
         x = cap * torch.tanh(x / cap)
-    vis = (kp >= 0) & (kp <= qp)
+    vis = (kp >= 0) & (kp <= qp) if causal else (kp >= 0).expand(
+        N, T, -1)
     if window > 0:
         vis &= (qp - kp) < window
     vis = vis[:, None, None]                                  # (N,1,1,T,s)
@@ -468,6 +478,23 @@ def test_split_plans_of_the_wrappers():
     assert tba.max_branches_per_tile(6, 3, 4) == 2      # 12 rows a branch
     assert tba.max_branches_per_tile(2, 9, 2) == 2
     assert tda.row_tiles(17) == 2 and tda.row_tiles(16) == 1
+    # flash plans from the ring's S: the 7B verify chunk and prefill on a
+    # 512-slot ring split; the fork (B=6) and the cache-less rows fill the
+    # card; gemma2's windowed row: 2 row tiles x 16 kv heads, 4 splits
+    assert tfa.split_plan(1, 5, 32, 32, 512, H100_SMS) == (4, 128)
+    assert tfa.split_plan(1, 15, 32, 32, 512, H100_SMS) == (4, 128)
+    assert tfa.split_plan(6, 10, 32, 32, 512, H100_SMS) == (1, 512)
+    assert tfa.split_plan(2, 48, 32, 32, 48, H100_SMS) == (1, 48)
+    assert tfa.split_plan(1, 16, 32, 16, 4608, H100_SMS) == (4, 1152)
+    assert tfa.split_plan(1, 5, 8, 4, 2048, H100_SMS) == (8, 256)
+    # 64 or more rows of an item per kv head take the wide block: the
+    # 512-token prefill fills the card with 8 x 32 blocks; 4 x 2 blocks of
+    # a long ring split
+    assert tfa.block_rows(512, 32, 32) == tda.WIDE_ROWS
+    assert tfa.block_rows(48, 32, 32) == tda.ROWS
+    assert tfa.block_rows(16, 16, 4) == tda.WIDE_ROWS        # T x G = 64
+    assert tfa.split_plan(1, 512, 32, 32, 512, H100_SMS) == (1, 512)
+    assert tfa.split_plan(1, 64, 8, 2, 1024, H100_SMS) == (8, 128)
 
 
 # (B, T, H, KV, hd, ps, lens, window): long rows at B = 1 split as the
@@ -512,6 +539,45 @@ def test_split_merge_emulation_matches_plain_paged(case):
     for b, n in enumerate(lens):
         if n == 0:
             assert (got[b] == 0).all()
+
+
+# (B, T, S, H, KV, hd, L, stale, dead, window, causal): a wrapped ring
+# (positions unsorted along the slots) with stale and dead slots; a
+# window that leaves whole splits dead; bidirectional rows over a ring
+# with stale slots (seen without a horizon); a group over two row tiles
+FLASH_SPLIT_CASES = [
+    (1, 3, 1024, 4, 2, 16, 1500, 5, 4, 0, True),
+    (1, 2, 768, 2, 2, 16, 700, 0, 0, 100, True),
+    (2, 4, 512, 4, 4, 16, 900, 6, 3, 0, False),
+    (1, 9, 640, 4, 2, 32, 2000, 3, 0, 300, True),
+    (1, 64, 1024, 8, 2, 16, 1500, 4, 2, 200, True),          # wide blocks
+]
+
+
+@pytest.mark.parametrize("case", FLASH_SPLIT_CASES,
+                         ids=[f"case{i}" for i in range(len(FLASH_SPLIT_CASES))])
+def test_split_merge_emulation_matches_plain_flash(case):
+    """Flash on a dense ring as the kernel splits it: key slot ranges of
+    split_len at the wrapper's plan, merged by (m, l)."""
+    B, T, S, H, KV, hd, L, stale, dead, window, causal = case
+    q, k, v, qpos, kpos = _torch(*_flash_inputs(23, B, T, S, H, KV, hd, L,
+                                                stale=stale, dead=dead))
+    n_split, split_len = tfa.split_plan(B, T, H, KV, S, H100_SMS)
+    assert n_split > 1
+    kw = dict(window=window, causal=causal)
+    got = _split_merge(q, k, v, qpos, kpos, n_split, split_len, **kw)
+    want = ref.flash_attention_ref(q, k, v, qpos, kpos, **kw)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+    if window:
+        # some split shows every query no key: it must weigh nothing
+        dead_split = [z for z in range(n_split)
+                      if (_split_partial(q, k, v, qpos, kpos, z * split_len,
+                                         min(S, (z + 1) * split_len),
+                                         **kw)[2] == 0).all()]
+        assert dead_split
+    if L > S:
+        assert not bool((kpos[:, 1:] >= kpos[:, :-1]).all())  # unsorted
 
 
 def _branch_block(q, pk, pv, ppos, sk, sv, spos):
@@ -587,3 +653,39 @@ def test_merge_of_jax_flash_stats_matches_plain():
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
     emu = _split_merge(*_torch(q, k, v, qpos, kpos), 3, 16, window=window)
     np.testing.assert_allclose(emu.numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+def test_decode_loop_head_dims_cover_the_repos_configs(monkeypatch):
+    """Every head dim of an attention-bearing configuration of the repo
+    (src/repro/configs, the tiny pairs, the hybrid and local pairs) is one
+    the decode loop is built for: the paged, branch-decode and flash
+    kernels would refuse any other.  The pairs' configs are read without
+    initialising their weights."""
+    import importlib
+    import pkgutil
+
+    import repro.configs as jconfigs
+    from repro.configs.paper_pairs import tiny_pair
+    from repro.models.config import ModelConfig
+    from repro.training import pairs as jpairs
+
+    cfgs = []
+    for mod in pkgutil.iter_modules(jconfigs.__path__):
+        m = importlib.import_module(f"repro.configs.{mod.name}")
+        cfgs += [c for c in vars(m).values() if isinstance(c, ModelConfig)]
+    assert {"gemma3-4b", "hubert-xlarge"} <= {c.name for c in cfgs}
+    cfgs += list(tiny_pair())
+    cfgs += [jpairs.TARGET_CFG, jpairs.DRAFT_MIS_CFG, jpairs.DRAFT_ALI_CFG]
+    monkeypatch.setattr(jpairs.M, "init_params", lambda *a, **k: None)
+    for kind in jpairs.HYBRID_KINDS:
+        _, dcfg, _, tcfg = jpairs.hybrid_pair(kind)
+        cfgs += [dcfg, tcfg]
+    for kind in jpairs.LOCAL_KINDS:
+        _, dcfg, _, tcfg = jpairs.local_pair(kind)
+        cfgs += [dcfg, tcfg]
+    dims = {c.name: c.hd for c in cfgs if c.has_attention()}
+    assert {80, 256} <= set(dims.values())
+    missing = {n: hd for n, hd in dims.items() if hd not in tda.HEAD_DIMS}
+    assert not missing, missing
+    with pytest.raises(ValueError, match="head dim 96"):
+        tda.check_head_dim("flash_attention", 96)
