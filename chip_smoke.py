@@ -22,7 +22,13 @@ Phases (any failure raises, so the script exits non-zero):
                API (``kernels.ops``, as the reference's
                benchmarks/kernels_bench.py drives it), driven here once
                per checked shape with the counters zeroed before and read
-               after.
+               after.  The scan's ring entry is held against its plain
+               version on a whole checkpoint ring (untouched slots bit for
+               bit) at the falcon-mamba-7b serve's shape and on a lapping
+               prefill, beside the PyTorch path it replaced (gather, scan
+               with states, index_put); the plain scan's carry mode (the
+               one the sequential engines launch) at their shapes; each
+               verify case logs its blocks per row.
   3. tiny    — the committed Zipf-Markov pair (f32) served through
                ContinuousBatchScheduler: greedy streams must equal the
                port's own target-only greedy decode; temperature 1 (with
@@ -67,9 +73,11 @@ Phases (any failure raises, so the script exits non-zero):
                seeds: batched SpecBranch, 8 requests x 32 new tokens,
                greedy (teacher-forced as in phase 4) and temperature 1
                with epsilon 0; wall tokens/s, rounds, mean accepted length
-               and launches; device memory of the weights and rings; one
-               profiled serve for the busy share and device time by
-               kernel.
+               and launches; the ring scans' shapes (the serve must run
+               phase 2's ring case shape); device memory of the weights
+               and rings; one profiled serve for the busy share and
+               device time by kernel, and one for the scan kernels'
+               device time beside the PyTorch kernels on the h rings.
   9. H-RAD and SpS tiny — the committed pair with an H-RAD MLP from the
                port's init_mlp (generator seed HRAD_SEED): batched SpS,
                batched SpecBranch with H-RAD (also under a preempting
@@ -96,9 +104,14 @@ Exits non-zero without a result when no CUDA device is visible.
 Modes that give no smoke result (exit 3): ``--kernels`` stops after
 phase 2; ``--probe`` times the attention tile loops phase by phase from
 variants built with -DREPRO_ATTN_STOP (1: K/V loads only, 2: loads and
-logits, 0: whole kernel) beside the timing floor; ``--profile`` runs
-phase 4's profiled serve only, and with ``--src DIR`` imports the port
-from DIR (another checkout's src) to compare two commits in one run.
+logits, 0: whole kernel) beside the timing floor, and the batched
+verify's rounds (-DREPRO_VERIFY_STOP) and cluster barrier cost;
+``--scan`` times phase 2's plain-scan cases (states and carry modes)
+alone; ``--profile`` runs phases 4 and 6's profiled serves, the batched LLaMA
+serve at temperature 1 (verify device time) and phase 8's falcon serve
+(scan and h-ring device time) only, and with ``--src DIR`` imports the
+port from DIR (another checkout's src) to compare two commits in one
+run.
 """
 from __future__ import annotations
 
@@ -113,7 +126,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # ``--src DIR`` imports the port from another checkout's src (a parent
-# commit unpacked beside this one) for ``--profile``; default: this one's
+# commit unpacked beside this one) for ``--profile`` or ``--scan``;
+# default: this one's
 SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv
        else os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.abspath(SRC))
@@ -171,6 +185,11 @@ KERNELS = {
     "ssm_scan": dict(
         route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:80"),
+    # the same TPU kernel with the serving layer's checkpoint-ring gather
+    # and scatter around it, addressed in place (second entry point)
+    "ssm_scan_ring": dict(
+        route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:80"),
     "branch_decode_attention": dict(
         route="cuda", source="src/repro_torch/csrc/branch_attention.cu",
         replaces="src/repro/kernels/ops.py:38"),
@@ -185,6 +204,10 @@ HRAD_SEED = 0
 # reference's own tests hold its Pallas kernel to (both sides f32; only
 # exp's rounding and the FMA contraction differ)
 SSM_RTOL = SSM_ATOL = 2e-5
+# the falcon-mamba-7b serve's checkpoint ring depth (gamma 4, the
+# engines' default branch gamma, phase 8's config), and its phase-2 case
+FALCON_RING = 92
+FALCON_RING_CASE = "falcon-7b serve B=8 T=16 Rg=92"
 
 
 def log(*a) -> None:
@@ -361,7 +384,9 @@ def cdf_distance(p_lg, q_lg, tok_a, tok_b, w) -> float:
     return float((cdf[max(lo - 1, 0):hi] - float(w)).abs().min())
 
 
-def check_verify(rng, label, B, R, V):
+def check_verify(rng, label, B, R, V, lens_to=None):
+    """The batched verify against its plain version; ``lens_to`` replaces
+    the drawn lens after the draw (so later draws stay as they were)."""
     dev = "cuda"
     pl = torch.from_numpy(3 * rng.standard_normal((B, R, V), np.float32)
                           ).to(dev)
@@ -373,6 +398,8 @@ def check_verify(rng, label, B, R, V):
                             ).to(dev)
     u = torch.from_numpy(rng.random((B, R), np.float32)).to(dev)
     w = torch.from_numpy(rng.random((B, R), np.float32)).to(dev)
+    if lens_to is not None:
+        lens = torch.full((B,), lens_to, dtype=torch.int32, device=dev)
     got = VA.verify_accept_batched(pl, ql, tok, lens, u, w)
     want = ref.verify_accept_batched_ref(pl, ql, tok, lens, u, w)
     torch.cuda.synchronize()
@@ -401,9 +428,10 @@ def check_verify(rng, label, B, R, V):
     plain = time_ms(lambda: ref.verify_accept_batched_ref(pl, ql, tok, lens,
                                                           u, w))
     err = max((pt - pt_w).abs().max().item(), (qt - qt_w).abs().max().item())
+    n = VA.split_plan(V, B * R, DA.sm_count(pl.device))
     return dict(case=label, max_abs_err=err, boundary_cases=boundary,
                 ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms,
-                bound_by=by)
+                bound_by=by, splits=n, live_rows=valid)
 
 
 def check_gather(rng, label, P, ps, dim, n, valid):
@@ -519,6 +547,116 @@ def check_ssm(rng, label, B, T, E, N, xdtype, states):
                 library_ms=None, bound_ms=bms, bound_by=by)
 
 
+# the carry mode (no states) at the sequential engines' shapes, the only
+# mode an engine launches through ``ssm_scan``: phase 7's most frequent
+# (SpecBranch's branch tick over 4 branches of the tiny pairs' draft, and
+# their target's verify chunk of gamma + 1 = 5), and that chunk at
+# falcon-mamba-7b's width
+SEQ_CARRY_CASE = "seq branch tick B=4 T=1 E=64 f32"
+
+
+def carry_cases(rng) -> list:
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [check_ssm(rng, SEQ_CARRY_CASE, 4, 1, 64, 16, f32, False),
+            check_ssm(rng, "seq verify B=1 T=5 E=128 f32", 1, 5, 128, 16,
+                      f32, False),
+            check_ssm(rng, "falcon-7b seq verify B=1 T=5", 1, 5, 8192, 16,
+                      bf16, False)]
+
+
+def phase_scan() -> None:
+    """``--scan``: phase 2's plain-scan cases, both modes, alone (with
+    ``--src``, of another checkout's kernel)."""
+    rng = np.random.default_rng(0)
+    bf16 = torch.bfloat16
+    rows = [check_ssm(rng, "falcon-7b decode B=8 T=8", 8, 8, 8192, 16, bf16,
+                      True),
+            check_ssm(rng, "falcon-7b cache-less B=8 T=48", 8, 48, 8192, 16,
+                      bf16, False)] + carry_cases(rng)
+    timing_floor()
+    for r in rows:
+        log(f"  {r['case']:32s} err={r['max_abs_err']:.2e} "
+            f"ms={r['ms']:.4f} bound={r['bound_ms']:.4f} "
+            f"plain={r['plain_ms']:.4f}")
+
+
+def ring_written(B, T, Rg, n_rows, p0, rows) -> torch.Tensor:
+    """(n_rows, Rg) mask of the ring slots a ring scan writes: the
+    trailing min(T, Rg) steps of every live lane."""
+    w = torch.zeros((n_rows, Rg), dtype=torch.bool)
+    for b in range(B):
+        if rows[b] >= 0:
+            for t in range(T - min(T, Rg), T):
+                w[rows[b], (p0[b] + t + 1) % Rg] = True
+    return w
+
+
+def check_ssm_ring(rng, label, B, T, E, N, Rg, n_rows, xdtype, p0, rows):
+    """The ring entry against ``ssm_scan_ring_ref`` on one whole ring
+    h_ring (n_rows, Rg, E, N): slots no lane writes bit for bit
+    untouched, y and the written slots within SSM_RTOL / SSM_ATOL.  p0
+    start positions (0: a fresh lane), rows the lane map (-1: a pad
+    lane).  Also times the PyTorch path this entry replaces: the gather
+    of h0, the scan kernel with every post-step state and the index_put
+    of the trailing states (``glue_ms``)."""
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).cuda()
+    x = f(B, T, E).to(xdtype)
+    dt = F.softplus(f(B, T, E))
+    Bm, Cm = f(B, T, N), f(B, T, N)
+    A = -torch.exp(f(E, N) * 0.2)
+    D = torch.ones(E, device="cuda")
+    ring = f(n_rows, Rg, E, N)
+    args = (x, dt, Bm, Cm, A, D)
+    p0_t = torch.tensor(p0, dtype=torch.int32, device="cuda")
+    rows_t = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    got_ring, want_ring = ring.clone(), ring.clone()
+    y = SS.ssm_scan_ring(*args, got_ring, p0_t, rows_t)
+    yw = ref.ssm_scan_ring_ref(*args, want_ring, p0_t, rows_t)
+    torch.cuda.synchronize()
+    wr = ring_written(B, T, Rg, n_rows, p0, rows).cuda()
+    if not torch.equal(got_ring[~wr], ring[~wr]):
+        raise AssertionError(f"ssm_scan_ring {label}: a slot no lane "
+                             "writes changed")
+    err = 0.0
+    for name, g, w in (("y", y, yw), ("ring", got_ring[wr], want_ring[wr])):
+        d = (g - w).abs()
+        if not bool((d <= SSM_ATOL + SSM_RTOL * w.abs()).all()):
+            raise AssertionError(f"ssm_scan_ring {label}: {name} differs "
+                                 f"beyond rtol=atol={SSM_RTOL} (max "
+                                 f"{d.max().item():.3e})")
+        err = max(err, d.max().item())
+    live = [b for b in range(B) if rows[b] >= 0]
+    loads = sum(1 for b in live if p0[b] != 0)
+    nbytes = (x.numel() * x.element_size()
+              + (dt.numel() + Bm.numel() + Cm.numel() + A.numel()
+                 + D.numel() + y.numel()) * 4 + 2 * B * 4
+              + (loads + len(live) * min(T, Rg)) * E * N * 4)
+    bms, by = bound(nbytes, 7 * B * T * E * N, torch.float32)
+    ms = time_ms(lambda: SS.ssm_scan_ring(*args, got_ring, p0_t, rows_t))
+    plain = time_ms(lambda: ref.ssm_scan_ring_ref(*args, want_ring, p0_t,
+                                                  rows_t))
+    rl = rows_t.long()
+    live_t = rl >= 0
+    fresh = ((p0_t == 0) | ~live_t)[:, None, None]
+    Tr = min(T, Rg)
+    slots = (p0_t.long()[:, None]
+             + torch.arange(T - Tr, T, device="cuda")[None] + 1) % Rg
+    lidx = live_t.nonzero()[:, 0]
+    lrows, lslots = rl[lidx], slots[lidx]
+
+    def glue():     # the layer's ring path before the ring entry
+        h0 = torch.where(fresh, 0.0, want_ring[rl.clamp_min(0),
+                                               p0_t.long() % Rg])
+        out = SS.ssm_scan(*args, h0.contiguous(), return_states=True)
+        want_ring[lrows[:, None], lslots] = out[2][lidx, T - Tr:]
+    glue_ms = time_ms(glue)
+    # no single PyTorch call computes a selective scan: library_ms null
+    return dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=None, bound_ms=bms, bound_by=by, glue_ms=glue_ms)
+
+
 def branch_case(rng, kb, Tq, Sp, Ss, Hh, KV, hd, dtype, dead=0):
     """k branches over one shared prefix of Sp keys (``dead`` of them
     unwritten, position -1) and Ss suffix keys each; the Tq queries of
@@ -618,7 +756,7 @@ def check_single_verify(rng, label, R, V, dtype):
     # no single PyTorch call computes the verdict: library_ms null
     return dict(case=label, max_abs_err=err, boundary_cases=boundary, ms=ms,
                 plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
-                args=args)
+                args=args, splits=VA.split_plan(V, R, DA.sm_count(pl.device)))
 
 
 def timing_floor(flush: str = "dirty") -> dict:
@@ -645,7 +783,7 @@ def phase_probe() -> dict:
     1 stops every tile after its K/V loads, 2 after its logits, 0 is the
     whole kernel; the timing floor and three kernel calls after a dirty
     L2 flush (the default), a clean one and none; the split plan's size
-    knob."""
+    knob; the batched verify's rounds (``probe_verify``)."""
     import ctypes
     floor = {f: timing_floor(f) for f in ("dirty", "clean", "none")}
     bf = torch.bfloat16
@@ -719,7 +857,56 @@ def phase_probe() -> dict:
     for (mk, name), v in sweep.items():
         log(f"  split sweep min_keys={mk:4d} {name:16s} ms={v:.4f}")
     return dict(floor=floor, phases=out,
-                sweep={f"{a} {b}": v for (a, b), v in sweep.items()})
+                sweep={f"{a} {b}": v for (a, b), v in sweep.items()},
+                verify=probe_verify(rng))
+
+
+def probe_verify(rng) -> dict:
+    """The batched verify's rows phase by phase, from variants built with
+    ``-DREPRO_VERIFY_STOP``: 1 ends each row after its load, 2 after
+    round 1, 3 after round 2, 0 is the whole kernel (each stop adds one
+    cluster barrier); and the whole kernel with ten more cluster
+    barriers after the load (``-DREPRO_VERIFY_SYNCS=10``), whose
+    difference is ten barriers' cost.  V = 32000 (8 blocks a row) with
+    16 live rows, phase 2's lens draw (72 of 128 live) and every row
+    live; V = 199 (one block a row)."""
+    import ctypes
+
+    def case(B, R, V, lens):
+        f = [torch.from_numpy(3 * rng.standard_normal((B, R, V), np.float32)
+                              ).cuda() for _ in range(2)]
+        tok = torch.from_numpy(rng.integers(0, V, (B, R)).astype(np.int32)
+                               ).cuda()
+        u, w = (torch.from_numpy(rng.random((B, R), np.float32)).cuda()
+                for _ in range(2))
+        return (*f, tok, torch.tensor(lens, dtype=torch.int32,
+                                      device="cuda"), u, w)
+    ragged = [10, 14, 8, 3, 11, 12, 14, 0]
+    cases = {"V=32000 B=1 R=16 live 16": case(1, 16, 32000, [16]),
+             "V=32000 B=8 R=16 live 72": case(8, 16, 32000, ragged),
+             "V=32000 B=8 R=16 live 128": case(8, 16, 32000, [16] * 8),
+             "V=199 B=8 R=16 live 72": case(8, 16, 199, ragged)}
+    variants = (("load", ("-DREPRO_VERIFY_STOP=1",)),
+                ("+round 1", ("-DREPRO_VERIFY_STOP=2",)),
+                ("+round 2", ("-DREPRO_VERIFY_STOP=3",)),
+                ("whole", ()),
+                ("+10 barriers", ("-DREPRO_VERIFY_SYNCS=10",)))
+    out = {}
+    saved = build._lib
+    try:
+        for what, defines in variants:
+            build._lib = build.bind(ctypes.CDLL(str(build.build(
+                ("verify_accept.cu",), defines))))
+            for name, a in cases.items():
+                out[(name, what)] = time_ms(
+                    lambda: VA.verify_accept_batched(*a))
+    finally:
+        build._lib = saved
+    for name in cases:
+        log(f"  probe verify {name:26s} "
+            + " ".join(f"{what} {out[(name, what)]:.4f}"
+                       for what, _ in variants) + " ms")
+    return {f"{n} {w}": v for (n, w), v in out.items()}
 
 
 def phase_kernel_api(cases, totals) -> dict:
@@ -842,8 +1029,29 @@ def phase_kernels() -> dict:
                            8, 4, 256, bf))
     br.append(check_branch(rng, "hd80 H=16 k=6 Sp=504 Ss=8", 6, 1, 504, 8,
                            16, 16, 80, bf))
+    # the scan's ring entry at the falcon-mamba-7b serve's two target
+    # shapes (8 lanes of T = 16, its most frequent, and of T = 8, over 8
+    # ring rows of depth FALCON_RING; two fresh lanes, two wrapping past
+    # slot Rg - 1, one pad lane) and a lapping prefill; the verify with
+    # every row full, with a V its split does not divide, and at gemma3-4b's
+    # vocabulary (16 blocks per row, the non-portable cluster)
+    lanes = dict(p0=[0, 37, FALCON_RING - 2, 0, 12, 55, 90, 3],
+                 rows=[5, 0, 7, 2, -1, 1, 6, 3])
+    rr = [check_ssm_ring(rng, FALCON_RING_CASE, 8, 16, 8192, 16,
+                         FALCON_RING, 8, bf16, **lanes),
+          check_ssm_ring(rng, "falcon-7b serve B=8 T=8 Rg=92", 8, 8, 8192,
+                         16, FALCON_RING, 8, bf16, **lanes),
+          check_ssm_ring(rng, "lapping prefill B=4 T=130 E=1024 Rg=92", 4,
+                         130, 1024, 16, 92, 6, bf16, p0=[0, 0, 7, 0],
+                         rows=[4, 1, 0, -1])]
+    ver.append(check_verify(rng, "llama V=32000 B=8 R=16 full", 8, 16,
+                            32000, lens_to=16))
+    ver.append(check_verify(rng, "V=30011 B=8 R=16", 8, 16, 30011))
+    ver.append(check_verify(rng, "gemma3-4b V=262144 B=4 R=6", 4, 6,
+                            262144))
+    ss += carry_cases(rng)
     timing_floor()
-    for r in att + ver + gat + fl + ss + br + sv:
+    for r in att + ver + gat + fl + ss + rr + br + sv:
         lib = r["library_ms"]
         log(f"  {r['case']:32s} err={r['max_abs_err']:.2e} "
             + (f"({r['err_share']:.2f} of bound) "
@@ -853,10 +1061,13 @@ def phase_kernels() -> dict:
             f"lib={'null' if lib is None else f'{lib:.4f}'}"
             + (f" boundary={r['boundary_cases']}"
                if "boundary_cases" in r else "")
-            + (f" splits={r['splits']}" if "splits" in r else ""))
+            + (f" splits={r['splits']}" if "splits" in r else "")
+            + (f" live_rows={r['live_rows']}" if "live_rows" in r else "")
+            + (f" glue={r['glue_ms']:.4f}" if "glue_ms" in r else ""))
     return {"paged_attention": att, "verify_accept_batched": ver,
             "paged_gather": gat, "flash_attention": fl, "ssm_scan": ss,
-            "branch_decode_attention": br, "verify_accept": sv}
+            "ssm_scan_ring": rr, "branch_decode_attention": br,
+            "verify_accept": sv}
 
 
 # ---------------------------------------------------------------------------
@@ -1125,11 +1336,84 @@ def busy_profile(run) -> dict:
     # the parent's tile loops, so an A/B reads both)
     paged = [e.duration_ns() for e in evs if "PagedKeys" in e.name()]
     flash = [e.duration_ns() for e in evs if "DenseKeys" in e.name()]
+    # the scan (both entries) and the batched verify, by kernel name (the
+    # same names in the parent's kernels)
+    scan = [e.duration_ns() for e in evs if "ssm_scan_kernel" in e.name()]
+    verify = [e.duration_ns() for e in evs
+              if "verify_accept_batched_kernel" in e.name()]
     return dict(wall_s=wall, busy_share=busy / 1e9 / wall,
                 device_s=sum(by_name.values()) / 1e9,
                 top=[(n, t / 1e9) for n, t in top],
                 paged_ms=sum(paged) / 1e6, paged_launches=len(paged),
-                flash_ms=sum(flash) / 1e6, flash_launches=len(flash))
+                flash_ms=sum(flash) / 1e6, flash_launches=len(flash),
+                scan_ms=sum(scan) / 1e6, scan_launches=len(scan),
+                verify_ms=sum(verify) / 1e6, verify_launches=len(verify))
+
+
+def ring_glue_profile(run, ring_shapes) -> dict:
+    """Run ``run()`` under the profiler with CPU ops and their input
+    shapes: by kernel name, the device time and launches of the kernels
+    that PyTorch ops launch on a checkpoint ring (an op whose first
+    input has one of ``ring_shapes``, one layer's h_ring): the gather of
+    the initial state and the index_put of the checkpoints that the ring
+    entry of the scan replaced."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    shapes = {tuple(x) for x in ring_shapes}
+    by_kernel = {}
+    for ev in prof.events():
+        ins = getattr(ev, "input_shapes", None) or []
+        if not ins or tuple(ins[0]) not in shapes:
+            continue
+        for k in getattr(ev, "kernels", []):
+            name = f"{ev.name}: {k.name[:50]}"
+            ms, n = by_kernel.get(name, (0.0, 0))
+            by_kernel[name] = (ms + k.duration / 1e3, n + 1)
+    return dict(ms=sum(v[0] for v in by_kernel.values()),
+                launches=sum(v[1] for v in by_kernel.values()),
+                by_kernel=by_kernel)
+
+
+def ring_shapes(eng) -> list:
+    """One layer's h_ring shape in each of an engine's decoders."""
+    return sorted({tuple(c["h_ring"].shape[1:])
+                   for dec in (eng.tgt_dec, eng.dft_dec)
+                   for c in M.iter_slots(dec.cache) if "h_ring" in c})
+
+
+def log_ring(prof, glue) -> None:
+    log(f"    ssm_scan kernels: {prof['scan_ms']:.2f} ms device time over "
+        f"{prof['scan_launches']} launches; PyTorch kernels on the h "
+        f"rings: {glue['ms']:.2f} ms over {glue['launches']} launches; "
+        f"scan + ring {prof['scan_ms'] + glue['ms']:.2f} ms")
+    for name, (ms, n) in sorted(glue["by_kernel"].items(),
+                                key=lambda kv: -kv[1][0]):
+        log(f"      {ms:8.3f} ms {n:5d}x  {name}")
+
+
+class RingCensus:
+    """While active, counts the ring scan's calls by (lanes, T, E, ring
+    depth, ring rows)."""
+
+    def __enter__(self):
+        from collections import Counter
+        self.shapes = Counter()
+        self._orig = ops.ssm_scan_ring
+
+        def spy(x, dt, Bm, Cm, A, D, h_ring, p0, rows=None):
+            self.shapes[tuple(x.shape) + (h_ring.shape[1],
+                                          h_ring.shape[0])] += 1
+            return self._orig(x, dt, Bm, Cm, A, D, h_ring, p0, rows)
+        ops.ssm_scan_ring = spy
+        return self
+
+    def __exit__(self, *exc):
+        ops.ssm_scan_ring = self._orig
+        return False
 
 
 def log_paged(prof) -> None:
@@ -1144,9 +1428,12 @@ def log_flash(prof) -> None:
 
 def phase_profile(dev) -> dict:
     """``--profile``: phase 4's profiled greedy serve (full-width
-    LLaMA-68M/7B, 8 requests x 8 new tokens) and phase 6's profiled
-    sequential SpecBranch serve (2 requests x 8 new tokens), each after
-    one unprofiled serve, twice; with ``--src`` against another
+    LLaMA-68M/7B, 8 requests x 8 new tokens), phase 6's profiled
+    sequential SpecBranch serve (2 requests x 8 new tokens), the batched
+    LLaMA serve at temperature 1 (the verify kernel's device time) and
+    phase 8's falcon-mamba-7b batched greedy serve (the scan kernels'
+    device time and the PyTorch kernels on its checkpoint rings), each
+    after one unprofiled serve, twice; with ``--src`` against another
     checkout's port."""
     pair = SV.load_pair("paper-llama", dev)
     prompts = SV.make_prompts(8)
@@ -1203,6 +1490,39 @@ def phase_profile(dev) -> dict:
              for f in ("none", "dirty")}
         log(f"  flash {label}: {t['none']:.4f} ms warm, "
             f"{t['dirty']:.4f} ms after the dirty flush")
+    # the batched LLaMA serve at temperature 1 (epsilon 0, so that the
+    # drafted chains reach the verify kernel)
+    tecfg = EngineConfig(gamma=4, c=10.0, temperature=1.0, epsilon=0.0,
+                         max_len=SV.auto_max_len(prompts, 32, 4, 10.0))
+    SV.serve(pair, tecfg, prompts, 8, device=dev)
+    for _ in range(2):
+        prof = busy_profile(lambda: SV.serve(pair, tecfg, prompts, 8,
+                                             device=dev))
+        log(f"  temp1 profile: card busy {prof['busy_share']:.3f} of "
+            f"{prof['wall_s']:.2f}s wall, device {prof['device_s']:.4f}s")
+        log(f"    verify_accept_batched kernel: {prof['verify_ms']:.2f} ms "
+            f"device time over {prof['verify_launches']} launches")
+        out.append(prof)
+    # the falcon-mamba-7b batched greedy serve: the scan and the PyTorch
+    # kernels on its checkpoint rings
+    del pair
+    free_device_memory()
+    fpair = SV.load_pair("falcon-mamba-7b", dev)
+    fecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                         max_len=SV.auto_max_len(prompts, 32, 4, 10.0))
+    _res, _rep, eng, _wall = SV.serve(fpair, fecfg, prompts, 8, device=dev)
+    shapes = ring_shapes(eng)
+    del eng
+    free_device_memory()
+    for _ in range(2):
+        prof = busy_profile(lambda: SV.serve(fpair, fecfg, prompts, 8,
+                                             device=dev))
+        glue = ring_glue_profile(lambda: SV.serve(fpair, fecfg, prompts, 8,
+                                                  device=dev), shapes)
+        log(f"  falcon profile: card busy {prof['busy_share']:.3f} of "
+            f"{prof['wall_s']:.2f}s wall, device {prof['device_s']:.4f}s")
+        log_ring(prof, glue)
+        out.append(dict(prof, ring=glue))
     return out
 
 
@@ -1430,7 +1750,7 @@ def phase_hybrid(dev, totals) -> dict:
         pair = SV.load_pair(kind, dev)
         cpu = tree_to(pair, "cpu")
         attn = kind == "jamba-shaped"
-        need = ["ssm_scan"] + (["paged_attention"] if attn else [])
+        need = ["ssm_scan_ring"] + (["paged_attention"] if attn else [])
         greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
         drives = [("greedy", 0.0, EPS, {}), ("temp1", 1.0, EPS, {}),
                   ("temp1-chains", 1.0, 0.0, {})]
@@ -1478,7 +1798,7 @@ def phase_hybrid(dev, totals) -> dict:
                                 max_len=512)
             res, counts, wall = seq_drive(
                 pair, ecfg, engine, sprompts, n_new, totals,
-                need=need[:1] + (["flash_attention"] if attn else []))
+                need=["ssm_scan"] + (["flash_attention"] if attn else []))
             bad = [i for i in range(len(sprompts))
                    if res[i].tokens != ar[i]]
             log(f"  {kind} seq {engine} greedy: wall={wall:.2f}s "
@@ -1524,11 +1844,12 @@ def phase_falcon(dev, totals) -> dict:
         ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, epsilon=eps,
                             max_len=max_len)
         torch.cuda.reset_peak_memory_stats()
-        with VerifyShadow() as sh:
+        with VerifyShadow() as sh, RingCensus() as census:
             res, rep, counts, wall, eng = drive(pair, ecfg, prompts, n_new,
                                                 dev)
         peak = torch.cuda.max_memory_allocated()
         rings = tree_bytes(eng.tgt_dec.cache) + tree_bytes(eng.dft_dec.cache)
+        shapes = ring_shapes(eng)
         del eng
         free_device_memory()
         for k, v in counts.items():
@@ -1538,11 +1859,18 @@ def phase_falcon(dev, totals) -> dict:
                                   for r in res.values()]))
         log(f"  falcon {name}: {toks / wall:.1f} tok/s wall, "
             f"rounds={rep['rounds']}, mean accepted={mean_acc:.2f}, "
-            f"ssm_scan launches={counts['ssm_scan']}, launches={counts}; "
-            f"rings {rings / 1e9:.2f} GB, peak allocated {peak / 1e9:.2f} "
-            "GB")
-        if counts["ssm_scan"] == 0:
-            raise AssertionError(f"falcon {name}: ssm_scan not launched")
+            f"ssm_scan_ring launches={counts['ssm_scan_ring']}, "
+            f"launches={counts}; rings {rings / 1e9:.2f} GB, peak "
+            f"allocated {peak / 1e9:.2f} GB")
+        log(f"  falcon {name} ring scans by (lanes, T, E, Rg, rows): "
+            f"{dict(census.shapes.most_common())}")
+        if counts["ssm_scan_ring"] == 0:
+            raise AssertionError(f"falcon {name}: ssm_scan_ring not "
+                                 "launched")
+        if census.shapes[(8, 16, 8192, FALCON_RING, 8)] == 0:
+            raise AssertionError(f"falcon {name}: the serve never ran the "
+                                 f"ring scan at phase 2's shape "
+                                 f"({FALCON_RING_CASE})")
         out[name] = dict(tokens_per_s=toks / wall, wall_s=wall,
                          rounds=rep["rounds"], mean_accepted=mean_acc,
                          tokens=toks, launches=counts, rings_gb=rings / 1e9,
@@ -1562,7 +1890,10 @@ def phase_falcon(dev, totals) -> dict:
         "time by kernel:")
     for n, t in prof["top"]:
         log(f"    {t * 1e3:9.2f} ms  {n}")
-    out["profile"] = prof
+    glue = ring_glue_profile(lambda: SV.serve(pair, ecfg, prompts, 8,
+                                              device=dev), shapes)
+    log_ring(prof, glue)
+    out["profile"] = dict(prof, ring=glue)
     return out
 
 
@@ -1765,7 +2096,9 @@ def phase_hrad_full(dev, totals, pair, without) -> dict:
 def log_ptxas(ptx: str) -> None:
     """Registers and spills of every kernel the build compiled, from
     ``nvcc -Xptxas -v``; the decode loop's variants (decode, and flash's
-    wide block) by addressing struct, dtype, head dim and ring stages."""
+    wide block) by addressing struct, dtype, head dim and ring stages,
+    the scan's by N, x dtype and entry (carry, states, ring), the
+    verify's by entry and logit dtype."""
     name, spill = "?", ""
     for ln in ptx.splitlines():
         if "Compiling entry function" in ln:
@@ -1776,6 +2109,18 @@ def log_ptxas(ptx: str) -> None:
                 dt = "bf16" if "bfloat" in m.group(2) else "f32"
                 name = (f"{m.group(1)} {m.group(5)}Keys {dt} "
                         f"hd={m.group(3)} stages={m.group(4)}")
+            m = re.search(r"ssm_scan_kernelILi(\d+)E(13__nv_bfloat16|f)"
+                          r"Li(\d)E", name)
+            if m:
+                dt = "bf16" if "bfloat" in m.group(2) else "f32"
+                mode = ("carry", "states", "ring")[int(m.group(3))]
+                name = f"ssm_scan N={m.group(1)} x {dt} {mode}"
+            m = re.search(r"verify_accept_(batched_)?kernel(I13__nv_bfloat16"
+                          r"|If)?E", name)
+            if m:
+                name = ("verify batched f32" if m.group(1) else
+                        "verify single " + ("bf16" if "bfloat"
+                                            in (m.group(2) or "") else "f32"))
         elif "spill stores" in ln:
             spill = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -1801,6 +2146,10 @@ def main() -> int:
         log(f"[profile] phase 4's profiled serve, port from {SRC}")
         phase_profile(dev)
         return 3                # a profile run gives no smoke result
+    if "--scan" in sys.argv[1:]:
+        log(f"[scan] the plain scan's cases, port from {SRC}")
+        phase_scan()
+        return 3                # a scan run gives no smoke result
     if "--probe" in sys.argv[1:]:
         log("[probe] attention tile loop phase by phase")
         phase_probe()
@@ -1841,7 +2190,8 @@ def main() -> int:
                 "verify_accept_batched": "llama V=32000 B=8 R=16",
                 "paged_gather": "zm swap ps=4 dim=512",
                 "flash_attention": "llama-7b B=1 T=5 S=512",
-                "ssm_scan": "falcon-7b decode B=8 T=8",
+                "ssm_scan": SEQ_CARRY_CASE,
+                "ssm_scan_ring": FALCON_RING_CASE,
                 "branch_decode_attention": "llama-7b k=6 Sp=504 Ss=8",
                 "verify_accept": "llama V=32000 R=9"}
     table = []

@@ -39,6 +39,7 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "paged_gather": 0,
                             "flash_attention": 0,
                             "ssm_scan": 0,
+                            "ssm_scan_ring": 0,
                             "branch_decode_attention": 0,
                             "verify_accept": 0}
 
@@ -122,12 +123,13 @@ def _signatures() -> Dict[str, tuple]:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return {  # entry: (argtypes, restype)
         "repro_paged_attention": ([P] * 7 + [I] * 10 + [F, F, I, P], I),
-        "repro_verify_accept_batched": ([P] * 10 + [I] * 3 + [P], I),
+        "repro_verify_accept_batched": ([P] * 10 + [I] * 4 + [P], I),
         "repro_paged_gather": ([P] * 3 + [I] * 4 + [P], I),
         "repro_flash_attention": ([P] * 7 + [I] * 11 + [F, F, I, P], I),
         "repro_ssm_scan": ([P] * 10 + [I] * 5 + [P], I),
+        "repro_ssm_scan_ring": ([P] * 10 + [I] * 7 + [P], I),
         "repro_branch_attention": ([P] * 9 + [I] * 9 + [F, F, I, P], I),
-        "repro_verify_accept": ([P] * 9 + [I] * 3 + [P], I),
+        "repro_verify_accept": ([P] * 9 + [I] * 4 + [P], I),
     }
 
 

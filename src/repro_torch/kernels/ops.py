@@ -112,3 +112,14 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                                 return_states=return_states)
     return _ssm.ssm_scan(x, dt, Bm, Cm, A, D, h0,
                          return_states=return_states)
+
+
+def ssm_scan_ring(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                  Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                  h_ring: torch.Tensor, p0: torch.Tensor,
+                  rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The scan over a Mamba checkpoint ring, read and written in place
+    (see kernels.ssm_scan.ssm_scan_ring); returns y."""
+    if x.device.type == "cpu":
+        return ref.ssm_scan_ring_ref(x, dt, Bm, Cm, A, D, h_ring, p0, rows)
+    return _ssm.ssm_scan_ring(x, dt, Bm, Cm, A, D, h_ring, p0, rows)

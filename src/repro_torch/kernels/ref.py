@@ -11,6 +11,8 @@ verify_accept_batched_ref``, ``paged_gather_ref`` the contract of
 chunked online softmax of ``repro.models.layers.attend`` (the function
 TPU kernel ``repro.kernels.flash_attention.flash_attention`` computes),
 ``ssm_scan_ref`` is ``repro.kernels.ref.ssm_scan_ref``,
+``ssm_scan_ring_ref`` the checkpoint-ring gather, scan and scatter of
+``repro.models.layers.mamba`` (with the port's lane-to-row map),
 ``branch_decode_ref`` is ``repro.kernels.ref.branch_decode_ref`` (the
 broadcast prefix concatenated with each branch's suffix) and
 ``verify_accept_ref`` is ``repro.kernels.ref.verify_accept_ref``.
@@ -186,6 +188,34 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     if return_states:
         return y, h, hs_t
     return y, h
+
+
+def ssm_scan_ring_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                      Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                      h_ring: torch.Tensor, p0: torch.Tensor,
+                      rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The scan over a checkpoint ring h_ring (n_rows, Rg, E, N), updated
+    in place: gather each lane's initial state from slot p0 % Rg of its
+    row (zeros for a fresh lane, p0 == 0, and for a pad lane, row < 0),
+    scan with every post-step state kept, and scatter the trailing
+    min(T, Rg) states to slots (p0 + t + 1) % Rg of the live lanes' rows
+    (a longer span laps the ring: slicing first keeps every written slot
+    unique).  p0, rows (B,); rows None maps lane b to row b.  Returns y
+    (B, T, E) float32."""
+    B, T, _E = x.shape
+    Rg = h_ring.shape[1]
+    dev = x.device
+    p0 = p0.long()
+    rows = (torch.arange(B, device=dev) if rows is None else rows.long())
+    live = rows >= 0
+    fresh = ((p0 == 0) | ~live)[:, None, None]
+    h0 = torch.where(fresh, 0.0, h_ring[rows.clamp_min(0), p0 % Rg])
+    y, _hT, hs = ssm_scan_ref(x, dt, Bm, Cm, A, D, h0, return_states=True)
+    Tr = min(T, Rg)
+    t_idx = torch.arange(T - Tr, T, device=dev)                 # (Tr,)
+    slots = (p0[:, None] + t_idx[None] + 1) % Rg                # (B, Tr)
+    h_ring[rows[live][:, None], slots[live]] = hs[live, T - Tr:]
+    return y
 
 
 def branch_decode_ref(q: torch.Tensor, prefix_k: torch.Tensor,

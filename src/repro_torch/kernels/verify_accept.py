@@ -11,14 +11,42 @@ r >= lens[b] are zeros.
 
 Single request: p_logits, q_logits (R, V) f32 or bf16; tokens (R,) int32;
 uniforms, res_uniforms (R,) f32.  Returns the same four outputs at (R,).
+
+Each row is one thread-block cluster of ``split_plan(V, rows, SMs)``
+blocks, each owning a slice of V in shared memory (see the source note).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as _da
+
+MAX_SPLIT = 8         # a cluster's portable size
+MAX_SPLIT_WIDE = 16   # non-portable: only where a slice must shrink to fit
+MIN_SLICE = 1024      # a slice keeps >= 4 elements per thread of its block
+TARGET_SLICE = 4096   # ... and is split until it holds at most this many
+MAX_SLICE = 28672     # two f32 slices in a block's 227 KB of shared memory
+
+
+def split_plan(V: int, rows: int, sms: int) -> int:
+    """Blocks per row (the cluster size): enough that a slice holds at most
+    TARGET_SLICE elements, or that rows x splits gives one block per SM
+    when rows are few, but no slice below MIN_SLICE elements; at most 8,
+    or 16 where a slice of V / 8 would not fit in shared memory.  Raises
+    ``ValueError`` for a V above 16 x MAX_SLICE."""
+    n = min(MAX_SPLIT, math.ceil(V / MIN_SLICE),
+            max(math.ceil(V / TARGET_SLICE), math.ceil(sms / max(rows, 1))))
+    n = max(n, 1)
+    if math.ceil(V / n) > MAX_SLICE:
+        n = MAX_SPLIT_WIDE
+        if math.ceil(V / n) > MAX_SLICE:
+            raise ValueError(f"verify: V={V} exceeds "
+                             f"{MAX_SPLIT_WIDE * MAX_SLICE}")
+    return n
 
 
 def _check(fn: str, args) -> None:
@@ -38,6 +66,7 @@ def verify_accept_batched(p_logits: torch.Tensor, q_logits: torch.Tensor,
                           tokens: torch.Tensor, lens: torch.Tensor,
                           uniforms: torch.Tensor, res_uniforms: torch.Tensor
                           ) -> Tuple[torch.Tensor, ...]:
+    """Launch the batched kernel."""
     B, R, V = p_logits.shape
     _check("verify_accept_batched",
            (("p_logits", p_logits, torch.float32, (B, R, V)),
@@ -53,13 +82,14 @@ def verify_accept_batched(p_logits: torch.Tensor, q_logits: torch.Tensor,
     qtok = torch.empty((B, R), dtype=torch.float32, device=dev)
     if B * R == 0:
         return acc, res, ptok, qtok
+    n = split_plan(V, B * R, _da.sm_count(dev))
     L = build.lib()
     with torch.cuda.device(dev):
         rc = L.repro_verify_accept_batched(
             p_logits.data_ptr(), q_logits.data_ptr(), tokens.data_ptr(),
             lens.data_ptr(), uniforms.data_ptr(), res_uniforms.data_ptr(),
             acc.data_ptr(), res.data_ptr(), ptok.data_ptr(), qtok.data_ptr(),
-            B, R, V, torch.cuda.current_stream().cuda_stream)
+            B, R, V, n, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "verify_accept_batched")
     build.LAUNCHES["verify_accept_batched"] += 1
     return acc, res, ptok, qtok
@@ -68,6 +98,7 @@ def verify_accept_batched(p_logits: torch.Tensor, q_logits: torch.Tensor,
 def verify_accept(p_logits: torch.Tensor, q_logits: torch.Tensor,
                   tokens: torch.Tensor, uniforms: torch.Tensor,
                   res_uniforms: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Launch the single-request kernel."""
     R, V = p_logits.shape
     dt = p_logits.dtype
     if dt not in (torch.float32, torch.bfloat16):
@@ -85,13 +116,14 @@ def verify_accept(p_logits: torch.Tensor, q_logits: torch.Tensor,
     qtok = torch.empty((R,), dtype=torch.float32, device=dev)
     if R == 0:
         return acc, res, ptok, qtok
+    n = split_plan(V, R, _da.sm_count(dev))
     L = build.lib()
     with torch.cuda.device(dev):
         rc = L.repro_verify_accept(
             p_logits.data_ptr(), q_logits.data_ptr(), tokens.data_ptr(),
             uniforms.data_ptr(), res_uniforms.data_ptr(), acc.data_ptr(),
             res.data_ptr(), ptok.data_ptr(), qtok.data_ptr(), R, V,
-            int(dt == torch.bfloat16),
+            int(dt == torch.bfloat16), n,
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "verify_accept")
     build.LAUNCHES["verify_accept"] += 1

@@ -326,9 +326,11 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     written IN PLACE to slot ``(position + 1) % ring``.  Pad steps of a
     batched call write future slots, which real writes overwrite before
     any load sees them.  ``ring_rows`` (B,) maps lanes to ring rows
-    (default: lane i is row i); a lane with row -1 is a pad lane whose
-    writes are dropped.  A carry cache (ring == 0) is read and updated in
-    place; without a cache the scan starts from zeros."""
+    (default: lane i is row i); a lane with row -1 is a pad lane: its
+    conv window and scan start from zeros and its writes are dropped.
+    The scan reads and writes the ring in one kernel
+    (``ops.ssm_scan_ring``); the conv tails are scattered here.  A carry cache (ring == 0) is read and
+    updated in place; without a cache the scan starts from zeros."""
     B, T, _D = x.shape
     E, N, R = cfg.d_inner, cfg.ssm_state, cfg.dtr
     Cv = cfg.ssm_conv
@@ -345,11 +347,10 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         p0 = positions[:, 0].long()
         rows = (torch.arange(B, device=dev) if ring_rows is None
                 else ring_rows.long())
-        rsafe = rows.clamp_min(0)
         slot0 = p0 % Rg
-        fresh = (p0 == 0)[:, None, None]     # new row: zero state
-        h0 = torch.where(fresh, 0.0, h_ring[rsafe, slot0])
-        prev = torch.where(fresh, 0.0, conv_ring[rsafe, slot0])
+        # a new row, and a pad lane, start from zeros (as the scan does)
+        fresh = ((p0 == 0) | (rows < 0))[:, None, None]
+        prev = torch.where(fresh, 0.0, conv_ring[rows.clamp_min(0), slot0])
     else:
         prev = cache["conv"] if cache is not None else None
         h0 = (cache["ssm"] if cache is not None
@@ -364,30 +365,33 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     u = dt_raw @ p["dt_w"] + p["dt_b"]
     delta = torch.logaddexp(u, torch.zeros((), dtype=u.dtype, device=dev)
                             ).float().contiguous()                # softplus
-    A = -torch.exp(p["A_log"].float())                            # (E,N)
-    scan = ops.ssm_scan(xc.contiguous(), delta, Bmat, Cmat, A.contiguous(),
-                        p["Dskip"].float().contiguous(), h0.contiguous(),
-                        return_states=ring)
-    y, hT = scan[0], scan[1]
+    A = -torch.exp(p["A_log"].float()).contiguous()               # (E,N)
+    Dv = p["Dskip"].float().contiguous()
+    if ring:
+        # the scan reads each lane's initial state from the ring and
+        # writes the checkpoints of its trailing min(T, Rg) steps into it
+        y = ops.ssm_scan_ring(
+            xc.contiguous(), delta, Bmat, Cmat, A, Dv, h_ring,
+            positions[:, 0].to(torch.int32),
+            None if ring_rows is None else ring_rows.to(torch.int32))
+    else:
+        y, hT = ops.ssm_scan(xc.contiguous(), delta, Bmat, Cmat, A, Dv,
+                             h0.contiguous())
     out = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
 
     if ring:
-        # only the trailing min(T, Rg) steps are written: a longer span
-        # (prefill) laps the ring and the survivors are the last Rg
-        # checkpoints — slicing first keeps every written slot unique
-        hs = scan[2]
+        # the conv tails of the trailing min(T, Rg) steps (a longer span
+        # laps the ring and the survivors are the last Rg tails — slicing
+        # first keeps every written slot unique)
         Tr = min(T, Rg)
         t_idx = torch.arange(T - Tr, T, device=dev)                # (Tr,)
         slots = (p0[:, None] + t_idx[None] + 1) % Rg               # (B,Tr)
         full = torch.cat([prev.to(xp.dtype), xp], dim=1)
         widx = t_idx[:, None] + 1 + torch.arange(Cv - 1, device=dev)[None]
         tails = full[:, widx]                                  # (B,Tr,Cv-1,E)
-        hw = hs[:, T - Tr:]
         if ring_rows is not None:
             live = rows >= 0
-            rows, slots, hw, tails = (rows[live], slots[live], hw[live],
-                                      tails[live])
-        h_ring[rows[:, None], slots] = hw
+            rows, slots, tails = rows[live], slots[live], tails[live]
         conv_ring[rows[:, None], slots] = tails.to(conv_ring.dtype)
     elif cache is not None:
         cache["conv"].copy_(new_conv)

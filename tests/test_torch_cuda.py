@@ -11,8 +11,11 @@ min(2e-2, 1.6e-2 * |want| + 1e-3 * rms(want)), two bf16 spacings of the
 value (another summation order, then bf16 output rounding); the runner's
 logits on the card against the CPU, f32, atol 1e-4; verify accept flags
 equal, p_tok/q_tok rtol 1e-5, residual tokens equal but for a draw within f32
-rounding of a cdf boundary; gather bitwise; selective scan rtol = atol =
-2e-5 (the reference's own Pallas-vs-oracle tolerance); branch decode as
+rounding of a cdf boundary; gather bitwise; selective scan and its ring
+entry rtol = atol = 2e-5 (the reference's own Pallas-vs-oracle
+tolerance), untouched ring slots bitwise; a Mamba ring forward's
+logits against the CPU atol 1e-4 and its conv tails 1e-5 (PyTorch's
+elementwise ops on two devices); branch decode as
 the other attention kernels; the single-request verify as the batched
 one, p_tok/q_tok atol 1e-6.
 """
@@ -28,6 +31,7 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import verify_accept as VA
 from repro_torch.launch import serve as SV
 from repro_torch.models import model as M
 from repro_torch.runtime import prng
@@ -173,28 +177,93 @@ def test_split_decode_calls_are_one_launch_without_host_sync(cuda):
     _assert_attn_close(bgot, ref.branch_decode_ref(*bargs))
 
 
+def _verify_args(rng, B, R, V, lens, device):
+    lens = {"ragged": np.concatenate(
+                [[R], rng.integers(0, R + 1, size=B - 1)]),
+            "full": np.full(B, R), "zero": np.zeros(B)}[lens]
+    return _dev([(3 * rng.normal(size=(B, R, V))).astype(np.float32),
+                 (3 * rng.normal(size=(B, R, V))).astype(np.float32),
+                 rng.integers(0, V, size=(B, R)).astype(np.int32),
+                 lens.astype(np.int32),
+                 rng.random((B, R), dtype=np.float32),
+                 rng.random((B, R), dtype=np.float32)], device)
+
+
+# (V, the plan's blocks per row at B=4 R=6 on an H100): one block at
+# V=199, 4 at 4096, 8 at 32000 and 8 that do not divide 30011, and 16
+# (the non-portable cluster) at gemma3-4b's 262144
+VERIFY_SPLITS = [(199, 1), (4096, 4), (32000, 8), (30011, 8), (262144, 16)]
+
+
+def _cdf_gap(p_lg, q_lg, tok_a, tok_b, w) -> float:
+    """Distance, in f64, from w to the nearest cdf entry between two
+    residual tokens of one draft position."""
+    p = torch.softmax(p_lg.double(), -1)
+    q = torch.softmax(q_lg.double(), -1)
+    rr = (p - q).clamp_min(0)
+    rr = rr / rr.sum() if rr.sum() > 1e-12 else p
+    cdf = torch.cumsum(rr, 0) / rr.sum()
+    lo, hi = sorted((int(tok_a), int(tok_b)))
+    return float((cdf[max(lo - 1, 0):hi] - float(w)).abs().min())
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("V", [199, 4096, 32000])
-def test_verify_kernel_matches_plain(cuda, V):
+@pytest.mark.parametrize("lens", ["ragged", "full", "zero"])
+@pytest.mark.parametrize("V,splits", VERIFY_SPLITS,
+                         ids=lambda c: str(c))
+def test_verify_kernel_matches_plain(cuda, V, splits, lens):
     rng = np.random.default_rng(3)
     B, R = 4, 6
-    lens = rng.integers(0, R + 1, size=B).astype(np.int32)
-    lens[0] = R
-    args = _dev([(3 * rng.normal(size=(B, R, V))).astype(np.float32),
-                 (3 * rng.normal(size=(B, R, V))).astype(np.float32),
-                 rng.integers(0, V, size=(B, R)).astype(np.int32), lens,
-                 rng.random((B, R), dtype=np.float32),
-                 rng.random((B, R), dtype=np.float32)], cuda)
-    got = ops.verify_accept_batched(*args)
+    assert VA.split_plan(V, B * R, DA.sm_count(cuda)) == splits
+    args = _verify_args(rng, B, R, V, lens, cuda)
+    got = VA.verify_accept_batched(*args)
     want = ref.verify_accept_batched_ref(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0])
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
     torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0)
-    assert (got[1] != want[1]).sum().item() <= 1
+    # a residual token may differ only where w lies within 1e-6 of a cdf
+    # boundary (f32 sums of V terms in another order; the card checks'
+    # tolerance)
+    for b, r in zip(*torch.nonzero(got[1] != want[1], as_tuple=True)):
+        assert _cdf_gap(args[0][b, r], args[1][b, r], got[1][b, r],
+                        want[1][b, r], args[5][b, r]) <= 1e-6
+    lens_ = args[3].tolist()
     for b in range(B):                        # masked positions are zeros
-        assert (got[0][b, lens[b]:] == 0).all()
-        assert (got[1][b, lens[b]:] == 0).all()
+        assert (got[0][b, lens_[b]:] == 0).all()
+        assert (got[1][b, lens_[b]:] == 0).all()
+    assert torch.equal(ops.verify_accept_batched(*args)[0], got[0])
+
+
+@pytest.mark.requires_cuda
+def test_verify_calls_are_one_launch_without_host_sync(cuda):
+    """A verify call, its V split over a cluster, is one launch, reads
+    nothing back to the host (sync debug mode raises on a synchronising
+    op) and allocates nothing on the card but its outputs."""
+    rng = np.random.default_rng(6)
+    args = _verify_args(rng, 8, 16, 32000, "ragged", cuda)
+    sargs = [args[0][0, :9], args[1][0, :9], args[2][0, :9],
+             args[4][0, :9], args[5][0, :9]]
+    assert VA.split_plan(32000, 128, DA.sm_count(cuda)) > 1
+    ops.verify_accept_batched(*args)                   # build, warm up
+    ops.verify_accept(*sargs)
+    n0 = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.verify_accept_batched(*args)
+        sgot = ops.verify_accept(*sargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (ops.LAUNCHES["verify_accept_batched"]
+            == n0["verify_accept_batched"] + 1)
+    assert ops.LAUNCHES["verify_accept"] == n0["verify_accept"] + 1
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - mem0 <= 4 * 4096
+    want = ref.verify_accept_batched_ref(*args)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(sgot[0], ref.verify_accept_ref(*sargs)[0])
 
 
 @pytest.mark.requires_cuda
@@ -396,11 +465,109 @@ def test_ssm_scan_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSM_CASES,
+                         ids=lambda c: "B{}T{}E{}N{}".format(*c[:4]))
+def test_ssm_scan_ring_kernel_matches_plain(cuda, case, dtype):
+    """The ring entry against its plain version on one ring of depth 5
+    (T = 8, 48 and 130 lap it) with a lane map holding a pad lane: y and
+    the written slots within rtol = atol = 2e-5, every other slot bit
+    for bit untouched; lane 0 starts fresh and lane 1 wraps."""
+    B, T, E, N, _states = case
+    g = torch.Generator(device=cuda).manual_seed(9)
+
+    def f(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    args = (f(B, T, E).to(getattr(torch, dtype)),
+            torch.nn.functional.softplus(f(B, T, E)), f(B, T, N),
+            f(B, T, N), -torch.exp(0.2 * f(E, N)), f(E))
+    Rg, n_rows = 5, B + 2
+    ring = f(n_rows, Rg, E, N)
+    rows = torch.randperm(n_rows, generator=g, device=cuda)[:B].int()
+    if B > 2:
+        rows[-1] = -1                                  # a pad lane
+    p0 = torch.randint(1, 50, (B,), generator=g, device=cuda).int()
+    p0[0] = 0
+    if B > 1:
+        p0[1] = Rg - 1
+    positions = p0[:, None] + torch.arange(T, device=cuda,
+                                           dtype=torch.int32)[None]
+    for lane_rows in (rows, None):
+        got_ring, want_ring = ring.clone(), ring.clone()
+        n0 = ops.LAUNCHES["ssm_scan_ring"]
+        y = ops.ssm_scan_ring(*args, got_ring, positions[:, 0], lane_rows)
+        want = ref.ssm_scan_ring_ref(*args, want_ring, p0, lane_rows)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["ssm_scan_ring"] == n0 + 1
+        torch.testing.assert_close(y, want, rtol=2e-5, atol=2e-5)
+        written = torch.zeros((n_rows, Rg), dtype=torch.bool, device=cuda)
+        live = (torch.arange(B, device=cuda) if lane_rows is None
+                else lane_rows.long())
+        Tr = min(T, Rg)
+        slots = (p0.long()[:, None] + torch.arange(T - Tr, T, device=cuda)
+                 + 1) % Rg
+        keep = live >= 0
+        written[live[keep][:, None], slots[keep]] = True
+        torch.testing.assert_close(got_ring[written], want_ring[written],
+                                   rtol=2e-5, atol=2e-5)
+        assert torch.equal(got_ring[~written], ring[~written])
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.requires_cuda
+def test_mamba_ring_forward_scans_once_per_layer_and_matches_cpu(cuda):
+    """One forward of the falcon-shaped tiny target over checkpoint
+    rings (a fresh lane, a lane that wraps, a pad lane) launches the
+    ring scan once per Mamba layer and no other scan, and leaves every
+    ring as the CPU route (the plain version) does."""
+    _dp, _dc, tp, tcfg = SV.load_pair("falcon-shaped", "cpu")
+    gen = torch.Generator().manual_seed(11)
+    caches = {dev: M.init_paged_cache(tcfg, 4, 4, dev, n_rows=3, ssm_ring=8)
+              for dev in ("cpu", cuda)}
+    for c_cpu, c_gpu in zip(M.iter_slots(caches["cpu"]),
+                            M.iter_slots(caches[cuda])):
+        for k in ("h_ring", "conv_ring"):
+            c_cpu[k].copy_(torch.randn(c_cpu[k].shape, generator=gen)
+                           .to(c_cpu[k].dtype))
+            c_gpu[k].copy_(c_cpu[k])
+    n_mamba = sum(c["h_ring"].shape[0] for c in M.iter_slots(caches[cuda]))
+    assert n_mamba == tcfg.num_layers
+    toks = torch.randint(0, tcfg.vocab_size, (3, 5), generator=gen)
+    pos = (torch.tensor([0, 6, 9], dtype=torch.int32)[:, None]
+           + torch.arange(5, dtype=torch.int32)[None])
+    rows = torch.tensor([2, 0, -1])
+    want, _ = M.forward(tp, tcfg, toks, cache=caches["cpu"], positions=pos,
+                        ring_rows=rows)
+    ops.reset_launches()
+    got, _ = M.forward(_to(tp, cuda), tcfg, toks.to(cuda),
+                       cache=caches[cuda], positions=pos.to(cuda),
+                       ring_rows=rows.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan_ring"] == n_mamba
+    assert ops.LAUNCHES["ssm_scan"] == 0
+    torch.testing.assert_close(got[:2].cpu(), want[:2], rtol=1e-4,
+                               atol=1e-4)
+    for c_cpu, c_gpu in zip(M.iter_slots(caches["cpu"]),
+                            M.iter_slots(caches[cuda])):
+        torch.testing.assert_close(c_gpu["h_ring"].cpu(), c_cpu["h_ring"],
+                                   rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(c_gpu["conv_ring"].cpu(),
+                                   c_cpu["conv_ring"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("kind", ["falcon-shaped", "jamba-shaped"])
 def test_hybrid_pairs_on_the_card_are_greedy_lossless(cuda, kind):
     """Batched SpecBranch and sequential SpecBranch on the SSM-bearing
     pairs: greedy streams equal the target's greedy decode, and the scan
-    ran on the card."""
+    ran on the card (the batched engine's through its ring entry)."""
     pair = SV.load_pair(kind, cuda)
     prompts = SV.make_prompts(2)
     want = M.greedy_reference(pair[2], pair[3], prompts, 12)
@@ -408,7 +575,7 @@ def test_hybrid_pairs_on_the_card_are_greedy_lossless(cuda, kind):
     ops.reset_launches()
     res, _, _, _ = SV.serve(pair, ecfg, prompts, 12, device=cuda)
     assert [res[i].tokens for i in range(2)] == want
-    assert ops.LAUNCHES["ssm_scan"] > 0
+    assert ops.LAUNCHES["ssm_scan_ring"] > 0
     done, _, _ = SV.serve_sequential(pair, ecfg, "specbranch", prompts, 12)
     assert [r.result.tokens for r in sorted(done, key=lambda r: r.rid)] \
         == want
@@ -457,7 +624,8 @@ def test_branch_decode_kernel_matches_plain(cuda, case, dtype):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("R,V", [(1, 32), (9, 1024), (9, 32000)])
+@pytest.mark.parametrize("R,V", [(1, 32), (9, 1024), (9, 32000), (9, 30011),
+                                 (3, 262144)])
 def test_single_verify_kernel_matches_plain(cuda, R, V, dtype):
     rng = np.random.default_rng(4)
     pl, ql, tok, u, w = _dev(
@@ -468,7 +636,7 @@ def test_single_verify_kernel_matches_plain(cuda, R, V, dtype):
         cuda)
     pl, ql = pl.to(getattr(torch, dtype)), ql.to(getattr(torch, dtype))
     n0 = ops.LAUNCHES["verify_accept"]
-    got = ops.verify_accept(pl, ql, tok, u, w)
+    got = VA.verify_accept(pl, ql, tok, u, w)
     want = ref.verify_accept_ref(pl, ql, tok, u, w)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["verify_accept"] == n0 + 1

@@ -141,6 +141,132 @@ def test_plain_verify_matches_pallas_and_xla(V):
         assert (got[1][b, lens[b]:] == 0).all()
 
 
+@pytest.mark.parametrize("lens", ["ragged", "zero", "full"])
+@pytest.mark.parametrize("V", [199, 32000])
+def test_plain_verify_full_and_empty_rows_match_pallas(V, lens):
+    """Ragged lens with one all-zero and one all-full row, every row
+    masked, and every row full, at the tiny pair's vocabulary and at
+    LLaMA's, against the reference's batched kernel in interpret mode.
+    p_tok / q_tok within rtol 1e-5 (the card checks' tolerance): two
+    summation orders of 32000 f32 exps differ by ~1e-6 relative."""
+    args = list(_verify_inputs(6, 3, 4, V))
+    args[3] = {"ragged": np.asarray([4, 0, 2], np.int32),
+               "zero": np.zeros(3, np.int32),
+               "full": np.full(3, 4, np.int32)}[lens]
+    got = [x.numpy() for x in ref.verify_accept_batched_ref(*_torch(*args))]
+    want = [np.asarray(x) for x in jva.verify_accept_batched(
+        *[jnp.asarray(a) for a in args], interpret=True)]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=0)
+    for b, n in enumerate(args[3]):
+        assert not got[0][b, n:].any() and not got[1][b, n:].any()
+        assert not got[2][b, n:].any() and not got[3][b, n:].any()
+
+
+# (V, rows, SMs, blocks per row): LLaMA's vocabulary at the batched and
+# the single-request row counts, the tiny pair's, falcon's, gemma's (16,
+# where a slice of V / 8 would not fit in shared memory)
+@pytest.mark.parametrize("V,rows,sms,want", [
+    (32000, 128, 132, 8), (32000, 9, 132, 8), (199, 128, 132, 1),
+    (32, 9, 132, 1), (4096, 24, 132, 4), (65024, 128, 132, 8),
+    (262144, 128, 132, 16), (1024, 9, 132, 1), (30011, 24, 132, 8)])
+def test_verify_split_plan(V, rows, sms, want):
+    n = tva.split_plan(V, rows, sms)
+    assert n == want
+    assert -(-V // n) <= tva.MAX_SLICE
+
+
+def test_verify_split_plan_refuses_a_vocabulary_past_shared_memory():
+    with pytest.raises(ValueError, match="exceeds"):
+        tva.split_plan(16 * tva.MAX_SLICE + 1, 8, 132)
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _verify_cluster(pl, ql, tok, lens, u, w, nsplit):
+    """The verify kernel's arithmetic over one cluster of ``nsplit``
+    slices, in f32: per-slice (max, sum of exp2(x log2 e - max log2 e))
+    merged across slices; p and r = max(p - q, 0) with sums per slice,
+    the residual mass, each slice's starting cdf value and the total;
+    the count of cdf <= w * total per slice, added; p[t], q[t] from
+    expf and a true division."""
+    B, R, V = pl.shape
+    slice_ = (-(-V // nsplit) + 3) // 4 * 4
+    out = [torch.zeros((B, R), dtype=d)
+           for d in (torch.int32, torch.int32, torch.float32,
+                     torch.float32)]
+
+    def ms(x):
+        m = x.max()
+        return m, torch.exp2(x * LOG2E - m * LOG2E).sum()
+
+    def merge(parts):
+        M = max(m for m, _ in parts)
+        return M, sum(s * torch.exp2((m - M) * LOG2E) for m, s in parts)
+
+    for b in range(B):
+        for r in range(int(lens[b])):
+            cuts = [(min(V, k * slice_), min(V, (k + 1) * slice_))
+                    for k in range(nsplit)]
+            rows = []
+            for x in (pl[b, r], ql[b, r]):
+                parts = [ms(x[a:e]) for a, e in cuts if e > a]
+                rows.append(merge(parts))
+            (pm, ps), (qm, qs) = rows
+            p = torch.exp2(pl[b, r] * LOG2E - pm * LOG2E) * (1 / ps)
+            q = torch.exp2(ql[b, r] * LOG2E - qm * LOG2E) * (1 / qs)
+            rr = (p - q).clamp_min(0)
+            rsum = [rr[a:e].sum() for a, e in cuts]
+            residual = sum(rsum) > 1e-12
+            s = rr if residual else p
+            sums = rsum if residual else [p[a:e].sum() for a, e in cuts]
+            thr = w[b, r] * max(sum(sums), 1e-30)
+            off, cnt = 0.0, 0
+            for (a, e), tot in zip(cuts, sums):
+                cnt += int(((off + torch.cumsum(s[a:e], 0)) <= thr).sum())
+                off = off + tot
+            t = int(tok[b, r])
+            p_t = torch.exp(pl[b, r, t] - pm) / ps
+            q_t = torch.exp(ql[b, r, t] - qm) / qs
+            out[0][b, r] = int(u[b, r] <= p_t / max(q_t, 1e-30))
+            out[1][b, r] = min(cnt, V - 1)
+            out[2][b, r], out[3][b, r] = p_t, q_t
+    return out
+
+
+def _cdf_gap(p_lg, q_lg, tok_a, tok_b, w) -> float:
+    """Distance, in f64, from w to the nearest cdf entry between two
+    residual tokens of one draft position."""
+    p = torch.softmax(p_lg.double(), -1)
+    q = torch.softmax(q_lg.double(), -1)
+    rr = (p - q).clamp_min(0)
+    rr = rr / rr.sum() if rr.sum() > 1e-12 else p
+    cdf = torch.cumsum(rr, 0) / rr.sum()
+    lo, hi = sorted((int(tok_a), int(tok_b)))
+    return float((cdf[max(lo - 1, 0):hi] - float(w)).abs().min())
+
+
+@pytest.mark.parametrize("V,nsplit", [(199, 1), (199, 8), (20, 8),
+                                      (32, 3), (4096, 4), (30011, 8)])
+def test_verify_cluster_arithmetic_matches_plain(V, nsplit):
+    """The kernel's split of V over a cluster (ragged and empty slices
+    included), emulated, gives the plain version's verdicts: flags equal,
+    p_tok / q_tok within rtol 1e-5, residual tokens equal but where w
+    lies within 1e-6 of a cdf boundary (the card checks' tolerances)."""
+    args = _torch(*_verify_inputs(7, 3, 4, V))
+    got = _verify_cluster(*args, nsplit)
+    want = ref.verify_accept_batched_ref(*args)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0)
+    for b, r in zip(*torch.nonzero(got[1] != want[1], as_tuple=True)):
+        assert _cdf_gap(args[0][b, r], args[1][b, r], got[1][b, r],
+                        want[1][b, r], args[5][b, r]) <= 1e-6
+
+
 @pytest.mark.parametrize("valid", [None, 21, 0])
 def test_plain_gather_matches_pallas(valid):
     rng = np.random.default_rng(4)

@@ -108,6 +108,89 @@ def test_scan_wrapper_refuses_cpu_tensors_and_unknown_sizes():
         tss.ssm_scan(x16, *args[1:])
 
 
+def _jax_ring_scan(args, ring, p0, rows, bT):
+    """The reference's checkpoint-ring step around its Pallas scan: the
+    gather of ``repro.models.layers.mamba`` (each lane's state from slot
+    p0 % Rg of its row, zeros at position 0), the scan with every
+    post-step state, and the scatter of the trailing min(T, Rg) states
+    to slots (p0 + t + 1) % Rg; lanes map to ``rows`` and a pad lane
+    (row < 0) starts from zeros and writes nothing.  Returns (y, ring)."""
+    x, dt, Bm, Cm, A, D = (jnp.asarray(a) for a in args)
+    B, T, _E = x.shape
+    Rg = ring.shape[1]
+    live = rows >= 0
+    fresh = (p0 == 0) | ~live
+    h0 = jnp.where(jnp.asarray(fresh)[:, None, None], 0.0,
+                   jnp.asarray(ring)[np.maximum(rows, 0), p0 % Rg])
+    y, _hT, hs = jops.ssm_scan(x, dt, Bm, Cm, A, D, h0, bT=bT, bE=16,
+                               return_states=True)
+    Tr = min(T, Rg)
+    t_idx = np.arange(T - Tr, T)
+    slots = (p0[:, None] + t_idx[None] + 1) % Rg                # (B, Tr)
+    new = jnp.asarray(ring).at[rows[live][:, None], slots[live]].set(
+        hs[live][:, T - Tr:])
+    written = np.zeros(ring.shape[:2], bool)
+    written[rows[live][:, None], slots[live]] = True
+    return y, new, written
+
+
+# (B, T, E, N, Rg, rows of the ring, lane rows or None, start positions):
+# a fresh lane, a wrap past slot Rg - 1 and a pad lane that is not at
+# position 0; a lap (T > Rg); lanes mapped to rows one to one
+RING_CASES = {
+    "fresh-wrap-pad": (4, 3, 16, 8, 5, 5, [3, 0, -1, 1], [0, 4, 7, 2]),
+    "lap": (2, 7, 16, 4, 5, 3, [1, 0], [3, 0]),
+    "identity": (3, 2, 24, 16, 4, 3, None, [0, 3, 6]),
+}
+
+
+@pytest.mark.parametrize("case", RING_CASES, ids=list(RING_CASES))
+def test_plain_ring_scan_matches_reference(case):
+    """The ring scan's plain version (the CPU route of
+    ``ops.ssm_scan_ring``) against the reference's gather, Pallas scan
+    (interpret mode) and scatter: y and the written slots within 2e-5,
+    every other slot of the ring bit for bit untouched."""
+    B, T, E, N, Rg, n_rows, rows, p0 = RING_CASES[case]
+    args = _scan_inputs(B, T, E, N, seed=23)[:6]
+    ring = np.random.default_rng(24).standard_normal(
+        (n_rows, Rg, E, N)).astype(np.float32)
+    p0 = np.asarray(p0, np.int32)
+    rmap = (np.arange(B, dtype=np.int32) if rows is None
+            else np.asarray(rows, np.int32))
+    want_y, want_ring, written = _jax_ring_scan(args, ring, p0, rmap, bT=4)
+    got_ring = torch.from_numpy(ring.copy())
+    y = ops.ssm_scan_ring(*map(torch.from_numpy, args), got_ring,
+                          torch.from_numpy(p0),
+                          None if rows is None else torch.from_numpy(rmap))
+    assert y.dtype == torch.float32 and y.shape == (B, T, E)
+    _close(y, want_y)
+    _close(got_ring[torch.from_numpy(written)],
+           np.asarray(want_ring)[written])
+    assert torch.equal(got_ring[torch.from_numpy(~written)],
+                       torch.from_numpy(ring[~written]))
+    assert written.sum() == (rmap >= 0).sum() * min(T, Rg)
+
+
+def test_ring_scan_wrapper_refuses_cpu_dtypes_layouts_and_sizes():
+    args = [torch.from_numpy(a) for a in _scan_inputs(2, 3, 8, 4)[:6]]
+    ring = torch.zeros((3, 5, 8, 4))
+    p0 = torch.tensor([0, 2], dtype=torch.int32)
+    with pytest.raises(ValueError, match="is on cpu"):
+        tss.ssm_scan_ring(*args, ring, p0)
+    with pytest.raises(ValueError, match="h_ring must be float32"):
+        tss.ssm_scan_ring(*args, ring.double(), p0)
+    with pytest.raises(ValueError, match="p0 must be int32"):
+        tss.ssm_scan_ring(*args, ring, p0.long())
+    with pytest.raises(ValueError, match="rows must be int32"):
+        tss.ssm_scan_ring(*args, ring, p0, torch.tensor([0, 1]))
+    with pytest.raises(ValueError, match="h_ring is not contiguous"):
+        tss.ssm_scan_ring(*args, torch.zeros((3, 5, 4, 8)).transpose(2, 3),
+                          p0)
+    bad = [torch.from_numpy(a) for a in _scan_inputs(2, 3, 8, 5)[:6]]
+    with pytest.raises(ValueError, match="N=5"):
+        tss.ssm_scan_ring(*bad, torch.zeros((3, 5, 8, 5)), p0)
+
+
 # ---------------------------------------------------------------------------
 # the Mamba layer, the MoE FFN and whole forwards
 # ---------------------------------------------------------------------------
