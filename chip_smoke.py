@@ -93,6 +93,24 @@ Phases (any failure raises, so the script exits non-zero):
                wall tokens/s, rounds, mean accepted length, signal
                histogram, peak memory and a profiled serve's busy share,
                beside the same serves without H-RAD from phases 4 and 6.
+ 11. dense   — the dense attention backend (N-row ring caches, the flash
+               kernel on every attention call, branch forks as row
+               copies): batched SpecBranch and SpS on the tiny committed
+               pair, greedy, temperature 1 (epsilon 0.3 and 0, shadowed
+               as in phase 3) and under a preempting pool that swaps; each
+               drive's streams must equal the same serve on the CPU and
+               the card's own paged serve; the jamba-shaped hybrid, whose
+               preempted rows recompute their prefix; the full-width
+               LLaMA-68M/7B batched SpecBranch 8 x 32 greedy,
+               teacher-forced as in phase 4, what a fork's row copy costs,
+               and a profiled serve's flash launches and device time
+               beside phase 4's paged figures.
+ 12. trace   — the full-width 7B batched SpecBranch greedy serve (paged)
+               untraced, then with a TraceRecorder and the loop's profiler
+               ranges inside obs.profiler_session: host fetches, transfer
+               bytes and streams must be equal; a table of each round's
+               and each span lane's host wall time against the device-busy
+               time inside it (the host's share of a round).
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -122,6 +140,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -208,6 +227,9 @@ SSM_RTOL = SSM_ATOL = 2e-5
 # engines' default branch gamma, phase 8's config), and its phase-2 case
 FALCON_RING = 92
 FALCON_RING_CASE = "falcon-7b serve B=8 T=16 Rg=92"
+# the swap readback at the LLaMA-7B target's full width (swap_dim 262144
+# f32 per token: K and V of 32 layers x 32 heads x 128), 60 rows of 4 pages
+GATHER_FULL_CASE = "llama-7b swap 4x16 dim=262144 60 rows"
 
 
 def log(*a) -> None:
@@ -1050,6 +1072,17 @@ def phase_kernels() -> dict:
     ver.append(check_verify(rng, "gemma3-4b V=262144 B=4 R=6", 4, 6,
                             262144))
     ss += carry_cases(rng)
+    # the dense backend's flash shapes (phase 11's 7B serve: the target's
+    # 8 rows verifying a bucket-8 chunk and prefilling a 16-wide rung on a
+    # fresh 512-slot view, the 68M draft's 56 rows ticking) and the swap
+    # readback at the 7B target's full width (4 pages of 16, 60 rows)
+    fl.append(check_flash(rng, "llama-7b dense B=8 T=8 S=512", 8, 8, 512,
+                          32, 32, 128, 40, bf, stale=4))
+    fl.append(check_flash(rng, "llama-7b dense prefill B=8 T=16 S=512", 8,
+                          16, 512, 32, 32, 128, 16, bf))
+    fl.append(check_flash(rng, "llama-68m dense B=56 T=1 S=512", 56, 1,
+                          512, 12, 12, 64, 41, bf))
+    gat.append(check_gather(rng, GATHER_FULL_CASE, 8, 16, 262144, 4, 60))
     timing_floor()
     for r in att + ver + gat + fl + ss + rr + br + sv:
         lib = r["library_ms"]
@@ -1154,12 +1187,12 @@ class VerifyShadow:
         return float(near) <= BOUNDARY_EPS
 
 
-def drive(pair, ecfg, prompts, n_new, dev, **kw):
+def drive(pair, ecfg, prompts, n_new, dev, attn_backend="paged", **kw):
     """One main-path drive with the launch counters zeroed just before and
     read just after."""
     ops.reset_launches()
     res, rep, eng, wall = SV.serve(pair, ecfg, prompts, n_new, device=dev,
-                                   **kw)
+                                   attn_backend=attn_backend, **kw)
     counts = dict(ops.LAUNCHES)
     for rid, r in res.items():
         if len(r.tokens) != n_new:
@@ -2093,6 +2126,368 @@ def phase_hrad_full(dev, totals, pair, without) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: the dense backend and the trace recorder
+# ---------------------------------------------------------------------------
+
+def first_diff(a, b) -> dict:
+    """Per request, the first index where two served streams differ (None
+    where they are equal)."""
+    return {i: next((j for j, (x, y) in enumerate(zip(a[i].tokens,
+                                                      b[i].tokens))
+                     if x != y), None if len(a[i].tokens)
+                    == len(b[i].tokens) else 0) for i in a}
+
+
+def phase_dense_tiny(dev, totals) -> dict:
+    """Batched SpecBranch and SpS on the dense backend, tiny committed
+    pair: every drive's streams must equal the same serve on the CPU
+    (dense) and the card's own paged serve (the reference's oracle);
+    greedy streams the target's greedy decode; temperature-1 verdicts are
+    shadowed as in phase 3; the SpecBranch preempting pool must swap and
+    read the swap back through the gather kernel.  Then the jamba-shaped
+    hybrid on the dense backend, whose preempted rows recompute their
+    prefix (a dense hybrid row is not swappable, as in the reference)."""
+    from repro_torch.training.pairs import get_pair
+    pair = get_pair("misaligned", device=dev,
+                    cache_dir=os.path.join(ROOT, ".cache", "pairs"))
+    cpu = cpu_pair()
+    prompts = SV.make_prompts(4)
+    n_new = 48
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
+    out = {}
+    # pools that preempt (SpS splits its pages 1:1 between the decoders,
+    # SpecBranch 1:7, so SpS needs a smaller total)
+    for engine, pool in (("specbranch", 200), ("sps", 120)):
+        for name, temp, eps, kw in (
+                ("greedy", 0.0, EPS, {}), ("temp1", 1.0, EPS, {}),
+                ("temp1-chains", 1.0, 0.0, {}),
+                ("preempt", 0.0, EPS, dict(page_size=4, pool_pages=pool))):
+            label = f"dense tiny {engine} {name}"
+            ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
+                                epsilon=eps, max_len=max_len)
+            with VerifyShadow() as sh:
+                res, rep, counts, wall, eng = drive(
+                    pair, ecfg, prompts, n_new, dev, attn_backend="dense",
+                    engine=engine, **kw)
+            swap = eng.swap is not None
+            del eng
+            for k, v in counts.items():
+                totals[k] += v
+            paged = SV.serve(pair, ecfg, prompts, n_new, device=dev,
+                             attn_backend="paged", engine=engine, **kw)[0]
+            on_cpu = SV.serve(cpu, ecfg, prompts, n_new, device="cpu",
+                              attn_backend="dense", engine=engine, **kw)[0]
+            d_paged, d_cpu = first_diff(res, paged), first_diff(res, on_cpu)
+            log(f"  {label}: rounds={rep['rounds']} "
+                f"preemptions={rep['preemptions']} wall={wall:.2f}s "
+                f"launches={counts}; first difference from the card's "
+                f"paged serve {d_paged}, from the CPU dense serve {d_cpu}")
+            if any(v is not None for v in d_paged.values()):
+                raise AssertionError(f"{label}: streams differ from the "
+                                     "paged serve")
+            if any(v is not None for v in d_cpu.values()):
+                raise AssertionError(f"{label}: streams differ from the "
+                                     "same serve on the CPU")
+            if temp == 0.0:
+                bad = [i for i in range(len(prompts))
+                       if res[i].tokens != greedy[i]]
+                if bad:
+                    raise AssertionError(f"{label}: requests {bad} differ "
+                                         "from greedy decoding")
+            else:
+                check_shadow(label, sh, counts, chains=eps == 0.0)
+                if counts["verify_accept_batched"] == 0:
+                    raise AssertionError(f"{label}: verify not launched")
+            if counts["flash_attention"] == 0 or counts["paged_attention"]:
+                raise AssertionError(f"{label}: the dense serve must run "
+                                     f"flash and not paged ({counts})")
+            if name == "preempt" and (rep["preemptions"] == 0 or not swap
+                                      or counts["paged_gather"] == 0):
+                raise AssertionError(f"{label}: no preemption / swap-in "
+                                     f"({rep['preemptions']}, {counts})")
+            out[label] = dict(rounds=rep["rounds"],
+                              preemptions=rep["preemptions"], wall_s=wall,
+                              launches=counts)
+    # the jamba-shaped hybrid on the dense backend, preempting
+    jpair = SV.load_pair("jamba-shaped", dev)
+    jgreedy = M.greedy_reference(jpair[2], jpair[3], prompts[:2], 32)
+    jmax = SV.auto_max_len(prompts, 32, 4, 10.0)
+    for name, kw in (("greedy", {}),
+                     ("preempt", dict(page_size=4, pool_pages=160))):
+        label = f"dense jamba-shaped {name}"
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                            max_len=jmax)
+        with CountRestores() as cr:
+            res, rep, counts, wall, eng = drive(
+                jpair, ecfg, prompts[:2], 32, dev, attn_backend="dense",
+                **kw)
+        swap = eng.swap is not None
+        del eng
+        for k, v in counts.items():
+            totals[k] += v
+        log(f"  {label}: rounds={rep['rounds']} "
+            f"preemptions={rep['preemptions']} swap store={swap} "
+            f"ring restores={cr.n} wall={wall:.2f}s launches={counts}")
+        bad = [i for i in range(2) if res[i].tokens != jgreedy[i]]
+        if bad:
+            raise AssertionError(f"{label}: requests {bad} differ from "
+                                 "greedy decoding")
+        for k in ("ssm_scan_ring", "flash_attention"):
+            if counts[k] == 0:
+                raise AssertionError(f"{label}: {k} not launched")
+        if name == "preempt" and (rep["preemptions"] == 0 or swap
+                                  or cr.n):
+            raise AssertionError(f"{label}: a dense hybrid must preempt by "
+                                 "recompute (no swap store, no restore)")
+        out[label] = dict(rounds=rep["rounds"], wall_s=wall,
+                          preemptions=rep["preemptions"], launches=counts)
+    return out
+
+
+def phase_dense_full(dev, totals, pair, paged_prof) -> dict:
+    """The full-width LLaMA-68M/7B pair on the dense backend: batched
+    SpecBranch 8 x 32 greedy, teacher-forced as in phase 4; a profiled
+    8-token serve's flash launches and device time beside phase 4's paged
+    figures (``paged_prof``); what a SpecBranch fork copies (the draft
+    decoder's row, on the dense backend) and what that costs."""
+    prompts = SV.make_prompts(8)
+    n_new = 32
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
+    torch.cuda.reset_peak_memory_stats()
+    res, rep, counts, wall, eng = drive(pair, ecfg, prompts, n_new, dev,
+                                        attn_backend="dense")
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in counts.items():
+        totals[k] += v
+    toks = sum(len(r.tokens) for r in res.values())
+    log(f"  full dense greedy: {toks / wall:.1f} tok/s wall (information "
+        f"only), rounds={rep['rounds']}, peak allocated {peak / 1e9:.2f} "
+        f"GB, launches={counts}")
+    if counts["flash_attention"] == 0 or counts["paged_attention"]:
+        raise AssertionError(f"full dense: flash must run and paged not "
+                             f"({counts})")
+    out = dict(tokens_per_s=toks / wall, wall_s=wall, rounds=rep["rounds"],
+               launches=counts, peak_gb=peak / 1e9)
+    out["teacher_forced"] = teacher_forced(pair[2], pair[3], prompts, res,
+                                           greedy, n_new)
+    # a branch fork on the dense backend copies one draft row (every
+    # row-axis leaf); a target row is timed beside it for scale
+    for which, dec in (("draft (68M)", eng.dft_dec),
+                       ("target (7B)", eng.tgt_dec)):
+        nbytes = sum(a[:, 0].numel() * a.element_size()
+                     for c in M.iter_slots(dec.cache) for a in c.values())
+        ms = time_ms(lambda: dec.copy_row(0, 1))
+        bms, _ = bound(2 * nbytes, 0, torch.bfloat16)
+        log(f"  dense {which} row copy (a fork's copy_row): "
+            f"{nbytes / 1e6:.2f} MB a row, {ms:.4f} ms (bound {bms:.4f})")
+        out[f"fork {which}"] = dict(bytes=nbytes, ms=ms, bound_ms=bms)
+    del eng
+    free_device_memory()
+    prof = busy_profile(lambda: SV.serve(pair, ecfg, prompts, 8,
+                                         device=dev, attn_backend="dense"))
+    log(f"  full dense profile: card busy {prof['busy_share']:.3f} of "
+        f"{prof['wall_s']:.2f}s wall, device {prof['device_s']:.4f}s; "
+        f"device time by kernel:")
+    for n, t in prof["top"]:
+        log(f"    {t * 1e3:9.2f} ms  {n}")
+    log_flash(prof)
+    log(f"    beside phase 4's paged serve: paged_attention "
+        f"{paged_prof['paged_ms']:.2f} ms over "
+        f"{paged_prof['paged_launches']} launches, device "
+        f"{paged_prof['device_s']:.4f}s, busy "
+        f"{paged_prof['busy_share']:.3f}")
+    if prof["flash_launches"] == 0:
+        raise AssertionError("full dense profile: no flash kernel")
+    out["profile"] = prof
+    return out
+
+
+def union_ns(iv) -> list:
+    """Disjoint union of (start, end) intervals, sorted."""
+    out = []
+    for s, e in sorted(iv):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def busy_in(busy, a: float, b: float) -> float:
+    """Seconds of the union ``busy`` (seconds) inside [a, b]."""
+    return sum(max(0.0, min(e, b) - max(s, a)) for s, e in busy)
+
+
+# marker kernels (``torch.cuda._sleep`` cycles) before and after the
+# traced serve: short ones before it, long ones after, told apart by their
+# device time (MARK_SPLIT_NS)
+MARK_START, MARK_END, MARK_SPLIT_NS = 1000, 100_000, 20_000
+
+
+def round_table(rec, kernels, starts, ends) -> dict:
+    """The host's share of a round: per span lane (draft, verify, commit)
+    and per round, the host wall time of the recorder's spans against the
+    device-busy time inside them (the union of the profiler's kernel
+    intervals ``kernels``, (name, start ns, end ns)).  The recorder's
+    clock is aligned to the profiler's by the marker kernels (names with
+    "spin") launched on an idle card right after the recorder readings
+    ``starts`` and ``ends``.  The profiler has been seen to miss the
+    markers right after it starts (after earlier sessions in the same
+    process), so the found start markers match the last readings, the
+    found end markers the first, and one side suffices.  Each offset is
+    late by one launch latency; the offset is the median of all."""
+    spins = sorted((s, e) for n, s, e in kernels if "spin" in n)
+    s_found = [s for s, e in spins if e - s < MARK_SPLIT_NS]
+    e_found = [s for s, e in spins if e - s >= MARK_SPLIT_NS]
+    if not s_found and not e_found:
+        raise AssertionError("trace phase: no marker kernel in the trace")
+    s_offs = [k / 1e9 - t for k, t in zip(s_found,
+                                          starts[len(starts)
+                                                 - len(s_found):])]
+    e_offs = [k / 1e9 - t for k, t in zip(e_found, ends)]
+    off = float(np.median(s_offs + e_offs))
+    drift = (float(np.median(e_offs)) - float(np.median(s_offs))
+             if s_offs and e_offs else float("nan"))
+    marks = [starts[-1], ends[0]]
+    busy = [(s / 1e9 - off, e / 1e9 - off) for s, e in
+            union_ns((s, e) for n, s, e in kernels if "spin" not in n)]
+    spans = [e for e in rec.events if e["kind"] == "span"]
+    rounds = [e for e in rec.events if e["kind"] == "round"]
+    lanes = {}
+    for e in spans:
+        n, tw, td = lanes.get(e["lane"], (0, 0.0, 0.0))
+        lanes[e["lane"]] = (n + 1, tw + e["wall1"] - e["wall0"],
+                            td + busy_in(busy, e["wall0"], e["wall1"]))
+    r_wall = sum(r["wall1"] - r["wall0"] for r in rounds)
+    r_busy = sum(busy_in(busy, r["wall0"], r["wall1"]) for r in rounds)
+    serve = marks[-1] - marks[0]
+    all_busy = busy_in(busy, marks[0], marks[-1])
+    first = min((s for n, s, e in kernels if "spin" not in n), default=0)
+    log(f"  clock alignment: {len(s_found)}/{len(starts)} start and "
+        f"{len(e_found)}/{len(ends)} end markers found; offsets "
+        f"{[round(o * 1e6, 1) for o in s_offs]} / "
+        f"{[round(o * 1e6, 1) for o in e_offs]} us (drift "
+        f"{drift * 1e6:.1f} us over the serve); {len(kernels)} kernel "
+        f"records, the first "
+        f"{(first / 1e9 - off - marks[0]) * 1e3:.2f} ms after the last "
+        f"start reading")
+    log(f"  host share of a round (CUDA profiler on; {len(rounds)} rounds, "
+        f"{len(spans)} spans): lane, spans, host wall ms, device-busy ms "
+        f"inside, host share")
+    out = {"lanes": {}, "offset_us": off * 1e6, "drift_us": drift * 1e6}
+    for lane in ("draft", "verify", "commit"):
+        n, tw, td = lanes.get(lane, (0, 0.0, 0.0))
+        share = 1.0 - td / tw if tw > 0 else float("nan")
+        log(f"    {lane:7s} {n:5d} {tw * 1e3:10.2f} {td * 1e3:10.2f} "
+            f"{share:7.3f}")
+        out["lanes"][lane] = dict(spans=n, wall_ms=tw * 1e3,
+                                  busy_ms=td * 1e3, host_share=share)
+    log(f"    rounds  {len(rounds):5d} {r_wall * 1e3:10.2f} "
+        f"{r_busy * 1e3:10.2f} {1.0 - r_busy / max(r_wall, 1e-12):7.3f}")
+    log(f"    serve (marker to marker) {serve * 1e3:.2f} ms wall, "
+        f"{all_busy * 1e3:.2f} ms device-busy; outside rounds (admission, "
+        f"prefill, retire) {(serve - r_wall) * 1e3:.2f} ms wall")
+    log("    per round: index, mode, batch, draft steps, wall ms, busy ms "
+        "(first 6 and last 2)")
+    rows = [dict(index=r["index"], mode=r["mode"], batch=r["batch"],
+                 draft_steps=r["draft_steps"],
+                 wall_ms=(r["wall1"] - r["wall0"]) * 1e3,
+                 busy_ms=busy_in(busy, r["wall0"], r["wall1"]) * 1e3)
+            for r in rounds]
+    for r in rows[:6] + rows[-2:]:
+        log(f"      {r['index']:4d} {r['mode']:8s} {r['batch']:2d} "
+            f"{r['draft_steps']:3d} {r['wall_ms']:8.2f} {r['busy_ms']:8.2f}")
+    out.update(rounds=rows, round_wall_ms=r_wall * 1e3,
+               round_busy_ms=r_busy * 1e3, serve_ms=serve * 1e3,
+               serve_busy_ms=all_busy * 1e3)
+    return out
+
+
+def phase_trace(dev, totals, pair) -> dict:
+    """The full-width 7B batched SpecBranch greedy serve on the paged
+    backend, once untraced and once with a TraceRecorder and the loop's
+    profiler ranges on, inside ``obs.profiler_session`` (CUDA activity).
+    Gate: host fetches and host transfer bytes equal with and without the
+    trace (and the streams).  Table: per round and per span lane (draft,
+    verify, commit), the host wall time against the device-busy time
+    inside it, from the profiler's kernel intervals; the recorder's clock
+    is aligned to the profiler's by a marker kernel launched on an idle
+    card right after a recorder reading, at both ends of the serve."""
+    from repro_torch.obs import TraceRecorder, profiler_session
+    prompts = SV.make_prompts(8)
+    n_new = 32
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
+    res0, rep0, counts0, wall0, eng0 = drive(pair, ecfg, prompts, n_new,
+                                             dev)
+    fetch0, bytes0 = eng0.host_fetches, eng0.host_transfer_bytes
+    del eng0
+    for k, v in counts0.items():
+        totals[k] += v
+    free_device_memory()
+    rec = TraceRecorder()
+
+    def mark(cycles: int) -> float:
+        torch.cuda.synchronize()
+        t = rec.now()
+        torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+        return t
+
+    # the session's Chrome trace (~200 MB for this serve) is written to a
+    # scratch directory under build/ and removed once its size is read
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
+    DL.set_trace_annotations(True)
+    try:
+        with profiler_session(tmp.name, dev) as prof:
+            # settle the freshly started session before the first marker
+            torch.cuda._sleep(MARK_END)
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+            starts = [mark(MARK_START) for _ in range(3)]
+            ops.reset_launches()
+            res1, rep1, eng1, wall1 = SV.serve(
+                pair, ecfg, prompts, n_new, device=dev,
+                attn_backend="paged", rec=rec)
+            counts1 = dict(ops.LAUNCHES)
+            ends = [mark(MARK_END) for _ in range(3)]
+    finally:
+        DL.set_trace_annotations(False)
+    chrome = sum(os.path.getsize(os.path.join(tmp.name, f))
+                 for f in os.listdir(tmp.name))
+    tmp.cleanup()
+    fetch1, bytes1 = eng1.host_fetches, eng1.host_transfer_bytes
+    del eng1
+    for k, v in counts1.items():
+        totals[k] += v
+    toks = sum(len(r.tokens) for r in res1.values())
+    log(f"  untraced serve: {toks / wall0:.1f} tok/s wall, "
+        f"{fetch0} host fetches, {bytes0} bytes; traced and profiled: "
+        f"{toks / wall1:.1f} tok/s wall, {fetch1} host fetches, {bytes1} "
+        f"bytes, {len(rec.events)} events, a {chrome / 1e6:.1f} MB Chrome "
+        f"trace (wall figures for information only)")
+    if (fetch0, bytes0) != (fetch1, bytes1):
+        raise AssertionError("the trace changed the host traffic: "
+                             f"{(fetch0, bytes0)} vs {(fetch1, bytes1)}")
+    if first_diff(res0, res1) != {i: None for i in res0}:
+        raise AssertionError("the traced serve's streams differ")
+    if counts1["paged_attention"] == 0:
+        raise AssertionError("traced serve: paged_attention not run")
+    kernels = [(e.name(), e.start_ns(), e.end_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    out = round_table(rec, kernels, starts, ends)
+    out.update(tokens_per_s_untraced=toks / wall0,
+               tokens_per_s_traced=toks / wall1, host_fetches=fetch1,
+               host_bytes=bytes1)
+    return out
+
+
 def log_ptxas(ptx: str) -> None:
     """Registers and spills of every kernel the build compiled, from
     ``nvcc -Xptxas -v``; the decode loop's variants (decode, and flash's
@@ -2180,7 +2575,18 @@ def main() -> int:
     phase_hrad_tiny(dev, totals)
     log("[10] H-RAD and batched SpS, full-width LLaMA-68M/7B pair, bf16")
     free_device_memory()
-    phase_hrad_full(dev, totals, SV.load_pair("paper-llama", dev), without)
+    pair = SV.load_pair("paper-llama", dev)
+    phase_hrad_full(dev, totals, pair, without)
+    log("[11] dense backend: tiny committed and jamba-shaped pairs (f32), "
+        "full-width LLaMA-68M/7B (bf16)")
+    free_device_memory()
+    phase_dense_tiny(dev, totals)
+    phase_dense_full(dev, totals, pair, without["batched"]["profile"])
+    log("[12] trace recorder: full-width LLaMA-68M/7B batched SpecBranch, "
+        "untraced and traced under the CUDA profiler")
+    free_device_memory()
+    phase_trace(dev, totals, pair)
+    del pair
     for k, v in totals.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched on the "

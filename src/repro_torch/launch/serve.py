@@ -4,9 +4,11 @@
 Two modes, with the reference's default rule (batched for the engines
 that have a batched implementation, sequential otherwise):
 
-  * ``--mode batched`` — batched SpS or SpecBranch over paged KV
-    (``repro_torch.serving``), the paged backend, the sequential draft
-    loop;
+  * ``--mode batched`` — batched SpS or SpecBranch
+    (``repro_torch.serving``) with the sequential draft loop, over paged
+    KV (``--attn-backend paged``, the default, as in the reference) or
+    the dense N-row caches (``--attn-backend dense``, the reference's
+    equivalence oracle);
   * ``--mode sequential`` — each request runs its engine
     (``autoregressive``, ``sps``, ``adaedl``, ``lookahead``, ``pearl`` or
     ``specbranch``) to completion in arrival order over the dense ring
@@ -14,7 +16,11 @@ that have a batched implementation, sequential otherwise):
 
 Same flags and reports as the reference's, plus ``--device``
 (default ``cuda``; ``cpu`` runs every kernel's plain PyTorch version).
-Other values of its flags exit with a message naming the later slice.
+``--trace PATH`` writes a Perfetto trace.json of the run, ``--metrics-out
+PATH`` the metrics registry, and ``--profile-dir DIR`` a
+``torch.profiler`` Chrome trace (with the loop's named ranges) into DIR,
+in both modes.  Other values of its flags exit with a message naming the
+later slice.
 ``--pair`` takes the reference's pairs — the committed Zipf-Markov
 ``misaligned`` / ``aligned`` pairs and the tiny random-init SSM-bearing
 ``falcon-shaped`` / ``jamba-shaped`` pairs (their mamba state rides the
@@ -34,6 +40,8 @@ Usage:
       --mode sequential --engine specbranch
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --mode batched --engine sps
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --attn-backend dense --trace trace.json --metrics-out m.json
 
 H-RAD has no flag, as in the reference: it is reached through the
 engines' ``hrad_params`` (``serve(..., hrad_params=...)`` here).
@@ -52,6 +60,8 @@ from repro_torch.configs import falcon_mamba_7b
 from repro_torch.configs.paper_pairs import PAPER_PAIRS
 from repro_torch.data.synthetic import ZipfMarkov
 from repro_torch.models import model as M
+from repro_torch.obs import (NULL_RECORDER, TraceRecorder, profiler_session,
+                             write_metrics, write_trace)
 from repro_torch.runtime import prng
 from repro_torch.runtime.cost_model import CostModel
 from repro_torch.runtime.engines import (AdaEDLEngine, AutoregressiveEngine,
@@ -62,6 +72,7 @@ from repro_torch.runtime.scheduler import (Request, Scheduler,
 from repro_torch.runtime.specbranch import SpecBranchEngine
 from repro_torch.serving import (BatchedSpecBranchEngine, BatchedSpSEngine,
                                  ContinuousBatchScheduler, ServeRequest)
+from repro_torch.serving import device_loop as DL
 from repro_torch.training.pairs import (HYBRID_KINDS, VOCAB, get_pair,
                                         hybrid_pair)
 
@@ -122,15 +133,18 @@ def serve(pair, ecfg: EngineConfig, prompts, new_tokens: int, *,
           device, max_batch: int = 8, page_size: int = 16,
           pool_pages: Optional[int] = None, swap_pages: int = 256,
           arrival_interval: float = 0.0, engine: str = "specbranch",
-          hrad_params=None):
+          hrad_params=None, attn_backend: str = "paged",
+          rec=NULL_RECORDER):
     """Build the batched ``engine`` (a name in ``BATCHED_ENGINES``; with
-    an H-RAD MLP for SpecBranch) and its scheduler and serve ``prompts``.
-    Returns (results by rid, scheduler report, engine, wall seconds)."""
+    an H-RAD MLP for SpecBranch) on ``attn_backend`` with the recorder
+    ``rec`` and its scheduler, and serve ``prompts``.  Returns (results by
+    rid, scheduler report, engine, wall seconds)."""
     dp, dcfg, tp, tcfg = pair
     eng = BATCHED_ENGINES[engine](
         dp, dcfg, tp, tcfg, ecfg, max_batch=max_batch,
         page_size=page_size, pool_pages=pool_pages, swap_pages=swap_pages,
-        hrad_params=hrad_params, device=device)
+        hrad_params=hrad_params, attn_backend=attn_backend, device=device)
+    eng.set_recorder(rec)        # before the scheduler picks up eng.rec
     sched = ContinuousBatchScheduler(eng)
     reqs = [ServeRequest(rid=i, prompt=p, max_new_tokens=new_tokens,
                          arrival=i * arrival_interval)
@@ -158,12 +172,15 @@ def build_engine(engine, pair, ecfg: EngineConfig, hrad_params=None):
 
 
 def serve_sequential(pair, ecfg: EngineConfig, engine, prompts,
-                     new_tokens: int, *, seed: int = 0, hrad_params=None):
+                     new_tokens: int, *, seed: int = 0, hrad_params=None,
+                     rec=NULL_RECORDER):
     """Run ``prompts`` one after another through the sequential
-    ``engine`` (a name in ``ENGINES`` or an engine class); request keys
-    split from ``PRNGKey(seed)`` as the reference's ``launch.serve`` does.
-    Returns (requests, scheduler, wall s)."""
+    ``engine`` (a name in ``ENGINES`` or an engine class) with the
+    recorder ``rec``; request keys split from ``PRNGKey(seed)`` as the
+    reference's ``launch.serve`` does.  Returns (requests, scheduler,
+    wall s)."""
     eng = build_engine(engine, pair, ecfg, hrad_params)
+    eng.set_recorder(rec)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
     sched = Scheduler(eng)
@@ -172,9 +189,10 @@ def serve_sequential(pair, ecfg: EngineConfig, engine, prompts,
     return done, sched, time.time() - t0
 
 
-def run_sequential(args, ecfg: EngineConfig, prompts, pair, device) -> dict:
+def run_sequential(args, ecfg: EngineConfig, prompts, pair, device,
+                   rec=NULL_RECORDER) -> dict:
     done, sched, wall = serve_sequential(pair, ecfg, args.engine, prompts,
-                                         args.new_tokens)
+                                         args.new_tokens, rec=rec)
     cost = CostModel(c=args.c)
     agg = sched.aggregate(done, cost)
     if args.arrival_interval > 0:
@@ -207,11 +225,8 @@ def _unsupported(args) -> Optional[str]:
     checks = [
         (args.spec_predictor != "off", "--spec-predictor"),
         (args.draft_mode != "sequential", "--draft-mode parallel"),
-        (args.attn_backend != "paged", "--attn-backend dense"),
         (args.prefix_cache != "off", "--prefix-cache on"),
         (args.mesh is not None, "--mesh"),
-        (bool(args.trace or args.metrics_out or args.profile_dir),
-         "--trace / --metrics-out / --profile-dir (tracing)"),
     ]
     for bad, what in checks:
         if bad:
@@ -252,9 +267,15 @@ def main(argv=None) -> None:
     ap.add_argument("--arrival-interval", type=float, default=0.0)
     ap.add_argument("--max-len", type=int, default=0)
     ap.add_argument("--json", default=None)
-    ap.add_argument("--trace", default=None)
-    ap.add_argument("--metrics-out", default=None)
-    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace.json of the run")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="dump the metrics registry; .json -> JSON, else "
+                    "plain text")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="also run a torch.profiler session (CUDA activity "
+                    "on the card, CPU activity on the CPU) with the loop's "
+                    "named ranges and write its Chrome trace into DIR")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; a CUDA device without a "
                     "visible card is an error, never a CPU fallback")
@@ -287,22 +308,41 @@ def main(argv=None) -> None:
         pair = load_pair(args.pair, device)
     except FileNotFoundError as e:
         raise SystemExit(str(e))
-    if args.mode == "sequential":
-        rep = run_sequential(args, ecfg, prompts, pair, device)
-    else:
-        rep = run_batched(args, ecfg, prompts, pair, device)
+    tracing = bool(args.trace or args.metrics_out or args.profile_dir)
+    rec = TraceRecorder() if tracing else NULL_RECORDER
+    if args.profile_dir:
+        DL.set_trace_annotations(True)
+    try:
+        with profiler_session(args.profile_dir, device):
+            if args.mode == "sequential":
+                rep = run_sequential(args, ecfg, prompts, pair, device, rec)
+            else:
+                rep = run_batched(args, ecfg, prompts, pair, device, rec)
+    finally:
+        DL.set_trace_annotations(False)
+    if args.profile_dir:
+        print(f"profiler trace written to {args.profile_dir}")
+    if args.trace:
+        write_trace(rec, args.trace)
+        print(f"trace written to {args.trace} "
+              f"({len(rec.events)} events; open at https://ui.perfetto.dev)")
+    if args.metrics_out:
+        write_metrics(rec.registry, args.metrics_out)
+        print(f"metrics written to {args.metrics_out}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rep, f, indent=2, default=float)
         print(f"report written to {args.json}")
 
 
-def run_batched(args, ecfg: EngineConfig, prompts, pair, device) -> dict:
+def run_batched(args, ecfg: EngineConfig, prompts, pair, device,
+                rec=NULL_RECORDER) -> dict:
     results, rep, eng, wall = serve(
         pair, ecfg, prompts, args.new_tokens, device=device,
         max_batch=args.max_batch, page_size=args.page_size,
         pool_pages=args.pool_pages, swap_pages=args.swap_pages,
-        arrival_interval=args.arrival_interval, engine=args.engine)
+        arrival_interval=args.arrival_interval, engine=args.engine,
+        attn_backend=args.attn_backend, rec=rec)
     rep["device"] = _device_name(device)
     print(f"\n== batched {args.engine} on {args.pair} pair ({rep['device']}): "
           f"{len(results)} requests, max_batch={args.max_batch}, "

@@ -18,9 +18,11 @@ granularity; tokens cut before verification are ``pruned_tokens``.
 
 ``hrad_params`` (an H-RAD MLP, ``core.hrad``) is used by SpecBranch;
 the target runner then captures the last ``hrad_k_layers`` feature points
-of every forward.  Later slices (ROADMAP.md queue A): parallel drafting
-(``draft_mode "parallel"``, draft heads), the history predictor
-(``spec_predictor``), stub-frontend embeddings and trace events.
+of every forward.  With a recorder installed (``set_recorder``) the
+engines emit the reference's per-round spec events and the runners one
+model_call event per forward.  Later slices (ROADMAP.md queue A):
+parallel drafting (``draft_mode "parallel"``, draft heads), the history
+predictor (``spec_predictor``) and stub-frontend embeddings.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import NULL_RECORDER
 from repro_torch.runtime import prng
 from repro_torch.runtime import sampling as S
 from repro_torch.runtime.cost_model import CostModel, Round
@@ -152,6 +155,11 @@ def make_predictor(mode: str, gamma_max: int, k_max: int, eps_base: float):
 
 class Engine:
     name = "base"
+    # observability (obs.trace): the class-level NULL_RECORDER keeps every
+    # hook a no-op; the sequential scheduler sets trace_rid before each
+    # request so that spec events carry request ids
+    rec = NULL_RECORDER
+    trace_rid = 0
 
     def __init__(self, draft_params, draft_cfg: Optional[ModelConfig],
                  target_params, target_cfg: ModelConfig,
@@ -173,14 +181,20 @@ class Engine:
         make_predictor(ecfg.spec_predictor, ecfg.gamma, ecfg.k_max,
                        ecfg.epsilon)
 
+    def set_recorder(self, rec, rid: int = 0) -> None:
+        self.rec = rec
+        self.trace_rid = rid
+
     def _new_runners(self) -> Tuple[Optional[ModelRunner], ModelRunner]:
-        d = (ModelRunner(self.dp, self.dcfg, max_len=self.ecfg.max_len)
+        recorder = self.rec if self.rec.enabled else None
+        d = (ModelRunner(self.dp, self.dcfg, max_len=self.ecfg.max_len,
+                         recorder=recorder, trace_role="draft")
              if self.dcfg is not None else None)
         # only H-RAD reads features, and only the target's
         hrad = self.hrad_params is not None and self.ecfg.use_hrad
         t = ModelRunner(self.tp, self.tcfg, max_len=self.ecfg.max_len,
                         feature_points=self.ecfg.hrad_k_layers if hrad
-                        else 0)
+                        else 0, recorder=recorder, trace_role="target")
         return d, t
 
     def _tprobs(self, logits: torch.Tensor) -> torch.Tensor:
@@ -312,11 +326,13 @@ class SpSEngine(Engine):
         plen = len(prompt)
         while len(ctx.out) < n_new:
             draft.checkpoint(), target.checkpoint()
+            calls0 = draft.n_calls + target.n_calls
             drafted, q_stack, _ = self._draft_round(draft, ctx,
                                                     self.ecfg.gamma)
             g = len(drafted)
             n, nxt, all_acc, bonus = self._verify(target, drafted, q_stack,
                                                   ctx)
+            ndisp = draft.n_calls + target.n_calls - calls0
             ctx.timeline.append(("serial", g, 1))
             if all_acc:
                 nxt = self._sample(ctx, bonus)
@@ -325,6 +341,12 @@ class SpSEngine(Engine):
                 ctx.stats.run_extend(g + 1)   # bonus continues the run
                 target.pending = [nxt]
                 draft.pending = [drafted[-1], nxt]
+                if self.rec.enabled:
+                    self.rec.spec(rid=self.trace_rid,
+                                  round=len(ctx.timeline) - 1, stage="sps",
+                                  committed=g + 1, accepted=g, drafted=g,
+                                  cause="accept", gamma=g, bonus=True,
+                                  dispatches=ndisp)
             else:
                 ctx.out.extend(drafted[:n] + [nxt])
                 ctx.stats.emitted += n + 1
@@ -333,6 +355,12 @@ class SpSEngine(Engine):
                 ctx.stats.rollback_tokens += g - n
                 self._reset_lineage(target, plen, ctx)
                 self._reset_lineage(draft, plen, ctx)
+                if self.rec.enabled:
+                    self.rec.spec(rid=self.trace_rid,
+                                  round=len(ctx.timeline) - 1, stage="sps",
+                                  committed=n + 1, accepted=n, drafted=g,
+                                  rolled_back=g - n, cause="chunk-reject",
+                                  gamma=g, dispatches=ndisp)
         ctx.stats.finish()
         return GenResult(ctx.out[:n_new], ctx.stats, ctx.timeline)
 
@@ -401,6 +429,15 @@ class LookaheadEngine(Engine):
             ctx.stats.run_extend(n_ok)
             ctx.stats.run_break()
             ctx.stats.rollback_tokens += len(guess) - n_ok
+            if self.rec.enabled:
+                self.rec.spec(rid=self.trace_rid,
+                              round=len(ctx.timeline) - 1, stage="sps",
+                              committed=len(emitted), accepted=n_ok,
+                              drafted=len(guess),
+                              rolled_back=len(guess) - n_ok,
+                              cause=("accept" if n_ok == len(guess)
+                                     else "chunk-reject"),
+                              gamma=len(guess))
             self._reset_lineage(target, plen, ctx)
             hist.extend(emitted)
             update_pool(hist)
@@ -448,11 +485,23 @@ class PEARLEngine(SpSEngine):
                     ctx.stats.emitted += 1
                     self._reset_lineage(target, plen, ctx)
                     self._reset_lineage(draft, plen, ctx)
+                    if self.rec.enabled:
+                        self.rec.spec(rid=self.trace_rid,
+                                      round=len(ctx.timeline) - 1,
+                                      stage="sps", committed=1, accepted=0,
+                                      drafted=len(cur),
+                                      rolled_back=len(cur),
+                                      cause="chunk-reject", gamma=1)
                     cur = []
                     continue
                 ctx.out.append(cur[0])
                 ctx.stats.emitted += 1
                 ctx.stats.run_extend(1)
+                if self.rec.enabled:
+                    self.rec.spec(rid=self.trace_rid,
+                                  round=len(ctx.timeline) - 1, stage="sps",
+                                  committed=1, accepted=1,
+                                  drafted=len(cur), cause="accept", gamma=1)
                 rest, rest_q = cur[1:], cur_q[1:]
             else:
                 rest, rest_q = cur, cur_q
@@ -466,6 +515,12 @@ class PEARLEngine(SpSEngine):
                 ctx.out.extend(rest)
                 ctx.stats.emitted += len(rest)
                 ctx.stats.run_extend(len(rest))
+                if self.rec.enabled:
+                    self.rec.spec(rid=self.trace_rid,
+                                  round=len(ctx.timeline) - 1, stage="sps",
+                                  committed=len(rest), accepted=len(rest),
+                                  drafted=len(nxt_chunk), cause="accept",
+                                  gamma=max(len(rest), 1))
                 cur, cur_q = nxt_chunk, nxt_q   # pipeline rolls on
             else:
                 ctx.out.extend(rest[:n] + [nxt])
@@ -476,6 +531,15 @@ class PEARLEngine(SpSEngine):
                 ctx.stats.rollback_tokens += (len(rest) - n) + len(nxt_chunk)
                 self._reset_lineage(target, plen, ctx)
                 self._reset_lineage(draft, plen, ctx)
+                if self.rec.enabled:
+                    self.rec.spec(rid=self.trace_rid,
+                                  round=len(ctx.timeline) - 1, stage="sps",
+                                  committed=n + 1, accepted=n,
+                                  drafted=len(nxt_chunk),
+                                  rolled_back=(len(rest) - n)
+                                  + len(nxt_chunk),
+                                  cause="chunk-reject",
+                                  gamma=max(len(rest), 1))
                 cur = []
         ctx.stats.finish()
         return GenResult(ctx.out[:n_new], ctx.stats, ctx.timeline)

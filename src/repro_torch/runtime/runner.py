@@ -77,11 +77,15 @@ class ModelRunner:
     MAX_CHECKPOINTS = 8
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096,
-                 feature_points: int = 0):
+                 feature_points: int = 0, recorder=None,
+                 trace_role: str = ""):
         self.params = params
         self.cfg = cfg
         self.max_len = max_len
         self.feature_points = feature_points
+        # optional obs.trace recorder: one model_call event per forward
+        self.rec = recorder
+        self.trace_role = trace_role
         self.device = params["embed"].device
         self.batch = 1
         self.has_ssm = _has_ssm(cfg)
@@ -125,6 +129,9 @@ class ModelRunner:
         self.n_calls += 1
         self.n_call_tokens += len(toks)
         self.last_logits = logits[:, -1]
+        if self.rec is not None and self.rec.enabled:
+            self.rec.model_call(role=self.trace_role, tokens=len(toks),
+                                batch=1, pos=self.pos)
         return logits
 
     def forward_parallel(self, g: int, dhead) -> torch.Tensor:
@@ -143,6 +150,10 @@ class ModelRunner:
         self.n_calls += 1
         self.n_call_tokens += int(np.prod(token_rows.shape))
         self.last_logits = logits[:, -1]
+        if self.rec is not None and self.rec.enabled:
+            self.rec.model_call(role=self.trace_role,
+                                tokens=int(np.prod(token_rows.shape)),
+                                batch=self.batch, pos=self.pos)
         return logits
 
     def prefill(self, prompt: Sequence[int]) -> None:

@@ -48,8 +48,13 @@ class Scheduler:
             ) -> List[Request]:
         """Serve ``requests`` in order; ``req.wall_s`` ends after the
         card has finished the request's work."""
+        rec = self.engine.rec
         for req in requests:
             key, sub = prng.split(key)
+            self.engine.trace_rid = req.rid   # tag this request's events
+            if rec.enabled:
+                rec.request("admit", req.rid, prompt_len=len(req.prompt),
+                            max_new=req.max_new_tokens)
             t0 = time.time()
             req.result = self.engine.generate(
                 list(req.prompt), req.max_new_tokens, sub,
@@ -57,6 +62,11 @@ class Scheduler:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             req.wall_s = time.time() - t0
+            if rec.enabled:
+                st = req.result.stats
+                rec.finish(req.rid, emitted=st.emitted,
+                           rollback_tokens=st.rollback_tokens,
+                           pruned_tokens=st.pruned_tokens)
         return requests
 
     def aggregate(self, requests: List[Request], cost: CostModel) -> dict:

@@ -158,12 +158,21 @@ class SpecBranchEngine(Engine):
             draft.checkpoint(), target.checkpoint()
             if mode == "draft":
                 # ---------------- DRAFT stage (serial) ----------------
+                calls0 = draft.n_calls
                 # the newest committed token
                 e_tok = (draft.pending[-1] if draft.pending
                          else target.pending[-1])
                 s = self._hrad_signal(self._feats_last(target), e_tok, ctx)
                 chunk, chunk_q, q_b = self._serial_draft(draft, ctx, s)
                 ctx.timeline.append(("serial", len(chunk) + 1, 0))
+                if self.rec.enabled:
+                    self.rec.spec(
+                        rid=self.trace_rid, round=len(ctx.timeline) - 1,
+                        stage="draft", drafted=len(chunk) + 1,
+                        gamma=self.ecfg.gamma,
+                        eps_stop=(s == 1 and len(chunk) < self.ecfg.gamma),
+                        hrad=(s if self.ecfg.use_hrad else None),
+                        dispatches=draft.n_calls - calls0)
                 mode = "branch"
                 continue
 
@@ -189,6 +198,14 @@ class SpecBranchEngine(Engine):
                 ctx.stats.run_extend(n)
                 ctx.stats.run_break()
                 ctx.stats.rollback_tokens += (len(chunk) - n) + gb
+                if self.rec.enabled:
+                    self.rec.spec(
+                        rid=self.trace_rid, round=len(ctx.timeline) - 1,
+                        stage="branch", committed=n + 1, accepted=n,
+                        drafted=len(chunk),
+                        rolled_back=(len(chunk) - n) + gb,
+                        cause="chunk-reject", gamma=max(len(chunk), 1),
+                        k=len(cands))
                 draft.unfork()
                 self._reset_lineage(target, plen, ctx)
                 self._reset_lineage(draft, plen, ctx)
@@ -204,6 +221,13 @@ class SpecBranchEngine(Engine):
                 ctx.stats.run_extend(len(chunk))
                 ctx.stats.run_break()
                 ctx.stats.rollback_tokens += gb
+                if self.rec.enabled:
+                    self.rec.spec(
+                        rid=self.trace_rid, round=len(ctx.timeline) - 1,
+                        stage="branch", committed=len(chunk) + 1,
+                        accepted=len(chunk), drafted=len(chunk),
+                        rolled_back=gb, cause="branch-miss",
+                        gamma=max(len(chunk), 1), k=len(cands))
                 draft.unfork()
                 self._reset_lineage(target, plen, ctx)
                 self._reset_lineage(draft, plen, ctx)
@@ -212,6 +236,7 @@ class SpecBranchEngine(Engine):
 
             i = verdict.accepted_branch
             tok_b = verdict.token
+            n_acc = len(chunk)            # committed chunk length
             ctx.out.extend(chunk + [tok_b])
             ctx.stats.emitted += len(chunk) + 1
             ctx.stats.run_extend(len(chunk) + 1)
@@ -223,6 +248,7 @@ class SpecBranchEngine(Engine):
             s = self._hrad_signal(self._feats_last(target), tok_b, ctx)
             cont_i = [int(t) for t in conts[i]]
             q_i = [cq[i] for cq in cont_q]
+            pruned = 0
             if s == 2:
                 # the draft cache already holds the whole continuation
                 chunk, chunk_q = cont_i, q_i
@@ -231,6 +257,7 @@ class SpecBranchEngine(Engine):
                 # prune the whole continuation; branch at its first token
                 chunk, chunk_q = [], []
                 q_b = cont_sig[0][i]
+                pruned = gb
                 ctx.stats.pruned_tokens += gb
                 draft.reset_to(plen + len(ctx.out))   # lineage incl. tok_b
             else:
@@ -243,8 +270,17 @@ class SpecBranchEngine(Engine):
                 else:
                     chunk, chunk_q = cont_i[:j], q_i[:j]
                     q_b = cont_sig[j][i]
+                    pruned = gb - j
                     ctx.stats.pruned_tokens += gb - j
                     draft.reset_to(plen + len(ctx.out) + j)
+            if self.rec.enabled:
+                self.rec.spec(
+                    rid=self.trace_rid, round=len(ctx.timeline) - 1,
+                    stage="branch", committed=n_acc + 1,
+                    accepted=n_acc + 1, drafted=n_acc, pruned=pruned,
+                    cause="branch-adopt", gamma=max(n_acc, 1),
+                    k=len(cands),
+                    hrad=(s if self.ecfg.use_hrad else None))
             mode = "branch"
 
         ctx.stats.finish()

@@ -1,19 +1,25 @@
-"""Batched serving over paged KV (port of
+"""Batched serving over dense or paged KV (port of
 ``repro.serving.batched_engine``: ``BatchedDecoder``, the engine base,
 ``BatchedSpSEngine`` and ``BatchedSpecBranchEngine``, sequential-draft
 rounds).
 
-``BatchedDecoder`` is one model plus a paged decode state with per-row
+``BatchedDecoder`` is one model plus a decode state with per-row
 positions, so requests at different lengths share every forward: pad
-writes land beyond a row's logical length (routed to the trash page),
-rollback is positional (shrink the row and reclaim the rejected tokens'
-pages), and SpecBranch branch forks are extra draft rows that share pages
-copy-on-write in the pool.  Every attention call runs the paged-attention
-kernel in place over the pages.  SSM and hybrid configs batch too: every
-mamba slot carries a per-row position-indexed checkpoint ring (its scan
-runs the selective-scan kernel), so per-row rollback is positional for
-both halves of the cache; a preempted hybrid row swaps its attention half
-through the paged store and its rings ride one snapshot.
+writes land at or beyond a row's logical length (causally masked until
+overwritten on the dense backend, routed to the trash page on the paged
+one), and rollback is positional (shrink the row and reclaim the rejected
+tokens' pages in the pool, which keeps the accounting on both backends).
+``attn_backend="dense"`` (the default, as in the reference) keeps N-row
+ring caches and attends through the flash-attention kernel; SpecBranch
+branch forks are then row copies of the draft decoder.  ``"paged"``
+scatters KV across the pool's pages and attends in place through the
+paged-attention kernel; branch forks share pages copy-on-write.  SSM and
+hybrid configs batch on both: every mamba slot carries a per-row
+position-indexed checkpoint ring (its scan runs the selective-scan
+kernel), so per-row rollback is positional for both halves of the cache;
+a preempted paged hybrid row swaps its attention half through the paged
+store and its rings ride one snapshot, a dense hybrid row recomputes its
+prefix at re-admission.
 
 Engine contract: per-request token streams are distributed exactly as the
 target model (token-for-token the target's greedy stream at temperature
@@ -41,13 +47,20 @@ position of a step, each lane's last prompt position of a prefill), each
 request keeps those of its newest verification (``_Seq.feats_last``),
 and every signal costs one 4-byte host fetch, as in the reference.
 
-Not in this slice (each raises ``NotImplementedError``): the dense
-backend, parallel drafting, the prefix cache, the history predictor and
-mesh serving.
+Observability (``obs.trace``): ``set_recorder`` installs a recorder; the
+rounds emit the reference's spec, span and round events, admission its
+request and prefill events, and the pools their reclaim and COW events,
+every field from host values the loop already holds (no extra device
+sync).  ``device_loop.annotate`` brackets the verify dispatches with
+profiler ranges when annotations are on.
+
+Not in this slice (each raises ``NotImplementedError``): parallel
+drafting, the prefix cache, the history predictor and mesh serving.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,18 +95,19 @@ def _count_fetch(owner, arr: torch.Tensor) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 class BatchedDecoder:
-    """One model + a paged N-row decode state with per-row positions.
+    """One model + an N-row decode state (dense rows, or paged attention
+    when ``paged`` is a pool) with per-row positions.
 
     ``step`` runs one batched forward at caller-supplied per-row start
     positions and returns DEVICE logits; ``prefill_rows`` ingests a group
     of prompts into fresh rows with one forward per prefill-ladder rung.
-    Pad tokens land beyond a row's logical length and go to the trash
-    page, so ladder padding never touches live KV.  With
+    Pad tokens land beyond a row's logical length (causally masked, or on
+    the trash page), so ladder padding never touches live KV.  With
     ``feature_points`` > 0 both also return the hidden states of the last
     that many feature points (H-RAD's input), else None."""
 
     def __init__(self, params, cfg: ModelConfig, *, n_rows: int,
-                 max_len: int, paged: PagedKVPool, device,
+                 max_len: int, paged: Optional[PagedKVPool], device,
                  ssm_ring: int = 0, prefill_lanes: int = 0,
                  prefill_quantum: int = 8, feature_points: int = 0):
         self.cfg = cfg
@@ -109,6 +123,9 @@ class BatchedDecoder:
                                  ssm_ring=ssm_ring)
         self.prefill_lanes = prefill_lanes or DL.bucket(n_rows)
         self.prefill_quantum = prefill_quantum
+        # forwards and prefill shapes, as the reference counts them
+        self.n_calls = 0
+        self.prefill_shapes: set = set()
 
     @property
     def cache(self):
@@ -147,30 +164,41 @@ class BatchedDecoder:
         self.state.copy_page(src, dst)
 
     def copy_row(self, src: int, dst: int) -> None:
-        """Branch fork: zero bytes move; the fork is page-table sharing in
-        the pool (the caller binds dst to the forked stream key)."""
+        """Branch fork: row-axis state (dense KV, rings) copies; paged
+        attention moves zero bytes (page-table sharing in the pool; the
+        caller binds dst to the forked stream key)."""
         self.state.fork(src, dst)
 
     @torch.no_grad()
     def _forward(self, tokens, positions, rows=None, feature_index=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        tab, lens = self.state.table_view(rows)
+        """One forward.  ``rows`` (a prefill's lanes, -1 for a pad lane):
+        paged, the lanes' table view and ring rows over the live cache;
+        dense, a fresh ``len(rows)``-lane view scattered into the listed
+        rows afterwards.  None: every row of the cache, in place."""
         dev = self.device
-        ring_rows = (None if rows is None or not self.has_ssm
-                     else torch.tensor(rows, dtype=torch.int64, device=dev))
+        cache, paged, ring_rows = self.cache, None, None
+        if self.state.paged is not None:
+            tab, lens = self.state.table_view(rows)
+            paged = (torch.from_numpy(tab).to(dev),
+                     torch.from_numpy(lens).to(dev))
+            if rows is not None and self.has_ssm:
+                ring_rows = torch.tensor(rows, dtype=torch.int64, device=dev)
+        elif rows is not None:
+            cache = self.state.prefill_view(len(rows))
         capture = self.feature_points > 0
         mode = None if not capture else (
             "all" if feature_index is None else "at")
         logits, aux = M.forward(
             self.params, self.cfg,
             torch.as_tensor(tokens).to(device=dev, dtype=torch.int64),
-            cache=self.cache, positions=positions,
-            paged=(torch.from_numpy(tab).to(dev),
-                   torch.from_numpy(lens).to(dev)),
+            cache=cache, positions=positions, paged=paged,
             ring_rows=ring_rows, feature_mode=mode,
             feature_points=self.feature_points,
             feature_index=(None if feature_index is None
                            else torch.from_numpy(feature_index).to(dev)))
+        if cache is not self.cache:
+            self.state.prefill_merge(cache, [r for r in rows if r >= 0])
         return logits, aux["features"] if capture else None
 
     def step(self, tokens, pos
@@ -184,6 +212,7 @@ class BatchedDecoder:
         positions = (torch.from_numpy(np.asarray(pos, np.int32)).to(
             self.device)[:, None]
             + torch.arange(T, dtype=torch.int32, device=self.device)[None])
+        self.n_calls += 1
         return self._forward(tokens, positions)
 
     def prefill_rows(self, parts: Sequence[Tuple[int, Sequence[int]]]
@@ -219,11 +248,14 @@ class BatchedDecoder:
             feature_index=last)
         for row, t in parts:
             self.state.row_pos[row] = len(t)
+        self.n_calls += 1
+        self.prefill_shapes.add((G, Tb))
         return out
 
     def pack_row(self, row: int, length: int) -> torch.Tensor:
         """The row's first ``length`` KV slots as (L, swap_dim) float32 rows
-        on the device, gathered page by page through its table."""
+        on the device (dense rows sliced, paged rows gathered page by page
+        through the table)."""
         return self.state.pack_row(row, length)
 
     def unpack_row(self, row: int, rows: torch.Tensor) -> None:
@@ -306,13 +338,19 @@ class BatchedEngineBase:
                  swap_pages: int = 0,
                  hrad_params=None,
                  draft_heads=None,
-                 attn_backend: str = "paged",
+                 attn_backend: str = "dense",
                  prefix_cache: bool = False,
                  debug_check: bool = False,
                  mesh=None,
                  device="cuda"):
+        if attn_backend not in ("dense", "paged"):
+            raise ValueError(f"unknown attn_backend {attn_backend!r}")
+        if prefix_cache and attn_backend != "paged":
+            raise ValueError(
+                "prefix_cache=True requires attn_backend='paged': dense "
+                "rows have no page runs to share — drop prefix_cache or "
+                "switch to the paged backend")
         later = {
-            "attn_backend='dense'": attn_backend != "paged",
             "draft_mode='parallel' / draft_heads":
                 ecfg.draft_mode != "sequential" or draft_heads is not None,
             "prefix_cache=True": prefix_cache,
@@ -324,7 +362,7 @@ class BatchedEngineBase:
             if asked:
                 raise NotImplementedError(
                     f"{what} is ported in a later slice (ROADMAP.md queue "
-                    "A); this slice serves the paged sequential-draft path")
+                    "A); this slice serves the sequential-draft path")
         self.device = resolve_device(device)
         self.dp, self.dcfg = draft_params, draft_cfg
         self.tp, self.tcfg = target_params, target_cfg
@@ -380,10 +418,12 @@ class BatchedEngineBase:
         # it, with slack
         ssm_ring = (4 * (ecfg.gamma + ecfg.gamma_branch)
                     + 2 * DL.bucket(ecfg.gamma + 2) + 16 + self._pq)
+        paged = attn_backend == "paged"
         lanes = DL.bucket(max_batch)   # admission groups are <= max_batch
         self.tgt_dec = BatchedDecoder(target_params, target_cfg,
                                       n_rows=max_batch, max_len=ecfg.max_len,
-                                      paged=self.pools["t"],
+                                      paged=self.pools["t"] if paged
+                                      else None,
                                       device=self.device, ssm_ring=ssm_ring,
                                       prefill_lanes=lanes,
                                       prefill_quantum=self._pq,
@@ -392,13 +432,15 @@ class BatchedEngineBase:
                                       n_rows=max_batch
                                       * self.draft_rows_per_seq,
                                       max_len=ecfg.max_len,
-                                      paged=self.pools["d"],
+                                      paged=self.pools["d"] if paged
+                                      else None,
                                       device=self.device, ssm_ring=ssm_ring,
                                       prefill_lanes=lanes,
                                       prefill_quantum=self._pq)
-        # accounting COW (pool) -> physical COW, each in its own buffer
-        self.pools["t"].cow_listeners.append(self.tgt_dec.copy_page)
-        self.pools["d"].cow_listeners.append(self.dft_dec.copy_page)
+        if paged:
+            # accounting COW (pool) -> physical COW, each in its own buffer
+            self.pools["t"].cow_listeners.append(self.tgt_dec.copy_page)
+            self.pools["d"].cow_listeners.append(self.dft_dec.copy_page)
         self.swap: Optional[PagedStore] = None
         if swap_pages > 0 and self.tgt_dec.swappable:
             self.swap = PagedStore(swap_pages, page_size,
@@ -410,7 +452,27 @@ class BatchedEngineBase:
         self.timeline: List[Tuple[str, int, int]] = []
         self.active: List[_Seq] = []
         self._admit_counter = 0
+        # observability (obs.trace): NULL_RECORDER keeps every hook a
+        # no-op; an enabled recorder sees only host values the loop
+        # already holds, so tracing adds no device sync
         self.rec = NULL_RECORDER
+
+    def set_recorder(self, rec) -> None:
+        """Install a trace recorder.  An enabled one also taps the pools'
+        reclaim and COW listeners (host accounting already in flight)."""
+        self.rec = rec
+        if rec.enabled:
+            for which, pool in self.pools.items():
+                pool.reclaim_listeners.append(
+                    functools.partial(self._on_reclaim, which))
+                pool.cow_listeners.append(
+                    functools.partial(self._on_cow, which))
+
+    def _on_cow(self, which: str, old: int, new: int) -> None:
+        self.rec.cow(which)
+
+    def _on_reclaim(self, which: str, reason: str, freed: int) -> None:
+        self.rec.reclaim(which, reason, freed)
 
     def _pool_of(self, key: Any) -> PagedKVPool:
         """Target streams ("t", rid) live in the target pool; draft streams
@@ -621,6 +683,11 @@ class BatchedEngineBase:
         self._admit_counter += 1
         self.active.append(seq)
         self._pending_admits.append((seq, toks[:-1], restored))
+        if self.rec.enabled:
+            self.rec.request("admit", rid, prompt_len=len(toks),
+                             restored=restored, t=self.clock)
+            if restored:
+                self.rec.request("swap_in", rid, t=self.clock)
         return seq
 
     def commit_admissions(self) -> None:
@@ -654,9 +721,19 @@ class BatchedEngineBase:
                             seq.feats_last = feats[:, lane:lane + 1]
                         seq.stats.target_calls += 1
                         lane += 1
-                self.dft_dec.prefill_rows([(seq.dft.row, toks)
-                                           for seq, toks, _ in chunk])
+                    if self.rec.enabled:
+                        self.rec.prefill(
+                            width=width, lanes=lanes, used=len(tparts),
+                            tokens=sum(len(t) for _, t in tparts),
+                            t=self.clock)
+                dparts = [(seq.dft.row, toks) for seq, toks, _ in chunk]
+                self.dft_dec.prefill_rows(dparts)
                 self._count_staged(lanes * width * 4)
+                if self.rec.enabled:
+                    self.rec.prefill(
+                        width=width, lanes=lanes, used=len(dparts),
+                        tokens=sum(len(t) for _, t in dparts),
+                        t=self.clock)
         if self.debug_check:
             self.pool.check()
 
@@ -692,6 +769,11 @@ class BatchedEngineBase:
         victim.mode, victim.chunk, victim.chunk_q = "draft", [], []
         victim.q_b = None
         self._swapped[victim.rid] = meta
+        if self.rec.enabled:
+            self.rec.request("preempt", victim.rid, t=self.clock,
+                             swapped=meta["swap_key"] is not None)
+            if meta["swap_key"] is not None:
+                self.rec.request("swap_out", victim.rid, t=self.clock)
         return victim
 
     def _make_room(self, seqs: List[_Seq],
@@ -746,6 +828,11 @@ class BatchedEngineBase:
             self.tgt_dec.free_rows.append(seq.tgt.row)
             self.dft_dec.free_rows.append(seq.dft.row)
             seq.stats.finish()
+            if self.rec.enabled:
+                self.rec.finish(seq.rid, emitted=seq.stats.emitted,
+                                rollback_tokens=seq.stats.rollback_tokens,
+                                pruned_tokens=seq.stats.pruned_tokens,
+                                t=self.clock)
             out.append((seq, GenResult(seq.out[:seq.max_new], seq.stats,
                                        [])))
         if self.debug_check:
@@ -784,6 +871,9 @@ class BatchedSpSEngine(BatchedEngineBase):
         if not seqs:
             return {"committed": {}, "preempted": []}
         g = self.ecfg.gamma
+        rec = self.rec
+        wall0 = rec.now()
+        rnd_idx = len(self.timeline)
 
         def fits(ss):
             return (self.pools["d"].has_room(
@@ -828,6 +918,7 @@ class BatchedSpSEngine(BatchedEngineBase):
                 last[:] = 0
         tok_stack = torch.stack(tok_ticks)        # (g, n_d) device
         q_stack = torch.stack(q_ticks)            # (g, n_d, V) device
+        wall_draft = rec.now()
 
         # ---- verify stage: ONE batched target call + fused verdict
         pends = {s.rid: list(s.tgt.pending) for s in seqs}
@@ -862,13 +953,15 @@ class BatchedSpSEngine(BatchedEngineBase):
         for s in seqs:
             s.tgt.ing += len(pends[s.rid]) + g
             self.tgt_dec.row_pos[s.tgt.row] = s.tgt.ing
-        packet_dev = DL.sps_verify(
-            tlg, q_stack, tok_stack, trows, drows, npend, rid_l, ctr_l,
-            self._key, g=g, ttemp=self._tt, dtemp=self._dt,
-            kernel=self._use_kernel)
+        with DL.annotate("sps_verify", self.device):
+            packet_dev = DL.sps_verify(
+                tlg, q_stack, tok_stack, trows, drows, npend, rid_l, ctr_l,
+                self._key, g=g, ttemp=self._tt, dtemp=self._dt,
+                kernel=self._use_kernel)
         for s in seqs:
             s.ctr += g + 1
         pk = self._fetch(packet_dev)       # the round's ONLY host fetch
+        wall_verify = rec.now()
         now = self.clock + self.cost.round_cost(("serial", g, 1))
         committed: Dict[int, int] = {}
         for i, s in enumerate(seqs):
@@ -885,13 +978,31 @@ class BatchedSpSEngine(BatchedEngineBase):
                 s.stats.run_extend(g + 1)
                 s.tgt.pending = [nxt]
                 s.dft.pending = [dr[-1], nxt]
+                if rec.enabled:
+                    rec.spec(rid=s.rid, round=rnd_idx, stage="sps",
+                             committed=g + 1, accepted=g, drafted=g,
+                             cause="accept", gamma=g, bonus=True, t=now)
             else:
                 self._commit(s, dr[:n] + [nxt], now)
                 s.stats.run_extend(n)
                 s.stats.run_break()
                 s.stats.rollback_tokens += g - n
                 self._rollback_streams(s)
+                if rec.enabled:
+                    rec.spec(rid=s.rid, round=rnd_idx, stage="sps",
+                             committed=n + 1, accepted=n, drafted=g,
+                             rolled_back=g - n, cause="chunk-reject",
+                             gamma=g, t=now)
             committed[s.rid] = min(len(s.out), s.max_new) - before
+        if rec.enabled:
+            wall1 = rec.now()
+            rec.span("draft", wall0, wall_draft, engine=self.name)
+            rec.span("verify", wall_draft, wall_verify, engine=self.name,
+                     batch=len(seqs))
+            rec.span("commit", wall_verify, wall1, engine=self.name)
+            rec.round(engine=self.name, index=rnd_idx, mode="serial",
+                      draft_steps=g, target_calls=1, batch=len(seqs),
+                      wall0=wall0, wall1=wall1, t0=self.clock, t1=now)
         self._finish_round("serial", g, 1)
         return {"committed": committed, "preempted": preempted}
 
@@ -963,6 +1074,9 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
         K, CH = self._K, self._CH
         eps = self.ecfg.epsilon
         dev = self.device
+        rec = self.rec
+        wall0 = rec.now()
+        rnd_idx = len(self.timeline)
 
         # has_room can't price not-yet-forked branch streams; count their
         # worst case (suffix pages + one COW tail copy each) by hand
@@ -1054,13 +1168,15 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                     if s.chunk_q else zero_q)
                 ct[i, :len(s.chunk)] = s.chunk
             cq_rows += [zero_q] * (B - len(branchers))
-            packet_dev = DL.branch_verify(
-                tlg, trows, npend_l, gch_l, torch.stack(cq_rows), ct,
-                cands, ks_l, qb_stack, rid_l, ctr_v, self._key, CH=CH, K=K,
-                ttemp=self._tt, dtemp=self._dt, stemp=self._st,
-                kernel=self._use_kernel)
+            with DL.annotate("branch_verify", self.device):
+                packet_dev = DL.branch_verify(
+                    tlg, trows, npend_l, gch_l, torch.stack(cq_rows), ct,
+                    cands, ks_l, qb_stack, rid_l, ctr_v, self._key, CH=CH,
+                    K=K, ttemp=self._tt, dtemp=self._dt, stemp=self._st,
+                    kernel=self._use_kernel)
             for s in branchers:
                 s.ctr += self._W
+        wall_disp = rec.now()
 
         # ---- PHASE A: all draft-model work, interleaved batched ticks ----
         # H-RAD's prior signal decides each DRAFT-mode request's stop rule
@@ -1127,6 +1243,13 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                                                  s.dft.ing - 1, "prune")
                         s.dft.ing -= 1
                         self.dft_dec.row_pos[s.dft.row] = s.dft.ing
+                    if rec.enabled:
+                        rec.spec(rid=s.rid, round=rnd_idx, stage="draft",
+                                 drafted=len(s.chunk) + 1, gamma=g,
+                                 eps_stop=over,
+                                 hrad=(sig[s.rid] if self.ecfg.use_hrad
+                                       else None),
+                                 t=self.clock)
                     continue
                 s.chunk.append(int(pkt[row, 0]))
                 s.chunk_q.append(qsl_p[row])
@@ -1200,13 +1323,16 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                 ticks += 1
 
         # ---- PHASE B: fetch the verdict packet, commit per brancher ----
+        wall_draft1 = rec.now()
         committed: Dict[int, int] = {}
         n_target = 1 if branchers else 0
         kind = "parallel" if (branchers and self.ecfg.use_branch) \
             else "serial"
         now = self.clock + self.cost.round_cost((kind, ticks, n_target))
+        wall_vfetch = wall_draft1
         if branchers:
             pk = self._fetch(packet_dev)
+            wall_vfetch = rec.now()
             for i, s in enumerate(branchers):
                 s.tgt.pending = []
                 before = min(len(s.out), s.max_new)
@@ -1215,6 +1341,21 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                 committed[s.rid] = min(len(s.out), s.max_new) - before
         for s in serial:
             s.mode = "branch"
+        if rec.enabled:
+            wall1 = rec.now()
+            rec.span("draft", wall_disp, wall_draft1, engine=self.name,
+                     ticks=ticks)
+            if branchers:
+                # dispatched before the draft phase and fetched after it:
+                # the verify span overlapping the draft span is the
+                # hidden verification
+                rec.span("verify", wall0, wall_vfetch, engine=self.name,
+                         batch=len(branchers))
+                rec.span("commit", wall_vfetch, wall1, engine=self.name)
+            rec.round(engine=self.name, index=rnd_idx, mode=kind,
+                      draft_steps=ticks, target_calls=n_target,
+                      batch=len(seqs), wall0=wall0, wall1=wall1,
+                      t0=self.clock, t1=now)
         self._finish_round(kind, ticks, n_target)
         return {"committed": committed, "preempted": preempted}
 
@@ -1240,6 +1381,13 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
             s.stats.rollback_tokens += (gchunk - n_acc) + gb
             self._free_branches(s, bset, "rollback")
             self._rollback_streams(s)
+            if self.rec.enabled:
+                self.rec.spec(rid=s.rid, round=len(self.timeline),
+                              stage="branch", committed=n_acc + 1,
+                              accepted=n_acc,
+                              rolled_back=(gchunk - n_acc) + gb,
+                              cause="chunk-reject", gamma=gchunk,
+                              k=len(bset.streams), t=now)
             s.mode, s.chunk, s.chunk_q, s.q_b = "draft", [], [], None
             return
 
@@ -1251,6 +1399,12 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
             s.stats.rollback_tokens += gb
             self._free_branches(s, bset, "branch")
             self._rollback_streams(s)
+            if self.rec.enabled:
+                self.rec.spec(rid=s.rid, round=len(self.timeline),
+                              stage="branch", committed=gchunk + 1,
+                              accepted=gchunk, rolled_back=gb,
+                              cause="branch-miss", gamma=gchunk,
+                              k=len(bset.streams), t=now)
             s.mode, s.chunk, s.chunk_q, s.q_b = "draft", [], [], None
             return
 
@@ -1272,6 +1426,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
         # posterior H-RAD on THIS verification's features (Sec. 5.2)
         sgn = self._hrad_signal(s, tok_b)
         cont, q_i, confs = bset.conts[i], bset.cont_q[i], bset.confs[i]
+        pruned = 0
         if sgn == 2:
             s.chunk, s.chunk_q = list(cont), list(q_i)
             s.q_b = bset.final_sig[i]
@@ -1282,6 +1437,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
             s.q_b = q_i[0]
             s.q_b_conf = confs[0]
             s.stats.pruned_tokens += gb
+            pruned = gb
             self._prune_draft(s, s.committed)
         else:
             # cut at the continuation's first low-confidence token
@@ -1296,8 +1452,16 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                 s.q_b = q_i[j]
                 s.q_b_conf = confs[j]
                 s.stats.pruned_tokens += gb - j
+                pruned = gb - j
                 self._prune_draft(s, s.committed + j)
         s.mode = "branch"
+        if self.rec.enabled:
+            self.rec.spec(rid=s.rid, round=len(self.timeline),
+                          stage="branch", committed=gchunk + 1,
+                          accepted=gchunk + 1, pruned=pruned,
+                          cause="branch-adopt", gamma=gchunk,
+                          k=len(bset.streams),
+                          hrad=sgn if self.ecfg.use_hrad else None, t=now)
 
     def _prune_draft(self, s: _Seq, keep: int) -> None:
         """H-RAD pre-verify pruning: positional reset of the draft

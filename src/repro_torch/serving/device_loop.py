@@ -13,8 +13,15 @@ tensor instead of some hundred elementwise launches on the card.
 
 Arguments that the engine stages on the host (row indices, lengths,
 coordinates) may be numpy arrays; they move to the logits' device here.
+
+``annotate`` names profiler ranges around the loop's dispatch sites when
+``set_trace_annotations(True)`` (``launch.serve --profile-dir``) turned
+them on: a ``torch.profiler.record_function`` range, and an NVTX range as
+well when the engine runs on the card.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -23,7 +30,29 @@ from repro_torch.runtime import sampling as S
 
 __all__ = ["bucket", "prefill_bucket", "prefill_rungs", "kernel_route",
            "tick_sample", "masked_token_column", "compose_verify_tokens",
-           "sps_verify", "draw_cands", "branch_verify"]
+           "sps_verify", "draw_cands", "branch_verify",
+           "set_trace_annotations", "annotate"]
+
+# Off by default: ``annotate`` then returns a nullcontext, so the hot path
+# pays one module-global read.
+_ANNOTATE = False
+
+
+def set_trace_annotations(on: bool) -> None:
+    global _ANNOTATE
+    _ANNOTATE = bool(on)
+
+
+def annotate(name: str, device="cpu"):
+    """Named profiler range when annotations are on; free otherwise.  The
+    NVTX half is chosen by ``device`` (a CPU-only build has no NVTX)."""
+    if not _ANNOTATE:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.profiler.record_function(name))
+    if torch.device(device).type == "cuda":
+        stack.enter_context(torch.cuda.nvtx.range(name))
+    return stack
 
 
 def bucket(n: int) -> int:

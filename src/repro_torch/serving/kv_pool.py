@@ -27,6 +27,7 @@ from typing import Callable, Dict, Hashable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 SeqId = Hashable
@@ -372,10 +373,11 @@ class PagedStore:
     """
 
     def __init__(self, num_pages: int, page_size: int, dim: int,
-                 device="cpu"):
+                 device="cuda"):
         self.pool = PagedKVPool(num_pages, page_size)
         self.buf = torch.zeros((num_pages, page_size, dim),
-                               dtype=torch.float32, device=device)
+                               dtype=torch.float32,
+                               device=resolve_device(device))
         self.dim = dim
 
     def put(self, seq: SeqId, rows: torch.Tensor) -> None:

@@ -669,3 +669,56 @@ def test_sps_and_hrad_engines_on_the_card_are_greedy_lossless(cuda):
     seq = SpecBranchEngine(*pair, ecfg, hrad_params=hrad).generate(
         prompts[0], 12, prng.PRNGKey(0))
     assert seq.tokens == want[0] and seq.stats.hrad_signals
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine", ["specbranch", "sps"])
+def test_dense_serve_on_the_card_equals_the_paged_serve(cuda, engine):
+    """The reference's equivalence oracle on the card: the tiny pair's
+    dense serve (flash kernel, row forks) gives the paged serve's
+    streams, greedy and at temperature 1, and the greedy decode's."""
+    pair = get_pair("misaligned", device=cuda,
+                    cache_dir=os.path.join(ROOT, ".cache", "pairs"))
+    prompts = SV.make_prompts(3)
+    want = M.greedy_reference(pair[2], pair[3], prompts, 16)
+    for temp in (0.0, 1.0):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, max_len=512)
+        out = {}
+        for backend in ("dense", "paged"):
+            ops.reset_launches()
+            res, _, _, _ = SV.serve(pair, ecfg, prompts, 16, device=cuda,
+                                    max_batch=2, engine=engine,
+                                    attn_backend=backend)
+            out[backend] = [res[i].tokens for i in range(3)]
+            kernel = ("flash_attention" if backend == "dense"
+                      else "paged_attention")
+            assert ops.LAUNCHES[kernel] > 0, backend
+        assert out["dense"] == out["paged"], temp
+        if temp == 0.0:
+            assert out["dense"] == want
+
+
+@pytest.mark.requires_cuda
+def test_traced_serve_on_the_card_adds_no_host_fetch(cuda):
+    """A recorder (and the profiler ranges) changes nothing that crosses
+    the host boundary on the card."""
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serving import device_loop as DL
+    pair = get_pair("misaligned", device=cuda,
+                    cache_dir=os.path.join(ROOT, ".cache", "pairs"))
+    prompts = SV.make_prompts(3)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=1.0, max_len=512)
+    got = []
+    for rec in (None, TraceRecorder()):
+        DL.set_trace_annotations(rec is not None)
+        try:
+            res, _, eng, _ = SV.serve(
+                pair, ecfg, prompts, 16, device=cuda, max_batch=2,
+                **({} if rec is None else {"rec": rec}))
+        finally:
+            DL.set_trace_annotations(False)
+        got.append((eng.host_fetches, eng.host_transfer_bytes,
+                    [res[i].tokens for i in range(3)]))
+    assert got[0] == got[1]
+    assert rec.request_totals() and any(
+        e["kind"] == "span" for e in rec.events)

@@ -79,7 +79,8 @@ def _stats(r):
 
 def _port_serve(tpair, engine, ecfg, hrad, prompts, **eng_kw):
     te = ENGINES[engine][1](*tpair, ecfg, device="cpu", debug_check=True,
-                            max_batch=2, hrad_params=hrad, **eng_kw)
+                            max_batch=2, hrad_params=hrad,
+                            attn_backend="paged", **eng_kw)
     ts = ContinuousBatchScheduler(te)
     tres = ts.run([ServeRequest(rid=i, prompt=p, max_new_tokens=N_NEW)
                    for i, p in enumerate(prompts)])

@@ -89,7 +89,8 @@ def runs(pairs):
                        for i, p in enumerate(prompts)])
         te = BatchedSpecBranchEngine(*tpair, EngineConfig(**kw),
                                      device="cpu", debug_check=True,
-                                     max_batch=2, **eng_kw)
+                                     max_batch=2, attn_backend="paged",
+                                     **eng_kw)
         ts = ContinuousBatchScheduler(te)
         tres = ts.run([ServeRequest(rid=i, prompt=p, max_new_tokens=N_NEW)
                        for i, p in enumerate(prompts)])
@@ -172,7 +173,8 @@ def test_swap_layout_matches_reference(pairs, kind):
     je = JEngine(*jpair, JEngineConfig(**ecfg), attn_backend="paged",
                  max_batch=2, **PREEMPT)
     te = BatchedSpecBranchEngine(*tpair, EngineConfig(**ecfg), device="cpu",
-                                 max_batch=2, **PREEMPT)
+                                 max_batch=2, attn_backend="paged",
+                                 **PREEMPT)
     for jd, td in ((je.tgt_dec, te.tgt_dec), (je.dft_dec, te.dft_dec)):
         assert (td.swap_dim, td.swappable, td.has_ssm) == \
             (jd.state.swap_dim, jd.state.swappable, jd.state.has_ssm)

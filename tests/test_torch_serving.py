@@ -76,7 +76,7 @@ def runs(pair):
                        for i, p in enumerate(prompts)])
         te = BatchedSpecBranchEngine(*tpair, EngineConfig(**kw),
                                      device="cpu", debug_check=True,
-                                     **eng_kw)
+                                     attn_backend="paged", **eng_kw)
         ts = ContinuousBatchScheduler(te)
         tres = ts.run([ServeRequest(rid=i, prompt=p, max_new_tokens=N_NEW)
                        for i, p in enumerate(prompts)])

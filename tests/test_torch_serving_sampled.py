@@ -75,7 +75,7 @@ def runs(pair):
                        for i, p in enumerate(prompts)])
         te = BatchedSpecBranchEngine(*tpair, EngineConfig(**kw),
                                      device="cpu", debug_check=True,
-                                     **eng_kw)
+                                     attn_backend="paged", **eng_kw)
         ts = ContinuousBatchScheduler(te)
         tres = ts.run([ServeRequest(rid=i, prompt=p, max_new_tokens=N_NEW)
                        for i, p in enumerate(prompts)])
@@ -121,11 +121,17 @@ def test_paged_store_roundtrip_matches_reference():
 
 def test_later_slice_options_raise(pair):
     _, tpair, _ = pair
-    for kw in (dict(attn_backend="dense"), dict(prefix_cache=True),
+    for kw in (dict(attn_backend="paged", prefix_cache=True),
+               dict(prefix_cache=True, attn_backend="paged",
+                    mesh=object()),
                dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             BatchedSpecBranchEngine(*tpair, EngineConfig(max_len=128),
                                     device="cpu", **kw)
+    # as in the reference: the prefix cache needs page runs
+    with pytest.raises(ValueError, match="requires attn_backend='paged'"):
+        BatchedSpecBranchEngine(*tpair, EngineConfig(max_len=128),
+                                device="cpu", prefix_cache=True)
     for ecfg in (EngineConfig(max_len=128, draft_mode="parallel"),
                  EngineConfig(max_len=128, spec_predictor="on")):
         with pytest.raises(NotImplementedError):
@@ -147,7 +153,8 @@ def test_serve_cli_on_cpu_and_unsupported_flags(tmp_path, capsys):
     assert "batched specbranch on misaligned pair (cpu)" in text
     rep = __import__("json").loads(out.read_text())
     assert rep["total_tokens"] == 12 and rep["device"] == "cpu"
-    for flags in (["--attn-backend", "dense"], ["--draft-mode", "parallel"]):
+    for flags in (["--spec-predictor", "on"], ["--prefix-cache", "on"],
+                  ["--draft-mode", "parallel"]):
         with pytest.raises(SystemExit, match="not in this slice"):
             SV.main(["--device", "cpu"] + flags)
     # as in the reference: only SpS and SpecBranch have a batched form
