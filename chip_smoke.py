@@ -16,7 +16,10 @@ Phases (any failure raises, so the script exits non-zero):
                branch) and the timing floor (a one-element add and a
                10 MB copy under the same timer); besides the main path's
                shapes, page tables as wide as a serve's, a long row at
-               B = 1 and a 2048-key shared prefix.  The shared-prefix
+               B = 1 and a 2048-key shared prefix, and the parallel-draft
+               frames of phase 13 (flash with q_ctx clamped below q_pos on
+               the slot columns and slot keys at -1; paged with lens =
+               q_start + real tokens < q_start + T).  The shared-prefix
                branch decode and the single-request verify lie on no
                engine path, in either package: their path is the kernel
                API (``kernels.ops``, as the reference's
@@ -110,7 +113,31 @@ Phases (any failure raises, so the script exits non-zero):
                ranges inside obs.profiler_session: host fetches, transfer
                bytes and streams must be equal; a table of each round's
                and each span lane's host wall time against the device-busy
-               time inside it (the host's share of a round).
+               time inside it (the host's share of a round).  It runs in a
+               fresh process (``--trace-modes``), whose one profiler
+               session also traces the same serve in parallel draft mode
+               for phase 13.
+ 13. parallel — single-pass parallel drafting and the history predictor.
+               Tiny committed pair with draft heads from init_draft_heads
+               (generator seed SV.HEADS_SEED): batched SpS and SpecBranch
+               in parallel draft mode on paged and dense, greedy and at
+               temperature 1 (epsilon 0.3 and 0, shadowed as in phase 3),
+               one preempting pool that swaps, sequential SpS and
+               SpecBranch, and the predictor on (batched, both draft
+               modes, and sequential); every drive's streams must equal
+               the same serve on the CPU, every greedy stream the
+               target's greedy decode, and batched SpS must take exactly
+               2 dispatches a round.  Full width (LLaMA-68M/7B, bf16,
+               random weights and heads, 8 x 32, paged): batched
+               SpecBranch and SpS in parallel draft mode beside the same
+               serves in sequential draft mode (wall tokens/s,
+               dispatches per round, rounds, greedy teacher-forced as in
+               phase 4), profiled serves' device time by kernel, the
+               draft frames' attention launches and draft_chunk's device
+               time; phase 12's host-share table for the parallel-mode
+               SpecBranch serve beside the sequential-mode one; batched
+               SpecBranch with the predictor on: its decided-gamma
+               histogram and rollback tokens per request beside off.
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -236,6 +263,14 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
+T0 = time.time()
+
+
+def log_phase(msg: str) -> None:
+    """A phase's header line, with the seconds since the script started."""
+    log(f"{msg} (t={time.time() - T0:.0f}s)")
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -312,11 +347,14 @@ def bound(nbytes: float, ops_: float, dtype) -> tuple:
 # ---------------------------------------------------------------------------
 
 def attn_case(rng, B, T, H, KV, hd, ps, dtype, n_idle=0, max_len=112,
-              min_len=17, n_max=None):
+              min_len=17, n_max=None, nreal=None):
     """Fragmented page tables over random ragged rows; ``n_idle`` rows are
     unbound (lens 0), as most draft rows are on the main path.  ``n_max``
     widens the tables (trash-padded) to a serve's width, which covers its
-    longest request, not the rows at hand."""
+    longest request, not the rows at hand.  ``nreal`` (B,) makes a
+    parallel-draft frame: row b's queries start at lens - nreal[b], so
+    its last T - nreal[b] queries (the draft slots) lie at or past
+    lens."""
     lens = [int(rng.integers(max(T, min_len), max_len + 1))
             for _ in range(B)]
     for b in range(B - n_idle, B):
@@ -338,12 +376,16 @@ def attn_case(rng, B, T, H, KV, hd, ps, dtype, n_idle=0, max_len=112,
     q = torch.from_numpy(rng.standard_normal((B, T, H, hd),
                                              np.float32)).to(dev, dtype)
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-    qs = torch.clamp(lens_t - T, min=0).to(torch.int32)
+    back = T if nreal is None else torch.tensor(nreal, dtype=torch.int32,
+                                                device=dev)
+    qs = torch.clamp(lens_t - back, min=0).to(torch.int32)
     return q, kp, vp, torch.from_numpy(table).to(dev), lens_t, qs
 
 
 def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0,
                     window=0, **lens_kw):
+    """The paged kernel against its plain version on ``attn_case``'s
+    tables (its keyword arguments in ``lens_kw``)."""
     q, kp, vp, table, lens, qs = attn_case(rng, B, T, H, KV, hd, ps, dtype,
                                            n_idle, **lens_kw)
     kw = dict(window=window)
@@ -358,9 +400,11 @@ def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0,
     qpos = qs.long()[:, None] + torch.arange(T, device="cuda")[None]
     vis = ((kpos[None, None] < lens.long()[:, None, None])
            & (kpos[None, None] <= qpos[:, :, None]))
-    if window > 0:
-        # the work a window leaves: the keys some query sees, read once
-        vis &= (qpos[:, :, None] - kpos[None, None]) < window
+    if window > 0 or "nreal" in lens_kw:
+        # the work a window or a frame leaves: the keys some query sees,
+        # read once, and the products the queries compute
+        if window > 0:
+            vis &= (qpos[:, :, None] - kpos[None, None]) < window
         nbytes = (2 * int(vis.any(1).sum()) * KV * hd * es
                   + 2 * q.numel() * es + (table.numel() + 2 * B) * 4)
         flops = 4 * H * hd * int(vis.sum())
@@ -529,6 +573,51 @@ def check_flash(rng, label, B, T, S, H, KV, hd, L, dtype, stale=0,
         mask = vis[:, None]
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask))
+    splits = FA.split_plan(B, T, H, KV, S, DA.sm_count(q.device))[0]
+    return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                splits=splits)
+
+
+def check_flash_frame(rng, label, B, T, S, H, KV, hd, L, dtype, nreal):
+    """Flash at a parallel-draft frame of the dense backend: after L
+    committed tokens, row b's T queries sit at L .. L + T - 1, the first
+    nreal[b] real and the rest draft slots, whose keys were written to
+    their ring slots at position -1 and whose queries see up to the last
+    real position (q_ctx < q_pos)."""
+    kpos = np.full((B, S), -1, np.int32)
+    qctx = np.zeros((B, T), np.int32)
+    for b in range(B):
+        for p in range(max(0, L + T - S), L + nreal[b]):
+            kpos[b, p % S] = p
+        qctx[b] = np.minimum(L + np.arange(T), L + nreal[b] - 1)
+    qpos = np.ascontiguousarray(np.broadcast_to(
+        np.arange(L, L + T, dtype=np.int32), (B, T)))
+    dev = "cuda"
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).to(dev, dtype)
+               for shape in ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    qp, kp, qc = (torch.from_numpy(x).to(dev) for x in (qpos, kpos, qctx))
+    out = FA.flash_attention(q, k, v, qp, kp, q_ctx=qc)
+    want = ref.flash_attention_ref(q, k, v, qp, kp, q_ctx=qc)
+    torch.cuda.synchronize()
+    err, share = check_close(f"flash_attention {label}", out, want)
+    kpl, qcl = kp.long()[:, None, :], qc.long()[:, :, None]
+    vis = (kpl >= 0) & (kpl <= qcl)
+    G = H // KV
+    es = q.element_size()
+    nbytes = (2 * int(vis.any(1).sum()) * KV * hd * es + 2 * q.numel() * es
+              + (kp.numel() + 2 * qp.numel()) * 4)
+    bms, by = bound(nbytes, 4 * hd * int(vis.sum()) * KV * G, dtype)
+    ms = time_ms(lambda: FA.flash_attention(q, k, v, qp, kp, q_ctx=qc))
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kp,
+                                                    q_ctx=qc))
+    kd = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vd = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    qd = q.transpose(1, 2).contiguous()
+    mask = vis[:, None]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                         attn_mask=mask))
     splits = FA.split_plan(B, T, H, KV, S, DA.sm_count(q.device))[0]
     return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
                 plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
@@ -1083,6 +1172,21 @@ def phase_kernels() -> dict:
     fl.append(check_flash(rng, "llama-68m dense B=56 T=1 S=512", 56, 1,
                           512, 12, 12, 64, 41, bf))
     gat.append(check_gather(rng, GATHER_FULL_CASE, 8, 16, 262144, 4, 60))
+    # the parallel-draft frames (phase 13): the 68M draft's B=8 rows (SpS)
+    # and 56 rows, 40 idle (SpecBranch), T = 16 (pending + slots on the
+    # bucket ladder), S = 512; the tiny draft's f32 frame
+    nr8 = [1, 2, 5, 1, 3, 9, 1, 2]
+    fl.append(check_flash_frame(rng, "llama-68m frame B=8 T=16 S=512", 8,
+                                16, 512, 12, 12, 64, 41, bf, nr8))
+    fl.append(check_flash_frame(rng, "zm-draft frame B=8 T=16 S=512", 8,
+                                16, 512, 2, 1, 16, 41, f32, nr8))
+    att.append(check_attention(rng, "llama-68m frame B=8 T=16", 8, 16, 12,
+                               12, 64, 16, bf, n_max=32, nreal=nr8))
+    att.append(check_attention(rng, "llama-68m frame B=56 T=16", 56, 16,
+                               12, 12, 64, 16, bf, n_idle=40, n_max=32,
+                               nreal=nr8 * 7))
+    att.append(check_attention(rng, "zm-draft frame B=8 T=16", 8, 16, 2, 1,
+                               16, 16, f32, nreal=nr8))
     timing_floor()
     for r in att + ver + gat + fl + ss + rr + br + sv:
         lib = r["library_ms"]
@@ -1624,7 +1728,8 @@ UNLISTED = {"confidence-sd": TE.ConfidenceSDEngine}
 
 
 def seq_drive(pair, ecfg, engine, prompts, n_new, totals=None,
-              need=("flash_attention",), hrad_params=None):
+              need=("flash_attention",), hrad_params=None,
+              draft_heads=None):
     """One sequential main-path drive through ``serve.serve_sequential``
     (the confidence-SD baseline, which the CLI does not list, by its class)
     with the launch counters zeroed just before and read just after; each
@@ -1632,7 +1737,7 @@ def seq_drive(pair, ecfg, engine, prompts, n_new, totals=None,
     ops.reset_launches()
     done, _, wall = SV.serve_sequential(
         pair, ecfg, UNLISTED.get(engine, engine), prompts, n_new,
-        hrad_params=hrad_params)
+        hrad_params=hrad_params, draft_heads=draft_heads)
     counts = dict(ops.LAUNCHES)
     if totals is not None:
         for k, v in counts.items():
@@ -2322,13 +2427,21 @@ def busy_in(busy, a: float, b: float) -> float:
     return sum(max(0.0, min(e, b) - max(s, a)) for s, e in busy)
 
 
-# marker kernels (``torch.cuda._sleep`` cycles) before and after the
-# traced serve: short ones before it, long ones after, told apart by their
-# device time (MARK_SPLIT_NS)
-MARK_START, MARK_END, MARK_SPLIT_NS = 1000, 100_000, 20_000
+# marker kernels (``torch.cuda._sleep`` cycles) before and after each
+# traced serve of a session: serve i's start markers sleep MARKS[i][0]
+# cycles, its end markers MARKS[i][1]; they are told apart by their
+# device time, whose class boundaries are MARK_CLASSES_NS (serve i's
+# start markers fall in class 2i, its end markers in class 2i + 1)
+MARKS = ((1000, 100_000), (300_000, 1_000_000))
+MARK_CLASSES_NS = (20_000, 100_000, 300_000, 1_500_000)
+SETTLE = 5_000_000      # the session's settling spin: a class of its own
 
 
-def round_table(rec, kernels, starts, ends) -> dict:
+def mark_class(dur_ns: int) -> int:
+    return sum(dur_ns >= t for t in MARK_CLASSES_NS)
+
+
+def round_table(rec, kernels, starts, ends, serve: int = 0) -> dict:
     """The host's share of a round: per span lane (draft, verify, commit)
     and per round, the host wall time of the recorder's spans against the
     device-busy time inside them (the union of the profiler's kernel
@@ -2339,10 +2452,12 @@ def round_table(rec, kernels, starts, ends) -> dict:
     markers right after it starts (after earlier sessions in the same
     process), so the found start markers match the last readings, the
     found end markers the first, and one side suffices.  Each offset is
-    late by one launch latency; the offset is the median of all."""
+    late by one launch latency; the offset is the median of all.  The
+    markers are those of the session's ``serve``-th traced serve
+    (``MARKS``)."""
     spins = sorted((s, e) for n, s, e in kernels if "spin" in n)
-    s_found = [s for s, e in spins if e - s < MARK_SPLIT_NS]
-    e_found = [s for s, e in spins if e - s >= MARK_SPLIT_NS]
+    s_found = [s for s, e in spins if mark_class(e - s) == 2 * serve]
+    e_found = [s for s, e in spins if mark_class(e - s) == 2 * serve + 1]
     if not s_found and not e_found:
         raise AssertionError("trace phase: no marker kernel in the trace")
     s_offs = [k / 1e9 - t for k, t in zip(s_found,
@@ -2407,10 +2522,13 @@ def round_table(rec, kernels, starts, ends) -> dict:
     return out
 
 
-def phase_trace(dev, totals, pair) -> dict:
+def phase_trace(dev, totals, pair, modes) -> list:
     """The full-width 7B batched SpecBranch greedy serve on the paged
-    backend, once untraced and once with a TraceRecorder and the loop's
-    profiler ranges on, inside ``obs.profiler_session`` (CUDA activity).
+    backend in each draft mode of ``modes`` ((draft_mode, draft heads)
+    pairs), once untraced and once with a TraceRecorder and the loop's
+    profiler ranges on, every traced serve inside ONE
+    ``obs.profiler_session`` (CUDA activity), each framed by its own
+    markers (``MARKS``).  Returns one table per mode.
     Gate: host fetches and host transfer bytes equal with and without the
     trace (and the streams).  Table: per round and per span lane (draft,
     verify, commit), the host wall time against the device-busy time
@@ -2421,24 +2539,28 @@ def phase_trace(dev, totals, pair) -> dict:
     prompts = SV.make_prompts(8)
     n_new = 32
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
-    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
-    res0, rep0, counts0, wall0, eng0 = drive(pair, ecfg, prompts, n_new,
-                                             dev)
-    fetch0, bytes0 = eng0.host_fetches, eng0.host_transfer_bytes
-    del eng0
-    for k, v in counts0.items():
-        totals[k] += v
-    free_device_memory()
-    rec = TraceRecorder()
+    runs = []
+    for mode, heads in modes:
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                            max_len=max_len, draft_mode=mode)
+        res0, rep0, counts0, wall0, eng0 = drive(pair, ecfg, prompts, n_new,
+                                                 dev, draft_heads=heads)
+        runs.append(dict(mode=mode, heads=heads, ecfg=ecfg, res0=res0,
+                         wall0=wall0, fetch0=eng0.host_fetches,
+                         bytes0=eng0.host_transfer_bytes))
+        del eng0
+        for k, v in counts0.items():
+            totals[k] += v
+        free_device_memory()
 
-    def mark(cycles: int) -> float:
+    def mark(rec, cycles: int) -> float:
         torch.cuda.synchronize()
         t = rec.now()
         torch.cuda._sleep(cycles)
         torch.cuda.synchronize()
         return t
 
-    # the session's Chrome trace (~200 MB for this serve) is written to a
+    # the session's Chrome trace (~200 MB a serve) is written to a
     # scratch directory under build/ and removed once its size is read
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
@@ -2446,45 +2568,456 @@ def phase_trace(dev, totals, pair) -> dict:
     try:
         with profiler_session(tmp.name, dev) as prof:
             # settle the freshly started session before the first marker
-            torch.cuda._sleep(MARK_END)
+            torch.cuda._sleep(SETTLE)
             torch.cuda.synchronize()
             time.sleep(0.5)
-            starts = [mark(MARK_START) for _ in range(3)]
-            ops.reset_launches()
-            res1, rep1, eng1, wall1 = SV.serve(
-                pair, ecfg, prompts, n_new, device=dev,
-                attn_backend="paged", rec=rec)
-            counts1 = dict(ops.LAUNCHES)
-            ends = [mark(MARK_END) for _ in range(3)]
+            for i, r in enumerate(runs):
+                rec = r["rec"] = TraceRecorder()
+                r["starts"] = [mark(rec, MARKS[i][0]) for _ in range(3)]
+                ops.reset_launches()
+                r["res1"], r["rep1"], eng1, r["wall1"] = SV.serve(
+                    pair, r["ecfg"], prompts, n_new, device=dev,
+                    attn_backend="paged", rec=rec, draft_heads=r["heads"])
+                r["counts1"] = dict(ops.LAUNCHES)
+                r["ends"] = [mark(rec, MARKS[i][1]) for _ in range(3)]
+                r["fetch1"] = eng1.host_fetches
+                r["bytes1"] = eng1.host_transfer_bytes
+                del eng1
     finally:
         DL.set_trace_annotations(False)
     chrome = sum(os.path.getsize(os.path.join(tmp.name, f))
                  for f in os.listdir(tmp.name))
     tmp.cleanup()
-    fetch1, bytes1 = eng1.host_fetches, eng1.host_transfer_bytes
-    del eng1
-    for k, v in counts1.items():
-        totals[k] += v
-    toks = sum(len(r.tokens) for r in res1.values())
-    log(f"  untraced serve: {toks / wall0:.1f} tok/s wall, "
-        f"{fetch0} host fetches, {bytes0} bytes; traced and profiled: "
-        f"{toks / wall1:.1f} tok/s wall, {fetch1} host fetches, {bytes1} "
-        f"bytes, {len(rec.events)} events, a {chrome / 1e6:.1f} MB Chrome "
-        f"trace (wall figures for information only)")
-    if (fetch0, bytes0) != (fetch1, bytes1):
-        raise AssertionError("the trace changed the host traffic: "
-                             f"{(fetch0, bytes0)} vs {(fetch1, bytes1)}")
-    if first_diff(res0, res1) != {i: None for i in res0}:
-        raise AssertionError("the traced serve's streams differ")
-    if counts1["paged_attention"] == 0:
-        raise AssertionError("traced serve: paged_attention not run")
     kernels = [(e.name(), e.start_ns(), e.end_ns())
                for e in prof.profiler.kineto_results.events()
                if e.device_type() == torch.autograd.DeviceType.CUDA]
-    out = round_table(rec, kernels, starts, ends)
-    out.update(tokens_per_s_untraced=toks / wall0,
-               tokens_per_s_traced=toks / wall1, host_fetches=fetch1,
-               host_bytes=bytes1)
+    log(f"  one profiler session over {len(runs)} traced serve(s): "
+        f"{len(kernels)} kernel records, a {chrome / 1e6:.1f} MB Chrome "
+        "trace")
+    out = []
+    for i, r in enumerate(runs):
+        for k, v in r["counts1"].items():
+            totals[k] += v
+        toks = sum(len(x.tokens) for x in r["res1"].values())
+        log(f"  {r['mode']} draft mode: untraced serve "
+            f"{toks / r['wall0']:.1f} tok/s wall, {r['fetch0']} host "
+            f"fetches, {r['bytes0']} bytes; traced and profiled: "
+            f"{toks / r['wall1']:.1f} tok/s wall, {r['fetch1']} host "
+            f"fetches, {r['bytes1']} bytes, {len(r['rec'].events)} events "
+            "(wall figures for information only)")
+        if (r["fetch0"], r["bytes0"]) != (r["fetch1"], r["bytes1"]):
+            raise AssertionError(
+                f"{r['mode']}: the trace changed the host traffic: "
+                f"{(r['fetch0'], r['bytes0'])} vs "
+                f"{(r['fetch1'], r['bytes1'])}")
+        if first_diff(r["res0"], r["res1"]) != {j: None for j in r["res0"]}:
+            raise AssertionError(f"{r['mode']}: the traced serve's streams "
+                                 "differ")
+        if r["counts1"]["paged_attention"] == 0:
+            raise AssertionError(f"{r['mode']}: paged_attention not run")
+        t = round_table(r["rec"], kernels, r["starts"], r["ends"], serve=i)
+        t.update(mode=r["mode"],
+                 dispatches_per_round=r["rep1"].get("dispatches_per_round"),
+                 tokens_per_s_untraced=toks / r["wall0"],
+                 tokens_per_s_traced=toks / r["wall1"],
+                 host_fetches=r["fetch1"], host_bytes=r["bytes1"],
+                 launches=r["counts1"])
+        out.append(t)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: single-pass parallel drafting and the history predictor
+# ---------------------------------------------------------------------------
+
+def draft_heads(cfg, ecfg, dev):
+    """The draft heads a parallel-draft serve of ``cfg`` uses: the
+    serve CLI's, drawn from ``SV.HEADS_SEED`` on ``dev``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SV.HEADS_SEED)
+    return M.init_draft_heads(cfg, SV.heads_k(ecfg), gen, dev)
+
+
+def check_dispatches(label, rep, eng, want=None) -> float:
+    """Dispatches per round from the serve's report; every round tuple of
+    a parallel-draft engine must carry its measured count (``want``: the
+    count every round must take)."""
+    dpr = rep["dispatches_per_round"]
+    counted = [r[3] for r in eng.timeline if len(r) > 3]
+    if len(counted) != len(eng.timeline):
+        raise AssertionError(f"{label}: a round without its dispatches")
+    if want is not None and set(counted) != {want}:
+        raise AssertionError(f"{label}: dispatches {sorted(set(counted))} "
+                             f"!= {want} a round")
+    return dpr
+
+
+def assert_cpu_equal(label, res, cres) -> None:
+    """Streams and GenStats of a card drive equal the same serve's on the
+    CPU."""
+    diff = first_diff(res, cres)
+    if any(v is not None for v in diff.values()):
+        raise AssertionError(f"{label}: streams differ from the CPU serve "
+                             f"(first divergence by request {diff})")
+    bad = [i for i in res if res[i].stats != cres[i].stats]
+    if bad:
+        raise AssertionError(f"{label}: GenStats differ from the CPU serve "
+                             f"for requests {bad}")
+
+
+def phase_parallel_tiny(dev, totals) -> dict:
+    """Parallel drafting and the predictor on the tiny committed pair:
+    every drive equals the CPU serve and the greedy decode."""
+    from repro_torch.training.pairs import get_pair
+    cache_dir = os.path.join(ROOT, ".cache", "pairs")
+    pair = get_pair("misaligned", device=dev, cache_dir=cache_dir)
+    cpu = get_pair("misaligned", device="cpu", cache_dir=cache_dir)
+    prompts = SV.make_prompts(4)
+    n_new = 32
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
+    par = EngineConfig(gamma=4, c=10.0, max_len=max_len,
+                       draft_mode="parallel")
+    heads = draft_heads(pair[1], par, dev)
+    cheads = {k: v.cpu() for k, v in heads.items()}
+    out = {}
+    drives = []
+    for engine in ("specbranch", "sps"):
+        for backend in ("paged", "dense"):
+            for name, temp, eps in (("greedy", 0.0, EPS),
+                                    ("temp1", 1.0, EPS),
+                                    ("temp1-chains", 1.0, 0.0)):
+                if engine == "sps" and name == "temp1-chains":
+                    continue        # SpS has no epsilon stop: as temp1
+                drives.append((f"{engine} {backend} {name}", engine,
+                               backend, temp, eps, "parallel", "off", {}))
+    drives.append(("specbranch paged preempt", "specbranch", "paged", 0.0,
+                   0.0, "parallel", "off",
+                   dict(page_size=4, pool_pages=200)))
+    drives.append(("specbranch paged predictor", "specbranch", "paged",
+                   1.0, EPS, "sequential", "on", {}))
+    drives.append(("specbranch paged parallel predictor", "specbranch",
+                   "paged", 1.0, 0.0, "parallel", "on", {}))
+    drives.append(("sps dense parallel predictor", "sps", "dense", 0.0,
+                   EPS, "parallel", "on", {}))
+    for label, engine, backend, temp, eps, mode, pred, kw in drives:
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, epsilon=eps,
+                            max_len=max_len, draft_mode=mode,
+                            spec_predictor=pred)
+        hd = heads if mode == "parallel" else None
+        with VerifyShadow() as sh:
+            res, rep, counts, wall, eng = drive(
+                pair, ecfg, prompts, n_new, dev, attn_backend=backend,
+                engine=engine, draft_heads=hd, max_batch=4, **kw)
+        for k, v in counts.items():
+            totals[k] += v
+        cres, _, _, cwall = SV.serve(
+            cpu, ecfg, prompts, n_new, device="cpu", attn_backend=backend,
+            engine=engine, max_batch=4,
+            draft_heads=cheads if hd is not None else None, **kw)
+        assert_cpu_equal(f"parallel tiny {label}", res, cres)
+        if temp == 0.0:
+            bad = [i for i in range(len(prompts))
+                   if res[i].tokens != greedy[i]]
+            if bad:
+                raise AssertionError(f"parallel tiny {label}: requests "
+                                     f"{bad} differ from greedy decoding")
+        else:
+            check_shadow(f"parallel tiny {label}", sh, counts,
+                         chains=eps == 0.0)
+        kernel = "flash_attention" if backend == "dense" \
+            else "paged_attention"
+        if counts[kernel] == 0:
+            raise AssertionError(f"parallel tiny {label}: {kernel} not run")
+        dpr = (check_dispatches(f"parallel tiny {label}", rep, eng,
+                                2 if engine == "sps" else None)
+               if mode == "parallel" else rep["dispatches_per_round"])
+        if kw and (rep["preemptions"] == 0 or counts["paged_gather"] == 0):
+            raise AssertionError(f"parallel tiny {label}: no preemption / "
+                                 f"swap-in ({rep['preemptions']}, {counts})")
+        log(f"  parallel tiny {label}: rounds={rep['rounds']} "
+            f"dispatches/round={dpr:.2f} preemptions={rep['preemptions']} "
+            f"wall={wall:.2f}s (CPU {cwall:.1f}s), streams and GenStats = "
+            f"the CPU serve's, launches={counts}")
+        out[label] = dict(rounds=rep["rounds"], dispatches_per_round=dpr,
+                          wall_s=wall, launches=counts)
+        del eng
+    # the sequential engines: parallel drafting, and the predictor
+    cprompts = prompts[:2]
+    for label, engine, temp, eps, mode, pred in (
+            ("seq sps parallel", "sps", 0.0, EPS, "parallel", "off"),
+            ("seq sps parallel temp1", "sps", 1.0, EPS, "parallel", "off"),
+            ("seq specbranch parallel", "specbranch", 0.0, 0.0, "parallel",
+             "off"),
+            ("seq specbranch parallel temp1", "specbranch", 1.0, EPS,
+             "parallel", "off"),
+            ("seq specbranch predictor temp1", "specbranch", 1.0, EPS,
+             "sequential", "on")):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, epsilon=eps,
+                            max_len=512, draft_mode=mode,
+                            spec_predictor=pred)
+        hd = heads if mode == "parallel" else None
+        res, counts, wall = seq_drive(pair, ecfg, engine, cprompts, n_new,
+                                      totals, draft_heads=hd)
+        cdone, _, cwall = SV.serve_sequential(
+            cpu, ecfg, engine, cprompts, n_new,
+            draft_heads=cheads if hd is not None else None)
+        assert_cpu_equal(f"parallel tiny {label}", res,
+                         {r.rid: r.result for r in cdone})
+        if temp == 0.0 and any(res[i].tokens != greedy[i]
+                               for i in range(len(cprompts))):
+            raise AssertionError(f"parallel tiny {label}: differs from "
+                                 "greedy decoding")
+        disp = [r[3] for r in res[0].timeline if len(r) > 3]
+        log(f"  parallel tiny {label}: wall={wall:.2f}s (CPU "
+            f"{cwall:.1f}s), rounds={len(res[0].timeline)}, dispatches "
+            f"{sorted(set(disp))}, streams and GenStats = the CPU serve's, "
+            f"flash launches={counts['flash_attention']}")
+        out[label] = dict(wall_s=wall, launches=counts)
+    return out
+
+
+class FrameLaunches:
+    """While active, counts the attention launches inside the batched
+    draft decoders' parallel-draft forwards (``step_draft``)."""
+
+    def __init__(self):
+        from repro_torch.serving.batched_engine import BatchedDecoder
+        self.cls, self.orig = BatchedDecoder, BatchedDecoder.step_draft
+        self.frames, self.launches = 0, {}
+
+    def __enter__(self):
+        me = self
+
+        def step_draft(dec, *a, **kw):
+            n0 = dict(ops.LAUNCHES)
+            out = me.orig(dec, *a, **kw)
+            me.frames += 1
+            for k, v in ops.LAUNCHES.items():
+                if v != n0[k]:
+                    me.launches[k] = me.launches.get(k, 0) + v - n0[k]
+            return out
+        self.cls.step_draft = step_draft
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step_draft = self.orig
+
+
+def time_draft_chunk(eng, dev) -> dict:
+    """Device time of one ``draft_chunk`` pass at the serve's shapes (the
+    draft decoder's rows, the bucketed frame width of a one-token pending
+    plus G slots: G = gamma for SpS, max(gamma, gamma_branch) for
+    SpecBranch), on random logits and features."""
+    n = eng.dft_dec.n_rows
+    G = (eng.ecfg.gamma if eng.name == "batched-sps"
+         else max(eng.ecfg.gamma, eng.ecfg.gamma_branch))
+    T = DL.bucket(2 + G)
+    V, D = eng.dcfg.vocab_size, eng.dcfg.d_model
+    g = torch.Generator(device=dev).manual_seed(5)
+    lg = torch.randn((n, T, V), generator=g, device=dev)
+    feats = torch.randn((n, T, D), generator=g, device=dev,
+                        dtype=eng.dcfg.tdtype)
+    last = np.ones(n, np.int32)
+    rids = np.arange(n, dtype=np.int32)
+    ctrs = np.zeros(n, np.int32)
+
+    def run():
+        return DL.draft_chunk(lg, feats, eng.dp["final_norm"],
+                              eng.draft_heads["heads"], last, rids, ctrs,
+                              eng._key, g=G, dtemp=eng._dt, stemp=eng._st,
+                              eps=eng.dcfg.norm_eps,
+                              cap=eng.dcfg.final_softcap)
+    # the device time of its kernels from the profiler (a CUDA-event pair
+    # would also hold the host's hashing of the uniform grid and its
+    # synchronous upload), over ten passes
+    for _ in range(3):
+        run()
+    prof = busy_profile(lambda: [run() for _ in range(10)])
+    ms = prof["device_s"] * 1e3 / 10
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(10):
+        run()
+    torch.cuda.synchronize()
+    host_ms = (time.time() - t0) * 1e3 / 10
+    # the bytes it must move: logits and features in, the head stack, the
+    # q stack and packet out
+    nbytes = (lg.numel() * 4 + feats.numel() * feats.element_size()
+              + G * D * V * eng.draft_heads["heads"].element_size()
+              + (G + 1) * n * V * 4 + n * (G + 1) * 2 * 4)
+    bms, by = bound(nbytes, 2 * n * G * D * V, eng.dcfg.tdtype)
+    return dict(ms=ms, wall_ms=host_ms, bound_ms=bms, bound_by=by, rows=n,
+                width=T, G=G)
+
+
+def traced_modes_in_child(totals) -> dict:
+    """Run ``--trace-modes`` (the 7B SpecBranch serve traced in sequential
+    and in parallel draft mode, one profiler session) in a fresh process,
+    echo its log, add its launches to ``totals`` and return its tables by
+    draft mode.  A fresh process: a later profiler session of one
+    process has lost its marker kernels (all of them, once)."""
+    path = os.path.join(ROOT, "build", "trace_modes.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--trace-modes", path], capture_output=True,
+                          text=True, timeout=900)
+    for ln in proc.stdout.splitlines():
+        log(f"  | {ln}")
+    if proc.returncode != 3:
+        raise AssertionError(f"the traced child exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    with open(path) as f:
+        got = json.load(f)
+    for k, v in got["launches"].items():
+        totals[k] += v
+    return {t["mode"]: t for t in got["tables"]}
+
+
+def phase_trace_modes(dev, path) -> None:
+    """``--trace-modes PATH``: phase 12's measurement, the sequential and
+    the parallel-draft serve in one profiler session; writes the tables
+    and the launches to PATH (JSON)."""
+    pair = SV.load_pair("paper-llama", dev)
+    heads = draft_heads(pair[1], EngineConfig(gamma=4, c=10.0), dev)
+    totals = {k: 0 for k in KERNELS}
+    tables = phase_trace(dev, totals, pair, modes=(("sequential", None),
+                                                   ("parallel", heads)))
+    with open(path, "w") as f:
+        json.dump({"tables": tables, "launches": totals}, f)
+
+
+def phase_parallel_full(dev, totals, pair, traced) -> dict:
+    """Parallel drafting and the predictor at full width, paged, 8 x 32
+    greedy; ``traced``: phase 12's host-share tables by draft mode (both
+    serves in one profiler session)."""
+    prompts = SV.make_prompts(8)
+    n_new = 32
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
+    heads = draft_heads(pair[1], EngineConfig(gamma=4, c=10.0), dev)
+    out = {}
+    for engine in ("specbranch", "sps"):
+        for mode in ("sequential", "parallel"):
+            label = f"{engine} {mode} draft"
+            ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                                max_len=max_len, draft_mode=mode)
+            hd = heads if mode == "parallel" else None
+            with FrameLaunches() as fr:
+                res, rep, counts, wall, eng = drive(
+                    pair, ecfg, prompts, n_new, dev, engine=engine,
+                    draft_heads=hd)
+            for k, v in counts.items():
+                totals[k] += v
+            toks = sum(len(r.tokens) for r in res.values())
+            dpr = (check_dispatches(f"full {label}", rep, eng,
+                                    2 if engine == "sps" else None)
+                   if mode == "parallel" else rep["dispatches_per_round"])
+            log(f"  full {label}: {toks / wall:.1f} tok/s wall, rounds="
+                f"{rep['rounds']}, dispatches/round={dpr:.2f}, "
+                f"draft frames={fr.frames} with attention launches "
+                f"{fr.launches}, launches={counts}")
+            tf = teacher_forced(pair[2], pair[3], prompts, res, greedy,
+                                n_new)
+            r = dict(tokens_per_s=toks / wall, wall_s=wall,
+                     rounds=rep["rounds"], dispatches_per_round=dpr,
+                     frames=fr.frames, frame_launches=fr.launches,
+                     tf_argmax=tf["argmax"], tf_tokens=tf["tokens"],
+                     rollback_per_request=float(np.mean(
+                         [r_.stats.rollback_tokens
+                          for r_ in res.values()])),
+                     launches=counts)
+            if mode == "parallel":
+                if not fr.frames or not fr.launches.get("paged_attention"):
+                    raise AssertionError(f"full {label}: no draft frame "
+                                         "ran the paged kernel")
+                r["draft_chunk"] = dc = time_draft_chunk(eng, dev)
+                log(f"  full {label}: draft_chunk {dc['ms']:.4f} ms of "
+                    f"device time a pass ({dc['wall_ms']:.3f} ms of wall "
+                    f"with its host work) over {dc['rows']} rows x width "
+                    f"{dc['width']}, G={dc['G']} (bound {dc['bound_ms']:.4f}"
+                    f", {dc['bound_by']})")
+            del eng
+            free_device_memory()
+            # where the time goes: one profiled serve (8 new tokens)
+            prof = busy_profile(lambda: SV.serve(
+                pair, ecfg, prompts, 8, device=dev, engine=engine,
+                draft_heads=hd))
+            log(f"  full {label} profile: card busy "
+                f"{prof['busy_share']:.3f} of {prof['wall_s']:.2f}s wall, "
+                f"device {prof['device_s']:.4f}s; by kernel:")
+            for n, t in prof["top"]:
+                log(f"    {t * 1e3:9.2f} ms  {n}")
+            log_paged(prof)
+            r["profile"] = prof
+            out[label] = r
+            free_device_memory()
+    for engine in ("specbranch", "sps"):
+        s, p = out[f"{engine} sequential draft"], \
+            out[f"{engine} parallel draft"]
+        log(f"  full {engine}: parallel vs sequential draft mode: "
+            f"{p['tokens_per_s']:.1f} vs {s['tokens_per_s']:.1f} tok/s wall, "
+            f"dispatches/round {p['dispatches_per_round']:.2f} vs "
+            f"{s['dispatches_per_round']:.2f}, rounds {p['rounds']} vs "
+            f"{s['rounds']}, device "
+            f"{p['profile']['device_s']:.4f} vs "
+            f"{s['profile']['device_s']:.4f}s a profiled serve")
+    # the host's share of a parallel-mode round beside phase 12's
+    # sequential-mode one (both serves in phase 12's profiler session)
+    del heads
+    free_device_memory()
+    trace, trace_seq = traced["parallel"], traced["sequential"]
+    out["trace"] = trace
+    log("  host share, parallel vs sequential draft mode (phase 12's "
+        "session): lane, spans, host wall ms, busy ms, host share")
+    for lane in ("draft", "verify", "commit"):
+        a, b = trace["lanes"][lane], trace_seq["lanes"][lane]
+        log(f"    {lane:7s} {a['spans']:4d} {a['wall_ms']:9.2f} "
+            f"{a['busy_ms']:8.2f} {a['host_share']:6.3f}   |   "
+            f"{b['spans']:4d} {b['wall_ms']:9.2f} {b['busy_ms']:8.2f} "
+            f"{b['host_share']:6.3f}")
+    for t, name in ((trace, "parallel"), (trace_seq, "sequential")):
+        log(f"    rounds ({name}) {len(t['rounds'])} rounds, "
+            f"{t['round_wall_ms']:.2f} ms wall, {t['round_busy_ms']:.2f} ms "
+            f"busy, host share "
+            f"{1.0 - t['round_busy_ms'] / max(t['round_wall_ms'], 1e-9):.3f}"
+            f", dispatches/round {t.get('dispatches_per_round')}")
+    for t, name in ((trace, "parallel"), (trace_seq, "sequential")):
+        w = sorted(r["wall_ms"] for r in t["rounds"]
+                   if r["mode"] == "parallel")
+        if w:
+            log(f"    {name} draft mode: {len(w)} verify (branch-stage) "
+                f"rounds, wall {w[0]:.2f}-{w[-1]:.2f} ms (median "
+                f"{float(np.median(w)):.2f})")
+    # the predictor at full width (sequential draft mode, greedy): the
+    # decided-gamma histogram and rollback tokens beside off
+    from repro_torch.obs import TraceRecorder
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len,
+                        spec_predictor="on")
+    rec = TraceRecorder()
+    res, rep, counts, wall, eng = drive(pair, ecfg, prompts, n_new, dev,
+                                        rec=rec)
+    del eng
+    for k, v in counts.items():
+        totals[k] += v
+    hist = {}
+    for e in rec.events:
+        if e["kind"] == "spec" and e.get("pred") is not None:
+            hist[e["pred"]["gamma"]] = hist.get(e["pred"]["gamma"], 0) + 1
+    rb = float(np.mean([r.stats.rollback_tokens for r in res.values()]))
+    toks = sum(len(r.tokens) for r in res.values())
+    off = out["specbranch sequential draft"]
+    tf = teacher_forced(pair[2], pair[3], prompts, res, greedy, n_new)
+    log(f"  full specbranch predictor on: {toks / wall:.1f} tok/s wall, "
+        f"rounds={rep['rounds']}, decided gamma histogram "
+        f"{dict(sorted(hist.items()))}, rollback tokens per request {rb:.2f}"
+        f" (off: {off['rollback_per_request']:.2f}, {off['rounds']} rounds,"
+        f" {off['tokens_per_s']:.1f} tok/s)")
+    if not hist:
+        raise AssertionError("full predictor: no decision recorded")
+    out["predictor"] = dict(gamma_hist=hist, rollback_per_request=rb,
+                            rounds=rep["rounds"], tokens_per_s=toks / wall,
+                            tf_argmax=tf["argmax"])
     return out
 
 
@@ -2534,8 +3067,8 @@ def main() -> int:
     smi = nvidia_smi()
     t0 = time.time()
     build.lib()
-    log(f"[1] build: {build.BUILD_INFO.get('seconds', 0.0):.1f}s "
-        f"({time.time() - t0:.1f}s with load); card: {smi}")
+    log_phase(f"[1] build: {build.BUILD_INFO.get('seconds', 0.0):.1f}s "
+              f"({time.time() - t0:.1f}s with load); card: {smi}")
     log_ptxas(str(build.BUILD_INFO.get("ptxas", "")))
     if "--profile" in sys.argv[1:]:
         log(f"[profile] phase 4's profiled serve, port from {SRC}")
@@ -2549,43 +3082,59 @@ def main() -> int:
         log("[probe] attention tile loop phase by phase")
         phase_probe()
         return 3                # a probe run gives no smoke result
-    log("[2] kernels vs plain versions")
+    if "--trace-modes" in sys.argv[1:]:
+        log("[trace-modes] the 7B SpecBranch serve traced in both draft "
+            "modes")
+        phase_trace_modes(dev, sys.argv[sys.argv.index("--trace-modes")
+                                        + 1])
+        return 3                # a child of phase 13: no smoke result
+    log_phase("[2] kernels vs plain versions")
     cases = phase_kernels()
     totals = {k: 0 for k in KERNELS}
     phase_kernel_api(cases, totals)
     if "--kernels" in sys.argv[1:]:
         return 3                # phases 1-2 only: no smoke result
-    log("[3] tiny committed pair, f32")
+    log_phase("[3] tiny committed pair, f32")
     phase_tiny(dev, totals)
-    log("[4] full-width LLaMA-68M/7B pair, bf16, random weights")
+    log_phase("[4] full-width LLaMA-68M/7B pair, bf16, random weights")
     pair = SV.load_pair("paper-llama", dev)
     without = {"batched": phase_full(dev, totals, pair)}
-    log("[5] sequential engines, tiny committed pair, f32")
+    log_phase("[5] sequential engines, tiny committed pair, f32")
     phase_seq_tiny(dev, totals)
-    log("[6] sequential engines, full-width LLaMA-68M/7B pair, bf16")
+    log_phase("[6] sequential engines, full-width LLaMA-68M/7B pair, "
+              "bf16")
     without["seq"] = phase_seq_full(dev, totals, pair)
     del pair
-    log("[7] SSM and hybrid tiny pairs (falcon-shaped, jamba-shaped), f32")
+    log_phase("[7] SSM and hybrid tiny pairs (falcon-shaped, "
+              "jamba-shaped), f32")
     phase_hybrid(dev, totals)
-    log("[8] full-width falcon-mamba-7b with its draft, bf16, random "
-        "weights")
+    log_phase("[8] full-width falcon-mamba-7b with its draft, bf16, "
+              "random weights")
     phase_falcon(dev, totals)
-    log(f"[9] H-RAD (init seed {HRAD_SEED}) and batched SpS, tiny "
-        "committed pair, f32")
+    log_phase(f"[9] H-RAD (init seed {HRAD_SEED}) and batched SpS, tiny "
+              "committed pair, f32")
     phase_hrad_tiny(dev, totals)
-    log("[10] H-RAD and batched SpS, full-width LLaMA-68M/7B pair, bf16")
+    log_phase("[10] H-RAD and batched SpS, full-width LLaMA-68M/7B pair, "
+              "bf16")
     free_device_memory()
     pair = SV.load_pair("paper-llama", dev)
     phase_hrad_full(dev, totals, pair, without)
-    log("[11] dense backend: tiny committed and jamba-shaped pairs (f32), "
-        "full-width LLaMA-68M/7B (bf16)")
+    log_phase("[11] dense backend: tiny committed and jamba-shaped pairs "
+              "(f32), full-width LLaMA-68M/7B (bf16)")
     free_device_memory()
     phase_dense_tiny(dev, totals)
     phase_dense_full(dev, totals, pair, without["batched"]["profile"])
-    log("[12] trace recorder: full-width LLaMA-68M/7B batched SpecBranch, "
-        "untraced and traced under the CUDA profiler")
+    log_phase("[12] trace recorder: full-width LLaMA-68M/7B batched "
+              "SpecBranch, untraced and traced under the CUDA profiler "
+              "(a fresh process; its parallel-draft serve is phase 13's)")
     free_device_memory()
-    phase_trace(dev, totals, pair)
+    traced = traced_modes_in_child(totals)
+    log_phase("[13] parallel drafting and the history predictor: tiny "
+              "committed pair (f32), full-width LLaMA-68M/7B (bf16)")
+    free_device_memory()
+    phase_parallel_tiny(dev, totals)
+    free_device_memory()
+    phase_parallel_full(dev, totals, pair, traced)
     del pair
     for k, v in totals.items():
         if v == 0:
@@ -2608,6 +3157,7 @@ def main() -> int:
                           plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                           bound_by=c["bound_by"],
                           library_ms=c["library_ms"], case=c["case"]))
+    log_phase("done")
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ Two modes, with the reference's default rule (batched for the engines
 that have a batched implementation, sequential otherwise):
 
   * ``--mode batched`` — batched SpS or SpecBranch
-    (``repro_torch.serving``) with the sequential draft loop, over paged
+    (``repro_torch.serving``), over paged
     KV (``--attn-backend paged``, the default, as in the reference) or
     the dense N-row caches (``--attn-backend dense``, the reference's
     equivalence oracle);
@@ -19,8 +19,13 @@ Same flags and reports as the reference's, plus ``--device``
 ``--trace PATH`` writes a Perfetto trace.json of the run, ``--metrics-out
 PATH`` the metrics registry, and ``--profile-dir DIR`` a
 ``torch.profiler`` Chrome trace (with the loop's named ranges) into DIR,
-in both modes.  Other values of its flags exit with a message naming the
-later slice.
+in both modes.  ``--spec-predictor on|oracle`` installs the history
+predictor; ``--draft-mode parallel`` drafts each chunk in one masked
+forward through multi-position draft heads (``load_draft_heads``: the
+reference's trained heads for the tiny pairs, read from its cache, or an
+exit naming training when they are missing; seeded random heads for
+``paper-llama``).  ``--prefix-cache on`` and ``--mesh`` exit with a
+message naming the later slice.
 ``--pair`` takes the reference's pairs — the committed Zipf-Markov
 ``misaligned`` / ``aligned`` pairs and the tiny random-init SSM-bearing
 ``falcon-shaped`` / ``jamba-shaped`` pairs (their mamba state rides the
@@ -29,7 +34,7 @@ mode) — and two configs the reference defines, served at full width with
 random weights from fixed seeds (target 0, draft 1; no checkpoint is
 needed): ``paper-llama``, the paper's LLaMA-68M draft / LLaMA-7B target,
 and ``falcon-mamba-7b`` with its ``draft()`` (2 Mamba layers, d 512),
-both bf16.
+both bf16 (``paper-llama``'s draft heads from seed 2).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
@@ -73,12 +78,14 @@ from repro_torch.runtime.specbranch import SpecBranchEngine
 from repro_torch.serving import (BatchedSpecBranchEngine, BatchedSpSEngine,
                                  ContinuousBatchScheduler, ServeRequest)
 from repro_torch.serving import device_loop as DL
-from repro_torch.training.pairs import (HYBRID_KINDS, VOCAB, get_pair,
+from repro_torch.training.pairs import (HYBRID_KINDS, VOCAB,
+                                        draft_heads_for, get_pair,
                                         hybrid_pair)
 
 FULL_WIDTH = ("paper-llama", "falcon-mamba-7b")
 PAIRS = ("misaligned", "aligned") + HYBRID_KINDS + FULL_WIDTH
 SSM_PAIRS = HYBRID_KINDS + ("falcon-mamba-7b",)
+HEADS_SEED = 2      # paper-llama's random draft heads (target 0, draft 1)
 
 ENGINES = {
     "autoregressive": AutoregressiveEngine,
@@ -114,6 +121,32 @@ def load_pair(kind: str, device):
     return get_pair(kind, device=device)
 
 
+def heads_k(ecfg: EngineConfig) -> int:
+    """Draft heads a parallel-draft serve loads: enough for the longest
+    chunk either stage drafts, at least 4 (the reference's rule)."""
+    return max(ecfg.gamma, ecfg.gamma_branch, 4)
+
+
+def load_draft_heads(pair_kind: str, ecfg: EngineConfig, pair, device):
+    """Multi-position draft heads for ``draft_mode="parallel"``
+    (DESIGN.md §7.12); None in sequential mode, where heads are inert.
+    The tiny pairs' trained heads come from the reference's cache
+    (``training.pairs.draft_heads_for``); ``paper-llama`` draws random
+    heads from a seeded generator, as its weights are (``main`` has
+    refused SSM-bearing pairs and non-drafting engines)."""
+    if ecfg.draft_mode != "parallel":
+        return None
+    K = heads_k(ecfg)
+    if pair_kind in FULL_WIDTH:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(HEADS_SEED)
+        return M.init_draft_heads(pair[1], K, gen, device)
+    try:
+        return draft_heads_for(pair_kind, K=K, device=device)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e))
+
+
 def make_prompts(n: int, length: int = 16, seed: int = 3
                  ) -> List[List[int]]:
     """The reference driver's prompts: Zipf-Markov samples over the
@@ -134,16 +167,18 @@ def serve(pair, ecfg: EngineConfig, prompts, new_tokens: int, *,
           pool_pages: Optional[int] = None, swap_pages: int = 256,
           arrival_interval: float = 0.0, engine: str = "specbranch",
           hrad_params=None, attn_backend: str = "paged",
-          rec=NULL_RECORDER):
+          draft_heads=None, rec=NULL_RECORDER):
     """Build the batched ``engine`` (a name in ``BATCHED_ENGINES``; with
-    an H-RAD MLP for SpecBranch) on ``attn_backend`` with the recorder
-    ``rec`` and its scheduler, and serve ``prompts``.  Returns (results by
-    rid, scheduler report, engine, wall seconds)."""
+    an H-RAD MLP for SpecBranch, draft heads for parallel drafting) on
+    ``attn_backend`` with the recorder ``rec`` and its scheduler, and
+    serve ``prompts``.  Returns (results by rid, scheduler report,
+    engine, wall seconds)."""
     dp, dcfg, tp, tcfg = pair
     eng = BATCHED_ENGINES[engine](
         dp, dcfg, tp, tcfg, ecfg, max_batch=max_batch,
         page_size=page_size, pool_pages=pool_pages, swap_pages=swap_pages,
-        hrad_params=hrad_params, attn_backend=attn_backend, device=device)
+        hrad_params=hrad_params, attn_backend=attn_backend,
+        draft_heads=draft_heads, device=device)
     eng.set_recorder(rec)        # before the scheduler picks up eng.rec
     sched = ContinuousBatchScheduler(eng)
     reqs = [ServeRequest(rid=i, prompt=p, max_new_tokens=new_tokens,
@@ -159,27 +194,30 @@ def serve(pair, ecfg: EngineConfig, prompts, new_tokens: int, *,
     return results, sched.report(), eng, time.time() - t0
 
 
-def build_engine(engine, pair, ecfg: EngineConfig, hrad_params=None):
+def build_engine(engine, pair, ecfg: EngineConfig, hrad_params=None,
+                 draft_heads=None):
     """A sequential engine from its name in ``ENGINES`` or its class
-    (SpecBranch with the H-RAD MLP ``hrad_params``, if given)."""
+    (SpecBranch with the H-RAD MLP ``hrad_params``, if given; the
+    drafting engines with ``draft_heads``)."""
     cls = ENGINES[engine] if isinstance(engine, str) else engine
     dp, dcfg, tp, tcfg = pair
     if cls in (AutoregressiveEngine, LookaheadEngine):   # target only
         return cls(tp, tcfg, ecfg)
     if cls is SpecBranchEngine:
-        return cls(dp, dcfg, tp, tcfg, ecfg, hrad_params=hrad_params)
-    return cls(dp, dcfg, tp, tcfg, ecfg)
+        return cls(dp, dcfg, tp, tcfg, ecfg, hrad_params=hrad_params,
+                   draft_heads=draft_heads)
+    return cls(dp, dcfg, tp, tcfg, ecfg, draft_heads=draft_heads)
 
 
 def serve_sequential(pair, ecfg: EngineConfig, engine, prompts,
                      new_tokens: int, *, seed: int = 0, hrad_params=None,
-                     rec=NULL_RECORDER):
+                     draft_heads=None, rec=NULL_RECORDER):
     """Run ``prompts`` one after another through the sequential
     ``engine`` (a name in ``ENGINES`` or an engine class) with the
     recorder ``rec``; request keys split from ``PRNGKey(seed)`` as the
     reference's ``launch.serve`` does.  Returns (requests, scheduler,
     wall s)."""
-    eng = build_engine(engine, pair, ecfg, hrad_params)
+    eng = build_engine(engine, pair, ecfg, hrad_params, draft_heads)
     eng.set_recorder(rec)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
@@ -191,8 +229,9 @@ def serve_sequential(pair, ecfg: EngineConfig, engine, prompts,
 
 def run_sequential(args, ecfg: EngineConfig, prompts, pair, device,
                    rec=NULL_RECORDER) -> dict:
-    done, sched, wall = serve_sequential(pair, ecfg, args.engine, prompts,
-                                         args.new_tokens, rec=rec)
+    done, sched, wall = serve_sequential(
+        pair, ecfg, args.engine, prompts, args.new_tokens, rec=rec,
+        draft_heads=load_draft_heads(args.pair, ecfg, pair, device))
     cost = CostModel(c=args.c)
     agg = sched.aggregate(done, cost)
     if args.arrival_interval > 0:
@@ -223,8 +262,6 @@ def _device_name(device) -> str:
 
 def _unsupported(args) -> Optional[str]:
     checks = [
-        (args.spec_predictor != "off", "--spec-predictor"),
-        (args.draft_mode != "sequential", "--draft-mode parallel"),
         (args.prefix_cache != "off", "--prefix-cache on"),
         (args.mesh is not None, "--mesh"),
     ]
@@ -287,6 +324,10 @@ def main(argv=None) -> None:
         raise SystemExit("--draft-mode parallel needs an attention-only "
                          f"draft model; --pair {args.pair} has mamba "
                          "layers")
+    if args.draft_mode == "parallel" and args.engine not in ("sps",
+                                                             "specbranch"):
+        raise SystemExit("--draft-mode parallel requires a drafting "
+                         f"engine (sps/specbranch), not {args.engine}")
     if args.mode == "batched" and args.engine not in BATCHED_ENGINES:
         raise SystemExit(
             f"--mode batched supports {sorted(BATCHED_ENGINES)}; "
@@ -303,7 +344,9 @@ def main(argv=None) -> None:
     max_len = args.max_len or auto_max_len(prompts, args.new_tokens,
                                            args.gamma, args.c)
     ecfg = EngineConfig(gamma=args.gamma, c=args.c,
-                        temperature=args.temperature, max_len=max_len)
+                        temperature=args.temperature,
+                        spec_predictor=args.spec_predictor,
+                        draft_mode=args.draft_mode, max_len=max_len)
     try:
         pair = load_pair(args.pair, device)
     except FileNotFoundError as e:
@@ -342,7 +385,8 @@ def run_batched(args, ecfg: EngineConfig, prompts, pair, device,
         max_batch=args.max_batch, page_size=args.page_size,
         pool_pages=args.pool_pages, swap_pages=args.swap_pages,
         arrival_interval=args.arrival_interval, engine=args.engine,
-        attn_backend=args.attn_backend, rec=rec)
+        attn_backend=args.attn_backend, rec=rec,
+        draft_heads=load_draft_heads(args.pair, ecfg, pair, device))
     rep["device"] = _device_name(device)
     print(f"\n== batched {args.engine} on {args.pair} pair ({rep['device']}): "
           f"{len(results)} requests, max_batch={args.max_batch}, "
@@ -352,7 +396,9 @@ def run_batched(args, ecfg: EngineConfig, prompts, pair, device,
         print(f"req {rid}: {len(r.tokens)} tok  M={r.stats.mean_accepted:.2f}"
               f"  RB={r.stats.rollback_rate:.2f}")
     pool = rep["pool"]
-    print(f"rounds: {rep['rounds']}  preemptions: {rep['preemptions']}")
+    print(f"rounds: {rep['rounds']}  preemptions: {rep['preemptions']}"
+          f"  dispatches/round: "
+          f"{rep.get('dispatches_per_round', float('nan')):.2f}")
     print(f"TTFT p50/p95 (modeled): {rep['ttft_p50']:.1f}/"
           f"{rep['ttft_p95']:.1f}   ITL p50/p95: {rep['itl_p50']:.1f}/"
           f"{rep['itl_p95']:.1f}")

@@ -86,8 +86,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, cache: Optional[Params] = None,
               window: int = 0, kv_chunk: int = 2048,
               cache_mode: str = "append",
-              paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-              ) -> torch.Tensor:
+              paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              pdraft: Optional[Params] = None) -> torch.Tensor:
     """One attention block (pre-norm, residual outside).
 
     Dense ring cache ``{"k": (B, Sc, KV, hd), "v": ..., "pos": (B, Sc)
@@ -110,6 +110,16 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     runs over the pages through ``ops.paged_attention`` with ``q_start =
     positions[:, 0]``.  Without a cache the block attends over the chunk
     itself.
+
+    Parallel draft slots (DESIGN.md §7.12): ``pdraft`` = ``{"cols": (B, T)
+    bool, "ctx": (B, T) int32}`` marks chunk columns that are draft slots.
+    They keep their true positions for RoPE and the window, but their KEYS
+    are stored with position -1 (on a dense ring at slot ``position %
+    Sc``, where the real token will later land), so no query sees them,
+    and their QUERIES are clamped to the ``ctx`` horizon (the last real
+    position).  The paged path needs neither: slot positions lie at or
+    beyond ``lens``, so their writes go to the trash page and the kernel
+    shows every query only keys ``< lens``.
     """
     B, T, _D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -124,9 +134,16 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
 
+    store_pos, q_ctx = positions, None
+    if pdraft is not None:
+        store_pos = torch.where(pdraft["cols"],
+                                torch.full_like(positions, -1), positions)
+        q_ctx = pdraft["ctx"]
+
     if cache is not None and "k" in cache:
         out = _attend_ring(q, k, v, positions, cache, cfg, window=window,
-                           kv_chunk=kv_chunk, cache_mode=cache_mode)
+                           kv_chunk=kv_chunk, cache_mode=cache_mode,
+                           store_pos=store_pos, q_ctx=q_ctx)
         return out.reshape(B, T, H * hd) @ p["wo"]
     if cache is not None:
         if paged is None:
@@ -148,44 +165,49 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                   window=window, cap=cfg.attn_softcap)
         return out.reshape(B, T, H * hd) @ p["wo"]
 
-    out = attend(q, k, v, positions, positions, causal=cfg.causal,
-                 window=window, cap=cfg.attn_softcap, kv_chunk=kv_chunk)
+    out = attend(q, k, v, positions, store_pos, causal=cfg.causal,
+                 window=window, cap=cfg.attn_softcap, kv_chunk=kv_chunk,
+                 q_ctx=q_ctx)
     return out.reshape(B, T, H * hd) @ p["wo"]
 
 
 def _attend_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  positions: torch.Tensor, cache: Params, cfg: ModelConfig,
-                 *, window: int, kv_chunk: int, cache_mode: str
-                 ) -> torch.Tensor:
+                 *, window: int, kv_chunk: int, cache_mode: str,
+                 store_pos: torch.Tensor,
+                 q_ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Write the chunk into a dense ring cache in place and attend (see
-    ``attention``)."""
+    ``attention``).  The chunk's keys are stored at ``store_pos`` (-1 for
+    a parallel draft slot) in the slot of their true position."""
     if cache_mode not in ("append", "fresh"):
         raise ValueError(f"unknown cache_mode {cache_mode!r}")
     B, T = positions.shape
     ck, cv, cp = cache["k"], cache["v"], cache["pos"]
     Sc = ck.shape[1]
     if cache_mode == "fresh":
-        k_all, v_all, kpos = k, v, positions
+        k_all, v_all, kpos = k, v, store_pos
     elif window > 0:
         # read before the write below: the pre-write cache ∪ the chunk
         old_pos = torch.where(cp >= positions[:, :1],
                               torch.full_like(cp, -1), cp)
         k_all = torch.cat([ck, k.to(ck.dtype)], dim=1)
         v_all = torch.cat([cv, v.to(cv.dtype)], dim=1)
-        kpos = torch.cat([old_pos, positions.to(cp.dtype)], dim=1)
+        kpos = torch.cat([old_pos, store_pos.to(cp.dtype)], dim=1)
     # only the chunk's tail survives a chunk longer than the ring: slice
     # before the scatter so no slot is written twice
-    kw, vw, pw = ((k[:, -Sc:], v[:, -Sc:], positions[:, -Sc:]) if T > Sc
-                  else (k, v, positions))
+    kw, vw, pw, sw = ((k[:, -Sc:], v[:, -Sc:], positions[:, -Sc:],
+                       store_pos[:, -Sc:]) if T > Sc
+                      else (k, v, positions, store_pos))
     slots = pw.long() % Sc
     bidx = torch.arange(B, device=ck.device)[:, None]
     ck[bidx, slots] = kw.to(ck.dtype)
     cv[bidx, slots] = vw.to(cv.dtype)
-    cp[bidx, slots] = pw.to(cp.dtype)
+    cp[bidx, slots] = sw.to(cp.dtype)
     if cache_mode == "append" and window == 0:
         k_all, v_all, kpos = ck, cv, cp
     return attend(q, k_all, v_all, positions, kpos, causal=cfg.causal,
-                  window=window, cap=cfg.attn_softcap, kv_chunk=kv_chunk)
+                  window=window, cap=cfg.attn_softcap, kv_chunk=kv_chunk,
+                  q_ctx=q_ctx)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,

@@ -214,14 +214,20 @@ def iter_slots(cache: Params):
 def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
                 positions: torch.Tensor, cache: Optional[Params],
                 paged, kv_chunk: int, cache_mode: str,
-                ring_rows: Optional[torch.Tensor]) -> torch.Tensor:
+                ring_rows: Optional[torch.Tensor],
+                pdraft: Optional[Params] = None) -> torch.Tensor:
     mixer, ffn_kind = slot
     if mixer in ("attn", "local"):
         x = x + L.attention(p["mixer"], x, cfg, positions=positions,
                             cache=cache, window=_slot_window(cfg, mixer),
                             kv_chunk=kv_chunk, cache_mode=cache_mode,
-                            paged=paged)
+                            paged=paged, pdraft=pdraft)
     else:
+        if pdraft is not None:
+            raise ValueError(
+                "parallel draft positions need attention-only models: a "
+                "mamba slot's scan would thread recurrent state through "
+                "the draft slots (DESIGN.md §7.12)")
         x = x + L.mamba(p["mixer"], x, cfg, cache=cache,
                         positions=positions, ring_rows=ring_rows)
     if ffn_kind == "dense":
@@ -241,7 +247,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             logits_mode: str = "all",
             kv_chunk: int = 2048,
             cache_mode: str = "append",
-            ring_rows: Optional[torch.Tensor] = None
+            ring_rows: Optional[torch.Tensor] = None,
+            pdraft: Optional[Params] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the model.
 
@@ -258,12 +265,28 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     also (n_points, B, D); "all" keeps every position, (n_points, B, T,
     D); None skips them.  ``feature_points`` > 0 keeps only the last that
     many points (H-RAD reads its last K).  logits_mode "last" computes
-    only the final position's logits.  Returns (logits (B, T', V) f32,
-    aux).
+    only the final position's logits.
+
+    ``pdraft`` (DESIGN.md §7.12) marks parallel-draft slot columns:
+    ``{"cols": (B, T) bool, "ctx": (B, T) int32, "sidx": (B, T) int,
+    "embed": (K, d_model)}``.  Slot columns replace their token embedding
+    with the slot embedding ``embed[sidx]``, store their keys invisible
+    and clamp their queries to the ``ctx`` horizon
+    (``layers.attention``); ``draft_head_logits`` turns their last-point
+    features into head logits.  Attention-only models (a mamba slot
+    raises).  Returns (logits (B, T', V) f32, aux).
     """
     check_supported(cfg)
-    x = (params["embed"][tokens.long()] * math.sqrt(cfg.d_model)) \
-        .to(cfg.tdtype)
+    emb = params["embed"][tokens.long()] * math.sqrt(cfg.d_model)
+    pd_attn = None
+    if pdraft is not None:
+        K = pdraft["embed"].shape[0]
+        se = (pdraft["embed"][pdraft["sidx"].long().clamp(0, K - 1)]
+              * math.sqrt(cfg.d_model))
+        emb = torch.where(pdraft["cols"][..., None], se.to(emb.dtype), emb)
+        pd_attn = {"cols": pdraft["cols"],
+                   "ctx": pdraft["ctx"].to(torch.int32)}
+    x = emb.to(cfg.tdtype)
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
@@ -290,14 +313,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             x = _apply_slot(_index(params["blocks"][s], i), x, cfg, slot,
                             positions=positions, cache=c, paged=paged,
                             kv_chunk=kv_chunk, cache_mode=cache_mode,
-                            ring_rows=ring_rows)
+                            ring_rows=ring_rows, pdraft=pd_attn)
         keep(x)
     for r in range(cfg.n_rem):
         c = None if cache is None else _index(cache["rem"][r], 0)
         x = _apply_slot(_index(params["rem"][r], 0), x, cfg, cfg.pattern[r],
                         positions=positions, cache=c, paged=paged,
                         kv_chunk=kv_chunk, cache_mode=cache_mode,
-                        ring_rows=ring_rows)
+                        ring_rows=ring_rows, pdraft=pd_attn)
         keep(x)
 
     if logits_mode == "last":
@@ -311,6 +334,64 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if feature_mode is not None:
         aux["features"] = torch.stack(feats)
     return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# multi-token draft heads (single-pass parallel drafting, DESIGN.md §7.12)
+# ---------------------------------------------------------------------------
+
+def init_draft_heads(cfg: ModelConfig, K: int, generator: torch.Generator,
+                     device="cuda") -> Params:
+    """K parallel-position draft heads + K slot embeddings, drawn from
+    ``generator`` on ``device`` with the reference's shapes, scale
+    (1/sqrt(d_model)) and dtype: ``mask_embed`` (K, d_model) and
+    ``heads`` (K, d_model, vocab).  Slot j (1-indexed) rides at position
+    ``last_real + j`` of a draft forward with its embedding replaced by
+    ``mask_embed[j-1]``; head j maps its final-layer hidden state to the
+    distribution of the token at ``last_real + j + 1``.  The draws are
+    not the reference's: runs that compare the two frameworks carry the
+    reference's heads over with
+    ``training.checkpoint.from_numpy_draft_heads``."""
+    dev = torch.device(device)
+    s = 1.0 / math.sqrt(cfg.d_model)
+
+    def normal(shape):
+        return (torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32) * s).to(cfg.tdtype)
+    return {"mask_embed": normal((K, cfg.d_model)),
+            "heads": normal((K, cfg.d_model, cfg.vocab_size))}
+
+
+def pdraft_frame(pos: torch.Tensor, nreal: torch.Tensor, T: int,
+                 embed: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """A parallel-draft frame of width T: row b starts at position pos[b]
+    with nreal[b] real tokens, then draft slots.  Returns (positions (B,
+    T) int32, the ``pdraft`` argument of ``forward``): slot columns keep
+    their true positions, their queries see up to the row's last real
+    position and slot j (0-based) rides slot embedding ``embed[j]``.  A
+    row without real tokens is all slots (its lanes are garbage)."""
+    t = torch.arange(T, dtype=torch.int32, device=pos.device)[None]
+    p0 = pos.to(torch.int32)[:, None]
+    nr = nreal.to(device=pos.device, dtype=torch.int32)[:, None]
+    positions = p0 + t
+    cols = t >= nr
+    return positions, {"cols": cols,
+                       "ctx": torch.where(cols, p0 + nr.clamp_min(1) - 1,
+                                          positions),
+                       "sidx": (t - nr).clamp_min(0), "embed": embed}
+
+
+def draft_head_logits(params: Params, cfg: ModelConfig, dhead: Params,
+                      hidden: torch.Tensor, j0: int = 0) -> torch.Tensor:
+    """Head logits over slot hidden states: hidden (..., n, d_model), the
+    final-layer (pre-final-norm) states at slot positions j0+1 .. j0+n.
+    Applies the model's final norm and softcap, so head logits share the
+    AR logits' scale.  Returns (..., n, vocab) float32."""
+    n = hidden.shape[-2]
+    hn = L.rms_norm(hidden, params["final_norm"], cfg.norm_eps)
+    lg = torch.einsum("...nd,ndv->...nv", hn.float(),
+                      dhead["heads"][j0:j0 + n].float())
+    return L.softcap(lg, cfg.final_softcap)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

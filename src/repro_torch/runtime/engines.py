@@ -20,9 +20,16 @@ granularity; tokens cut before verification are ``pruned_tokens``.
 the target runner then captures the last ``hrad_k_layers`` feature points
 of every forward.  With a recorder installed (``set_recorder``) the
 engines emit the reference's per-round spec events and the runners one
-model_call event per forward.  Later slices (ROADMAP.md queue A):
-parallel drafting (``draft_mode "parallel"``, draft heads), the history
-predictor (``spec_predictor``) and stub-frontend embeddings.
+model_call event per forward.
+
+``draft_mode="parallel"`` (DESIGN.md §7.12) proposes a whole chunk from
+ONE masked draft forward through multi-position draft heads
+(``draft_heads``, ``models.model.init_draft_heads``); the verify
+protocol, PRNG consumption and rollback are those of the sequential
+drafter, only the proposal distributions differ.  ``spec_predictor``
+"on" / "oracle" installs the history predictor (``runtime.predictor``),
+which SpecBranch consults each round.  Stub-frontend embeddings are a
+later slice (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import NULL_RECORDER
+from repro_torch.runtime import predictor as P
 from repro_torch.runtime import prng
 from repro_torch.runtime import sampling as S
 from repro_torch.runtime.cost_model import CostModel, Round
@@ -58,8 +66,11 @@ class EngineConfig:
     use_hrad: bool = True          # needs hrad_params to have an effect
     use_branch: bool = True        # ablation: SpecBranch w/o branch
     gamma_branch_override: int = 0 # 0 = auto (speed-ratio-matched)
-    spec_predictor: str = "off"    # "off" only in this slice of the port
-    draft_mode: str = "sequential" # "sequential" only in this slice
+    spec_predictor: str = "off"    # "off" | "on" | "oracle": the history
+    #   predictor (runtime.predictor) adapts gamma/k/epsilon per round;
+    #   "off" runs every path without one
+    draft_mode: str = "sequential" # "sequential" | "parallel": the whole
+    #   chunk from one masked draft forward through draft heads
     max_len: int = 4096
     seed: int = 0
 
@@ -139,16 +150,6 @@ class _Ctx:
         return k
 
 
-def make_predictor(mode: str, gamma_max: int, k_max: int, eps_base: float):
-    """The reference factory's "off" branch (None: every engine path runs
-    the predictor-less code); the history predictor is a later slice."""
-    if mode in ("off", "", None):
-        return None
-    raise NotImplementedError(
-        f"spec_predictor={mode!r}: the history predictor is not in this "
-        "slice of the PyTorch port (ROADMAP.md queue A)")
-
-
 # ---------------------------------------------------------------------------
 # base
 # ---------------------------------------------------------------------------
@@ -167,19 +168,40 @@ class Engine:
         self.dp, self.dcfg = draft_params, draft_cfg
         self.tp, self.tcfg = target_params, target_cfg
         self.ecfg = ecfg
-        if ecfg.draft_mode != "sequential" or draft_heads is not None:
-            raise NotImplementedError(
-                "parallel drafting (draft_mode 'parallel', draft heads) is "
-                "not in this slice of the PyTorch port (ROADMAP.md queue A)")
+        # multi-position draft heads beside the draft's weights, the head
+        # stack in float32 once (the head product runs in f32)
+        self.draft_heads = None
+        if draft_heads is not None and draft_params is not None:
+            dev = draft_params["embed"].device
+            self.draft_heads = {
+                k: v.to(dev, torch.float32 if k == "heads" else v.dtype)
+                for k, v in draft_heads.items()}
+        if ecfg.draft_mode not in ("sequential", "parallel"):
+            raise ValueError(f"unknown draft_mode {ecfg.draft_mode!r}")
+        if ecfg.draft_mode == "parallel" and draft_cfg is not None:
+            if draft_heads is None:
+                raise ValueError(
+                    "draft_mode='parallel' needs draft_heads (see "
+                    "models.model.init_draft_heads / training.pairs)")
+            if any(m == "mamba" for m, _ in draft_cfg.pattern):
+                raise ValueError(
+                    "parallel draft mode needs an attention-only draft "
+                    f"model, got pattern {draft_cfg.pattern}")
+            need = max(ecfg.gamma, ecfg.gamma_branch)
+            have = int(draft_heads["heads"].shape[0])
+            if have < need:
+                raise ValueError(
+                    f"draft_heads has K={have} heads; parallel mode needs "
+                    f">= max(gamma, gamma_branch) = {need}")
         # the MLP in float32 beside the target's weights
         self.hrad_params = (None if hrad_params is None else
                             {k: v.to(device=target_params["embed"].device,
                                      dtype=torch.float32)
                              for k, v in hrad_params.items()})
-        # None for "off" (every path runs the predictor-less code); any
-        # other mode raises until the predictor is ported
-        make_predictor(ecfg.spec_predictor, ecfg.gamma, ecfg.k_max,
-                       ecfg.epsilon)
+        # the history predictor; None for "off" (call sites guard on that,
+        # so the off path runs exactly the predictor-less code)
+        self.predictor = P.make_predictor(
+            ecfg.spec_predictor, ecfg.gamma, ecfg.k_max, ecfg.epsilon)
 
     def set_recorder(self, rec, rid: int = 0) -> None:
         self.rec = rec
@@ -250,10 +272,20 @@ class Engine:
     # lineage reset ---------------------------------------------------------
     def _reset_lineage(self, runner: ModelRunner, prompt_len: int,
                        ctx: _Ctx) -> None:
-        """Reset a runner to the committed stream, newest token pending
-        (its ingested lineage always covers the committed stream)."""
-        runner.reset_to(prompt_len + len(ctx.out) - 1)
-        runner.pending = [ctx.out[-1]]
+        """Reset a runner to the committed stream, newest tail pending.
+
+        Sequential drafting: the runner's lineage always covers the
+        committed stream, so this is reset_to(committed - 1) with the last
+        token pending.  In parallel draft mode drafted tokens never enter
+        the draft cache, so its lineage may be BEHIND the committed
+        stream; the un-ingested committed tail then becomes pending."""
+        tgt_len = prompt_len + len(ctx.out) - 1
+        if runner.pos >= tgt_len:
+            runner.reset_to(tgt_len)
+            runner.pending = [ctx.out[-1]]
+        else:
+            runner.pending = [int(t)
+                              for t in ctx.out[runner.pos - prompt_len:]]
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +332,8 @@ class SpSEngine(Engine):
         Returns (drafted, q_stack (g, V), confidences).  Exactly g draft
         forwards per round (the pending ingest doubles as the first one).
         """
+        if self.ecfg.draft_mode == "parallel":
+            return self._draft_round_parallel(draft, ctx, gamma)
         if draft.pending:
             draft.forward([])
         qs, drafted, confs = [], [], []
@@ -316,6 +350,29 @@ class SpSEngine(Engine):
             draft.forward([tok])
         return drafted, torch.stack(qs), confs
 
+    def _draft_round_parallel(self, draft: ModelRunner, ctx: _Ctx,
+                              gamma: int
+                              ) -> Tuple[List[int], torch.Tensor,
+                                         List[float]]:
+        """One-dispatch drafting (DESIGN.md §7.12): every proposal
+        distribution comes from one masked forward; sampling, stop rules
+        and PRNG consumption (one ``ctx.split()`` per drafted token) are
+        the sequential loop's, so only the q_i distributions differ."""
+        q_all = draft.forward_parallel(gamma, self.draft_heads)
+        qs, drafted, confs = [], [], []
+        for i in range(gamma):
+            lg = q_all[0, i]
+            q = self._qprobs(lg)
+            q_sig = self._qsignal(lg)
+            tok = self._sample(ctx, q)
+            qs.append(q)
+            confs.append(float(q_sig.max()))
+            drafted.append(tok)
+            ctx.stats.draft_tokens += 1
+            if i == gamma - 1 or self._stop_rule(q_sig):
+                break
+        return drafted, torch.stack(qs), confs
+
     def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
         self._check_embeds(embeds)
         ctx = _Ctx(key)
@@ -324,6 +381,7 @@ class SpSEngine(Engine):
         target.prefill(prompt)
         ctx.stats.target_calls += 1
         plen = len(prompt)
+        parallel_draft = self.ecfg.draft_mode == "parallel"
         while len(ctx.out) < n_new:
             draft.checkpoint(), target.checkpoint()
             calls0 = draft.n_calls + target.n_calls
@@ -333,14 +391,18 @@ class SpSEngine(Engine):
             n, nxt, all_acc, bonus = self._verify(target, drafted, q_stack,
                                                   ctx)
             ndisp = draft.n_calls + target.n_calls - calls0
-            ctx.timeline.append(("serial", g, 1))
+            ctx.timeline.append(("serial", g, 1, ndisp) if parallel_draft
+                                else ("serial", g, 1))
             if all_acc:
                 nxt = self._sample(ctx, bonus)
                 ctx.out.extend(drafted + [nxt])
                 ctx.stats.emitted += g + 1
                 ctx.stats.run_extend(g + 1)   # bonus continues the run
                 target.pending = [nxt]
-                draft.pending = [drafted[-1], nxt]
+                # parallel mode: drafted tokens never entered the draft
+                # cache, so the whole accepted run becomes pending
+                draft.pending = (drafted + [nxt] if parallel_draft
+                                 else [drafted[-1], nxt])
                 if self.rec.enabled:
                     self.rec.spec(rid=self.trace_rid,
                                   round=len(ctx.timeline) - 1, stage="sps",
@@ -460,6 +522,10 @@ class PEARLEngine(SpSEngine):
     name = "pearl"
 
     def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
+        if self.ecfg.draft_mode == "parallel":
+            raise NotImplementedError(
+                "PEARL pipelines sequential drafting against verification; "
+                "use draft_mode='sequential'")
         self._check_embeds(embeds)
         ctx = _Ctx(key)
         draft, target = self._new_runners()

@@ -28,8 +28,10 @@ forward, saved by ``checkpoint``, sliced by ``select``, cleared by
 ``reset_to`` and ``unfork``).  A runner built with ``feature_points`` 0
 captures nothing.
 
-The parallel-draft forward and stub-frontend embeddings are later slices
-of the port (ROADMAP.md queue A).
+``forward_parallel`` is the single-pass parallel draft (DESIGN.md
+§7.12): the pending tokens plus g masked draft slots in one forward, the
+slots' keys stored invisible.  Stub-frontend embeddings are a later
+slice of the port (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -134,8 +136,48 @@ class ModelRunner:
                                 batch=1, pos=self.pos)
         return logits
 
+    @torch.no_grad()
     def forward_parallel(self, g: int, dhead) -> torch.Tensor:
-        raise _later_slice("the single-pass parallel draft forward")
+        """Single-pass parallel draft: ingest ``pending`` and run ``g``
+        masked draft slots in ONE forward.
+
+        Only the pending tokens advance ``pos`` / ``tokens``: the slots'
+        cache writes are invisible (stored at position -1) and are
+        overwritten when real tokens arrive at those positions.  Returns
+        q_all (1, g+1, V) f32 raw logits: entry 0 the AR distribution
+        after the pending tokens (what a sequential tick would see),
+        entry i head i's distribution for position ``pos + i``, entry g
+        the next-position signal distribution (SpecBranch's q_b)."""
+        assert self.batch == 1
+        assert not self.has_ssm, \
+            "parallel draft mode needs an attention-only draft model"
+        toks = [int(t) for t in self.pending]
+        self.pending = []
+        assert toks, "forward_parallel with no pending tokens"
+        nreal, T = len(toks), len(toks) + g
+        dev = self.device
+        positions, pdraft = M.pdraft_frame(
+            torch.tensor([self.pos], device=dev),
+            torch.tensor([nreal], device=dev), T, dhead["mask_embed"])
+        logits, aux = M.forward(
+            self.params, self.cfg,
+            torch.tensor([toks + [0] * g], dtype=torch.int64, device=dev),
+            cache=self.cache, positions=positions, feature_mode="all",
+            feature_points=1, pdraft=pdraft)
+        hlg = M.draft_head_logits(self.params, self.cfg, dhead,
+                                  aux["features"][-1][:, nreal:])
+        ar = logits[:, nreal - 1]
+        q_all = torch.cat([ar.float()[:, None], hlg], dim=1)
+        self.pos += nreal
+        self.tokens.extend(toks)
+        self.n_calls += 1
+        self.n_call_tokens += T
+        self.last_logits = ar
+        self.last_features = None
+        if self.rec is not None and self.rec.enabled:
+            self.rec.model_call(role=self.trace_role, tokens=T, batch=1,
+                                pos=self.pos)
+        return q_all
 
     def forward_embeds(self, embeds) -> torch.Tensor:
         raise _later_slice("stub-frontend embeddings")

@@ -23,8 +23,12 @@ branch point is its first token) or up to its first low-confidence
 position (s = 1).  No accepted branch emits the residual sample and
 returns to DRAFT.
 
-The history predictor and parallel drafting are later slices of the port
-(ROADMAP.md queue A); the engine raises when asked for them.
+With the history predictor (``spec_predictor`` "on" / "oracle") each
+round's gamma, epsilon and branch cap come from the request's acceptance
+history, updated from the verdicts.  In parallel draft mode
+(DESIGN.md §7.12) the DRAFT stage proposes its chunk from one masked
+forward, then one catch-up forward brings the draft cache to the chunk
+head so the branch stage forks exactly as in sequential mode.
 """
 from __future__ import annotations
 
@@ -67,22 +71,31 @@ class SpecBranchEngine(Engine):
         return H.token_embedding(
             self.tp, torch.tensor([token], device=self.tp["embed"].device))
 
-    def _branch_k(self, q_b: torch.Tensor) -> int:
+    def _branch_k(self, q_b: torch.Tensor,
+                  k_cap: Optional[int] = None) -> int:
         if not self.ecfg.use_branch:
             return 1
-        cap = self.ecfg.k_max
+        cap = self.ecfg.k_max if k_cap is None \
+            else min(self.ecfg.k_max, max(1, k_cap))
         return min(cap, S.adaptive_k(float(q_b.max()), cap))
 
     # ----------------------------------------------------------- drafting
-    def _serial_draft(self, draft: ModelRunner, ctx: _Ctx, s: int
+    def _serial_draft(self, draft: ModelRunner, ctx: _Ctx, s: int,
+                      gamma: Optional[int] = None,
+                      epsilon: Optional[float] = None
                       ) -> Tuple[List[int], List[torch.Tensor],
                                  torch.Tensor]:
         """DRAFT-stage drafting per the signal s (Eq. 6).
 
         Returns (chunk, q_list for the chunk, q_b at the branch point).
-        Every drafted chunk token is ingested.
+        Every drafted chunk token is ingested.  ``gamma`` / ``epsilon``
+        override the static knobs when the history predictor drives them.
         """
-        gamma, epsilon = self.ecfg.gamma, self.ecfg.epsilon
+        gamma = self.ecfg.gamma if gamma is None else gamma
+        epsilon = self.ecfg.epsilon if epsilon is None else epsilon
+        if s != 0 and self.ecfg.draft_mode == "parallel":
+            return self._serial_draft_parallel(draft, ctx, s, gamma,
+                                               epsilon)
         if draft.pending:
             draft.forward([])
         chunk, qs = [], []
@@ -102,10 +115,28 @@ class SpecBranchEngine(Engine):
         ctx.stats.draft_tokens += 1
         return chunk, qs, self._qsignal(draft.last_logits[0])
 
-    def _serial_draft_parallel(self, *a, **kw):
-        raise NotImplementedError(
-            "parallel drafting is not in this slice of the PyTorch port "
-            "(ROADMAP.md queue A)")
+    def _serial_draft_parallel(self, draft: ModelRunner, ctx: _Ctx, s: int,
+                               gamma: int, epsilon: float
+                               ) -> Tuple[List[int], List[torch.Tensor],
+                                          torch.Tensor]:
+        """One-dispatch DRAFT stage: every proposal distribution from one
+        masked forward; the sampling loop, epsilon stop and PRNG
+        consumption are ``_serial_draft``'s.  The caller runs a catch-up
+        ``draft.forward(chunk)`` before the branch stage."""
+        q_all = draft.forward_parallel(gamma, self.draft_heads)
+        chunk, qs = [], []
+        for i in range(gamma):
+            lg = q_all[0, i]
+            q = self._qprobs(lg)
+            q_sig = self._qsignal(lg)
+            ctx.stats.draft_tokens += 1
+            if s == 1 and float(q_sig.max()) < epsilon:
+                return chunk, qs, q_sig      # branch point found
+            tok = self._sample(ctx, q)
+            chunk.append(tok)
+            qs.append(q)
+        ctx.stats.draft_tokens += 1
+        return chunk, qs, self._qsignal(q_all[0, gamma])
 
     def _branch_draft(self, draft: ModelRunner, cands: np.ndarray,
                       ctx: _Ctx) -> Tuple[np.ndarray, List[torch.Tensor],
@@ -146,8 +177,12 @@ class SpecBranchEngine(Engine):
         ctx.stats.target_calls += 1
         plen = len(prompt)
         gb = self.ecfg.gamma_branch
-        eps = self.ecfg.epsilon
         parallel = self.ecfg.use_branch
+        parallel_draft = self.ecfg.draft_mode == "parallel"
+        pred = self.predictor     # keyed by rid: survives preemption
+        if pred is not None:
+            pred.start(self.trace_rid)
+        dec = None
 
         mode = "draft"
         chunk: List[int] = []
@@ -156,28 +191,44 @@ class SpecBranchEngine(Engine):
 
         while len(ctx.out) < n_new:
             draft.checkpoint(), target.checkpoint()
+            # the round's knobs from the acceptance history
+            dec = pred.decide(self.trace_rid) if pred is not None else None
+            gamma_t = dec.gamma if dec is not None else self.ecfg.gamma
+            eps_t = dec.epsilon if dec is not None else self.ecfg.epsilon
+            pobs = dec.obs() if dec is not None else None
             if mode == "draft":
                 # ---------------- DRAFT stage (serial) ----------------
                 calls0 = draft.n_calls
-                # the newest committed token
+                # the newest committed token (pending holds the whole
+                # un-ingested committed tail in parallel mode)
                 e_tok = (draft.pending[-1] if draft.pending
                          else target.pending[-1])
                 s = self._hrad_signal(self._feats_last(target), e_tok, ctx)
-                chunk, chunk_q, q_b = self._serial_draft(draft, ctx, s)
-                ctx.timeline.append(("serial", len(chunk) + 1, 0))
+                chunk, chunk_q, q_b = self._serial_draft(
+                    draft, ctx, s, gamma=gamma_t, epsilon=eps_t)
+                if parallel_draft and chunk:
+                    # catch-up dispatch: the draft cache up to the chunk
+                    # head, so the branch stage forks (and reads the true
+                    # branch-point distribution) as in sequential mode
+                    draft.forward(chunk)
+                    q_b = self._qsignal(draft.last_logits[0])
+                ndisp = draft.n_calls - calls0
+                ctx.timeline.append(
+                    ("serial", len(chunk) + 1, 0, ndisp) if parallel_draft
+                    else ("serial", len(chunk) + 1, 0))
                 if self.rec.enabled:
                     self.rec.spec(
                         rid=self.trace_rid, round=len(ctx.timeline) - 1,
                         stage="draft", drafted=len(chunk) + 1,
-                        gamma=self.ecfg.gamma,
-                        eps_stop=(s == 1 and len(chunk) < self.ecfg.gamma),
+                        gamma=gamma_t,
+                        eps_stop=(s == 1 and len(chunk) < gamma_t),
                         hrad=(s if self.ecfg.use_hrad else None),
-                        dispatches=draft.n_calls - calls0)
+                        pred=pobs, dispatches=ndisp)
                 mode = "branch"
                 continue
 
             # ---------------- BRANCH stage (parallel) ----------------
-            k = self._branch_k(q_b)
+            k = self._branch_k(q_b, dec.k_cap if dec is not None else None)
             cands = S.draw_branch_candidates(ctx.split(), q_b, k,
                                              self.ecfg.branch_mode)
             cands = cands.cpu().numpy()
@@ -190,6 +241,10 @@ class SpecBranchEngine(Engine):
             ctx.timeline.append(
                 ("parallel", gb + 1, 1) if parallel
                 else ("serial", gb + 1, 1))
+            if pred is not None and chunk:
+                # the chunk's verify outcome, from the verdict on the host
+                pred.update(self.trace_rid, bool(all_acc),
+                            n / max(len(chunk), 1))
 
             if not all_acc:
                 # mid-chunk rejection: branches are doomed (Fig. 1a)
@@ -205,7 +260,7 @@ class SpecBranchEngine(Engine):
                         drafted=len(chunk),
                         rolled_back=(len(chunk) - n) + gb,
                         cause="chunk-reject", gamma=max(len(chunk), 1),
-                        k=len(cands))
+                        k=len(cands), pred=pobs)
                 draft.unfork()
                 self._reset_lineage(target, plen, ctx)
                 self._reset_lineage(draft, plen, ctx)
@@ -214,6 +269,9 @@ class SpecBranchEngine(Engine):
 
             # chunk fully accepted -> branch-point verification (Alg. 2)
             verdict = S.branch_spec_sample(ctx.split(), p_b, cands, q_b)
+            if pred is not None:
+                # did a hedge branch survive Algorithm 2?
+                pred.update(self.trace_rid, verdict.accepted_branch >= 0)
             if verdict.accepted_branch < 0:
                 # no branch survives: emit the residual sample, rollback
                 ctx.out.extend(chunk + [verdict.token])
@@ -227,7 +285,7 @@ class SpecBranchEngine(Engine):
                         stage="branch", committed=len(chunk) + 1,
                         accepted=len(chunk), drafted=len(chunk),
                         rolled_back=gb, cause="branch-miss",
-                        gamma=max(len(chunk), 1), k=len(cands))
+                        gamma=max(len(chunk), 1), k=len(cands), pred=pobs)
                 draft.unfork()
                 self._reset_lineage(target, plen, ctx)
                 self._reset_lineage(draft, plen, ctx)
@@ -262,7 +320,7 @@ class SpecBranchEngine(Engine):
                 draft.reset_to(plen + len(ctx.out))   # lineage incl. tok_b
             else:
                 # keep it up to its first low-confidence position
-                j = next((jj for jj in range(gb) if confs[i, jj] < eps),
+                j = next((jj for jj in range(gb) if confs[i, jj] < eps_t),
                          gb)
                 if j == gb:
                     chunk, chunk_q = cont_i, q_i
@@ -280,7 +338,7 @@ class SpecBranchEngine(Engine):
                     accepted=n_acc + 1, drafted=n_acc, pruned=pruned,
                     cause="branch-adopt", gamma=max(n_acc, 1),
                     k=len(cands),
-                    hrad=(s if self.ecfg.use_hrad else None))
+                    hrad=(s if self.ecfg.use_hrad else None), pred=pobs)
             mode = "branch"
 
         ctx.stats.finish()

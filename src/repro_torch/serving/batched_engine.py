@@ -1,7 +1,6 @@
 """Batched serving over dense or paged KV (port of
 ``repro.serving.batched_engine``: ``BatchedDecoder``, the engine base,
-``BatchedSpSEngine`` and ``BatchedSpecBranchEngine``, sequential-draft
-rounds).
+``BatchedSpSEngine`` and ``BatchedSpecBranchEngine``).
 
 ``BatchedDecoder`` is one model plus a decode state with per-row
 positions, so requests at different lengths share every forward: pad
@@ -54,8 +53,20 @@ every field from host values the loop already holds (no extra device
 sync).  ``device_loop.annotate`` brackets the verify dispatches with
 profiler ranges when annotations are on.
 
-Not in this slice (each raises ``NotImplementedError``): parallel
-drafting, the prefix cache, the history predictor and mesh serving.
+Single-pass parallel drafting (``draft_mode="parallel"``, DESIGN.md
+§7.12): a round's draft ticks collapse into ONE draft forward
+(``BatchedDecoder.step_draft``: each row's pending tokens plus masked
+slot columns, the slots' keys invisible) and one fused sampling pass
+(``device_loop.draft_chunk``) through the multi-position draft heads;
+the verify frame, verdict packets and PRNG coordinates are the
+sequential rounds'.  The draft caches then hold only the committed
+prefix: drafted tokens re-enter as pending after an accept.  The round
+tuples carry the measured dispatch count.  The history predictor
+(``spec_predictor`` "on" / "oracle", ``runtime.predictor``) gives each
+request its own gamma, branch cap and epsilon per round.
+
+Not in this slice (each raises ``NotImplementedError``): the prefix
+cache and mesh serving.
 """
 from __future__ import annotations
 
@@ -71,6 +82,7 @@ from repro_torch.core import hrad as H
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import NULL_RECORDER
+from repro_torch.runtime import predictor as PRED
 from repro_torch.runtime import prng
 from repro_torch.runtime import sampling as S
 from repro_torch.runtime.cost_model import CostModel
@@ -170,12 +182,14 @@ class BatchedDecoder:
         self.state.fork(src, dst)
 
     @torch.no_grad()
-    def _forward(self, tokens, positions, rows=None, feature_index=None
-                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _forward(self, tokens, positions, rows=None, feature_index=None,
+                 pdraft=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One forward.  ``rows`` (a prefill's lanes, -1 for a pad lane):
         paged, the lanes' table view and ring rows over the live cache;
         dense, a fresh ``len(rows)``-lane view scattered into the listed
-        rows afterwards.  None: every row of the cache, in place."""
+        rows afterwards.  None: every row of the cache, in place.  With
+        ``pdraft`` (a parallel-draft frame) the features returned are the
+        last point's at every position, (n_rows, T, D)."""
         dev = self.device
         cache, paged, ring_rows = self.cache, None, None
         if self.state.paged is not None:
@@ -186,19 +200,22 @@ class BatchedDecoder:
                 ring_rows = torch.tensor(rows, dtype=torch.int64, device=dev)
         elif rows is not None:
             cache = self.state.prefill_view(len(rows))
-        capture = self.feature_points > 0
+        points = 1 if pdraft is not None else self.feature_points
+        capture = points > 0
         mode = None if not capture else (
             "all" if feature_index is None else "at")
         logits, aux = M.forward(
             self.params, self.cfg,
             torch.as_tensor(tokens).to(device=dev, dtype=torch.int64),
             cache=cache, positions=positions, paged=paged,
-            ring_rows=ring_rows, feature_mode=mode,
-            feature_points=self.feature_points,
+            ring_rows=ring_rows, feature_mode=mode, feature_points=points,
             feature_index=(None if feature_index is None
-                           else torch.from_numpy(feature_index).to(dev)))
+                           else torch.from_numpy(feature_index).to(dev)),
+            pdraft=pdraft)
         if cache is not self.cache:
             self.state.prefill_merge(cache, [r for r in rows if r >= 0])
+        if pdraft is not None:
+            return logits, aux["features"][-1]
         return logits, aux["features"] if capture else None
 
     def step(self, tokens, pos
@@ -214,6 +231,26 @@ class BatchedDecoder:
             + torch.arange(T, dtype=torch.int32, device=self.device)[None])
         self.n_calls += 1
         return self._forward(tokens, positions)
+
+    def step_draft(self, tokens, pos, nreal, mask_embed: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Parallel-draft forward (DESIGN.md §7.12): per row, ``nreal[b]``
+        real tokens followed by draft-slot columns (their ids are ignored:
+        the slot embedding rides there) up to the padded width.  Slot keys
+        are stored invisible (dense: position -1; paged: positions >= lens
+        go to the trash page) and slot queries see only the row's real
+        prefix, so one dispatch yields every slot's hidden state as a
+        function of the committed stream alone.  Rows with nreal 0 are all
+        slots: their writes are invisible and their lanes compute garbage
+        the host ignores.  Returns DEVICE (logits (n_rows, T, V),
+        last-point features (n_rows, T, D))."""
+        assert tokens.shape[0] == self.n_rows
+        positions, pdraft = M.pdraft_frame(
+            torch.from_numpy(np.asarray(pos, np.int32)).to(self.device),
+            torch.from_numpy(np.asarray(nreal, np.int32)),
+            tokens.shape[1], mask_embed)
+        self.n_calls += 1
+        return self._forward(tokens, positions, pdraft=pdraft)
 
     def prefill_rows(self, parts: Sequence[Tuple[int, Sequence[int]]]
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -314,6 +351,8 @@ class _Seq:
     chunk_q: List[torch.Tensor] = dataclasses.field(default_factory=list)
     q_b: Optional[torch.Tensor] = None       # (V,) signal LOGITS, device
     q_b_conf: float = 0.0                    # host copy of max signal prob
+    # this round's history-predictor decision; None with the predictor off
+    pdec: Optional[Any] = None
 
     @property
     def committed(self) -> int:
@@ -351,19 +390,39 @@ class BatchedEngineBase:
                 "rows have no page runs to share — drop prefix_cache or "
                 "switch to the paged backend")
         later = {
-            "draft_mode='parallel' / draft_heads":
-                ecfg.draft_mode != "sequential" or draft_heads is not None,
             "prefix_cache=True": prefix_cache,
-            f"spec_predictor={ecfg.spec_predictor!r}":
-                ecfg.spec_predictor != "off",
             "mesh serving": mesh is not None,
         }
         for what, asked in later.items():
             if asked:
                 raise NotImplementedError(
                     f"{what} is ported in a later slice (ROADMAP.md queue "
-                    "A); this slice serves the sequential-draft path")
+                    "A)")
+        if ecfg.draft_mode not in ("sequential", "parallel"):
+            raise ValueError(f"unknown draft_mode {ecfg.draft_mode!r}")
+        if ecfg.draft_mode == "parallel":
+            if draft_heads is None:
+                raise ValueError(
+                    "draft_mode='parallel' needs draft_heads "
+                    "(models.init_draft_heads / training.pairs)")
+            if any(m == "mamba" for m, _ in draft_cfg.pattern):
+                raise ValueError(
+                    "parallel drafting needs an attention-only draft model; "
+                    f"pattern has mamba mixers: {draft_cfg.pattern}")
+            need = max(ecfg.gamma, ecfg.gamma_branch)
+            have = int(draft_heads["heads"].shape[0])
+            if have < need:
+                raise ValueError(
+                    f"draft_heads has {have} positions; "
+                    f"need >= max(gamma, gamma_branch) = {need}")
         self.device = resolve_device(device)
+        # single-pass parallel drafting: the draft heads on the device, the
+        # head stack in float32 once (the head product runs in f32, as the
+        # reference's does, and a per-round conversion of a full-width
+        # stack would move its bytes three times a round)
+        self.draft_heads = (None if draft_heads is None else {
+            k: v.to(self.device, torch.float32 if k == "heads" else v.dtype)
+            for k, v in draft_heads.items()})
         self.dp, self.dcfg = draft_params, draft_cfg
         self.tp, self.tcfg = target_params, target_cfg
         self.ecfg = ecfg
@@ -386,6 +445,11 @@ class BatchedEngineBase:
         # chunk pad width: a carried chunk is a serial draft (<= gamma) OR
         # an adopted branch continuation (<= gamma_branch)
         self._CH = DL.bucket(max(1, ecfg.gamma, ecfg.gamma_branch))
+        # the history predictor (None for "off": every predictor branch of
+        # the rounds is guarded on that).  Its gammas stay on the bucket
+        # ladder <= ecfg.gamma, so _CH and the admission headroom hold.
+        self.predictor = PRED.make_predictor(
+            ecfg.spec_predictor, ecfg.gamma, ecfg.k_max, ecfg.epsilon)
         self._K = max(1, ecfg.k_max)
         # fused verify route: the CUDA verify kernel on the card at
         # temperature > 0, the probs-space twin otherwise
@@ -418,6 +482,13 @@ class BatchedEngineBase:
         # it, with slack
         ssm_ring = (4 * (ecfg.gamma + ecfg.gamma_branch)
                     + 2 * DL.bucket(ecfg.gamma + 2) + 16 + self._pq)
+        if ecfg.draft_mode == "parallel":
+            # parallel rounds re-ingest the committed tail after a reject
+            # and stage slot columns past it: widen the ring (and the
+            # windowed layers' slack) in this mode only, as the reference
+            # does
+            ssm_ring += 2 * DL.bucket(2 * (ecfg.gamma + ecfg.gamma_branch)
+                                      + 4)
         paged = attn_backend == "paged"
         lanes = DL.bucket(max_batch)   # admission groups are <= max_batch
         self.tgt_dec = BatchedDecoder(target_params, target_cfg,
@@ -600,10 +671,15 @@ class BatchedEngineBase:
     def _max_len_headroom(self) -> int:
         """Worst-case tokens a live row can hold beyond prompt + max_new:
         one round of overshoot plus a branch continuation plus bucket and
-        prefill-ladder padding."""
+        prefill-ladder padding (and, in parallel draft mode, a frame of
+        the re-ingested committed tail plus its slot columns)."""
+        extra = 0
+        if self.ecfg.draft_mode == "parallel":
+            extra = DL.bucket(2 * (self.ecfg.gamma
+                                   + self.ecfg.gamma_branch) + 4)
         return (2 * (DL.bucket(self.ecfg.gamma + 2)
                      + DL.bucket(self.ecfg.gamma_branch + 2) + 4)
-                + self._pq)
+                + self._pq + extra)
 
     def can_admit(self, prompt_len: int, max_new: int = 0) -> bool:
         if not self.tgt_dec.free_rows or len(self.active) >= self.max_batch:
@@ -679,6 +755,9 @@ class BatchedEngineBase:
         seq.tgt = _Stream(row=t_row, ing=L, pending=[toks[-1]])
         seq.dft = _Stream(row=d_row, ing=L, pending=[toks[-1]])
         seq.mode, seq.chunk, seq.chunk_q, seq.q_b = "draft", [], [], None
+        if self.predictor is not None:
+            # keyed by rid: the history survives preemption (idempotent)
+            self.predictor.start(rid)
         seq.admit_order = self._admit_counter
         self._admit_counter += 1
         self.active.append(seq)
@@ -813,6 +892,9 @@ class BatchedEngineBase:
                 self._pool_of(key).truncate(key, keep, "rollback")
             st.ing = min(st.ing, keep)
             dec.row_pos[st.row] = st.ing
+            # the committed tail past the kept prefix: one token after a
+            # sequential round; in parallel draft mode the draft stream
+            # holds only the committed prefix, so its tail may be longer
             st.pending = [int(t) for t in full[st.ing:]]
 
     # -------------------------------------------------------------- retire
@@ -827,6 +909,8 @@ class BatchedEngineBase:
             self.dft_dec.unbind_row(seq.dft.row)
             self.tgt_dec.free_rows.append(seq.tgt.row)
             self.dft_dec.free_rows.append(seq.dft.row)
+            if self.predictor is not None:
+                self.predictor.drop(seq.rid)
             seq.stats.finish()
             if self.rec.enabled:
                 self.rec.finish(seq.rid, emitted=seq.stats.emitted,
@@ -843,9 +927,28 @@ class BatchedEngineBase:
     def step_round(self) -> Dict[str, Any]:
         raise NotImplementedError
 
+    def _decide(self, seqs: List[_Seq]
+                ) -> Tuple[Dict[int, int], Dict[int, float]]:
+        """One history-predictor decision per request per round: (gamma
+        by rid, epsilon by rid), the static knobs without a predictor.
+        SpS drafts and verifies its own gamma; SpecBranch's DRAFT-mode
+        rows take gamma and epsilon for their stop rules, its BRANCH-mode
+        rows the k cap (``_branch_k``) and epsilon (the posterior cut)."""
+        pred = self.predictor
+        for s in seqs:
+            s.pdec = pred.decide(s.rid) if pred is not None else None
+        g_of = {s.rid: (s.pdec.gamma if s.pdec is not None
+                        else self.ecfg.gamma) for s in seqs}
+        eps_of = {s.rid: (s.pdec.epsilon if s.pdec is not None
+                          else self.ecfg.epsilon) for s in seqs}
+        return g_of, eps_of
+
     def _finish_round(self, kind: str, draft_steps: int,
-                      target_calls: int) -> float:
-        rnd = (kind, draft_steps, target_calls)
+                      target_calls: int,
+                      dispatches: Optional[int] = None) -> float:
+        # parallel-draft rounds append the measured dispatch count
+        rnd = (kind, draft_steps, target_calls) if dispatches is None \
+            else (kind, draft_steps, target_calls, dispatches)
         self.timeline.append(rnd)
         self.clock += self.cost.round_cost(rnd)
         if self.debug_check:
@@ -862,32 +965,38 @@ class BatchedSpSEngine(BatchedEngineBase):
     draft ticks then one batched target verification per round, all on
     the device.  Draft tokens chain from tick to tick as device tensors
     (the host never sees them mid-round); the round's only fetch is the
-    (B, 3 + gamma) verdict packet."""
+    (B, 3 + gamma) verdict packet.  In parallel draft mode the ticks are
+    one draft forward plus ``draft_chunk`` (two dispatches a round, the
+    verify included).  With the history predictor each request drafts and
+    verifies its own g_i <= gamma: the round runs max(g_i) ticks with
+    exhausted rows parked, and the verify takes per-row ``glens``."""
     name = "batched-sps"
 
     @torch.no_grad()
     def step_round(self) -> Dict[str, Any]:
+        if self.ecfg.draft_mode == "parallel":
+            return self._step_round_parallel()
         seqs = [s for s in self.active if not s.done]
         if not seqs:
             return {"committed": {}, "preempted": []}
-        g = self.ecfg.gamma
-        rec = self.rec
-        wall0 = rec.now()
-        rnd_idx = len(self.timeline)
+        g_of, _ = self._decide(seqs)
+        g = (self.ecfg.gamma if self.predictor is None
+             else max(g_of.values()))
+        wall0 = self.rec.now()
 
         def fits(ss):
             return (self.pools["d"].has_room(
-                        [(("d", s.rid), len(s.dft.pending) + g - 1)
+                        [(("d", s.rid),
+                          len(s.dft.pending) + g_of[s.rid] - 1)
                          for s in ss])
                     and self.pools["t"].has_room(
-                        [(("t", s.rid), len(s.tgt.pending) + g)
+                        [(("t", s.rid), len(s.tgt.pending) + g_of[s.rid])
                          for s in ss]))
 
         preempted = self._make_room(seqs, fits)
         if not seqs:
             return {"committed": {}, "preempted": preempted}
         n_d = self.dft_dec.n_rows
-        B = self.max_batch
 
         # ---- draft stage: batched pending ingest + gamma sampling ticks,
         # sampled ids chained on the device tick to tick
@@ -902,25 +1011,113 @@ class BatchedSpSEngine(BatchedEngineBase):
             s.dft.pending = []
         tok_ticks, q_ticks = [], []
         for i in range(g):
+            # rows whose own g_i is exhausted park (rid/ctr 0: their lane
+            # computes garbage that glens masks out of the verify)
+            ticking = [s for s in seqs if g_of[s.rid] > i]
             rids, ctrs = self._by_row(
-                n_d, [(s.dft.row, s.rid, s.ctr) for s in seqs])
+                n_d, [(s.dft.row, s.rid, s.ctr) for s in ticking])
             toks, qsl, _ = DL.tick_sample(lg, last, rids, ctrs, self._key,
                                           dtemp=self._dt, stemp=self._st)
             tok_ticks.append(toks)
             q_ticks.append(qsl)
-            for s in seqs:
+            for s in ticking:
                 s.ctr += 1
                 s.stats.draft_tokens += 1
             if i < g - 1:
-                lg, _ = self._ingest_dev(
-                    self.dft_dec, [(s.dft, ("d", s.rid)) for s in seqs],
-                    toks)
-                last[:] = 0
-        tok_stack = torch.stack(tok_ticks)        # (g, n_d) device
-        q_stack = torch.stack(q_ticks)            # (g, n_d, V) device
-        wall_draft = rec.now()
+                pairs = [(s.dft, ("d", s.rid)) for s in ticking
+                         if g_of[s.rid] > i + 1]
+                if pairs:
+                    lg, _ = self._ingest_dev(self.dft_dec, pairs, toks)
+                    last[:] = 0
+        # (g, n_d) tokens and (g, n_d, V) q slices, on the device
+        return self._verify_commit(seqs, g_of, g, torch.stack(tok_ticks),
+                                   torch.stack(q_ticks), wall0, preempted)
 
-        # ---- verify stage: ONE batched target call + fused verdict
+    @torch.no_grad()
+    def _step_round_parallel(self) -> Dict[str, Any]:
+        """Single-pass parallel drafting round (DESIGN.md §7.12): the
+        gamma ticks collapse into ONE draft forward (each row's pending
+        tokens followed by g masked slots) and ``DL.draft_chunk``, which
+        reads every position's proposal off it.  Token i of a row is drawn
+        at (rid, ctr0 + i), as by the ticks, and verification is the
+        sequential round's.  Drafted tokens never enter the draft cache,
+        so an accept re-feeds the chunk as next round's pending and a
+        reject replays the committed tail (``_rollback_streams``)."""
+        seqs = [s for s in self.active if not s.done]
+        if not seqs:
+            return {"committed": {}, "preempted": []}
+        g_of, _ = self._decide(seqs)
+        g = (self.ecfg.gamma if self.predictor is None
+             else max(g_of.values()))
+        wall0 = self.rec.now()
+
+        def fits(ss):
+            # the draft pool grows by the pending re-ingest only
+            return (self.pools["d"].has_room(
+                        [(("d", s.rid), len(s.dft.pending)) for s in ss])
+                    and self.pools["t"].has_room(
+                        [(("t", s.rid), len(s.tgt.pending) + g_of[s.rid])
+                         for s in ss]))
+
+        preempted = self._make_room(seqs, fits)
+        if not seqs:
+            return {"committed": {}, "preempted": preempted}
+        n_d = self.dft_dec.n_rows
+        calls0 = self.dft_dec.n_calls + self.tgt_dec.n_calls
+
+        # ---- draft stage: ONE forward (pending ++ g slots a row), then
+        # one fused chunk-sampling pass over its logits and features
+        P = {s.rid: len(s.dft.pending) for s in seqs}
+        T = DL.bucket(max(P.values()) + g)
+        toks = np.zeros((n_d, T), np.int32)
+        nreal = np.zeros(n_d, np.int32)
+        last = np.zeros(n_d, np.int32)
+        pos = np.minimum(self.dft_dec.row_pos,
+                         self.dft_dec.max_len - T).astype(np.int32)
+        for s in seqs:
+            p_i = P[s.rid]
+            self.pools["d"].extend(("d", s.rid), p_i)
+            if s.dft.ing + T > self.dft_dec.max_len:
+                raise RuntimeError(f"row {s.dft.row} overflows max_len")
+            toks[s.dft.row, :p_i] = s.dft.pending
+            nreal[s.dft.row] = p_i
+            last[s.dft.row] = p_i - 1
+            pos[s.dft.row] = s.dft.ing
+            s.dft.pending = []
+        lg, dfeats = self.dft_dec.step_draft(
+            toks, pos, nreal, self.draft_heads["mask_embed"])
+        for s in seqs:
+            s.dft.ing += P[s.rid]
+            self.dft_dec.row_pos[s.dft.row] = s.dft.ing
+        rids, ctrs = self._by_row(
+            n_d, [(s.dft.row, s.rid, s.ctr) for s in seqs])
+        tok_stack, q_full, _ = DL.draft_chunk(
+            lg, dfeats, self.dp["final_norm"], self.draft_heads["heads"],
+            last, rids, ctrs, self._key, g=g, dtemp=self._dt,
+            stemp=self._st, eps=self.dcfg.norm_eps,
+            cap=self.dcfg.final_softcap)
+        # rows with g_i < g drew garbage at ctr0 + g_i .. ctr0 + g - 1,
+        # discarded unread (glens masks them out of the verify)
+        for s in seqs:
+            s.ctr += g_of[s.rid]
+            s.stats.draft_tokens += g_of[s.rid]
+        return self._verify_commit(seqs, g_of, g, tok_stack, q_full[:g],
+                                   wall0, preempted, calls0=calls0)
+
+    def _verify_commit(self, seqs: List[_Seq], g_of: Dict[int, int], g: int,
+                       tok_stack: torch.Tensor, q_stack: torch.Tensor,
+                       wall0: float, preempted: List[_Seq],
+                       calls0: Optional[int] = None) -> Dict[str, Any]:
+        """The verify stage of a round: ONE batched target call over
+        pending ++ drafted tokens, the fused verdict and its packet (the
+        round's only fetch), then commit or roll back each request.
+        ``calls0`` (parallel draft mode) is the decoders' forward count at
+        the round's start: the round then records its dispatches."""
+        pred = self.predictor
+        rec = self.rec
+        rnd_idx = len(self.timeline)
+        B = self.max_batch
+        wall_draft = rec.now()
         pends = {s.rid: list(s.tgt.pending) for s in seqs}
         npend = np.zeros(B, np.int32)
         pend_arr = np.zeros((B, 2), np.int32)
@@ -928,6 +1125,7 @@ class BatchedSpSEngine(BatchedEngineBase):
         drows = np.zeros(B, np.int32)
         rid_l = np.zeros(B, np.int32)
         ctr_l = np.zeros(B, np.int32)
+        glens = np.zeros(B, np.int32)      # pad lanes: 0 (garbage, unread)
         for i, s in enumerate(seqs):
             p = pends[s.rid]
             npend[i] = len(p)
@@ -936,7 +1134,9 @@ class BatchedSpSEngine(BatchedEngineBase):
             drows[i] = s.dft.row
             rid_l[i] = s.rid
             ctr_l[i] = s.ctr
-        Tb = DL.bucket(int(npend.max()) + g)
+            glens[i] = g_of[s.rid]
+        Tb = DL.bucket(int((npend + glens).max()) if pred is not None
+                       else int(npend.max()) + g)
         toks_full = DL.compose_verify_tokens(
             pend_arr, npend, tok_stack, drows, trows,
             n_rows=self.tgt_dec.n_rows, Tb=Tb)
@@ -945,54 +1145,67 @@ class BatchedSpSEngine(BatchedEngineBase):
         pos = np.minimum(self.tgt_dec.row_pos,
                          self.tgt_dec.max_len - Tb).astype(np.int32)
         for s in seqs:
-            self.pools["t"].extend(("t", s.rid), len(pends[s.rid]) + g)
+            self.pools["t"].extend(("t", s.rid),
+                                   len(pends[s.rid]) + g_of[s.rid])
             if s.tgt.ing + Tb > self.tgt_dec.max_len:
                 raise RuntimeError(f"row {s.tgt.row} overflows max_len")
             pos[s.tgt.row] = s.tgt.ing
         tlg, feats = self.tgt_dec.step(toks_full, pos)
         for s in seqs:
-            s.tgt.ing += len(pends[s.rid]) + g
+            s.tgt.ing += len(pends[s.rid]) + g_of[s.rid]
             self.tgt_dec.row_pos[s.tgt.row] = s.tgt.ing
         with DL.annotate("sps_verify", self.device):
             packet_dev = DL.sps_verify(
                 tlg, q_stack, tok_stack, trows, drows, npend, rid_l, ctr_l,
-                self._key, g=g, ttemp=self._tt, dtemp=self._dt,
-                kernel=self._use_kernel)
+                self._key, glens if pred is not None else None, g=g,
+                ttemp=self._tt, dtemp=self._dt, kernel=self._use_kernel)
         for s in seqs:
-            s.ctr += g + 1
+            s.ctr += g_of[s.rid] + 1
         pk = self._fetch(packet_dev)       # the round's ONLY host fetch
         wall_verify = rec.now()
-        now = self.clock + self.cost.round_cost(("serial", g, 1))
+        ndisp = (None if calls0 is None else
+                 self.dft_dec.n_calls + self.tgt_dec.n_calls - calls0)
+        rnd = ("serial", g, 1) if ndisp is None else ("serial", g, 1, ndisp)
+        now = self.clock + self.cost.round_cost(rnd)
         committed: Dict[int, int] = {}
         for i, s in enumerate(seqs):
+            g_i = g_of[s.rid]
             n, nxt, all_acc = int(pk[i, 0]), int(pk[i, 1]), bool(pk[i, 2])
-            dr = [int(x) for x in pk[i, 3:3 + g]]
+            dr = [int(x) for x in pk[i, 3:3 + g_i]]
             before = min(len(s.out), s.max_new)
             s.stats.target_calls += 1
             if feats is not None:
                 s.feats_last = feats[:, s.tgt.row:s.tgt.row + 1,
-                                     len(pends[s.rid]) + g - 1]
+                                     len(pends[s.rid]) + g_i - 1]
             s.tgt.pending = []
+            pobs = s.pdec.obs() if s.pdec is not None else None
+            if pred is not None:
+                # from the packet already on the host: no extra sync
+                pred.update(s.rid, all_acc, n / max(g_i, 1))
             if all_acc:
                 self._commit(s, dr + [nxt], now)
-                s.stats.run_extend(g + 1)
+                s.stats.run_extend(g_i + 1)
                 s.tgt.pending = [nxt]
-                s.dft.pending = [dr[-1], nxt]
+                # parallel mode: the chunk never entered the draft cache,
+                # so it is re-fed whole
+                s.dft.pending = (dr + [nxt] if ndisp is not None
+                                 else [dr[-1], nxt])
                 if rec.enabled:
                     rec.spec(rid=s.rid, round=rnd_idx, stage="sps",
-                             committed=g + 1, accepted=g, drafted=g,
-                             cause="accept", gamma=g, bonus=True, t=now)
+                             committed=g_i + 1, accepted=g_i, drafted=g_i,
+                             cause="accept", gamma=g_i, bonus=True,
+                             dispatches=ndisp, pred=pobs, t=now)
             else:
                 self._commit(s, dr[:n] + [nxt], now)
                 s.stats.run_extend(n)
                 s.stats.run_break()
-                s.stats.rollback_tokens += g - n
+                s.stats.rollback_tokens += g_i - n
                 self._rollback_streams(s)
                 if rec.enabled:
                     rec.spec(rid=s.rid, round=rnd_idx, stage="sps",
-                             committed=n + 1, accepted=n, drafted=g,
-                             rolled_back=g - n, cause="chunk-reject",
-                             gamma=g, t=now)
+                             committed=n + 1, accepted=n, drafted=g_i,
+                             rolled_back=g_i - n, cause="chunk-reject",
+                             gamma=g_i, dispatches=ndisp, pred=pobs, t=now)
             committed[s.rid] = min(len(s.out), s.max_new) - before
         if rec.enabled:
             wall1 = rec.now()
@@ -1002,8 +1215,9 @@ class BatchedSpSEngine(BatchedEngineBase):
             rec.span("commit", wall_verify, wall1, engine=self.name)
             rec.round(engine=self.name, index=rnd_idx, mode="serial",
                       draft_steps=g, target_calls=1, batch=len(seqs),
-                      wall0=wall0, wall1=wall1, t0=self.clock, t1=now)
-        self._finish_round("serial", g, 1)
+                      dispatches=ndisp, wall0=wall0, wall1=wall1,
+                      t0=self.clock, t1=now)
+        self._finish_round("serial", g, 1, ndisp)
         return {"committed": committed, "preempted": preempted}
 
 
@@ -1049,8 +1263,11 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
     def _branch_k(self, seq: _Seq) -> int:
         if not self.ecfg.use_branch:
             return 1
-        k_max = self.ecfg.k_max
-        return min(k_max, S.adaptive_k(seq.q_b_conf, k_max))
+        # the history predictor caps the hedge count; Eq. 7's adaptive k
+        # applies under the cap (no decision: the k_max cap)
+        cap = self.ecfg.k_max if seq.pdec is None \
+            else min(self.ecfg.k_max, max(1, seq.pdec.k_cap))
+        return min(cap, S.adaptive_k(seq.q_b_conf, cap))
 
     def _bkey(self, rid: int, i: int):
         return ("b", rid, i)
@@ -1067,13 +1284,13 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
     # --------------------------------------------------------------- round
     @torch.no_grad()
     def step_round(self) -> Dict[str, Any]:
+        if self.ecfg.draft_mode == "parallel":
+            return self._step_round_parallel()
         seqs = [s for s in self.active if not s.done]
         if not seqs:
             return {"committed": {}, "preempted": []}
-        g, gb = self.ecfg.gamma, self.ecfg.gamma_branch
-        K, CH = self._K, self._CH
-        eps = self.ecfg.epsilon
-        dev = self.device
+        gb = self.ecfg.gamma_branch
+        g_of, eps_of = self._decide(seqs)
         rec = self.rec
         wall0 = rec.now()
         rnd_idx = len(self.timeline)
@@ -1085,7 +1302,8 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
             pd = self.pools["d"]
             for s in ss:
                 if s.mode == "draft":
-                    d_ups.append((("d", s.rid), len(s.dft.pending) + g))
+                    d_ups.append((("d", s.rid),
+                                  len(s.dft.pending) + g_of[s.rid]))
                 else:
                     k = self._branch_k(s)
                     dlen = pd.length(("d", s.rid))
@@ -1101,81 +1319,9 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
 
         serial = [s for s in seqs if s.mode == "draft"]
         branchers = [s for s in seqs if s.mode == "branch"]
-        B = self.max_batch
         n_d = self.dft_dec.n_rows
-        V = self.dcfg.vocab_size
-
-        # ---- dispatch the branch-stage verification FIRST: its chunks were
-        # drafted last round, so the target forward + fused verdict overlap
-        # the draft ticks below (asynchronous dispatch)
-        bsets: Dict[int, _BranchSet] = {}
-        packet_dev = None
-        tfeats = None
-        pends: Dict[int, List[int]] = {}
-        ks: Dict[int, int] = {}
-        if branchers:
-            zero_v = torch.zeros((V,), device=dev)
-            qb_stack = torch.stack([s.q_b for s in branchers]
-                                   + [zero_v] * (B - len(branchers)))
-            rid_l = np.zeros(B, np.int32)
-            ctr_l = np.zeros(B, np.int32)
-            for i, s in enumerate(branchers):
-                rid_l[i] = s.rid
-                ctr_l[i] = s.ctr
-                ks[s.rid] = self._branch_k(s)
-            cands = self._fetch(DL.draw_cands(
-                qb_stack, rid_l, ctr_l, self._key, K=K, stemp=self._st,
-                mode=self.ecfg.branch_mode))
-            if self.ecfg.branch_mode != "topk":
-                for s in branchers:
-                    s.ctr += ks[s.rid]
-            for i, s in enumerate(branchers):
-                bset = _BranchSet(cands=cands[i, :ks[s.rid]].astype(np.int64))
-                for bi in range(ks[s.rid]):
-                    row = self.dft_dec.free_rows.pop()
-                    self.dft_dec.copy_row(s.dft.row, row)
-                    self.pools["d"].fork(("d", s.rid), self._bkey(s.rid, bi))
-                    self.dft_dec.bind_row(row, self._bkey(s.rid, bi))
-                    bset.streams.append(_Stream(row=row, ing=s.dft.ing))
-                    bset.conts.append([])
-                    bset.cont_q.append([])
-                    bset.confs.append([])
-                    bset.final_sig.append(None)
-                    bset.final_conf.append(0.0)
-                bsets[s.rid] = bset
-            pends = {s.rid: list(s.tgt.pending) for s in branchers}
-            tlg, tfeats = self._ingest(
-                self.tgt_dec,
-                [(s.tgt, ("t", s.rid), s.tgt.pending + s.chunk)
-                 for s in branchers])
-            npend_l = np.zeros(B, np.int32)
-            gch_l = np.zeros(B, np.int32)
-            ks_l = np.ones(B, np.int32)
-            trows = np.full(B, self.tgt_dec.n_rows, np.int32)  # OOB pad
-            ctr_v = np.zeros(B, np.int32)
-            cq_rows = []
-            ct = np.zeros((B, CH), np.int32)
-            zero_q = torch.zeros((CH, V), device=dev)
-            for i, s in enumerate(branchers):
-                npend_l[i] = len(pends[s.rid])
-                gch_l[i] = len(s.chunk)
-                ks_l[i] = ks[s.rid]
-                trows[i] = s.tgt.row
-                ctr_v[i] = s.ctr
-                cq_rows.append(
-                    torch.stack(list(s.chunk_q) + [s.chunk_q[-1]]
-                                * (CH - len(s.chunk_q)))
-                    if s.chunk_q else zero_q)
-                ct[i, :len(s.chunk)] = s.chunk
-            cq_rows += [zero_q] * (B - len(branchers))
-            with DL.annotate("branch_verify", self.device):
-                packet_dev = DL.branch_verify(
-                    tlg, trows, npend_l, gch_l, torch.stack(cq_rows), ct,
-                    cands, ks_l, qb_stack, rid_l, ctr_v, self._key, CH=CH,
-                    K=K, ttemp=self._tt, dtemp=self._dt, stemp=self._st,
-                    kernel=self._use_kernel)
-            for s in branchers:
-                s.ctr += self._W
+        verify = self._dispatch_verify(branchers)
+        bsets = verify[0]
         wall_disp = rec.now()
 
         # ---- PHASE A: all draft-model work, interleaved batched ticks ----
@@ -1225,9 +1371,9 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                 row = s.dft.row
                 conf = float(pkt[row, 1])
                 over = False
-                if sig[s.rid] == 0 or i >= g:
+                if sig[s.rid] == 0 or i >= g_of[s.rid]:
                     stop = True                  # deterministic: no ingest
-                elif sig[s.rid] == 1 and conf < eps:
+                elif sig[s.rid] == 1 and conf < eps_of[s.rid]:
                     stop = True
                     over = True                  # token i rode optimism
                 else:
@@ -1245,9 +1391,11 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                         self.dft_dec.row_pos[s.dft.row] = s.dft.ing
                     if rec.enabled:
                         rec.spec(rid=s.rid, round=rnd_idx, stage="draft",
-                                 drafted=len(s.chunk) + 1, gamma=g,
-                                 eps_stop=over,
+                                 drafted=len(s.chunk) + 1,
+                                 gamma=g_of[s.rid], eps_stop=over,
                                  hrad=(sig[s.rid] if self.ecfg.use_hrad
+                                       else None),
+                                 pred=(s.pdec.obs() if s.pdec is not None
                                        else None),
                                  t=self.clock)
                     continue
@@ -1272,7 +1420,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
         pend = None        # the dispatched-but-unresolved tick
         while True:
             readers = [s for s in serial
-                       if live[s.rid] and reads[s.rid] <= g
+                       if live[s.rid] and reads[s.rid] <= g_of[s.rid]
                        and not (sig[s.rid] == 0 and reads[s.rid] >= 1)]
             br_read = [s for s in branchers if branch_j[s.rid] <= gb]
             if not readers and not br_read:
@@ -1310,7 +1458,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
             # chains its sample straight into the next forward
             ingest_pairs = []
             for s, i in srd:
-                if live[s.rid] and sig[s.rid] != 0 and i < g:
+                if live[s.rid] and sig[s.rid] != 0 and i < g_of[s.rid]:
                     ingest_pairs.append((s.dft, ("d", s.rid)))
             for s, j in brd:
                 if j < gb:
@@ -1321,14 +1469,259 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                                          toks_dev)
                 last[:] = 0
                 ticks += 1
+        return self._finish_branch_round(seqs, serial, branchers, verify,
+                                         ticks, wall0, wall_disp, preempted)
 
-        # ---- PHASE B: fetch the verdict packet, commit per brancher ----
+    @torch.no_grad()
+    def _step_round_parallel(self) -> Dict[str, Any]:
+        """Single-pass parallel drafting round (DESIGN.md §7.12): the tick
+        pipeline collapses into ONE shared draft forward — a serial row's
+        frame is its pending tokens plus G masked slots, a branch lane's
+        the parent's chunk and its candidate plus G slots (the chunk never
+        entered the parent's cache) — and ``DL.draft_chunk`` reads every
+        proposal off it.  Stop rules (H-RAD prior, epsilon, gamma) are
+        applied on the fetched [token, conf] packet, which holds every
+        position's confidence, so nothing is ingested optimistically.  The
+        branch verification is the sequential round's.
+
+        PRNG: serial chunk token i draws at (rid, ctr0 + i), as the ticks
+        do; branch lane i draws its continuation as the contiguous block
+        (rid, b_ctr0 + i*gb + j), the same coordinate set as the ticks'
+        j*k + i interleaving."""
+        seqs = [s for s in self.active if not s.done]
+        if not seqs:
+            return {"committed": {}, "preempted": []}
+        gb = self.ecfg.gamma_branch
+        G = max(self.ecfg.gamma, gb)
+        g_of, eps_of = self._decide(seqs)
+        rec = self.rec
+        wall0 = rec.now()
+        rnd_idx = len(self.timeline)
+
+        def fits(ss):
+            # serial draft streams grow by the pending re-ingest only;
+            # branch lanes ingest chunk + candidate each (gb kept as a
+            # margin)
+            d_ups, t_ups, d_extra = [], [], 0
+            pd = self.pools["d"]
+            for s in ss:
+                if s.mode == "draft":
+                    d_ups.append((("d", s.rid), len(s.dft.pending)))
+                else:
+                    k = self._branch_k(s)
+                    dlen = pd.length(("d", s.rid))
+                    per = (pd.pages_for(dlen + 1 + len(s.chunk) + gb)
+                           - pd.pages_for(dlen) + 1)
+                    d_extra += k * per
+                    t_ups.append((("t", s.rid),
+                                  len(s.tgt.pending) + len(s.chunk)))
+            return (pd.would_need(d_ups) + d_extra <= pd.free_pages
+                    and self.pools["t"].has_room(t_ups))
+
+        preempted = self._make_room(seqs, fits)
+
+        serial = [s for s in seqs if s.mode == "draft"]
+        branchers = [s for s in seqs if s.mode == "branch"]
+        n_d = self.dft_dec.n_rows
+        calls0 = self.dft_dec.n_calls + self.tgt_dec.n_calls
+        verify = self._dispatch_verify(branchers)
+        bsets = verify[0]
+        wall_disp = rec.now()
+
+        # ---- PHASE A: ONE shared draft forward for every row ----
+        sig: Dict[int, int] = {}
+        for s in serial:
+            e_tok = s.dft.pending[-1] if s.dft.pending else s.tgt.pending[-1]
+            sig[s.rid] = self._hrad_signal(s, e_tok)
+            s.chunk, s.chunk_q = [], []
+        reals: List[Tuple[_Stream, Any, List[int]]] = []
+        for s in serial:
+            reals.append((s.dft, ("d", s.rid), list(s.dft.pending)))
+            s.dft.pending = []
+        for s in branchers:
+            bset = bsets[s.rid]
+            for i, st in enumerate(bset.streams):
+                # each lane ingests the chunk plus its own candidate, so
+                # an adopted lane's ing is the committed count
+                reals.append((st, self._bkey(s.rid, i),
+                              list(s.chunk) + [int(bset.cands[i])]))
+            s.stats.draft_tokens += 1      # candidate ingest
+        T = DL.bucket(max(len(t) for _, _, t in reals) + G)
+        toks = np.zeros((n_d, T), np.int32)
+        nreal = np.zeros(n_d, np.int32)
+        last = np.zeros(n_d, np.int32)
+        pos = np.minimum(self.dft_dec.row_pos,
+                         self.dft_dec.max_len - T).astype(np.int32)
+        for st, key, t in reals:
+            self._pool_of(key).extend(key, len(t))
+            if st.ing + T > self.dft_dec.max_len:
+                raise RuntimeError(f"row {st.row} overflows max_len")
+            toks[st.row, :len(t)] = t
+            nreal[st.row] = len(t)
+            last[st.row] = len(t) - 1
+            pos[st.row] = st.ing
+        lg, dfeats = self.dft_dec.step_draft(
+            toks, pos, nreal, self.draft_heads["mask_embed"])
+        for st, _, t in reals:
+            st.ing += len(t)
+            self.dft_dec.row_pos[st.row] = st.ing
+        entries = [(s.dft.row, s.rid, s.ctr) for s in serial]
+        for s in branchers:
+            for i, st in enumerate(bsets[s.rid].streams):
+                entries.append((st.row, s.rid, s.ctr + i * gb))
+        rids, ctrs = self._by_row(n_d, entries)
+        _, q_full, packed = DL.draft_chunk(
+            lg, dfeats, self.dp["final_norm"], self.draft_heads["heads"],
+            last, rids, ctrs, self._key, g=G, dtemp=self._dt,
+            stemp=self._st, eps=self.dcfg.norm_eps,
+            cap=self.dcfg.final_softcap)
+        pkt = self._fetch(packed)          # (n_d, G+1, 2) [token, conf]
+
+        # serial rows: the stop point straight from the packet
+        for s in serial:
+            row = s.dft.row
+            g_i = g_of[s.rid]
+            if sig[s.rid] == 0:
+                stop_j = 0
+            elif sig[s.rid] == 1:
+                stop_j = next((j for j in range(g_i)
+                               if float(pkt[row, j, 1]) < eps_of[s.rid]),
+                              g_i)
+            else:
+                stop_j = g_i
+            s.chunk = [int(pkt[row, j, 0]) for j in range(stop_j)]
+            s.chunk_q = [q_full[j, row] for j in range(stop_j)]
+            s.q_b = q_full[stop_j, row]
+            s.q_b_conf = float(pkt[row, stop_j, 1])
+            s.ctr += stop_j
+            s.stats.draft_tokens += stop_j + 1
+            if rec.enabled:
+                rec.spec(rid=s.rid, round=rnd_idx, stage="draft",
+                         drafted=stop_j + 1, gamma=g_i,
+                         eps_stop=(sig[s.rid] == 1 and stop_j < g_i),
+                         hrad=(sig[s.rid] if self.ecfg.use_hrad else None),
+                         pred=(s.pdec.obs() if s.pdec is not None
+                               else None),
+                         t=self.clock)
+        # branch lanes: continuation tokens and confidences, same packet
+        for s in branchers:
+            bset = bsets[s.rid]
+            for i, st in enumerate(bset.streams):
+                row = st.row
+                bset.conts[i] = [int(pkt[row, j, 0]) for j in range(gb)]
+                bset.cont_q[i] = [q_full[j, row] for j in range(gb)]
+                bset.confs[i] = [float(pkt[row, j, 1]) for j in range(gb)]
+                bset.final_sig[i] = q_full[gb, row]
+                bset.final_conf[i] = float(pkt[row, gb, 1])
+            s.stats.draft_tokens += gb
+            s.ctr += len(bset.streams) * gb
+        return self._finish_branch_round(seqs, serial, branchers, verify,
+                                         1, wall0, wall_disp, preempted,
+                                         calls0=calls0)
+
+    def _dispatch_verify(self, branchers: List[_Seq]):
+        """Dispatch the BRANCH-mode requests' verification before the
+        draft work of the round: draw each one's branch candidates (one
+        small fetch), fork its branch lanes (zero-copy page sharing), run
+        the target over pending ++ chunk and the fused chain + branch
+        verdict, whose packet is fetched after the draft phase (the chunk
+        under verification was drafted last round, so on the card the
+        verdict overlaps the drafting).  Returns (branch sets by rid, the
+        verdict packet on the device, the target's features, pending
+        tokens by rid)."""
+        bsets: Dict[int, _BranchSet] = {}
+        if not branchers:
+            return bsets, None, None, {}
+        K, CH = self._K, self._CH
+        B = self.max_batch
+        V = self.dcfg.vocab_size
+        dev = self.device
+        ks: Dict[int, int] = {}
+        zero_v = torch.zeros((V,), device=dev)
+        qb_stack = torch.stack([s.q_b for s in branchers]
+                               + [zero_v] * (B - len(branchers)))
+        rid_l = np.zeros(B, np.int32)
+        ctr_l = np.zeros(B, np.int32)
+        for i, s in enumerate(branchers):
+            rid_l[i] = s.rid
+            ctr_l[i] = s.ctr
+            ks[s.rid] = self._branch_k(s)
+        cands = self._fetch(DL.draw_cands(
+            qb_stack, rid_l, ctr_l, self._key, K=K, stemp=self._st,
+            mode=self.ecfg.branch_mode))
+        if self.ecfg.branch_mode != "topk":
+            for s in branchers:
+                s.ctr += ks[s.rid]
+        for i, s in enumerate(branchers):
+            bset = _BranchSet(cands=cands[i, :ks[s.rid]].astype(np.int64))
+            for bi in range(ks[s.rid]):
+                row = self.dft_dec.free_rows.pop()
+                self.dft_dec.copy_row(s.dft.row, row)
+                self.pools["d"].fork(("d", s.rid), self._bkey(s.rid, bi))
+                self.dft_dec.bind_row(row, self._bkey(s.rid, bi))
+                bset.streams.append(_Stream(row=row, ing=s.dft.ing))
+                bset.conts.append([])
+                bset.cont_q.append([])
+                bset.confs.append([])
+                bset.final_sig.append(None)
+                bset.final_conf.append(0.0)
+            bsets[s.rid] = bset
+        pends = {s.rid: list(s.tgt.pending) for s in branchers}
+        tlg, tfeats = self._ingest(
+            self.tgt_dec,
+            [(s.tgt, ("t", s.rid), s.tgt.pending + s.chunk)
+             for s in branchers])
+        npend_l = np.zeros(B, np.int32)
+        gch_l = np.zeros(B, np.int32)
+        ks_l = np.ones(B, np.int32)
+        trows = np.full(B, self.tgt_dec.n_rows, np.int32)  # OOB pad
+        ctr_v = np.zeros(B, np.int32)
+        cq_rows = []
+        ct = np.zeros((B, CH), np.int32)
+        zero_q = torch.zeros((CH, V), device=dev)
+        for i, s in enumerate(branchers):
+            npend_l[i] = len(pends[s.rid])
+            gch_l[i] = len(s.chunk)
+            ks_l[i] = ks[s.rid]
+            trows[i] = s.tgt.row
+            ctr_v[i] = s.ctr
+            cq_rows.append(
+                torch.stack(list(s.chunk_q) + [s.chunk_q[-1]]
+                            * (CH - len(s.chunk_q)))
+                if s.chunk_q else zero_q)
+            ct[i, :len(s.chunk)] = s.chunk
+        cq_rows += [zero_q] * (B - len(branchers))
+        with DL.annotate("branch_verify", self.device):
+            packet_dev = DL.branch_verify(
+                tlg, trows, npend_l, gch_l, torch.stack(cq_rows), ct,
+                cands, ks_l, qb_stack, rid_l, ctr_v, self._key, CH=CH,
+                K=K, ttemp=self._tt, dtemp=self._dt, stemp=self._st,
+                kernel=self._use_kernel)
+        for s in branchers:
+            s.ctr += self._W
+        return bsets, packet_dev, tfeats, pends
+
+    def _finish_branch_round(self, seqs, serial, branchers, verify,
+                             ticks: int, wall0: float, wall_disp: float,
+                             preempted: List[_Seq],
+                             calls0: Optional[int] = None
+                             ) -> Dict[str, Any]:
+        """PHASE B of a round: fetch the verdict packet and commit each
+        BRANCH-mode request; DRAFT-mode requests move to BRANCH.
+        ``calls0`` (parallel draft mode) records the round's dispatches."""
+        bsets, packet_dev, tfeats, pends = verify
+        rec = self.rec
+        rnd_idx = len(self.timeline)
         wall_draft1 = rec.now()
         committed: Dict[int, int] = {}
         n_target = 1 if branchers else 0
         kind = "parallel" if (branchers and self.ecfg.use_branch) \
             else "serial"
-        now = self.clock + self.cost.round_cost((kind, ticks, n_target))
+        ndisp = (None if calls0 is None else
+                 self.dft_dec.n_calls + self.tgt_dec.n_calls - calls0)
+        rnd = ((kind, ticks, n_target) if ndisp is None
+               else (kind, ticks, n_target, ndisp))
+        now = self.clock + self.cost.round_cost(rnd)
         wall_vfetch = wall_draft1
         if branchers:
             pk = self._fetch(packet_dev)
@@ -1354,9 +1747,9 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                 rec.span("commit", wall_vfetch, wall1, engine=self.name)
             rec.round(engine=self.name, index=rnd_idx, mode=kind,
                       draft_steps=ticks, target_calls=n_target,
-                      batch=len(seqs), wall0=wall0, wall1=wall1,
-                      t0=self.clock, t1=now)
-        self._finish_round(kind, ticks, n_target)
+                      batch=len(seqs), dispatches=ndisp, wall0=wall0,
+                      wall1=wall1, t0=self.clock, t1=now)
+        self._finish_round(kind, ticks, n_target, ndisp)
         return {"committed": committed, "preempted": preempted}
 
     # --------------------------------------------------- verdict (packet)
@@ -1372,6 +1765,15 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
         if feats is not None:
             s.feats_last = feats[:, s.tgt.row:s.tgt.row + 1,
                                  npend + gchunk - 1]
+        pred = self.predictor
+        pobs = s.pdec.obs() if s.pdec is not None else None
+        eps_i = s.pdec.epsilon if s.pdec is not None else self.ecfg.epsilon
+        if pred is not None:
+            # both outcomes from the verdict packet already on the host
+            if gchunk > 0:
+                pred.update(s.rid, bool(all_acc), n_acc / gchunk)
+            if all_acc:
+                pred.update(s.rid, acc_b >= 0)
 
         if not all_acc:
             # mid-chunk rejection: every branch is doomed (Fig. 1a)
@@ -1387,7 +1789,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                               accepted=n_acc,
                               rolled_back=(gchunk - n_acc) + gb,
                               cause="chunk-reject", gamma=gchunk,
-                              k=len(bset.streams), t=now)
+                              k=len(bset.streams), pred=pobs, t=now)
             s.mode, s.chunk, s.chunk_q, s.q_b = "draft", [], [], None
             return
 
@@ -1404,7 +1806,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                               stage="branch", committed=gchunk + 1,
                               accepted=gchunk, rolled_back=gb,
                               cause="branch-miss", gamma=gchunk,
-                              k=len(bset.streams), t=now)
+                              k=len(bset.streams), pred=pobs, t=now)
             s.mode, s.chunk, s.chunk_q, s.q_b = "draft", [], [], None
             return
 
@@ -1441,8 +1843,7 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
             self._prune_draft(s, s.committed)
         else:
             # cut at the continuation's first low-confidence token
-            j = next((jj for jj in range(gb)
-                      if confs[jj] < self.ecfg.epsilon), gb)
+            j = next((jj for jj in range(gb) if confs[jj] < eps_i), gb)
             if j == gb:
                 s.chunk, s.chunk_q = list(cont), list(q_i)
                 s.q_b = bset.final_sig[i]
@@ -1461,7 +1862,8 @@ class BatchedSpecBranchEngine(BatchedEngineBase):
                           accepted=gchunk + 1, pruned=pruned,
                           cause="branch-adopt", gamma=gchunk,
                           k=len(bset.streams),
-                          hrad=sgn if self.ecfg.use_hrad else None, t=now)
+                          hrad=sgn if self.ecfg.use_hrad else None,
+                          pred=pobs, t=now)
 
     def _prune_draft(self, s: _Seq, keep: int) -> None:
         """H-RAD pre-verify pruning: positional reset of the draft

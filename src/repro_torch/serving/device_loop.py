@@ -26,10 +26,12 @@ import contextlib
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 from repro_torch.runtime import sampling as S
 
 __all__ = ["bucket", "prefill_bucket", "prefill_rungs", "kernel_route",
-           "tick_sample", "masked_token_column", "compose_verify_tokens",
+           "tick_sample", "draft_chunk", "masked_token_column",
+           "compose_verify_tokens",
            "sps_verify", "draw_cands", "branch_verify",
            "set_trace_annotations", "annotate"]
 
@@ -140,6 +142,50 @@ def tick_sample(lg: torch.Tensor, last, rids, ctrs, base_key, *,
     return tok, sl, packed
 
 
+@torch.no_grad()
+def draft_chunk(lg: torch.Tensor, feats: torch.Tensor,
+                final_norm: torch.Tensor, heads: torch.Tensor, last, rids,
+                ctrs, base_key, *, g: int, dtemp: float, stemp: float,
+                eps: float = 1e-6, cap=None):
+    """One fused parallel-draft chunk, ``tick_sample``'s single-dispatch
+    twin (DESIGN.md §7.12), over ONE draft forward that ingested each
+    row's pending tokens plus ``g`` masked slots.
+
+    Indexed BY DECODER ROW: lg (n_rows, T, V) the forward's logits, feats
+    (n_rows, T, D) its final-layer (pre-final-norm) hidden states, last
+    (n_rows,) the last REAL column (slot j, 1..g, rides at ``last + j``).
+    final_norm (D,) and heads (K, D, V), K >= g, are the draft's norm
+    scale and head stack.  Entry 0 of the distributions is the AR
+    distribution at ``last``, entry i (1..g) head i on slot i.  Chunk
+    token i is drawn from entry i-1 with the uniform at (rid, ctr + i):
+    the coordinates g sequential ticks would consume.
+
+    Returns (tok_stack (g, n_rows) i32, q_stack (g+1, n_rows, V) f32 raw
+    logits — entries 0..g-1 feed the verify, entry g is the next-position
+    signal distribution — and packed (n_rows, g+1, 2) f32 [token,
+    confidence], row g carrying (-1, conf)), all on the device."""
+    dev = lg.device
+    n, T = lg.shape[0], lg.shape[1]
+    last = _dev(last, dev, torch.int64)
+    ar = lg[torch.arange(n, device=dev), last]                  # (n, V)
+    j = torch.arange(1, g + 1, device=dev)[None]
+    sidx = (last[:, None] + j).clamp(0, feats.shape[1] - 1)     # (n, g)
+    hs = torch.gather(feats, 1,
+                      sidx[..., None].expand(n, g, feats.shape[2]))
+    hn = L.rms_norm(hs, final_norm, eps)
+    hlg = L.softcap(torch.einsum("ngd,gdv->ngv", hn.float(),
+                                 heads[:g].float()), cap)
+    q_all = torch.cat([ar.float()[:, None], hlg], dim=1)       # (n, g+1, V)
+    qp = S.probs_from_logits(q_all[:, :g], dtemp)
+    u = _ugrid(base_key, rids, ctrs, g, dev)                    # (n, g)
+    tok = S.categorical_from_uniform(qp, u)                     # (n, g)
+    conf = S.probs_from_logits(q_all, stemp).amax(-1)           # (n, g+1)
+    tokf = torch.cat([tok.float(),
+                      torch.full((n, 1), -1.0, device=dev)], dim=1)
+    packed = torch.stack([tokf, conf], dim=-1)
+    return tok.T.contiguous(), q_all.transpose(0, 1), packed
+
+
 def masked_token_column(tokens: torch.Tensor, mask) -> torch.Tensor:
     """(n_rows,) sampled tokens -> (n_rows, 1) step input with
     non-ingesting rows zeroed."""
@@ -176,16 +222,21 @@ def compose_verify_tokens(pend, npend, tok_stack: torch.Tensor, drows,
 @torch.no_grad()
 def sps_verify(tlg: torch.Tensor, q_stack: torch.Tensor,
                tok_stack: torch.Tensor, trows, drows, npend, rids, ctrs,
-               base_key, *, g: int, ttemp: float, dtemp: float,
+               base_key, glens=None, *, g: int, ttemp: float, dtemp: float,
                kernel: bool = False) -> torch.Tensor:
     """Fused SpS verification: target-forward logits in, one small packet
     out.  tlg (n_rows, Tb, V); q_stack (g, n_draft_rows, V) raw draft
     logits from the ticks; tok_stack (g, n_draft_rows); trows/drows/
     npend (S,) target row, draft row and pending count per lane.  Row s
     uses uniforms (rid_s, ctr_s + 0..g): g accept tests and the residual
-    or bonus draw.  ``kernel`` sends the accept/residual pass through the
-    batched verify kernel on temperature-prescaled logits.  Returns the
-    packet (S, 3 + g) i32 [n_acc, next_token, all_acc, drafted tokens]."""
+    or bonus draw.  ``glens`` (S,), optional: per-row real draft lengths
+    <= g (the history predictor's per-request gamma); row s then verifies
+    its own glens[s] tokens, takes its bonus at position glens[s] and its
+    final uniform at offset glens[s].  ``kernel`` sends the
+    accept/residual pass through the batched verify kernel on
+    temperature-prescaled logits, with ``glens`` as the kernel's ragged
+    ``lens``.  Returns the packet (S, 3 + g) i32 [n_acc, next_token,
+    all_acc, drafted tokens]."""
     dev = tlg.device
     # pad lanes carry an out-of-range row: they read the last row, as the
     # reference's clamped gather does, and the host ignores them
@@ -200,13 +251,20 @@ def sps_verify(tlg: torch.Tensor, q_stack: torch.Tensor,
     q_raw = q_stack[:, drows].transpose(0, 1)             # (S, g, V)
     drafted = tok_stack[:, drows].T.to(torch.int32)       # (S, g)
     ugrid = _ugrid(base_key, rids, ctrs, g + 1, dev)
-    lens = torch.full((S_,), g, dtype=torch.int32, device=dev)
-    bonus = S.probs_from_logits(pall[:, g], ttemp)
+    if glens is None:
+        lens = torch.full((S_,), g, dtype=torch.int32, device=dev)
+        bonus_lg = pall[:, g]
+        u_fin = ugrid[:, g]
+    else:
+        lens = _dev(glens, dev, torch.int32).clamp(0, g)
+        bonus_lg = pall[torch.arange(S_, device=dev), lens.long()]
+        u_fin = torch.gather(ugrid, 1, lens.long()[:, None])[:, 0]
+    bonus = S.probs_from_logits(bonus_lg, ttemp)
     if kernel:
         n_acc, nxt, all_acc = _chain_via_kernel(
             pall[:, :g] / ttemp, q_raw / dtemp, drafted, lens, ugrid)
         nxt = torch.where(all_acc,
-                          S.categorical_from_uniform(bonus, ugrid[:, g])
+                          S.categorical_from_uniform(bonus, u_fin)
                           .to(torch.int32), nxt)
     else:
         n_acc, nxt, all_acc = S.verify_chain_device(

@@ -10,8 +10,10 @@ tree of numpy arrays (for instance the reference's params after
 weights; ``from_numpy_cache`` does the same for a decode cache (dense
 attention rings, Mamba carries and checkpoint rings), so
 both frameworks can also start from one mid-stream state;
-``from_numpy_hrad`` carries an H-RAD MLP (``core.hrad``) the same way.
-Saving is a later slice (training).
+``from_numpy_hrad`` carries an H-RAD MLP (``core.hrad``) the same way,
+and ``from_numpy_draft_heads`` a set of parallel-draft heads
+(``models.model.init_draft_heads``).  Saving is a later slice
+(training).
 """
 from __future__ import annotations
 
@@ -77,6 +79,25 @@ def from_numpy_hrad(params: Dict[str, Any], device
     tensors on ``device``, whatever the model's dtype."""
     return {k: _to_tensor(v, torch.float32, device)
             for k, v in params.items()}
+
+
+def from_numpy_draft_heads(heads: Dict[str, Any], cfg: ModelConfig,
+                           device) -> Dict[str, torch.Tensor]:
+    """Parallel-draft heads (``mask_embed`` (K, d_model) and ``heads``
+    (K, d_model, vocab) as numpy arrays, for instance the reference's
+    ``init_draft_heads`` or a cached ``heads-<key>.npz``) as tensors on
+    ``device`` in the draft model's dtype."""
+    out = {k: _to_tensor(heads[k], cfg.tdtype, device)
+           for k in ("mask_embed", "heads")}
+    K = out["heads"].shape[0]
+    if (tuple(out["mask_embed"].shape) != (K, cfg.d_model)
+            or tuple(out["heads"].shape) != (K, cfg.d_model,
+                                             cfg.vocab_size)):
+        raise ValueError(
+            f"{cfg.name}: draft heads {tuple(out['mask_embed'].shape)} / "
+            f"{tuple(out['heads'].shape)} do not match d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}")
+    return out
 
 
 _CACHE_DTYPES = {"pos": torch.int32, "ssm": torch.float32,

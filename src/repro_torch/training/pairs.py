@@ -5,14 +5,21 @@
 (``.cache/pairs/zm-target.npz`` and ``zm-draft-mis.npz``, committed with
 the repo) through ``training.checkpoint.load``.  Training a pair whose
 checkpoint is missing (the aligned draft trains on first use in the
-reference) is a later slice of the port.  ``hybrid_pair`` builds the
+reference) is a later slice of the port.  ``draft_heads_for`` loads the
+reference's trained parallel-draft heads from the same cache
+(``heads-<key>.npz``, written by the reference on first use) and raises
+when they are missing: training them is a later slice too.
+``hybrid_pair`` builds the
 reference's tiny random-init SSM-bearing pairs (same configs, weights
 drawn by the port's own generator).
 """
 from __future__ import annotations
 
+import hashlib
 import os
-from typing import Any, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, dense_pattern
@@ -58,6 +65,45 @@ def get_pair(kind: str = "misaligned", device="cuda",
         raise ValueError(kind)
     tgt = _get(TARGET_CFG, cache_dir, device)
     return _get(dcfg, cache_dir, device), dcfg, tgt, TARGET_CFG
+
+
+def _head_cache_key(cfg: ModelConfig, K: int, steps: int, seed: int) -> str:
+    """Cache key of trained draft heads (the reference's): a hash of the
+    full head configuration — head count K and the architecture of the
+    base the heads read — so heads of another K or another base never
+    load under the same name."""
+    arch = (f"{cfg.name}:L{cfg.num_layers}:d{cfg.d_model}"
+            f":v{cfg.vocab_size}:eps{cfg.norm_eps}"
+            f":cap{cfg.final_softcap}:K{K}:s{steps}:seed{seed}")
+    return hashlib.sha256(arch.encode()).hexdigest()[:16]
+
+
+def draft_heads_for(kind: str = "misaligned", K: int = 4,
+                    steps: int = 200, seed: int = 11, device="cuda",
+                    cache_dir: Optional[str] = None) -> Dict[str, Any]:
+    """The trained multi-position draft heads (DESIGN.md §7.12) of the
+    draft model of ``get_pair(kind)``, read from the reference's cache
+    file ``heads-<key>.npz``.  A missing file raises: the port cannot
+    train heads yet, and random heads would not be the trained ones."""
+    if kind == "misaligned":
+        dcfg = DRAFT_MIS_CFG
+    elif kind == "aligned":
+        dcfg = DRAFT_ALI_CFG
+    else:
+        raise ValueError(kind)
+    path = os.path.join(
+        cache_dir or CACHE_DIR,
+        f"heads-{_head_cache_key(dcfg, K, steps, seed)}.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} is missing: the port loads trained draft heads from "
+            "the reference's cache and cannot train them yet (training, "
+            "ROADMAP.md queue A item 4); create it with the reference "
+            "(PYTHONPATH=src python -m repro.launch.serve --draft-mode "
+            "parallel)")
+    with np.load(path) as data:
+        heads = {k: data[k] for k in data.files}
+    return ckpt.from_numpy_draft_heads(heads, dcfg, device)
 
 
 HYBRID_KINDS = ("falcon-shaped", "jamba-shaped")

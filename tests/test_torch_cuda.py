@@ -722,3 +722,113 @@ def test_traced_serve_on_the_card_adds_no_host_fetch(cuda):
     assert got[0] == got[1]
     assert rec.request_totals() and any(
         e["kind"] == "span" for e in rec.events)
+
+
+# The parallel-draft frames (DESIGN.md §7.12): each row's nreal real
+# tokens at L .. L + nreal - 1, then draft slots up to T.  On a dense ring
+# the slots' keys are stored at position -1 and their queries clamped by
+# q_ctx to the last real position; on pages the slots lie at or past
+# lens, so the causal limit of a slot query lies beyond lens.
+PDRAFT_CASES = [
+    dict(B=8, T=16, S=512, H=12, KV=12, hd=64, L=41, nreal=[1, 2, 5, 1,
+                                                            3, 9, 1, 2]),
+    dict(B=4, T=8, S=64, H=2, KV=1, hd=16, L=30, nreal=[1, 2, 3, 8]),
+    dict(B=2, T=16, S=48, H=32, KV=32, hd=128, L=60, nreal=[4, 1]),
+]
+
+
+def _pdraft_flash_inputs(seed, B, T, S, H, KV, hd, L, nreal):
+    rng = np.random.default_rng(seed)
+    kpos = np.full((B, S), -1, np.int32)
+    qpos = np.zeros((B, T), np.int32)
+    qctx = np.zeros((B, T), np.int32)
+    for b in range(B):
+        for p in range(max(0, L + T - S), L + nreal[b]):
+            kpos[b, p % S] = p
+        for t in range(nreal[b], T):
+            kpos[b, (L + t) % S] = -1        # slot keys stored invisible
+        qpos[b] = L + np.arange(T)
+        qctx[b] = np.minimum(qpos[b], L + nreal[b] - 1)
+    return [rng.normal(size=(B, T, H, hd)).astype(np.float32),
+            rng.normal(size=(B, S, KV, hd)).astype(np.float32),
+            rng.normal(size=(B, S, KV, hd)).astype(np.float32), qpos, kpos,
+            qctx]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PDRAFT_CASES,
+                         ids=[f"case{i}" for i in range(len(PDRAFT_CASES))])
+def test_flash_kernel_parallel_draft_frame_matches_plain(cuda, case, dtype):
+    """q_ctx below q_pos on the slot columns, slot keys at -1 inside the
+    row, past its write head."""
+    q, k, v, qp, kp, qc = _dev(_pdraft_flash_inputs(8, **case), cuda)
+    dt = getattr(torch, dtype)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    n0 = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, qp, kp, q_ctx=qc)
+    want = ref.flash_attention_ref(q, k, v, qp, kp, q_ctx=qc)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0 + 1
+    _assert_attn_close(got, want)
+    # each slot query equals the last real query's attention
+    B = q.shape[0]
+    for b in range(B):
+        n = case["nreal"][b]
+        if n == q.shape[1]:
+            continue                       # a frame without slot columns
+        lastq = ref.flash_attention_ref(q[b:b + 1, n:], k[b:b + 1],
+                                        v[b:b + 1], qc[b:b + 1, n:],
+                                        kp[b:b + 1])
+        _assert_attn_close(got[b:b + 1, n:], lastq)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PDRAFT_CASES,
+                         ids=[f"case{i}" for i in range(len(PDRAFT_CASES))])
+def test_paged_kernel_parallel_draft_frame_matches_plain(cuda, case, dtype):
+    """lens = q_start + nreal < q_start + T: the slot queries' causal
+    limit lies past lens, and every query sees only keys < lens."""
+    B, T, L = case["B"], case["T"], case["L"]
+    lens = [L + n for n in case["nreal"]]
+    q, kp, vp, table, lens_, _ = _attn_inputs(
+        9, B, T, case["H"], case["KV"], case["hd"], 16, lens=lens)
+    qs = np.full(B, L, np.int32)
+    q, kp, vp, table, lens_, qs = _dev((q, kp, vp, table, lens_, qs), cuda)
+    dt = getattr(torch, dtype)
+    q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
+    n0 = ops.LAUNCHES["paged_attention"]
+    got = ops.paged_attention(q, kp, vp, table, lens_, qs)
+    want = ref.paged_attention_ref(q, kp, vp, table, lens_, qs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == n0 + 1
+    _assert_attn_close(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine", ["sps", "specbranch"])
+def test_parallel_draft_serve_on_the_card_is_greedy_lossless(cuda, engine):
+    """Parallel drafting on both backends serves the greedy decode on the
+    card, through the flash or paged kernel; batched SpS takes two
+    dispatches a round."""
+    pair = get_pair("misaligned", device=cuda,
+                    cache_dir=os.path.join(ROOT, ".cache", "pairs"))
+    prompts = SV.make_prompts(3)
+    want = M.greedy_reference(pair[2], pair[3], prompts, 16)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, epsilon=0.0,
+                        max_len=512, draft_mode="parallel")
+    heads = M.init_draft_heads(pair[1], SV.heads_k(ecfg),
+                               torch.Generator(device=cuda).manual_seed(2),
+                               cuda)
+    for backend in ("dense", "paged"):
+        ops.reset_launches()
+        res, rep, _, _ = SV.serve(pair, ecfg, prompts, 16, device=cuda,
+                                  max_batch=2, engine=engine,
+                                  attn_backend=backend, draft_heads=heads)
+        assert [res[i].tokens for i in range(3)] == want, backend
+        kernel = ("flash_attention" if backend == "dense"
+                  else "paged_attention")
+        assert ops.LAUNCHES[kernel] > 0, backend
+        if engine == "sps":
+            assert rep["dispatches_per_round"] == 2.0

@@ -145,14 +145,17 @@ def test_serve_cli_sequential_on_cpu(tmp_path, capsys):
 
 def test_later_slice_engine_options_raise(pairs):
     _, (dp, dcfg, tp, tcfg) = pairs
-    for ecfg, kw in ((TE.EngineConfig(draft_mode="parallel"), {}),
-                     (TE.EngineConfig(spec_predictor="on"), {}),
-                     (TE.EngineConfig(), dict(draft_heads={}))):
-        with pytest.raises(NotImplementedError, match="slice"):
-            SpecBranchEngine(dp, dcfg, tp, tcfg, ecfg, **kw)
     eng = TE.SpSEngine(dp, dcfg, tp, tcfg, TE.EngineConfig(max_len=64))
     with pytest.raises(NotImplementedError, match="slice"):
         eng.generate([1, 2, 3], 2, prng.PRNGKey(0), embeds=object())
-    with pytest.raises(NotImplementedError, match="slice"):
+    # parallel drafting and the predictor are ported
+    # (tests/test_torch_parallel_draft.py, tests/test_torch_predictor.py):
+    # parallel mode now asks for heads, the predictor is built, and heads
+    # are inert in sequential mode
+    with pytest.raises(ValueError, match="needs draft_heads"):
         SpecBranchEngine(dp, dcfg, tp, tcfg,
-                         TE.EngineConfig())._serial_draft_parallel()
+                         TE.EngineConfig(draft_mode="parallel"))
+    assert SpecBranchEngine(dp, dcfg, tp, tcfg, TE.EngineConfig(
+        spec_predictor="on")).predictor is not None
+    assert SpecBranchEngine(dp, dcfg, tp, tcfg, TE.EngineConfig(),
+                            draft_heads={}).predictor is None

@@ -34,6 +34,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.engines import EngineConfig
 from repro_torch.serving import (BatchedSpecBranchEngine, BatchedSpSEngine,
                                  ContinuousBatchScheduler, ServeRequest)
+from repro_torch.training import pairs as TP
 from repro_torch.training.checkpoint import (from_numpy_hrad,
                                              from_numpy_params)
 
@@ -167,7 +168,7 @@ def test_sps_greedy_equals_port_greedy_decode(pair, runs):
         TM.greedy_reference(tpair[2], tpair[3], prompts, N_NEW)
 
 
-def test_serve_cli_batched_sps_on_cpu(tmp_path, capsys):
+def test_serve_cli_batched_sps_on_cpu(tmp_path, capsys, monkeypatch):
     out = tmp_path / "rep.json"
     SV.main(["--device", "cpu", "--mode", "batched", "--engine", "sps",
              "--requests", "2", "--new-tokens", "6", "--max-batch", "2",
@@ -181,6 +182,9 @@ def test_serve_cli_batched_sps_on_cpu(tmp_path, capsys):
     SV.main(["--device", "cpu", "--engine", "sps", "--requests", "1",
              "--new-tokens", "4"])
     assert "batched sps" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not in this slice"):
+    # parallel drafting is ported (tests/test_torch_parallel_draft.py):
+    # without the trained heads' cache file it exits naming training
+    monkeypatch.setattr(TP, "CACHE_DIR", str(tmp_path))
+    with pytest.raises(SystemExit, match="queue A item 4"):
         SV.main(["--device", "cpu", "--engine", "sps", "--draft-mode",
                  "parallel"])

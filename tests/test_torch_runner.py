@@ -266,7 +266,10 @@ def test_later_slice_paths_raise(pair):
     _, (tdp, tdcfg, _, _) = pair
     r = TR.ModelRunner(tdp, tdcfg, max_len=16)
     assert not r.has_ssm          # mamba runners: tests/test_torch_ssm.py
-    for call in (lambda: r.forward_parallel(2, None),
-                 lambda: r.forward_embeds(None)):
-        with pytest.raises(NotImplementedError, match="later|slice"):
-            call()
+    with pytest.raises(NotImplementedError, match="later|slice"):
+        r.forward_embeds(None)
+    # the parallel draft forward is ported (tests/test_torch_parallel_draft)
+    heads = TM.init_draft_heads(tdcfg, 3, torch.Generator().manual_seed(0),
+                                "cpu")
+    r.prefill([1, 2, 3])
+    assert r.forward_parallel(2, heads).shape == (1, 3, tdcfg.vocab_size)

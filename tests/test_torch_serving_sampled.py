@@ -26,6 +26,7 @@ from repro_torch.runtime.engines import EngineConfig
 from repro_torch.serving import (BatchedSpecBranchEngine,
                                  ContinuousBatchScheduler, ServeRequest)
 from repro_torch.serving.kv_pool import PagedStore
+from repro_torch.training import pairs as TP
 from repro_torch.training.checkpoint import from_numpy_params
 
 # One intra-op thread: the tiny models gain nothing from more, and the
@@ -132,10 +133,14 @@ def test_later_slice_options_raise(pair):
     with pytest.raises(ValueError, match="requires attn_backend='paged'"):
         BatchedSpecBranchEngine(*tpair, EngineConfig(max_len=128),
                                 device="cpu", prefix_cache=True)
-    for ecfg in (EngineConfig(max_len=128, draft_mode="parallel"),
-                 EngineConfig(max_len=128, spec_predictor="on")):
-        with pytest.raises(NotImplementedError):
-            BatchedSpecBranchEngine(*tpair, ecfg, device="cpu")
+    # parallel drafting and the predictor are ported
+    # (tests/test_torch_parallel_draft.py, tests/test_torch_predictor.py)
+    with pytest.raises(ValueError, match="needs draft_heads"):
+        BatchedSpecBranchEngine(*tpair, EngineConfig(
+            max_len=128, draft_mode="parallel"), device="cpu")
+    assert BatchedSpecBranchEngine(*tpair, EngineConfig(
+        max_len=128, spec_predictor="on"), device="cpu").predictor \
+        is not None
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -145,7 +150,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_serve_cli_on_cpu_and_unsupported_flags(tmp_path, capsys):
+def test_serve_cli_on_cpu_and_unsupported_flags(tmp_path, capsys,
+                                                monkeypatch):
     out = tmp_path / "rep.json"
     SV.main(["--device", "cpu", "--requests", "2", "--new-tokens", "6",
              "--max-batch", "2", "--json", str(out)])
@@ -153,10 +159,15 @@ def test_serve_cli_on_cpu_and_unsupported_flags(tmp_path, capsys):
     assert "batched specbranch on misaligned pair (cpu)" in text
     rep = __import__("json").loads(out.read_text())
     assert rep["total_tokens"] == 12 and rep["device"] == "cpu"
-    for flags in (["--spec-predictor", "on"], ["--prefix-cache", "on"],
-                  ["--draft-mode", "parallel"]):
+    for flags in (["--prefix-cache", "on"], ["--mesh", "1,1"]):
         with pytest.raises(SystemExit, match="not in this slice"):
             SV.main(["--device", "cpu"] + flags)
+    # --spec-predictor and --draft-mode parallel are ported
+    # (tests/test_torch_parallel_draft.py): without the trained heads'
+    # cache file, parallel drafting exits naming training
+    monkeypatch.setattr(TP, "CACHE_DIR", str(tmp_path))
+    with pytest.raises(SystemExit, match="queue A item 4"):
+        SV.main(["--device", "cpu", "--draft-mode", "parallel"])
     # as in the reference: only SpS and SpecBranch have a batched form
     with pytest.raises(SystemExit, match="--mode batched supports"):
         SV.main(["--device", "cpu", "--mode", "batched", "--engine",
