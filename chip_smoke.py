@@ -19,7 +19,11 @@ Phases (any failure raises, so the script exits non-zero):
                B = 1 and a 2048-key shared prefix, and the parallel-draft
                frames of phase 13 (flash with q_ctx clamped below q_pos on
                the slot columns and slot keys at -1; paged with lens =
-               q_start + real tokens < q_start + T).  The shared-prefix
+               q_start + real tokens < q_start + T), and phase 14's
+               suffix prefill (paged: a rung of queries from the cached
+               length on over tables that share the cached run's pages,
+               7B bf16 and tiny f32; the ring scan at falcon's width from
+               a restored slot at p0 = 256, T = 16 and 32).  The shared-prefix
                branch decode and the single-request verify lie on no
                engine path, in either package: their path is the kernel
                API (``kernels.ops``, as the reference's
@@ -138,6 +142,25 @@ Phases (any failure raises, so the script exits non-zero):
                SpecBranch serve beside the sequential-mode one; batched
                SpecBranch with the predictor on: its decided-gamma
                histogram and rollback tokens per request beside off.
+ 14. prefix  — the cross-request prefix cache (``prefix_cache=True``).
+               Tiny committed pair, both batched engines, greedy and
+               temperature 1 (shadowed as in phase 3), and the
+               jamba-shaped pair greedy, on the reference test's
+               staggered shared-prompt trace: every follower hits, the
+               streams, prefix and pool stats must equal the same serve's
+               on the CPU and the streams the cache-off serve's; the
+               jamba hits restore the rings' snapshots.  Full width: the
+               7B pair serving one request and then seven that share its
+               512-token system prompt (32 tokens of their own) arriving
+               together after it retired, cache off and on: hits (7),
+               saved tokens (3584), the target's prefill forwards, staged
+               tokens and device time (a profiler session around each
+               prefill call of a second serve), the followers' wall TTFT
+               (admission to first committed token, synchronised) and
+               wall tokens/s; streams on == off.  falcon-mamba-7b serving
+               one request and three that share its 256-token prompt:
+               snapshot restores, each publish candidate's snapshot
+               bytes and host time; streams on == off.
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -147,7 +170,7 @@ line is the device JSON.
 Exits non-zero without a result when no CUDA device is visible.
 
 Modes that give no smoke result (exit 3): ``--kernels`` stops after
-phase 2; ``--probe`` times the attention tile loops phase by phase from
+phase 2; ``--prefix`` runs phases 1-2 and 14 only; ``--probe`` times the attention tile loops phase by phase from
 variants built with -DREPRO_ATTN_STOP (1: K/V loads only, 2: loads and
 logits, 0: whole kernel) beside the timing floor, and the batched
 verify's rounds (-DREPRO_VERIFY_STOP) and cluster barrier cost;
@@ -257,6 +280,8 @@ FALCON_RING_CASE = "falcon-7b serve B=8 T=16 Rg=92"
 # the swap readback at the LLaMA-7B target's full width (swap_dim 262144
 # f32 per token: K and V of 32 layers x 32 heads x 128), 60 rows of 4 pages
 GATHER_FULL_CASE = "llama-7b swap 4x16 dim=262144 60 rows"
+# the prefix cache's 7B suffix prefill frame (phase 14's followers)
+PC_ATTN_CASE = "llama-7b suffix B=8 T=32 q0=512"
 
 
 def log(*a) -> None:
@@ -347,27 +372,49 @@ def bound(nbytes: float, ops_: float, dtype) -> tuple:
 # ---------------------------------------------------------------------------
 
 def attn_case(rng, B, T, H, KV, hd, ps, dtype, n_idle=0, max_len=112,
-              min_len=17, n_max=None, nreal=None):
+              min_len=17, n_max=None, nreal=None, prefix=None):
     """Fragmented page tables over random ragged rows; ``n_idle`` rows are
     unbound (lens 0), as most draft rows are on the main path.  ``n_max``
     widens the tables (trash-padded) to a serve's width, which covers its
     longest request, not the rows at hand.  ``nreal`` (B,) makes a
     parallel-draft frame: row b's queries start at lens - nreal[b], so
     its last T - nreal[b] queries (the draft slots) lie at or past
-    lens."""
-    lens = [int(rng.integers(max(T, min_len), max_len + 1))
-            for _ in range(B)]
-    for b in range(B - n_idle, B):
-        lens[b] = 0
-    n_pages = [-(-ln // ps) for ln in lens]
-    P = sum(n_pages)
-    n_max = max(max(n_pages), 1, n_max or 0)
-    table = np.full((B, n_max), P, np.int32)
-    perm = rng.permutation(P)
-    off = 0
-    for b, n in enumerate(n_pages):
-        table[b, :n] = perm[off:off + n]
-        off += n
+    lens.  ``prefix = (q_start, suffix)`` makes a prefix-cache suffix
+    prefill: every live row's queries start at q_start, its lens is
+    q_start + suffix (the rung's last T - suffix queries are pad), and
+    the rows' tables share their first q_start / ps pages (the cached
+    run) before their own; idle rows are the frame's pad lanes (lens 0,
+    queries from 0)."""
+    if prefix is not None:
+        q0, sfx = prefix
+        assert q0 % ps == 0 and 1 <= sfx <= T
+        lens = [q0 + sfx] * (B - n_idle) + [0] * n_idle
+        shared = q0 // ps
+        n_pages = [-(-ln // ps) - shared if ln else 0 for ln in lens]
+        P = shared + sum(n_pages)
+        perm = rng.permutation(P)
+        n_max = max(shared + max(n_pages), n_max or 0)
+        table = np.full((B, n_max), P, np.int32)
+        off = shared
+        for b, n in enumerate(n_pages):
+            if lens[b]:
+                table[b, :shared] = perm[:shared]
+                table[b, shared:shared + n] = perm[off:off + n]
+                off += n
+    else:
+        lens = [int(rng.integers(max(T, min_len), max_len + 1))
+                for _ in range(B)]
+        for b in range(B - n_idle, B):
+            lens[b] = 0
+        n_pages = [-(-ln // ps) for ln in lens]
+        P = sum(n_pages)
+        n_max = max(max(n_pages), 1, n_max or 0)
+        table = np.full((B, n_max), P, np.int32)
+        perm = rng.permutation(P)
+        off = 0
+        for b, n in enumerate(n_pages):
+            table[b, :n] = perm[off:off + n]
+            off += n
     dev = "cuda"
     kp = torch.from_numpy(rng.standard_normal((P + 1, ps, KV, hd),
                                               np.float32)).to(dev, dtype)
@@ -376,6 +423,10 @@ def attn_case(rng, B, T, H, KV, hd, ps, dtype, n_idle=0, max_len=112,
     q = torch.from_numpy(rng.standard_normal((B, T, H, hd),
                                              np.float32)).to(dev, dtype)
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if prefix is not None:
+        qs = torch.tensor([prefix[0] if ln else 0 for ln in lens],
+                          dtype=torch.int32, device=dev)
+        return q, kp, vp, torch.from_numpy(table).to(dev), lens_t, qs
     back = T if nreal is None else torch.tensor(nreal, dtype=torch.int32,
                                                 device=dev)
     qs = torch.clamp(lens_t - back, min=0).to(torch.int32)
@@ -400,7 +451,15 @@ def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0,
     qpos = qs.long()[:, None] + torch.arange(T, device="cuda")[None]
     vis = ((kpos[None, None] < lens.long()[:, None, None])
            & (kpos[None, None] <= qpos[:, :, None]))
-    if window > 0 or "nreal" in lens_kw:
+    if "prefix" in lens_kw:
+        # shared pages are read once: the distinct pages of the rows'
+        # live spans, and the products each query computes
+        live = {int(table[b, i]) for b in range(B)
+                for i in range(-(-int(lens[b]) // ps_))}
+        nbytes = (2 * len(live) * ps_ * KV * hd * es + 2 * q.numel() * es
+                  + (table.numel() + 2 * B) * 4)
+        flops = 4 * H * hd * int(vis.sum())
+    elif window > 0 or "nreal" in lens_kw:
         # the work a window or a frame leaves: the keys some query sees,
         # read once, and the products the queries compute
         if window > 0:
@@ -1187,6 +1246,23 @@ def phase_kernels() -> dict:
                                nreal=nr8 * 7))
     att.append(check_attention(rng, "zm-draft frame B=8 T=16", 8, 16, 2, 1,
                                16, 16, f32, nreal=nr8))
+    # the prefix cache's suffix prefill (phase 14): the 7B followers' frame
+    # (7 lanes of a 31-token suffix on the 32-token rung, queries from
+    # the 512-token cached run whose 32 pages every row's table shares,
+    # one pad lane; tables of the serve's 1024-token width) and the tiny
+    # pair's f32 frame (8 cached tokens, a 2-token suffix on the 8 rung,
+    # page size 4); the ring scan's suffix entry at falcon's width from a
+    # restored slot at p0 = 256 (3 hit lanes and a pad lane, rungs 16
+    # and 32)
+    att.append(check_attention(rng, PC_ATTN_CASE, 8, 32, 32, 32, 128, 16,
+                               bf, n_idle=1, n_max=64, prefix=(512, 31)))
+    att.append(check_attention(rng, "zm-target suffix B=4 T=8 q0=8 ps=4", 4,
+                               8, 4, 2, 32, 4, f32, n_idle=1,
+                               prefix=(8, 2)))
+    for T in (16, 32):
+        rr.append(check_ssm_ring(rng, f"falcon-7b suffix B=4 T={T} p0=256",
+                                 4, T, 8192, 16, FALCON_RING, 4, bf16,
+                                 p0=[256, 256, 256, 0], rows=[1, 2, 3, -1]))
     timing_floor()
     for r in att + ver + gat + fl + ss + rr + br + sv:
         lib = r["library_ms"]
@@ -3021,6 +3097,424 @@ def phase_parallel_full(dev, totals, pair, traced) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the cross-request prefix cache
+# ---------------------------------------------------------------------------
+
+def pc_tiny_trace(vocab: int, shared_len: int, seed: int):
+    """The reference test's staggered shared-prompt trace: three prompts
+    of ``shared_len`` shared tokens and 3 of their own, each arriving
+    after the previous one retired (the reference's tests/
+    test_prefix_cache.py:47-69)."""
+    rng = np.random.default_rng(seed)
+    shared = [int(x) for x in rng.integers(0, vocab, size=shared_len)]
+    prompts = [shared + [int(x) for x in rng.integers(0, vocab, size=3)]
+               for _ in range(3)]
+    return prompts, [0.0, 300.0, 600.0]
+
+
+class AdmissionClock:
+    """While active, the host clock (after a device synchronise) at each
+    request's admission (``reserve``), at the end of its admission
+    group's prefill (``commit_admissions``) and at its first committed
+    token (``_commit``): the wall TTFT of a serve, split into admission
+    and the first round."""
+
+    def __init__(self):
+        from repro_torch.serving import batched_engine as BE
+        self.cls = BE.BatchedEngineBase
+        self.admit, self.admitted, self.first = {}, {}, {}
+
+    def __enter__(self):
+        self._orig = (self.cls.reserve, self.cls.commit_admissions,
+                      self.cls._commit)
+        reserve, commit_admissions, commit = self._orig
+
+        def on_reserve(eng, rid, *a, **kw):
+            torch.cuda.synchronize()
+            self.admit.setdefault(rid, time.perf_counter())
+            return reserve(eng, rid, *a, **kw)
+
+        def on_commit_admissions(eng):
+            rids = [p[0].rid for p in eng._pending_admits]
+            commit_admissions(eng)
+            torch.cuda.synchronize()
+            for rid in rids:
+                self.admitted.setdefault(rid, time.perf_counter())
+
+        def on_commit(eng, seq, tokens, now):
+            if tokens and seq.rid not in self.first:
+                torch.cuda.synchronize()
+                self.first[seq.rid] = time.perf_counter()
+            return commit(eng, seq, tokens, now)
+        (self.cls.reserve, self.cls.commit_admissions,
+         self.cls._commit) = on_reserve, on_commit_admissions, on_commit
+        return self
+
+    def __exit__(self, *exc):
+        (self.cls.reserve, self.cls.commit_admissions,
+         self.cls._commit) = self._orig
+
+    def ttft(self, rids) -> list:
+        return [self.first[r] - self.admit[r] for r in rids]
+
+    def split(self, rids) -> dict:
+        """Medians over ``rids``, in ms: TTFT, its admission part (reserve
+        to the end of the group's prefill) and its first round."""
+        med = lambda xs: float(np.median(xs)) * 1e3  # noqa: E731
+        return dict(
+            ttft_ms=med(self.ttft(rids)),
+            admission_ms=med([self.admitted[r] - self.admit[r]
+                              for r in rids]),
+            first_round_ms=med([self.first[r] - self.admitted[r]
+                                for r in rids]))
+
+
+class TargetPrefills:
+    """While active, every prefill forward of the decoder whose model
+    config is ``cfg`` (the target): its kind (full prompt or suffix),
+    lanes x rung width and, with ``profile``, its device time, the sum of
+    the CUDA kernels a ``torch.profiler`` session around the call saw."""
+
+    def __init__(self, cfg, profile: bool = False):
+        from repro_torch.serving import batched_engine as BE
+        self.cls, self.cfg, self.profile = BE.BatchedDecoder, cfg, profile
+        self.calls = []
+
+    def __enter__(self):
+        self._orig = {n: getattr(self.cls, n)
+                      for n in ("prefill_rows", "prefill_rows_at")}
+        for name, fn in self._orig.items():
+            setattr(self.cls, name, self._spy(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.cls, name, fn)
+
+    def _spy(self, name, fn):
+        def call(dec, parts, *a):
+            if dec.cfg is not self.cfg:
+                return fn(dec, parts, *a)
+            tb = DL.prefill_bucket(max(len(t) for _, t in parts),
+                                   dec.prefill_quantum)
+            rec = dict(kind="suffix" if name == "prefill_rows_at"
+                       else "full", lanes=dec.prefill_lanes, width=tb,
+                       used=len(parts))
+            if not self.profile:
+                out = fn(dec, parts, *a)
+            else:
+                torch.cuda.synchronize()
+                acts = [torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    out = fn(dec, parts, *a)
+                    torch.cuda.synchronize()
+                rec["device_ms"] = sum(
+                    e.duration_ns() for e in
+                    prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA
+                ) / 1e6
+            self.calls.append(rec)
+            return out
+        return call
+
+
+class SnapshotClock:
+    """While active, each ring snapshot a decoder takes and each restore
+    it makes: the snapshot's bytes on the host and the host time of each
+    (a synchronise before; the snapshot's fetch inside, a synchronise
+    after the restore's uploads)."""
+
+    def __init__(self):
+        from repro_torch.serving import batched_engine as BE
+        self.cls = BE.BatchedDecoder
+        self.snaps, self.restores = [], []
+
+    def __enter__(self):
+        self._snap, self._restore = snap, restore = (self.cls.snapshot,
+                                                     self.cls.restore)
+
+        def snapshot(dec, row, step, fetch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = snap(dec, row, step, fetch)
+            self.snaps.append((dec.cfg.name, sum(
+                a.numel() * a.element_size() for d in out
+                for a in d.values()), time.perf_counter() - t0))
+            return out
+
+        def restore_(dec, row, step, sn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore(dec, row, step, sn)
+            torch.cuda.synchronize()
+            self.restores.append((dec.cfg.name, time.perf_counter() - t0))
+        self.cls.snapshot, self.cls.restore = snapshot, restore_
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.snapshot, self.cls.restore = self._snap, self._restore
+
+
+def pc_check(label, rep, eng, hits, saved) -> dict:
+    pc = rep["prefix_cache"]
+    if (pc["hits"], pc["saved_tokens"]) != (hits, saved):
+        raise AssertionError(f"{label}: prefix cache hits "
+                             f"{pc['hits']}/{pc['lookups']} saved "
+                             f"{pc['saved_tokens']}, want {hits} and "
+                             f"{saved}")
+    eng.prefix_cache.check()
+    return pc
+
+
+def phase_prefix(dev, totals, pair) -> dict:
+    """Phase 14; ``pair`` is the full-width LLaMA pair, dropped after its
+    part so that falcon-mamba-7b fits."""
+    t14 = time.time()
+    log_phase("[14] prefix cache: tiny committed and jamba-shaped pairs "
+              "(f32), full-width LLaMA-68M/7B and falcon-mamba-7b (bf16)")
+    free_device_memory()
+    out = {"tiny": phase_prefix_tiny(dev, totals)}
+    free_device_memory()
+    out["full"] = phase_prefix_full(dev, totals, pair)
+    del pair
+    out["falcon"] = phase_prefix_falcon(dev, totals)
+    log(f"  phase 14: {time.time() - t14:.1f}s")
+    return out
+
+
+def phase_prefix_tiny(dev, totals) -> dict:
+    """Both batched engines with the prefix cache on the tiny committed
+    pair (greedy and temperature 1, shadowed) and the jamba-shaped pair
+    (the rings' snapshot join): cache-on streams, prefix and pool stats
+    equal the CPU serve's, and the streams the cache-off serve's."""
+    from repro_torch.training.pairs import get_pair
+    cache_dir = os.path.join(ROOT, ".cache", "pairs")
+    out = {}
+    drives = [("misaligned", engine, name, temp)
+              for engine in ("specbranch", "sps")
+              for name, temp in (("greedy", 0.0), ("temp1", 1.0))]
+    drives.append(("jamba-shaped", "specbranch", "greedy", 0.0))
+    for kind, engine, name, temp in drives:
+        label = f"prefix tiny {kind} {engine} {name}"
+        if kind == "misaligned":
+            pair = get_pair(kind, device=dev, cache_dir=cache_dir)
+            cpu = get_pair(kind, device="cpu", cache_dir=cache_dir)
+            prompts, arrivals = pc_tiny_trace(pair[3].vocab_size, 8, 3)
+            kw = dict(max_batch=3, page_size=4)
+        else:
+            pair = SV.load_pair(kind, dev)
+            cpu = tree_to(pair, "cpu")
+            prompts, arrivals = pc_tiny_trace(pair[3].vocab_size, 16, 5)
+            kw = dict(max_batch=3, page_size=8)
+        n_new = 16
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
+                            max_len=SV.auto_max_len(prompts, n_new, 4,
+                                                    10.0))
+        kw.update(engine=engine, arrivals=arrivals)
+        with VerifyShadow() as sh, CountRestores() as cr:
+            res, rep, counts, wall, eng = drive(pair, ecfg, prompts, n_new,
+                                                dev, prefix_cache=True,
+                                                **kw)
+        for k, v in counts.items():
+            totals[k] += v
+        shared = 8 if kind == "misaligned" else 16
+        pc = pc_check(label, rep, eng, 2, 2 * shared)
+        cres, crep, ceng, cwall = SV.serve(cpu, ecfg, prompts, n_new,
+                                           device="cpu", prefix_cache=True,
+                                           **kw)
+        assert_cpu_equal(label, res, cres)
+        if crep["prefix_cache"] != pc or crep["pool"] != rep["pool"]:
+            raise AssertionError(f"{label}: prefix or pool stats differ "
+                                 "from the CPU serve's")
+        ores, _, ocounts, owall, _ = drive(pair, ecfg, prompts, n_new, dev,
+                                           prefix_cache=False, **kw)
+        for k, v in ocounts.items():
+            totals[k] += v
+        if first_diff(res, ores) != {i: None for i in res}:
+            raise AssertionError(f"{label}: cache-on streams differ from "
+                                 "cache off")
+        if temp > 0:
+            check_shadow(label, sh, counts, chains=False)
+        else:
+            greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
+            if [res[i].tokens for i in range(3)] != greedy:
+                raise AssertionError(f"{label}: not the greedy decode")
+        need = ["paged_attention"] + (["ssm_scan_ring"]
+                                      if kind != "misaligned" else [])
+        for k in need:
+            if counts[k] == 0:
+                raise AssertionError(f"{label}: {k} not launched")
+        if kind != "misaligned" and (pc["snap_restores"] != 2
+                                     or crep["prefix_cache"]
+                                     ["snap_restores"] != 2 or cr.n != 4):
+            raise AssertionError(f"{label}: snapshot restores "
+                                 f"{pc['snap_restores']} (ring restores "
+                                 f"{cr.n}), want 2 hits x 2 decoders")
+        log(f"  {label}: hits={pc['hits']}/{pc['lookups']} saved="
+            f"{pc['saved_tokens']} snap_restores={pc['snap_restores']} "
+            f"rounds={rep['rounds']} wall={wall:.2f}s (off {owall:.2f}s, "
+            f"CPU {cwall:.1f}s); streams, GenStats, prefix and pool stats "
+            f"= the CPU serve's, streams = cache off; launches={counts}")
+        out[label] = dict(prefix_cache=pc, wall_s=wall, off_wall_s=owall,
+                          launches=counts)
+        del eng, ceng
+    return out
+
+
+def phase_prefix_full(dev, totals, pair) -> dict:
+    """The 7B pair: one request, then seven that share its 512-token
+    system prompt arriving together after it retired; cache off against
+    on: hits, saved tokens, the target's prefill forwards, staged tokens
+    and device time (profiled serve), the followers' wall TTFT and the
+    serve's wall tokens/s."""
+    system = SV.make_prompts(1, length=512, seed=5)[0]
+    prompts = [system + p for p in SV.make_prompts(8, length=32, seed=9)]
+    arrivals = [0.0] + [1e6] * 7
+    n_new = 32
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                        max_len=SV.auto_max_len(prompts, n_new, 4, 10.0))
+    followers = list(range(1, 8))
+    out, streams = {}, {}
+    # timed serves off, on, on, off (a host's speed drifts within a call);
+    # then one profiled serve each: a profiler session slows the serves
+    # after it, so none is timed after one
+    for i, cache in enumerate((False, True, True, False)):
+        label = f"prefix 7B cache {'on' if cache else 'off'}"
+        with AdmissionClock() as ac, TargetPrefills(pair[3]) as tp:
+            res, rep, counts, wall, eng = drive(
+                pair, ecfg, prompts, n_new, dev, prefix_cache=cache,
+                arrivals=arrivals)
+        for k, v in counts.items():
+            totals[k] += v
+        tokens = [res[i].tokens for i in range(8)]
+        if streams.setdefault(cache, tokens) != tokens:
+            raise AssertionError(f"{label}: streams differ between runs")
+        pc = (pc_check(label, rep, eng, 7, 7 * 512) if cache else None)
+        del eng
+        free_device_memory()
+        ttft = ac.ttft(followers)
+        fol = tp.calls[1:]          # the followers' admission group
+        toks = sum(len(r.tokens) for r in res.values())
+        o = out.setdefault(label, dict(
+            prefill_calls=tp.calls, follower_forwards=len(fol),
+            follower_staged_tokens=sum(c["lanes"] * c["width"]
+                                       for c in fol),
+            prefix_cache=pc, launches=counts, runs=[]))
+        o["runs"].append(dict(wall_s=wall, tokens_per_s=toks / wall,
+                              ttft_p50_s=float(np.median(ttft)),
+                              ttft_max_s=max(ttft),
+                              **ac.split(followers)))
+        r = o["runs"][-1]
+        log(f"  {label} (timed run {i + 1}): followers' wall TTFT p50 "
+            f"{r['ttft_p50_s'] * 1e3:.1f} ms (admission "
+            f"{r['admission_ms']:.1f} + first round "
+            f"{r['first_round_ms']:.1f}), max "
+            f"{r['ttft_max_s'] * 1e3:.1f} ms; {r['tokens_per_s']:.1f} "
+            f"tok/s wall ({wall:.2f}s); target prefill of the followers: "
+            f"{o['follower_forwards']} forward(s), "
+            f"{o['follower_staged_tokens']} staged tokens "
+            f"({[(c['kind'], c['lanes'], c['width']) for c in fol]}); "
+            + (f"hits={pc['hits']}/{pc['lookups']} "
+               f"saved={pc['saved_tokens']}; " if pc else "")
+            + f"launches={counts}")
+    for cache in (False, True):
+        label = f"prefix 7B cache {'on' if cache else 'off'}"
+        with TargetPrefills(pair[3], profile=True) as pp:
+            SV.serve(pair, ecfg, prompts, n_new, device=dev,
+                     prefix_cache=cache, arrivals=arrivals)
+        free_device_memory()
+        dev_ms = [c["device_ms"] for c in pp.calls]
+        out[label].update(first_prefill_ms=dev_ms[0],
+                          follower_prefill_ms=sum(dev_ms[1:]))
+        log(f"  {label} (profiled): target prefill device time, request "
+            f"0's {dev_ms[0]:.2f} ms, the followers' "
+            f"{sum(dev_ms[1:]):.2f} ms")
+    if streams[True] != streams[False]:
+        raise AssertionError("prefix 7B: cache-on streams differ from "
+                             "cache off")
+    log("  prefix 7B: streams on == off")
+    return out
+
+
+def phase_prefix_falcon(dev, totals) -> dict:
+    """falcon-mamba-7b: one request, then three that share its 256-token
+    prompt (each with 16 tokens of its own, so the published run ends at
+    256 with the rings' snapshot) arriving together after it retired;
+    cache on against off: snapshot restores, the snapshot bytes a
+    publish candidate takes and their host time, streams equal."""
+    free_device_memory()
+    pair = SV.load_pair("falcon-mamba-7b", dev)
+    system = SV.make_prompts(1, length=256, seed=5)[0]
+    prompts = [system + p for p in SV.make_prompts(4, length=16, seed=9)]
+    arrivals = [0.0] + [1e6] * 3
+    n_new = 16
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                        max_len=SV.auto_max_len(prompts, n_new, 4, 10.0))
+    out, streams = {}, {}
+    for i, cache in enumerate((False, True, True, False)):
+        label = f"prefix falcon cache {'on' if cache else 'off'}"
+        with SnapshotClock() as sc, CountRestores() as cr, \
+                RingCensus() as census, AdmissionClock() as ac, \
+                TargetPrefills(pair[3]) as tp:
+            res, rep, counts, wall, eng = drive(
+                pair, ecfg, prompts, n_new, dev, prefix_cache=cache,
+                arrivals=arrivals, max_batch=4)
+        for k, v in counts.items():
+            totals[k] += v
+        tokens = [res[j].tokens for j in range(4)]
+        if streams.setdefault(cache, tokens) != tokens:
+            raise AssertionError(f"{label}: streams differ between runs")
+        pc = pc_check(label, rep, eng, 3, 3 * 256) if cache else None
+        del eng
+        free_device_memory()
+        if cache:
+            if pc["snap_restores"] != 3 or cr.n != 6:
+                raise AssertionError(f"{label}: snap_restores "
+                                     f"{pc['snap_restores']}, ring "
+                                     f"restores {cr.n}; want 3 and 6")
+            if census.shapes[(4, 16, pair[3].d_inner, FALCON_RING, 4)] == 0:
+                raise AssertionError(f"{label}: no suffix ring scan at "
+                                     "phase 2's shape")
+        per_pub = {}
+        for name, nbytes, secs in sc.snaps:
+            per_pub.setdefault(name, []).append((nbytes, secs))
+        o = out.setdefault(label, dict(
+            snap_restores=pc["snap_restores"] if pc else 0,
+            snapshots={n: dict(count=len(v), bytes=v[0][0])
+                       for n, v in per_pub.items()},
+            follower_prefill=[(c["kind"], c["lanes"], c["width"])
+                              for c in tp.calls[1:]],
+            ring_scans=dict(census.shapes.most_common(6)),
+            launches=counts, runs=[]))
+        o["runs"].append(dict(
+            wall_s=wall, **ac.split([1, 2, 3]),
+            restore_host_ms=[t * 1e3 for _, t in sc.restores],
+            snapshot_host_ms={n: [t * 1e3 for _, t in v]
+                              for n, v in per_pub.items()}))
+        r = o["runs"][-1]
+        log(f"  {label} (run {i + 1}): snap_restores={o['snap_restores']}"
+            + "".join(f", snapshots {n}: {len(v)} x "
+                      f"{o['snapshots'][n]['bytes'] / 1e6:.2f} MB, host "
+                      f"{np.median(v):.2f} ms median"
+                      for n, v in r["snapshot_host_ms"].items())
+            + (f"; restores {len(sc.restores)}, host "
+               f"{sum(r['restore_host_ms']):.2f} ms in all"
+               if sc.restores else "")
+            + f"; followers' wall TTFT p50 {r['ttft_ms']:.1f} ms "
+            f"(admission {r['admission_ms']:.1f} + first round "
+            f"{r['first_round_ms']:.1f}); their target prefill "
+            f"{o['follower_prefill']}; ring scans {o['ring_scans']}; "
+            f"{wall:.2f}s wall; launches={counts}")
+    if streams[True] != streams[False]:
+        raise AssertionError("prefix falcon: cache-on streams differ from "
+                             "cache off")
+    log("  prefix falcon: streams on == off")
+    del pair
+    free_device_memory()
+    return out
+
+
 def log_ptxas(ptx: str) -> None:
     """Registers and spills of every kernel the build compiled, from
     ``nvcc -Xptxas -v``; the decode loop's variants (decode, and flash's
@@ -3094,6 +3588,9 @@ def main() -> int:
     phase_kernel_api(cases, totals)
     if "--kernels" in sys.argv[1:]:
         return 3                # phases 1-2 only: no smoke result
+    if "--prefix" in sys.argv[1:]:
+        phase_prefix(dev, totals, SV.load_pair("paper-llama", dev))
+        return 3                # phases 1-2 and 14 only: no smoke result
     log_phase("[3] tiny committed pair, f32")
     phase_tiny(dev, totals)
     log_phase("[4] full-width LLaMA-68M/7B pair, bf16, random weights")
@@ -3135,6 +3632,7 @@ def main() -> int:
     phase_parallel_tiny(dev, totals)
     free_device_memory()
     phase_parallel_full(dev, totals, pair, traced)
+    phase_prefix(dev, totals, pair)
     del pair
     for k, v in totals.items():
         if v == 0:

@@ -24,8 +24,12 @@ predictor; ``--draft-mode parallel`` drafts each chunk in one masked
 forward through multi-position draft heads (``load_draft_heads``: the
 reference's trained heads for the tiny pairs, read from its cache, or an
 exit naming training when they are missing; seeded random heads for
-``paper-llama``).  ``--prefix-cache on`` and ``--mesh`` exit with a
-message naming the later slice.
+``paper-llama``).  ``--prefix-cache on`` (batched mode, paged backend)
+shares published prompt-prefix pages across requests
+(``serving.prefix_cache``) and adds the reference's ``prefix cache:``
+line and report block; it exits, as in the reference, in sequential mode
+and with ``--attn-backend dense``.  ``--mesh`` exits with a message
+naming the later slice.
 ``--pair`` takes the reference's pairs — the committed Zipf-Markov
 ``misaligned`` / ``aligned`` pairs and the tiny random-init SSM-bearing
 ``falcon-shaped`` / ``jamba-shaped`` pairs (their mamba state rides the
@@ -47,6 +51,8 @@ Usage:
       --mode batched --engine sps
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --attn-backend dense --trace trace.json --metrics-out m.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --prefix-cache on
 
 H-RAD has no flag, as in the reference: it is reached through the
 engines' ``hrad_params`` (``serve(..., hrad_params=...)`` here).
@@ -167,23 +173,28 @@ def serve(pair, ecfg: EngineConfig, prompts, new_tokens: int, *,
           pool_pages: Optional[int] = None, swap_pages: int = 256,
           arrival_interval: float = 0.0, engine: str = "specbranch",
           hrad_params=None, attn_backend: str = "paged",
-          draft_heads=None, rec=NULL_RECORDER):
+          draft_heads=None, prefix_cache: bool = False, arrivals=None,
+          rec=NULL_RECORDER):
     """Build the batched ``engine`` (a name in ``BATCHED_ENGINES``; with
-    an H-RAD MLP for SpecBranch, draft heads for parallel drafting) on
-    ``attn_backend`` with the recorder ``rec`` and its scheduler, and
-    serve ``prompts``.  Returns (results by rid, scheduler report,
+    an H-RAD MLP for SpecBranch, draft heads for parallel drafting, the
+    prefix cache when ``prefix_cache``) on ``attn_backend`` with the
+    recorder ``rec`` and its scheduler, and serve ``prompts``, request i
+    arriving at ``arrivals[i]`` on the modeled clock (default ``i *
+    arrival_interval``).  Returns (results by rid, scheduler report,
     engine, wall seconds)."""
     dp, dcfg, tp, tcfg = pair
     eng = BATCHED_ENGINES[engine](
         dp, dcfg, tp, tcfg, ecfg, max_batch=max_batch,
         page_size=page_size, pool_pages=pool_pages, swap_pages=swap_pages,
         hrad_params=hrad_params, attn_backend=attn_backend,
-        draft_heads=draft_heads, device=device)
+        draft_heads=draft_heads, prefix_cache=prefix_cache, device=device)
     eng.set_recorder(rec)        # before the scheduler picks up eng.rec
     sched = ContinuousBatchScheduler(eng)
+    if arrivals is None:
+        arrivals = [i * arrival_interval for i in range(len(prompts))]
     reqs = [ServeRequest(rid=i, prompt=p, max_new_tokens=new_tokens,
-                         arrival=i * arrival_interval)
-            for i, p in enumerate(prompts)]
+                         arrival=a)
+            for i, (p, a) in enumerate(zip(prompts, arrivals))]
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -261,15 +272,10 @@ def _device_name(device) -> str:
 
 
 def _unsupported(args) -> Optional[str]:
-    checks = [
-        (args.prefix_cache != "off", "--prefix-cache on"),
-        (args.mesh is not None, "--mesh"),
-    ]
-    for bad, what in checks:
-        if bad:
-            return (f"{what} is not in this slice of the PyTorch port; "
-                    "see ROADMAP.md queue A, or run the reference: "
-                    "python -m repro.launch.serve")
+    if args.mesh is not None:
+        return ("--mesh is not in this slice of the PyTorch port; see "
+                "ROADMAP.md queue A, or run the reference: python -m "
+                "repro.launch.serve")
     return None
 
 
@@ -332,6 +338,17 @@ def main(argv=None) -> None:
         raise SystemExit(
             f"--mode batched supports {sorted(BATCHED_ENGINES)}; "
             f"run --engine {args.engine} with --mode sequential")
+    if args.prefix_cache == "on":
+        if args.mode != "batched":
+            raise SystemExit("--prefix-cache on requires --mode batched "
+                             "(sequential engines have no page pool)")
+        if args.attn_backend == "dense":
+            raise SystemExit(
+                "--prefix-cache on is incompatible with --attn-backend "
+                "dense: dense rows hold a private KV copy per request, so "
+                "there are no page runs to share zero-copy.  Use "
+                "--attn-backend paged (the default), or drop "
+                "--prefix-cache to keep the dense equivalence oracle.")
     msg = _unsupported(args)
     if msg:
         raise SystemExit(msg)
@@ -386,6 +403,7 @@ def run_batched(args, ecfg: EngineConfig, prompts, pair, device,
         pool_pages=args.pool_pages, swap_pages=args.swap_pages,
         arrival_interval=args.arrival_interval, engine=args.engine,
         attn_backend=args.attn_backend, rec=rec,
+        prefix_cache=args.prefix_cache == "on",
         draft_heads=load_draft_heads(args.pair, ecfg, pair, device))
     rep["device"] = _device_name(device)
     print(f"\n== batched {args.engine} on {args.pair} pair ({rep['device']}): "
@@ -411,6 +429,12 @@ def run_batched(args, ecfg: EngineConfig, prompts, pair, device,
           f"preempt={pool['reclaimed_preempt_pages']} "
           f"retire={pool['reclaimed_retire_pages']}  "
           f"(cow_copies={pool['cow_copies']})")
+    if "prefix_cache" in rep:
+        pc = rep["prefix_cache"]
+        print(f"prefix cache: hits={pc['hits']}/{pc['lookups']} "
+              f"saved_tokens={pc['saved_tokens']} "
+              f"published={pc['published_runs']} "
+              f"evicted={pc['evicted_runs']}")
     print(f"aggregate tokens/s (modeled, t=1): "
           f"{rep['tokens_per_cost']:.4f}")
     print(f"wall tokens/s ({rep['device']}): "

@@ -65,8 +65,19 @@ tuples carry the measured dispatch count.  The history predictor
 (``spec_predictor`` "on" / "oracle", ``runtime.predictor``) gives each
 request its own gamma, branch cap and epsilon per round.
 
-Not in this slice (each raises ``NotImplementedError``): the prefix
-cache and mesh serving.
+The cross-request prefix cache (``prefix_cache=True``, paged only,
+``serving.prefix_cache``, DESIGN.md §7.13): a retired or preempted
+request publishes the page-aligned prompt prefix its prefill wrote (with
+the rings' snapshot at that length for SSM-bearing decoders); an
+admission whose prompt starts with a published run binds its pages
+zero-copy (``PagedKVPool.fork_prefix``), restores the snapshot, and
+prefills only the uncached suffix (``BatchedDecoder.prefill_rows_at``,
+on a rung sized to the suffix).  Cache runs no live request holds are
+admission headroom and are evicted LRU before a live request is
+preempted.  Off (the default) no cache object exists and every path is
+the cache-less one.
+
+Not in this slice (raises ``NotImplementedError``): mesh serving.
 """
 from __future__ import annotations
 
@@ -91,6 +102,7 @@ from repro_torch.serving import device_loop as DL
 from repro_torch.serving.decode_state import DecodeState
 from repro_torch.serving.kv_pool import (PagedKVPool, PagedStore,
                                          PoolExhausted, PoolGroup)
+from repro_torch.serving.prefix_cache import PrefixCache
 
 
 def _count_fetch(owner, arr: torch.Tensor) -> np.ndarray:
@@ -100,6 +112,12 @@ def _count_fetch(owner, arr: torch.Tensor) -> np.ndarray:
     owner.xfer_bytes += a.nbytes
     owner.xfer_fetches += 1
     return a
+
+
+def _snap_bytes(snap: List[Dict[str, torch.Tensor]]) -> int:
+    """Host bytes of a ring snapshot (what its restore stages)."""
+    return sum(a.numel() * a.element_size() for d in snap
+               for a in d.values())
 
 
 # ---------------------------------------------------------------------------
@@ -135,8 +153,10 @@ class BatchedDecoder:
                                  ssm_ring=ssm_ring)
         self.prefill_lanes = prefill_lanes or DL.bucket(n_rows)
         self.prefill_quantum = prefill_quantum
-        # forwards and prefill shapes, as the reference counts them
+        # forwards, their real tokens and prefill shapes, as the
+        # reference counts them
         self.n_calls = 0
+        self.n_call_tokens = 0
         self.prefill_shapes: set = set()
 
     @property
@@ -230,6 +250,7 @@ class BatchedDecoder:
             self.device)[:, None]
             + torch.arange(T, dtype=torch.int32, device=self.device)[None])
         self.n_calls += 1
+        self.n_call_tokens += int(np.prod(tokens.shape))
         return self._forward(tokens, positions)
 
     def step_draft(self, tokens, pos, nreal, mask_embed: torch.Tensor
@@ -250,6 +271,7 @@ class BatchedDecoder:
             torch.from_numpy(np.asarray(nreal, np.int32)),
             tokens.shape[1], mask_embed)
         self.n_calls += 1
+        self.n_call_tokens += int(np.prod(tokens.shape))
         return self._forward(tokens, positions, pdraft=pdraft)
 
     def prefill_rows(self, parts: Sequence[Tuple[int, Sequence[int]]]
@@ -286,6 +308,57 @@ class BatchedDecoder:
         for row, t in parts:
             self.state.row_pos[row] = len(t)
         self.n_calls += 1
+        self.n_call_tokens += sum(len(t) for _, t in parts)
+        self.prefill_shapes.add((G, Tb))
+        return out
+
+    def prefill_rows_at(self, parts: Sequence[Tuple[int, Sequence[int]]],
+                        starts: Sequence[int]
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Bucketed SUFFIX prefill (prefix-cache admission, paged only):
+        ``parts[i]`` ingests only the uncached tail of its prompt, from
+        the page-aligned cached length ``starts[i]`` on; its row's pool
+        stream already holds the bound prefix pages plus room for the
+        suffix.  The rung is the suffix length's ladder bucket, whatever
+        the prefix's length.  Queries sit at ``start + arange(Tb)`` and
+        attend to the shared prefix pages through the table; each lane's
+        rings load their start state from slot ``start % ring`` of the
+        lane's row (the snapshot the hit restored), so the paged forward
+        over the live cache needs no gathered view.  Pad overshoot past a
+        row's length stays under the ladder quantum, as in
+        ``prefill_rows``.  Returns device (logits, features at each
+        suffix's last position) like ``prefill_rows``."""
+        assert self.state.paged is not None, "suffix prefill needs page runs"
+        assert parts and len(parts) <= self.prefill_lanes
+        assert len(starts) == len(parts)
+        G = self.prefill_lanes
+        Tb = DL.prefill_bucket(max(len(t) for _, t in parts),
+                               self.prefill_quantum)
+        if max(starts) + Tb > self.max_len:
+            raise RuntimeError(
+                f"suffix bucket {Tb} overflows max_len={self.max_len}")
+        toks = np.zeros((G, Tb), np.int32)
+        last = np.zeros(G, np.int64)
+        s0 = np.zeros(G, np.int32)
+        for i, ((_row, t), start) in enumerate(zip(parts, starts)):
+            L = len(t)
+            assert 1 <= L <= Tb and start >= 0
+            toks[i, :L] = t
+            if L < Tb:
+                toks[i, L:] = t[-1]
+            last[i] = L - 1
+            s0[i] = start
+        positions = (torch.from_numpy(s0).to(self.device)[:, None]
+                     + torch.arange(Tb, dtype=torch.int32,
+                                    device=self.device)[None])
+        out = self._forward(
+            toks, positions,
+            [row for row, _ in parts] + [-1] * (G - len(parts)),
+            feature_index=last)
+        for (row, t), start in zip(parts, starts):
+            self.state.row_pos[row] = start + len(t)
+        self.n_calls += 1
+        self.n_call_tokens += sum(len(t) for _, t in parts)
         self.prefill_shapes.add((G, Tb))
         return out
 
@@ -353,6 +426,12 @@ class _Seq:
     q_b_conf: float = 0.0                    # host copy of max signal prob
     # this round's history-predictor decision; None with the predictor off
     pdec: Optional[Any] = None
+    # prefix-cache publish candidate (set at admission, prefix cache on):
+    # the page-aligned prefill-written prompt prefix this request may hand
+    # to the cache at retire or preemption, and the rings' snapshot at
+    # that length for SSM-bearing decoders
+    pub_len: int = 0
+    pub_snaps: Optional[Dict[str, Any]] = None
 
     @property
     def committed(self) -> int:
@@ -389,15 +468,10 @@ class BatchedEngineBase:
                 "prefix_cache=True requires attn_backend='paged': dense "
                 "rows have no page runs to share — drop prefix_cache or "
                 "switch to the paged backend")
-        later = {
-            "prefix_cache=True": prefix_cache,
-            "mesh serving": mesh is not None,
-        }
-        for what, asked in later.items():
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is ported in a later slice (ROADMAP.md queue "
-                    "A)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh serving is ported in a later slice (ROADMAP.md queue "
+                "A)")
         if ecfg.draft_mode not in ("sequential", "parallel"):
             raise ValueError(f"unknown draft_mode {ecfg.draft_mode!r}")
         if ecfg.draft_mode == "parallel":
@@ -512,12 +586,17 @@ class BatchedEngineBase:
             # accounting COW (pool) -> physical COW, each in its own buffer
             self.pools["t"].cow_listeners.append(self.tgt_dec.copy_page)
             self.pools["d"].cow_listeners.append(self.dft_dec.copy_page)
+        # the cross-request prefix cache: None (the default) keeps every
+        # admission and retire path the cache-less one — no lookups, no
+        # publishes, no extra snapshots or fetches
+        self.prefix_cache: Optional[PrefixCache] = \
+            PrefixCache(self.pools) if prefix_cache else None
         self.swap: Optional[PagedStore] = None
         if swap_pages > 0 and self.tgt_dec.swappable:
             self.swap = PagedStore(swap_pages, page_size,
                                    self.tgt_dec.swap_dim, device=self.device)
         self._swapped: Dict[int, dict] = {}      # rid -> swap metadata
-        self._pending_admits: List[Tuple[_Seq, List[int], bool]] = []
+        self._pending_admits: List[Tuple[_Seq, List[int], bool, int]] = []
         self.cost = CostModel(c=ecfg.c)
         self.clock = 0.0
         self.timeline: List[Tuple[str, int, int]] = []
@@ -690,7 +769,13 @@ class BatchedEngineBase:
                 > self.ecfg.max_len):
             return False
         need = self.admit_cost_pages(prompt_len)
-        return all(need + self._round_slack_pages(which) <= pool.free_pages
+        # pages only prefix-cache runs hold count as free: reserve evicts
+        # them on demand (and a hit shrinks the need by the pages it
+        # pins, so the arithmetic holds hit or miss)
+        pc = self.prefix_cache
+        return all(need + self._round_slack_pages(which)
+                   <= pool.free_pages
+                   + (pc.reclaimable(which) if pc is not None else 0)
                    for which, pool in self.pools.items())
 
     def _round_slack_pages(self, which: str) -> int:
@@ -724,11 +809,46 @@ class BatchedEngineBase:
         assert len(toks) >= 2, "need a prompt of >= 2 tokens"
         L = len(toks) - 1
         tk, dk = self._pool_keys(rid)
-        self.pools["t"].open(tk)
-        self.pools["d"].open(dk)
+        pc = self.prefix_cache
+        # prefix-cache lookup: the longest cached page-aligned prefix,
+        # capped so that at least one suffix token is left to prefill
+        # (the pending seed and the features need it).  A swap
+        # re-admission unpacks into every page of its stream, which must
+        # not be shared, so it skips the lookup.
+        ent, hit = None, 0
+        if pc is not None and (meta is None
+                               or meta.get("swap_key") is None):
+            need_snaps = self.tgt_dec.has_ssm or self.dft_dec.has_ssm
+            found = pc.lookup(toks, L - 1, need_snaps=need_snaps)
+            if found is not None:
+                ent, hit = found
+            if self.rec.enabled:
+                self.rec.prefix("hit" if hit else "miss", rid=rid,
+                                tokens=hit, prompt_len=len(toks),
+                                t=self.clock)
+        if hit:
+            # zero-copy bind: the streams share the run's pages (the
+            # branch fork's COW contract: an append onto a shared tail
+            # page splits it first)
+            self.pools["t"].fork_prefix(ent.stream, tk, hit)
+            self.pools["d"].fork_prefix(ent.stream, dk, hit)
+        else:
+            self.pools["t"].open(tk)
+            self.pools["d"].open(dk)
         try:
-            self.pools["t"].extend(tk, L)
-            self.pools["d"].extend(dk, L)
+            for which, key in (("t", tk), ("d", dk)):
+                while True:
+                    try:
+                        self.pools[which].extend(key, L - hit)
+                        break
+                    except PoolExhausted:
+                        # realize the headroom can_admit counted: evict
+                        # LRU runs (the run just bound is pinned) until
+                        # the suffix fits
+                        if pc is None or not pc.evict_lru():
+                            raise
+                        if self.rec.enabled:
+                            self.rec.prefix("evict", t=self.clock)
         except PoolExhausted:
             self.pools["t"].close(tk, "preempt")
             self.pools["d"].close(dk, "preempt")
@@ -739,6 +859,16 @@ class BatchedEngineBase:
         d_row = self.dft_dec.free_rows.pop()
         self.tgt_dec.bind_row(t_row, tk)
         self.dft_dec.bind_row(d_row, dk)
+        if hit and ent.snaps:
+            # the SSM half of a hit: restore the rings' snapshot at the
+            # shared length; the suffix forward from position ``hit``
+            # resumes from it
+            for which, dec, row in (("t", self.tgt_dec, t_row),
+                                    ("d", self.dft_dec, d_row)):
+                snap = ent.snaps.get(which)
+                if snap is not None and dec.has_ssm:
+                    dec.restore(row, hit, snap)
+                    self._count_staged(_snap_bytes(snap))
         restored = False
         if meta is not None and meta.get("swap_key") is not None:
             self.tgt_dec.unpack_row(t_row, self.swap.get(meta["swap_key"]))
@@ -746,9 +876,7 @@ class BatchedEngineBase:
                 # the rings' swap side-channel: restore the checkpoint the
                 # preemption took at the packed length
                 self.tgt_dec.restore(t_row, L, meta["ssm_snap"])
-                self._count_staged(sum(a.numel() * a.element_size()
-                                       for d in meta["ssm_snap"]
-                                       for a in d.values()))
+                self._count_staged(_snap_bytes(meta["ssm_snap"]))
             self.swap.drop(meta["swap_key"])
             seq.feats_last = meta["feats_last"]
             restored = True
@@ -761,7 +889,7 @@ class BatchedEngineBase:
         seq.admit_order = self._admit_counter
         self._admit_counter += 1
         self.active.append(seq)
-        self._pending_admits.append((seq, toks[:-1], restored))
+        self._pending_admits.append((seq, toks[:-1], restored, hit))
         if self.rec.enabled:
             self.rec.request("admit", rid, prompt_len=len(toks),
                              restored=restored, t=self.clock)
@@ -772,49 +900,116 @@ class BatchedEngineBase:
     def commit_admissions(self) -> None:
         """Run the deferred prefills of the current admission group: one
         forward per decoder per prefill-ladder rung (swap-restored target
-        rows skip theirs)."""
+        rows skip theirs).  Prompts bucket by their UNCACHED suffix: a
+        prefix-cache hit rides a rung sized to its suffix
+        (``prefill_rows_at``), a miss by its whole prompt.  With a priced
+        prefill (``cost.t_prefill > 0``) the round's staged tokens and
+        forwards go on the modeled clock as one "prefill" round."""
         pending, self._pending_admits = self._pending_admits, []
         if not pending:
             return
-        buckets: Dict[int, List[Tuple[_Seq, List[int], bool]]] = {}
-        for seq, toks, restored in pending:
-            width = DL.prefill_bucket(len(toks), self._pq)
-            buckets.setdefault(width, []).append((seq, toks, restored))
+        buckets: Dict[int, List[Tuple[_Seq, List[int], bool, int]]] = {}
+        for seq, toks, restored, hit in pending:
+            width = DL.prefill_bucket(len(toks) - hit, self._pq)
+            buckets.setdefault(width, []).append((seq, toks, restored, hit))
         lanes = self.tgt_dec.prefill_lanes
+        n_fwd, staged_tokens = 0, 0
+
+        def staged(width: int, used: int, tokens: int) -> None:
+            # the (lanes, width) int32 token frame crosses host -> device
+            # once per prefill forward
+            nonlocal n_fwd, staged_tokens
+            self._count_staged(lanes * width * 4)
+            n_fwd += 1
+            staged_tokens += lanes * width
+            if self.rec.enabled:
+                self.rec.prefill(width=width, lanes=lanes, used=used,
+                                 tokens=tokens, t=self.clock)
+
         for width in sorted(buckets):
             grp = buckets[width]
             for i in range(0, len(grp), lanes):
                 chunk = grp[i:i + lanes]
                 tparts = [(seq.tgt.row, toks)
-                          for seq, toks, restored in chunk if not restored]
+                          for seq, toks, restored, hit in chunk
+                          if not restored and not hit]
                 if tparts:
                     _, feats = self.tgt_dec.prefill_rows(tparts)
-                    # the staged (lanes, width) int32 token frame crosses
-                    # host -> device once per prefill forward
-                    self._count_staged(lanes * width * 4)
                     lane = 0
-                    for seq, _toks, restored in chunk:
-                        if restored:
+                    for seq, _toks, restored, hit in chunk:
+                        if restored or hit:
                             continue
                         if feats is not None:
                             seq.feats_last = feats[:, lane:lane + 1]
                         seq.stats.target_calls += 1
                         lane += 1
-                    if self.rec.enabled:
-                        self.rec.prefill(
-                            width=width, lanes=lanes, used=len(tparts),
-                            tokens=sum(len(t) for _, t in tparts),
-                            t=self.clock)
-                dparts = [(seq.dft.row, toks) for seq, toks, _ in chunk]
-                self.dft_dec.prefill_rows(dparts)
-                self._count_staged(lanes * width * 4)
-                if self.rec.enabled:
-                    self.rec.prefill(
-                        width=width, lanes=lanes, used=len(dparts),
-                        tokens=sum(len(t) for _, t in dparts),
-                        t=self.clock)
+                    staged(width, len(tparts),
+                           sum(len(t) for _, t in tparts))
+                hgrp = [(seq, toks, hit)
+                        for seq, toks, restored, hit in chunk if hit]
+                if hgrp:
+                    # the suffix over the zero-copy-bound prefix pages
+                    _, feats = self.tgt_dec.prefill_rows_at(
+                        [(seq.tgt.row, toks[hit:]) for seq, toks, hit
+                         in hgrp],
+                        [hit for _, _, hit in hgrp])
+                    for lane, (seq, _toks, _hit) in enumerate(hgrp):
+                        if feats is not None:
+                            seq.feats_last = feats[:, lane:lane + 1]
+                        seq.stats.target_calls += 1
+                    staged(width, len(hgrp),
+                           sum(len(t) - h for _, t, h in hgrp))
+                dparts = [(seq.dft.row, toks)
+                          for seq, toks, _, hit in chunk if not hit]
+                if dparts:
+                    self.dft_dec.prefill_rows(dparts)
+                    staged(width, len(dparts),
+                           sum(len(t) for _, t in dparts))
+                if hgrp:
+                    self.dft_dec.prefill_rows_at(
+                        [(seq.dft.row, toks[hit:]) for seq, toks, hit
+                         in hgrp],
+                        [hit for _, _, hit in hgrp])
+                    staged(width, len(hgrp),
+                           sum(len(t) - h for _, t, h in hgrp))
+        if self.prefix_cache is not None:
+            self._capture_publish_candidates(pending)
+        # admission pricing: with t_prefill at its default 0 no round is
+        # appended and the clock does not move
+        if self.cost.t_prefill > 0.0 and n_fwd:
+            rnd = ("prefill", staged_tokens, n_fwd)
+            self.timeline.append(rnd)
+            self.clock += self.cost.round_cost(rnd)
         if self.debug_check:
             self.pool.check()
+            if self.prefix_cache is not None:
+                self.prefix_cache.check()
+
+    def _capture_publish_candidates(
+            self, pending: List[Tuple[_Seq, List[int], bool, int]]) -> None:
+        """Record what each fresh admission may hand to the prefix cache
+        at retire or preemption: its page-aligned prefill-written prompt
+        prefix and, for SSM-bearing decoders, the rings' snapshot at
+        exactly that length.  The snapshot is taken now: the prefill has
+        just written the checkpoints up to the prompt's length, and the
+        decode loop's ring writes could lap that slot before retirement.
+        Swap-restored re-admissions skip their prefill and keep the
+        candidate of their first admission."""
+        ps = self.pool.page_size
+        for seq, toks, restored, _hit in pending:
+            if restored:
+                continue
+            seq.pub_len = (len(toks) // ps) * ps
+            seq.pub_snaps = None
+            if not seq.pub_len:
+                continue
+            snaps: Dict[str, Any] = {}
+            for which, dec, st in (("t", self.tgt_dec, seq.tgt),
+                                   ("d", self.dft_dec, seq.dft)):
+                if dec.has_ssm:
+                    snaps[which] = dec.snapshot(st.row, seq.pub_len,
+                                                self._fetch)
+            seq.pub_snaps = snaps or None
 
     # ----------------------------------------------------------- preemption
     def preempt_youngest(self) -> _Seq:
@@ -837,6 +1032,7 @@ class BatchedEngineBase:
                         victim.tgt.row, victim.tgt.ing, self._fetch)
             except PoolExhausted:
                 pass
+        self._publish_prefix(victim)
         tk, dk = self._pool_keys(victim.rid)
         self.pools["t"].close(tk, "preempt")
         self.pools["d"].close(dk, "preempt")
@@ -857,9 +1053,16 @@ class BatchedEngineBase:
 
     def _make_room(self, seqs: List[_Seq],
                    fits: Callable[[List[_Seq]], bool]) -> List[_Seq]:
-        """Preempt youngest-first until this round's worst case fits."""
+        """Preempt youngest-first until this round's worst case fits, but
+        spill the prefix cache first: LRU runs no live request holds are
+        cheaper to give up than a live request's rows."""
         preempted = []
         while not fits(seqs):
+            if (self.prefix_cache is not None
+                    and self.prefix_cache.evict_lru()):
+                if self.rec.enabled:
+                    self.rec.prefix("evict", t=self.clock)
+                continue
             if len(seqs) <= 1:
                 raise RuntimeError(
                     "KV pool too small to run a single request round "
@@ -897,11 +1100,30 @@ class BatchedEngineBase:
             # holds only the committed prefix, so its tail may be longer
             st.pending = [int(t) for t in full[st.ing:]]
 
+    # ----------------------------------------------------- prefix publish
+    def _publish_prefix(self, seq: _Seq) -> None:
+        """Hand the request's prefill-written prompt prefix to the prefix
+        cache: a refcount bump on its first ``pub_len`` tokens' pages in
+        both pools, before the streams close at retire or preemption.
+        Safe because the engines never truncate below committed - 1 >=
+        ``pub_len`` and never write below a stream's length (an append
+        onto the now-shared last page goes through the COW split)."""
+        pc = self.prefix_cache
+        if pc is None or seq.pub_len <= 0:
+            return
+        tk, dk = self._pool_keys(seq.rid)
+        created = pc.publish(seq.prompt + seq.out, seq.pub_len,
+                             {"t": tk, "d": dk}, snaps=seq.pub_snaps)
+        if self.rec.enabled:
+            self.rec.prefix("publish", rid=seq.rid, tokens=seq.pub_len,
+                            created=created, t=self.clock)
+
     # -------------------------------------------------------------- retire
     def retire_done(self) -> List[Tuple[_Seq, GenResult]]:
         out = []
         for seq in [s for s in self.active if s.done]:
             self.active.remove(seq)
+            self._publish_prefix(seq)
             tk, dk = self._pool_keys(seq.rid)
             self.pools["t"].close(tk, "retire")
             self.pools["d"].close(dk, "retire")

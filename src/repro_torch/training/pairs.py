@@ -11,7 +11,11 @@ reference's trained parallel-draft heads from the same cache
 when they are missing: training them is a later slice too.
 ``hybrid_pair`` builds the
 reference's tiny random-init SSM-bearing pairs (same configs, weights
-drawn by the port's own generator).
+drawn by the port's own generator).  ``PAIR_C``, ``default_ecfg`` and
+``hrad_for_pair`` are the port's copies of the reference's benchmark
+presets (``benchmarks/common.py``) that the examples use;
+``hrad_for_pair`` loads the reference's trained H-RAD MLP from the same
+cache and raises when it is missing (H-RAD training is a later slice).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import numpy as np
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, dense_pattern
+from repro_torch.runtime.engines import EngineConfig
 from repro_torch.training import checkpoint as ckpt
 
 CACHE_DIR = os.environ.get("REPRO_PAIR_CACHE", ".cache/pairs")
@@ -104,6 +109,45 @@ def draft_heads_for(kind: str = "misaligned", K: int = 4,
     with np.load(path) as data:
         heads = {k: data[k] for k in data.files}
     return ckpt.from_numpy_draft_heads(heads, dcfg, device)
+
+
+# the paper's target/draft cost ratio c per pair (Sec. 6), as the
+# reference's benchmarks set it
+PAIR_C = {"misaligned": 15.0, "aligned": 5.0}
+
+
+def default_ecfg(kind: str, **kw) -> EngineConfig:
+    """The reference benchmarks' engine settings for a committed pair:
+    signal temperature 0.3 puts the tiny drafts' confidence in the
+    paper's range, epsilon between the accepted and rejected modes,
+    Eq. 7's literal Top-K branches, and branch continuations of gamma
+    tokens (the tiny drafts over-draft at c-length continuations)."""
+    base = dict(gamma=4, k_max=6, epsilon=0.5, c=PAIR_C[kind],
+                temperature=0.0, draft_temperature=0.0,
+                signal_temperature=0.3, branch_mode="topk",
+                gamma_branch_override=4, max_len=2048)
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+def hrad_for_pair(kind: str, k_layers: int = 4, device="cuda",
+                  cache_dir: Optional[str] = None
+                  ) -> Dict[str, Any]:
+    """The trained H-RAD MLP of a committed pair, read from the
+    reference's cache file ``hrad-<kind>-K<k_layers>.npz`` as float32
+    tensors on ``device``.  A missing file raises: the port cannot train
+    the MLP yet (ROADMAP.md queue A item 4)."""
+    path = os.path.join(cache_dir or CACHE_DIR,
+                        f"hrad-{kind}-K{k_layers}.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} is missing: the port loads the trained H-RAD MLP "
+            "from the reference's cache and cannot train it yet "
+            "(training, ROADMAP.md queue A item 4); create it with the "
+            "reference (PYTHONPATH=src python examples/serve_requests.py)")
+    with np.load(path) as data:
+        params = {k: data[k] for k in data.files}
+    return ckpt.from_numpy_hrad(params, device)
 
 
 HYBRID_KINDS = ("falcon-shaped", "jamba-shaped")

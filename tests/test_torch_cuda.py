@@ -832,3 +832,118 @@ def test_parallel_draft_serve_on_the_card_is_greedy_lossless(cuda, engine):
         assert ops.LAUNCHES[kernel] > 0, backend
         if engine == "sps":
             assert rep["dispatches_per_round"] == 2.0
+
+
+# The prefix cache's suffix prefill (DESIGN.md §7.13): a bucketed rung of
+# T queries per lane from the page-aligned cached length q0 on, over rows
+# whose tables share the cached run's pages; the rung's tail past the
+# suffix is pad (queries at or past lens), and one lane is a pad lane
+# (lens 0, queries from 0).
+SUFFIX_CASES = [
+    dict(B=8, T=32, H=32, KV=32, hd=128, ps=16, q0=512, sfx=31),
+    dict(B=4, T=8, H=4, KV=2, hd=32, ps=4, q0=8, sfx=2),
+    dict(B=3, T=16, H=8, KV=2, hd=64, ps=16, q0=96, sfx=16),
+]
+
+
+def _suffix_inputs(seed, B, T, H, KV, hd, ps, q0, sfx):
+    rng = np.random.default_rng(seed)
+    shared = q0 // ps
+    own = -(-(q0 + sfx) // ps) - shared
+    P = shared + (B - 1) * own
+    perm = rng.permutation(P)
+    table = np.full((B, shared + own), P, np.int32)
+    for b in range(B - 1):
+        table[b, :shared] = perm[:shared]
+        table[b, shared:] = perm[shared + b * own:shared + (b + 1) * own]
+    lens = np.array([q0 + sfx] * (B - 1) + [0], np.int32)
+    qs = np.array([q0] * (B - 1) + [0], np.int32)
+    kp = rng.normal(size=(P + 1, ps, KV, hd)).astype(np.float32)
+    vp = rng.normal(size=(P + 1, ps, KV, hd)).astype(np.float32)
+    q = rng.normal(size=(B, T, H, hd)).astype(np.float32)
+    return q, kp, vp, table, lens, qs
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SUFFIX_CASES,
+                         ids=[f"case{i}" for i in range(len(SUFFIX_CASES))])
+def test_paged_kernel_suffix_prefill_frame_matches_plain(cuda, case, dtype):
+    q, kp, vp, table, lens, qs = _dev(_suffix_inputs(13, **case), cuda)
+    dt = getattr(torch, dtype)
+    q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
+    n0 = ops.LAUNCHES["paged_attention"]
+    got = ops.paged_attention(q, kp, vp, table, lens, qs)
+    want = ref.paged_attention_ref(q, kp, vp, table, lens, qs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == n0 + 1
+    _assert_attn_close(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("T", [16, 32])
+def test_ssm_scan_ring_suffix_entry_from_a_restored_slot(cuda, T):
+    """The ring entry as a prefix-cache hit drives it: lanes start at
+    p0 = 256 from the slot a restored snapshot wrote (256 % Rg), a rung
+    of T steps, beside a pad lane; falcon-mamba-7b's width (E = 8192, N
+    = 16, bf16 x) and its serve's ring depth 92."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def f(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    B, E, N, Rg = 4, 8192, 16, 92
+    args = (f(B, T, E).bfloat16(), torch.nn.functional.softplus(f(B, T, E)),
+            f(B, T, N), f(B, T, N), -torch.exp(0.2 * f(E, N)), f(E))
+    ring = f(B, Rg, E, N)
+    rows = torch.tensor([1, 2, 3, -1], dtype=torch.int32, device=cuda)
+    p0 = torch.tensor([256, 256, 256, 0], dtype=torch.int32, device=cuda)
+    snap = f(E, N)
+    ring[1:4, 256 % Rg] = snap                       # the restored slot
+    got_ring, want_ring = ring.clone(), ring.clone()
+    y = ops.ssm_scan_ring(*args, got_ring, p0, rows)
+    want = ref.ssm_scan_ring_ref(*args, want_ring, p0, rows)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got_ring, want_ring, rtol=2e-5, atol=2e-5)
+    slots = (256 + torch.arange(T, device=cuda) + 1) % Rg
+    untouched = torch.ones((B, Rg), dtype=torch.bool, device=cuda)
+    untouched[1:4, slots] = False
+    assert torch.equal(got_ring[untouched], ring[untouched])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine", ["specbranch", "sps"])
+def test_prefix_cached_serve_on_the_card_equals_the_cpu(cuda, engine):
+    """A staggered shared-prompt serve with the prefix cache on the card:
+    every follower hits, the streams, prefix and pool stats equal the
+    same serve's on the CPU and the card's cache-off serve, and the
+    greedy streams are the greedy decode's."""
+    cache_dir = os.path.join(ROOT, ".cache", "pairs")
+    rng = np.random.default_rng(3)
+    shared = [int(x) for x in rng.integers(0, 199, size=8)]
+    prompts = [shared + [int(x) for x in rng.integers(0, 199, size=3)]
+               for _ in range(3)]
+    arrivals = [0.0, 300.0, 600.0]
+    for temp in (0.0, 1.0):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, max_len=512)
+        out = {}
+        for device, cache in ((cuda, True), ("cpu", True), (cuda, False)):
+            pair = get_pair("misaligned", device=device, cache_dir=cache_dir)
+            ops.reset_launches()
+            res, rep, eng, _ = SV.serve(pair, ecfg, prompts, 12,
+                                        device=device, max_batch=3,
+                                        page_size=4, engine=engine,
+                                        prefix_cache=cache,
+                                        arrivals=arrivals)
+            out[(str(device), cache)] = (
+                [res[i].tokens for i in range(3)],
+                rep.get("prefix_cache"), rep["pool"])
+            if str(device) != "cpu":
+                assert ops.LAUNCHES["paged_attention"] > 0
+        card, cpu = out[(str(cuda), True)], out[("cpu", True)]
+        assert card == cpu, temp
+        assert card[1]["hits"] == 2 and card[1]["saved_tokens"] == 16
+        assert card[0] == out[(str(cuda), False)][0], temp
+        if temp == 0.0:
+            assert card[0] == M.greedy_reference(pair[2], pair[3], prompts,
+                                                 12)

@@ -1,12 +1,15 @@
 """The port stands alone: in a fresh interpreter where importing ``jax``
-fails, every ``repro_torch`` module and ``chip_smoke`` import, and no
-``jax*`` or ``repro``/``repro.*`` module gets loaded."""
+fails, every ``repro_torch`` module, ``chip_smoke`` and the port's
+examples (``examples/torch_*.py``) import, and no ``jax*`` or
+``repro``/``repro.*`` module gets loaded."""
+import glob
 import os
 import subprocess
 import sys
 import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
 
 SCRIPT = textwrap.dedent("""
     import importlib, os, pkgutil, sys
@@ -20,6 +23,10 @@ SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401
+    import importlib.util
+    for path in {examples!r}:
+        spec = importlib.util.spec_from_file_location("ex", path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro")
                  and sys.modules[m] is not None)
@@ -35,23 +42,27 @@ NEED = ["repro_torch.kernels.flash_attention", "repro_torch.runtime.runner",
         "repro_torch.kernels.ssm_scan", "repro_torch.configs.falcon_mamba_7b",
         "repro_torch.serving.decode_state", "repro_torch.training.pairs",
         "repro_torch.core.hrad", "repro_torch.kernels.branch_attention",
-        "repro_torch.kernels.decode_attention"]
+        "repro_torch.kernels.decode_attention",
+        "repro_torch.serving.prefix_cache", "repro_torch.core.theory"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c",
-                          SCRIPT.format(root=ROOT, need=NEED)],
+                          SCRIPT.format(root=ROOT, need=NEED,
+                                        examples=EXAMPLES)],
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 46 and bad.strip() == "[]"
+    assert int(n_modules) >= 48 and bad.strip() == "[]"
+    assert [os.path.basename(p) for p in EXAMPLES] == [
+        "torch_quickstart.py", "torch_serve_requests.py"]
 
 
 def test_port_sources_have_no_jax_or_reference_imports():
     roots = [os.path.join(ROOT, "src", "repro_torch"),
              os.path.join(ROOT, "chip_smoke.py")]
-    files = [roots[1]] + [os.path.join(d, f)
+    files = [roots[1]] + EXAMPLES + [os.path.join(d, f)
                           for d, _, fs in os.walk(roots[0]) for f in fs
                           if f.endswith(".py")]
     for path in files:

@@ -25,11 +25,22 @@ from repro_torch.runtime.engines import EngineConfig
 from repro_torch.serving import (BatchedSpecBranchEngine,
                                  ContinuousBatchScheduler, ServeRequest)
 from repro_torch.training.checkpoint import from_numpy_params
+from torch_parity import synchronous_reference_ticks
 
 # One intra-op thread: the tiny models gain nothing from more, and the
 # test workers share the machine's cores (eight threads in each of six
 # workers slow every small op here many times over).
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _steady_reference():
+    """The reference's batched draft ticks run synchronously while this
+    module's reference serves run (``torch_parity``: a race in the
+    reference's rounds, not in the port)."""
+    with synchronous_reference_ticks():
+        yield
+
 
 N_REQ, N_NEW = 3, 24
 CASES = {

@@ -28,11 +28,22 @@ from repro_torch.serving import (BatchedSpecBranchEngine,
 from repro_torch.serving.kv_pool import PagedStore
 from repro_torch.training import pairs as TP
 from repro_torch.training.checkpoint import from_numpy_params
+from torch_parity import synchronous_reference_ticks
 
 # One intra-op thread: the tiny models gain nothing from more, and the
 # test workers share the machine's cores (eight threads in each of six
 # workers slow every small op here many times over).
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _steady_reference():
+    """The reference's batched draft ticks run synchronously while this
+    module's reference serves run (``torch_parity``: a race in the
+    reference's rounds, not in the port)."""
+    with synchronous_reference_ticks():
+        yield
+
 
 N_REQ, N_NEW = 3, 24
 CASES = {
@@ -122,13 +133,18 @@ def test_paged_store_roundtrip_matches_reference():
 
 def test_later_slice_options_raise(pair):
     _, tpair, _ = pair
-    for kw in (dict(attn_backend="paged", prefix_cache=True),
-               dict(prefix_cache=True, attn_backend="paged",
+    for kw in (dict(prefix_cache=True, attn_backend="paged",
                     mesh=object()),
                dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             BatchedSpecBranchEngine(*tpair, EngineConfig(max_len=128),
                                     device="cpu", **kw)
+    # the prefix cache is ported (tests/test_torch_prefix_cache*.py): on
+    # the paged backend it builds
+    assert BatchedSpecBranchEngine(*tpair, EngineConfig(max_len=128),
+                                   device="cpu", attn_backend="paged",
+                                   prefix_cache=True).prefix_cache \
+        is not None
     # as in the reference: the prefix cache needs page runs
     with pytest.raises(ValueError, match="requires attn_backend='paged'"):
         BatchedSpecBranchEngine(*tpair, EngineConfig(max_len=128),
@@ -159,9 +175,10 @@ def test_serve_cli_on_cpu_and_unsupported_flags(tmp_path, capsys,
     assert "batched specbranch on misaligned pair (cpu)" in text
     rep = __import__("json").loads(out.read_text())
     assert rep["total_tokens"] == 12 and rep["device"] == "cpu"
-    for flags in (["--prefix-cache", "on"], ["--mesh", "1,1"]):
-        with pytest.raises(SystemExit, match="not in this slice"):
-            SV.main(["--device", "cpu"] + flags)
+    # --prefix-cache on is ported (tests/test_torch_prefix_cache_
+    # admission.py); mesh serving is not
+    with pytest.raises(SystemExit, match="not in this slice"):
+        SV.main(["--device", "cpu", "--mesh", "1,1"])
     # --spec-predictor and --draft-mode parallel are ported
     # (tests/test_torch_parallel_draft.py): without the trained heads'
     # cache file, parallel drafting exits naming training
