@@ -161,6 +161,35 @@ Phases (any failure raises, so the script exits non-zero):
                one request and three that share its 256-token prompt:
                snapshot restores, each publish candidate's snapshot
                bytes and host time; streams on == off.
+ 15. arch    — architecture coverage.  The reduced() targets of all ten
+               assigned configs (f32, random weights): the nine that
+               decode with tests/test_arch_serving.py's same-family draft,
+               sequential SpS and SpecBranch greedy, whose streams must
+               equal the same serve on the CPU and the port's greedy
+               decode; hubert's bidirectional forward over stub frames
+               against the CPU's within 1e-4.  gemma3-4b at full width
+               with its draft() (hd 160; window 1024, qk-norm, vocab
+               262144; bf16, random weights): batched SpecBranch on the
+               paged backend, 8 requests of 1000-token prompts x 48 new
+               tokens (every local ring wraps), greedy teacher-forced as
+               in phase 4, the serve's own target logits (prefill and
+               every later target forward) within TF_MARGIN of the
+               cache-less forward's, and at temperature 1 shadowed as in
+               phase 3; the dense backend's greedy streams must equal the
+               paged ones; how far two context faults move the logits
+               (the comparison's yardstick); sequential SpecBranch
+               1 x 32; tokens/s, rounds, M, peak memory, a profiled
+               serve.  internvl2-2b at full width with
+               its draft(): 256 stub patch embeddings then 32 tokens,
+               sequential AR, SpS and SpecBranch, 2 x 32 greedy,
+               teacher-forced over embeddings + prompt + stream.
+               hubert-xlarge at full width: one cache-less bidirectional
+               forward over (2, 500, 1280) frames, the flash kernel once
+               per layer with causal off, its time beside phase 2's SDPA
+               case.  Phase 2 holds the decode loop's draft() head dims
+               144 and 160 (paged, flash, branch decode; bf16 and f32)
+               and gemma3-4b's 8 x 1000 prefill rung (paged and flash,
+               the target's local and global layers and the draft's).
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -170,7 +199,8 @@ line is the device JSON.
 Exits non-zero without a result when no CUDA device is visible.
 
 Modes that give no smoke result (exit 3): ``--kernels`` stops after
-phase 2; ``--prefix`` runs phases 1-2 and 14 only; ``--probe`` times the attention tile loops phase by phase from
+phase 2; ``--prefix`` runs phases 1-2 and 14 only; ``--arch`` phases
+1-2 and 15 only; ``--probe`` times the attention tile loops phase by phase from
 variants built with -DREPRO_ATTN_STOP (1: K/V loads only, 2: loads and
 logits, 0: whole kernel) beside the timing floor, and the batched
 verify's rounds (-DREPRO_VERIFY_STOP) and cluster barrier cost;
@@ -222,6 +252,7 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.runtime import engines as TE  # noqa: E402
 from repro_torch.runtime import runner as RN  # noqa: E402
 from repro_torch.runtime.engines import EngineConfig  # noqa: E402
+from repro_torch.serving import batched_engine as BE  # noqa: E402
 from repro_torch.serving import device_loop as DL  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
@@ -282,6 +313,14 @@ FALCON_RING_CASE = "falcon-7b serve B=8 T=16 Rg=92"
 GATHER_FULL_CASE = "llama-7b swap 4x16 dim=262144 60 rows"
 # the prefix cache's 7B suffix prefill frame (phase 14's followers)
 PC_ATTN_CASE = "llama-7b suffix B=8 T=32 q0=512"
+# phase 15: the reduced families' new tokens (tests/test_arch_serving.py),
+# gemma3-4b's prompts and new tokens (every local ring, window 1024,
+# wraps), internvl2-2b's stub patches and prompt, hubert's frames
+ARCH_N_NEW = 12
+G3_PROMPT, G3_NEW = 1000, 48
+VLM_PATCHES, VLM_PROMPT, VLM_NEW = 256, 32, 32
+HUBERT_FRAMES = (2, 500)
+HUBERT_CASE = "hubert-xl hd80 B=2 T=S=500 bidir"
 
 
 def log(*a) -> None:
@@ -471,8 +510,7 @@ def check_attention(rng, label, B, T, H, KV, hd, ps, dtype, n_idle=0,
         pages = int(sum(-(-int(n) // ps_) for n in lens.tolist()))
         nbytes = (2 * pages * ps_ * KV * hd * es + 2 * q.numel() * es
                   + (table.numel() + 2 * B) * 4)
-        keys = sum(int(n) for n in lens.tolist())
-        flops = 4 * T * H * hd * keys
+        flops = 4 * H * hd * int(vis.sum())
     bms, by = bound(nbytes, flops, dtype)
     ms = time_ms(lambda: PA.paged_attention(q, kp, vp, table, lens, qs,
                                             **kw))
@@ -1263,6 +1301,46 @@ def phase_kernels() -> dict:
         rr.append(check_ssm_ring(rng, f"falcon-7b suffix B=4 T={T} p0=256",
                                  4, T, 8192, 16, FALCON_RING, 4, bf16,
                                  p0=[256, 256, 256, 0], rows=[1, 2, 3, -1]))
+    # the draft() head dims (phase 15): gemma3-4b's draft (2 heads of 160)
+    # and gemma2-27b's (4 heads of 144), bf16 and f32 -- paged at B=8,
+    # T=4, window 1024 over a 1040-key table, flash on a ring of those
+    # shapes, branch decode k=6 over a 504-key prefix -- with the paged
+    # shape at hd 128 and 256 beside them; hubert's 500-frame forward
+    for hd, H in ((160, 2), (144, 4)):
+        for dt in (bf, f32):
+            tag = f"hd{hd} {'bf16' if dt is bf else 'f32'}"
+            att.append(check_attention(rng, f"draft {tag} B=8 T=4 w1024", 8,
+                                       4, H, H, hd, 16, dt, window=1024,
+                                       max_len=1040, min_len=1000,
+                                       n_max=65))
+            fl.append(check_flash(rng, f"draft {tag} ring B=8 T=4 S=1040",
+                                  8, 4, 1040, H, H, hd, 1030, dt,
+                                  window=1024))
+            br.append(check_branch(rng, f"draft {tag} k=6 Sp=504 Ss=8", 6,
+                                   1, 504, 8, H, H, hd, dt))
+    for hd in (128, 256):
+        att.append(check_attention(rng, f"draft hd{hd} bf16 B=8 T=4 w1024",
+                                   8, 4, 2, 2, hd, 16, bf, window=1024,
+                                   max_len=1040, min_len=1000, n_max=65))
+    fl.append(check_flash(rng, HUBERT_CASE, 2, 500, 500, 16, 16, 80, 500,
+                          bf, causal=False))
+    # gemma3-4b's prefill rung (phase 15: 8 lanes of 1000-token prompts,
+    # queries from position 0), bf16: paged over the serve's 128-page
+    # tables for the target's local (window 1024) and global layers and
+    # the draft's local ones; flash on the dense backend's fresh view
+    # (local rings of 1024 + 92 slack slots, global layers of max_len
+    # 2048) and the sequential runner's B = 1 global layer
+    for label, H, KV, hd, w in (("gemma3-4b w1024", 8, 4, 256, 1024),
+                                ("gemma3-4b global", 8, 4, 256, 0),
+                                ("draft hd160 w1024", 2, 2, 160, 1024)):
+        att.append(check_attention(rng, f"{label} prefill B=8 T=1000", 8,
+                                   1000, H, KV, hd, 16, bf, window=w,
+                                   max_len=1000, min_len=1000, n_max=128))
+        S = 1116 if w else 2048
+        fl.append(check_flash(rng, f"{label} prefill B=8 T=1000 S={S}", 8,
+                              1000, S, H, KV, hd, 1000, bf, window=w))
+    fl.append(check_flash(rng, "gemma3-4b global prefill B=1 T=1000 S=2048",
+                          1, 1000, 2048, 8, 4, 256, 1000, bf))
     timing_floor()
     for r in att + ver + gat + fl + ss + rr + br + sv:
         lib = r["library_ms"]
@@ -1474,49 +1552,140 @@ def compare_cpu(name, ecfg, prompts, n_new, res, pair, **kw) -> dict:
                 first_divergence=first)
 
 
-def teacher_forced(tp, tcfg, prompts, res, greedy, n_new) -> dict:
+def teacher_forced(tp, tcfg, prompts, res, n_new, *, greedy=None,
+                   embeds=None, served=None) -> dict:
     """Teacher-forced check of a greedy serve: one cache-less target
-    forward over each prompt plus its served tokens; every served token
-    must be the argmax there, or within TF_MARGIN of the top logit.  Also
-    reads, for each request, the first position where the served stream
-    leaves the AR greedy decode and the top-2 logit gap there, and a noise
-    yardstick: the largest change of those logits when the same forward
-    runs one request at a time (other shapes, other reduction order)."""
+    forward per request (B = 1) over its prompt plus its served tokens,
+    ``embeds[i]`` (stub embeddings) first where given, its logits read
+    only where a token was served.  Every served token must be the argmax
+    there, or within TF_MARGIN of the top logit.  Noise yardstick: the
+    largest change of those logits when every request runs in one batch
+    (other shapes, other reduction order).  ``greedy`` (per request, the
+    AR greedy decode): also reads the first position where the served
+    stream leaves it and the top-2 gap there.  ``served`` (a
+    ``ServedLogits``' records): the serve's own target logits must lie
+    within TF_MARGIN of the cache-less forward's at every recorded
+    position whose input tokens are the stream's."""
+    dev = tp["embed"].device
     P = len(prompts[0])
     if any(len(p) != P for p in prompts):
         raise AssertionError("teacher forcing expects equal prompt lengths")
-    dev = tp["embed"].device
-    seqs = torch.tensor([list(p) + res[i].tokens
-                         for i, p in enumerate(prompts)], device=dev)
+    off = 0 if embeds is None else embeds[0].shape[1]
+
+    def served_logits(idx):
+        seqs = torch.tensor([list(prompts[i]) + res[i].tokens for i in idx],
+                            device=dev)
+        emb = None if embeds is None else torch.cat([embeds[i] for i in idx])
+        lg, _ = M.forward(tp, tcfg, seqs, embeds=emb)
+        return lg[:, off + P - 1:off + P - 1 + n_new].float()
+
+    argmax = tokens = n_cmp = 0
+    max_gap, err, top2, first = 0.0, 0.0, [], []
     with torch.no_grad():
-        lg, _ = M.forward(tp, tcfg, seqs)
-        lg1 = torch.cat([M.forward(tp, tcfg, seqs[i:i + 1])[0]
-                         for i in range(len(prompts))])
-    pred = lg[:, P - 1:P - 1 + n_new]
-    if not bool(torch.isfinite(pred).all()):
-        raise AssertionError("teacher forcing: non-finite logits")
-    served = seqs[:, P:].long()
-    gap = pred.max(-1).values - pred.gather(-1, served[..., None])[..., 0]
-    top2 = pred.topk(2, -1).values
-    t2 = (top2[..., 0] - top2[..., 1]).cpu()
-    noise = float((lg1 - lg)[:, P - 1:P - 1 + n_new].abs().max())
-    first = []
-    for i in range(len(prompts)):
-        j = next((j for j, (a, b) in enumerate(zip(res[i].tokens, greedy[i]))
-                  if a != b), None)
-        first.append(None if j is None else (j, round(float(t2[i, j]), 5)))
-    out = dict(argmax=int((gap == 0).sum()), tokens=int(gap.numel()),
-               max_gap=float(gap.max()), noise=noise, margin=TF_MARGIN,
-               first_divergence=first)
-    log(f"  full greedy teacher-forced: {out['argmax']}/{out['tokens']} "
-        f"served tokens are the argmax, max gap to the top logit "
-        f"{out['max_gap']:.5f} (margin {TF_MARGIN}), noise yardstick "
-        f"{noise:.5f}; first divergence from AR and top-2 gap there by "
-        f"request: {first}")
-    if not out["max_gap"] <= TF_MARGIN:
-        raise AssertionError(f"full greedy: a served token lies "
-                             f"{out['max_gap']} below the top logit")
+        one = []
+        for i in range(len(prompts)):
+            pred = served_logits([i])[0]
+            if not bool(torch.isfinite(pred).all()):
+                raise AssertionError("teacher forcing: non-finite logits")
+            toks = torch.tensor(res[i].tokens, device=dev)
+            gap = pred.max(-1).values - pred.gather(-1, toks[:, None])[:, 0]
+            t2 = pred.topk(2, -1).values
+            top2.append((t2[:, 0] - t2[:, 1]).cpu().tolist())
+            argmax += int((gap == 0).sum())
+            tokens += int(gap.numel())
+            max_gap = max(max_gap, float(gap.max()))
+            if greedy is not None:
+                j = next((j for j, (a, b) in enumerate(zip(res[i].tokens,
+                                                           greedy[i]))
+                          if a != b), None)
+                first.append(None if j is None
+                             else (j, round(top2[i][j], 5)))
+            if served is not None:
+                stream = list(prompts[i]) + res[i].tokens
+                for q, (p0, fed, lg) in served.logits[i].items():
+                    if q - P + 1 < n_new and stream[p0:q + 1] == list(fed):
+                        err = max(err, float((lg - pred[q - P + 1]).abs()
+                                             .max()))
+                        n_cmp += 1
+            one.append(pred)
+        noise = float((served_logits(range(len(prompts)))
+                       - torch.stack(one)).abs().max())
+        del one
+    out = dict(argmax=argmax, tokens=tokens, max_gap=max_gap, noise=noise,
+               margin=TF_MARGIN, min_top2=min(min(t) for t in top2))
+    log(f"  teacher-forced: {argmax}/{tokens} served tokens are the "
+        f"argmax, max gap to the top logit {max_gap:.5f} (margin "
+        f"{TF_MARGIN}), noise yardstick {noise:.5f}, smallest top-2 gap "
+        f"{out['min_top2']:.5f}")
+    if greedy is not None:
+        out["first_divergence"] = first
+        log(f"  first divergence from AR and top-2 gap there by request: "
+            f"{first}")
+    if not max_gap <= TF_MARGIN:
+        raise AssertionError(f"a served token lies {max_gap} below the top "
+                             "logit")
+    if served is not None:
+        out.update(served_positions=n_cmp, served_max_err=err)
+        log(f"  the serve's own target logits at {n_cmp} positions vs the "
+            f"cache-less forward's: max abs difference {err:.5f} (margin "
+            f"{TF_MARGIN})")
+        if n_cmp == 0 or not err <= TF_MARGIN:
+            raise AssertionError(f"served logits: {n_cmp} positions, max "
+                                 f"difference {err}")
+    out["top2"] = top2
     return out
+
+
+class ServedLogits:
+    """While active, records the target logits of a batched engine's own
+    forwards (either backend) with the tokens they were fed: the
+    prefill's at each prompt's last position and every later target
+    forward's at positions P - 1 on, where P is the prompts' length.
+    ``logits[i][q] = (start, tokens fed from start through q, logits
+    (V,) f32)`` for request i (its index in ``prompts``); the newest
+    record at a position wins.  ``teacher_forced(served=)`` holds them
+    against the cache-less forward."""
+
+    def __init__(self, prompts, tcfg):
+        self.P, self.tcfg = len(prompts[0]), tcfg
+        self.index = {tuple(p): i for i, p in enumerate(prompts)}
+        self.logits = {i: {} for i in range(len(prompts))}
+        self._batched = BE.BatchedEngineBase._batched
+        self._prefill = BE.BatchedDecoder.prefill_rows
+
+    def __enter__(self):
+        rec = self
+
+        def prefill(dec, parts):
+            out = rec._prefill(dec, parts)
+            if dec.cfg == rec.tcfg:
+                for lane, (_row, t) in enumerate(parts):
+                    i = rec.index.get(tuple(t))
+                    if i is not None:
+                        rec.logits[i][len(t) - 1] = (
+                            0, tuple(t),
+                            out[0][lane, len(t) - 1].float().clone())
+            return out
+
+        def batched(eng, dec, parts):
+            out = rec._batched(eng, dec, parts)
+            if dec is eng.tgt_dec:
+                by_row = {s.tgt.row: s for s in eng.active}
+                for row, t, p0 in parts:
+                    i = rec.index.get(tuple(by_row[row].prompt))
+                    for j in range(len(t)):
+                        if i is not None and p0 + j >= rec.P - 1:
+                            rec.logits[i][p0 + j] = (
+                                p0, tuple(t[:j + 1]),
+                                out[0][row, j].float().clone())
+            return out
+        BE.BatchedEngineBase._batched = batched
+        BE.BatchedDecoder.prefill_rows = prefill
+        return self
+
+    def __exit__(self, *exc):
+        BE.BatchedEngineBase._batched = self._batched
+        BE.BatchedDecoder.prefill_rows = self._prefill
 
 
 def busy_profile(run) -> dict:
@@ -1777,7 +1946,7 @@ def phase_full(dev, totals, pair) -> dict:
                          launches=counts)
         if temp == 0.0:
             out["teacher_forced"] = teacher_forced(pair[2], pair[3], prompts,
-                                                   res, greedy, n_new)
+                                                   res, n_new, greedy=greedy)
         else:
             check_shadow(f"full {name}", sh, counts, chains=eps == 0.0)
     # where the time goes: one profiled greedy serve (8 new tokens)
@@ -1898,7 +2067,7 @@ def phase_seq_full(dev, totals, pair) -> dict:
                           launches=counts)
         if temp == 0.0:
             out[label]["teacher_forced"] = teacher_forced(
-                pair[2], pair[3], prompts, res, greedy, n_new)
+                pair[2], pair[3], prompts, res, n_new, greedy=greedy)
     ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
     prof = busy_profile(lambda: SV.serve_sequential(pair, ecfg, "specbranch",
                                                     prompts, 8))
@@ -2091,7 +2260,7 @@ def phase_falcon(dev, totals) -> dict:
                          peak_gb=peak / 1e9)
         if temp == 0.0:
             out["teacher_forced"] = teacher_forced(pair[2], tcfg, prompts,
-                                                   res, greedy, n_new)
+                                                   res, n_new, greedy=greedy)
         else:
             if counts["verify_accept_batched"] == 0:
                 raise AssertionError("falcon temp1: verify not launched")
@@ -2270,7 +2439,7 @@ def phase_hrad_full(dev, totals, pair, without) -> dict:
                          busy_share=prof["busy_share"], launches=counts)
         if temp == 0.0:
             out[name]["teacher_forced"] = teacher_forced(
-                pair[2], pair[3], prompts, res, greedy, n_new)
+                pair[2], pair[3], prompts, res, n_new, greedy=greedy)
         else:
             if counts["verify_accept_batched"] == 0:
                 raise AssertionError(f"full {name}: verify not launched")
@@ -2297,8 +2466,8 @@ def phase_hrad_full(dev, totals, pair, without) -> dict:
         tokens_per_s=toks / wall, wall_s=wall, rounds=rounds,
         mean_accepted=mean_acc, signals=h, peak_gb=peak / 1e9,
         busy_share=prof["busy_share"], launches=counts,
-        teacher_forced=teacher_forced(pair[2], pair[3], sprompts, res, ar,
-                                      n_new))
+        teacher_forced=teacher_forced(pair[2], pair[3], sprompts, res, n_new,
+                                      greedy=ar))
     b, q = without["batched"]["greedy"], without["seq"]["specbranch t=0"]
     log(f"  without H-RAD in this run (not a claim): batched specbranch "
         f"greedy {b['tokens_per_s']:.1f} tok/s, {b['rounds']} rounds "
@@ -2454,7 +2623,7 @@ def phase_dense_full(dev, totals, pair, paged_prof) -> dict:
     out = dict(tokens_per_s=toks / wall, wall_s=wall, rounds=rep["rounds"],
                launches=counts, peak_gb=peak / 1e9)
     out["teacher_forced"] = teacher_forced(pair[2], pair[3], prompts, res,
-                                           greedy, n_new)
+                                           n_new, greedy=greedy)
     # a branch fork on the dense backend copies one draft row (every
     # row-axis leaf); a target row is timed beside it for scale
     for which, dec in (("draft (68M)", eng.dft_dec),
@@ -2993,8 +3162,8 @@ def phase_parallel_full(dev, totals, pair, traced) -> dict:
                 f"{rep['rounds']}, dispatches/round={dpr:.2f}, "
                 f"draft frames={fr.frames} with attention launches "
                 f"{fr.launches}, launches={counts}")
-            tf = teacher_forced(pair[2], pair[3], prompts, res, greedy,
-                                n_new)
+            tf = teacher_forced(pair[2], pair[3], prompts, res, n_new,
+                                greedy=greedy)
             r = dict(tokens_per_s=toks / wall, wall_s=wall,
                      rounds=rep["rounds"], dispatches_per_round=dpr,
                      frames=fr.frames, frame_launches=fr.launches,
@@ -3083,7 +3252,8 @@ def phase_parallel_full(dev, totals, pair, traced) -> dict:
     rb = float(np.mean([r.stats.rollback_tokens for r in res.values()]))
     toks = sum(len(r.tokens) for r in res.values())
     off = out["specbranch sequential draft"]
-    tf = teacher_forced(pair[2], pair[3], prompts, res, greedy, n_new)
+    tf = teacher_forced(pair[2], pair[3], prompts, res, n_new,
+                        greedy=greedy)
     log(f"  full specbranch predictor on: {toks / wall:.1f} tok/s wall, "
         f"rounds={rep['rounds']}, decided gamma histogram "
         f"{dict(sorted(hist.items()))}, rollback tokens per request {rb:.2f}"
@@ -3515,6 +3685,365 @@ def phase_prefix_falcon(dev, totals) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: architecture coverage
+# ---------------------------------------------------------------------------
+
+def family_draft(tcfg):
+    """tests/test_arch_serving.py's same-family draft of a reduced
+    target: one period, d_model 128, two heads of 64."""
+    return tcfg.replace(name=tcfg.name + "-draft",
+                        num_layers=tcfg.period, d_model=128,
+                        num_heads=2, num_kv_heads=1, head_dim=64,
+                        d_ff=min(tcfg.d_ff, 256) if tcfg.d_ff else 0,
+                        moe_d_ff=128 if tcfg.num_experts else 0,
+                        num_experts=min(tcfg.num_experts, 2) or 0,
+                        num_experts_per_tok=min(tcfg.num_experts_per_tok,
+                                                2) or 0)
+
+
+def phase_arch(dev, totals) -> dict:
+    t15 = time.time()
+    log_phase("[15] architecture coverage: the ten reduced configs (f32), "
+              "gemma3-4b, internvl2-2b and hubert-xlarge at full width "
+              "(bf16)")
+    out = {}
+    for name, part in (("reduced", phase_arch_reduced),
+                       ("gemma3-4b", phase_arch_gemma3),
+                       ("internvl2-2b", phase_arch_vlm),
+                       ("hubert-xlarge", phase_arch_hubert)):
+        free_device_memory()
+        t0 = time.time()
+        out[name] = part(dev, totals)
+        log(f"  phase 15 {name}: {time.time() - t0:.1f}s")
+    free_device_memory()
+    log(f"  phase 15: {time.time() - t15:.1f}s")
+    return out
+
+
+def phase_arch_reduced(dev, totals) -> dict:
+    """Every assigned config's reduced() target, f32, random weights
+    (target seed 0, draft seed 1).  The nine that decode, with
+    ``family_draft``: sequential SpS and SpecBranch greedy on the card
+    must equal the same serve on the CPU and the port's greedy decode.
+    hubert: a cache-less bidirectional forward over stub frames, card
+    against CPU within 1e-4."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    out = {}
+    for arch in ARCH_IDS:
+        tcfg = get_config(arch).reduced()
+        tp = M.init_params(tcfg, 0, dev)
+        if not tcfg.supports_decode():
+            frames = torch.from_numpy(np.random.default_rng(5)
+                                      .standard_normal((2, 16, tcfg.d_model))
+                                      .astype(np.float32))
+            ops.reset_launches()
+            with torch.no_grad():
+                lg, _ = M.forward(tp, tcfg, embeds=frames.to(dev))
+                torch.cuda.synchronize()
+                counts = dict(ops.LAUNCHES)
+                lc, _ = M.forward(tree_to(tp, "cpu"), tcfg, embeds=frames)
+            for k, v in counts.items():
+                totals[k] += v
+            err = float((lg.cpu() - lc).abs().max())
+            log(f"  {arch} reduced: bidirectional forward {tuple(lg.shape)},"
+                f" card vs CPU max err {err:.2e}, flash launches "
+                f"{counts['flash_attention']}")
+            if not err <= 1e-4 or counts["flash_attention"] != \
+                    tcfg.num_layers:
+                raise AssertionError(f"{arch} reduced: forward err {err} / "
+                                     f"launches {counts}")
+            out[arch] = dict(max_abs_err=err, launches=counts)
+            continue
+        dcfg = family_draft(tcfg)
+        pair = (M.init_params(dcfg, 1, dev), dcfg, tp, tcfg)
+        cpu = tree_to(pair, "cpu")
+        prompt = [int(t) for t in np.random.default_rng(3).integers(
+            0, tcfg.vocab_size, size=6)]
+        greedy = RN.greedy_reference(tp, tcfg, prompt, ARCH_N_NEW,
+                                     max_len=256)
+        need = tuple(k for k, on in (
+            ("flash_attention", tcfg.has_attention()),
+            ("ssm_scan", any(m == "mamba" for m, _ in tcfg.pattern))) if on)
+        ecfg = EngineConfig(gamma=3, c=4.0, temperature=0.0, epsilon=0.4,
+                            signal_temperature=0.5, max_len=256)
+        out[arch] = {}
+        for name in ("sps", "specbranch"):
+            res, counts, wall = seq_drive(pair, ecfg, name, [prompt],
+                                          ARCH_N_NEW, totals, need=need)
+            cres, _, _ = SV.serve_sequential(cpu, ecfg, name, [prompt],
+                                             ARCH_N_NEW)
+            card, on_cpu = res[0].tokens, cres[0].result.tokens
+            log(f"  {arch} reduced {name}: card == CPU {card == on_cpu}, "
+                f"== greedy {card == greedy}, M="
+                f"{res[0].stats.mean_accepted:.2f}, launches "
+                f"{ {k: counts[k] for k in need} }")
+            if card != greedy or on_cpu != card:
+                raise AssertionError(f"{arch} reduced {name}: card "
+                                     f"{card}, CPU {on_cpu}, greedy {greedy}")
+            out[arch][name] = dict(wall_s=wall, launches=counts,
+                                   mean_accepted=res[0].stats.mean_accepted)
+        del pair, cpu
+    return out
+
+
+def phase_arch_gemma3(dev, totals) -> dict:
+    """gemma3-4b at full width with its draft() (hd 160), bf16, random
+    weights (target seed 0, draft seed 1): 8 requests of 1000-token
+    prompts and 48 new tokens, so every local ring (window 1024) wraps.
+    Batched SpecBranch on the paged backend greedy (teacher-forced, with
+    the serve's own target logits held against the cache-less forward's)
+    and at temperature 1 with epsilon 0 (shadowed: the batched verify at
+    V = 262144), the same greedy serve on the dense backend (its streams
+    must be the paged serve's), sequential SpecBranch 1 x 32 greedy
+    (teacher-forced); tokens/s, rounds, M, peak memory; how far the
+    target's logits move when its context changes (the yardstick of the
+    logit comparison); one profiled serve's busy share and device time by
+    kernel."""
+    from repro_torch.configs import gemma3_4b
+    base = torch.cuda.memory_allocated()
+    pair = SV.load_pair("gemma3-4b", dev)
+    dcfg, tcfg = pair[1], pair[3]
+    if tcfg != gemma3_4b.CONFIG or (dcfg.num_layers, dcfg.d_model,
+                                    dcfg.hd) != (12, 320, 160):
+        raise AssertionError("gemma3-4b or its draft is not at full width")
+    wt, wd = tree_bytes(pair[2]), tree_bytes(pair[0])
+    log(f"  weights: target {wt / 1e9:.3f} GB ({tcfg.param_count()} "
+        f"params), draft {wd / 1e9:.3f} GB ({dcfg.param_count()}); "
+        f"{(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB allocated")
+    prompts = SV.make_prompts(8, length=G3_PROMPT)
+    n_new = G3_NEW
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    out = {"weights_gb": (wt + wd) / 1e9}
+    served = {}
+    for name, temp, eps, backend in (
+            ("paged greedy", 0.0, EPS, "paged"),
+            ("paged temp1-chains", 1.0, 0.0, "paged"),
+            ("dense greedy", 0.0, EPS, "dense")):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, epsilon=eps,
+                            max_len=max_len)
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        with VerifyShadow() as sh, ServedLogits(prompts, tcfg) as sl:
+            res, rep, counts, wall, eng = drive(pair, ecfg, prompts, n_new,
+                                                dev, attn_backend=backend)
+        peak = torch.cuda.max_memory_allocated()
+        del eng
+        for k, v in counts.items():
+            totals[k] += v
+        toks = sum(len(r.tokens) for r in res.values())
+        mean_acc = float(np.mean([r.stats.mean_accepted
+                                  for r in res.values()]))
+        log(f"  gemma3-4b {name}: {toks / wall:.1f} tok/s wall, "
+            f"rounds={rep['rounds']}, mean accepted={mean_acc:.2f}, peak "
+            f"allocated {peak / 1e9:.2f} GB, launches={counts}")
+        kern = "paged_attention" if backend == "paged" else "flash_attention"
+        if counts[kern] == 0:
+            raise AssertionError(f"gemma3-4b {name}: {kern} not run")
+        out[name] = dict(tokens_per_s=toks / wall, wall_s=wall,
+                         rounds=rep["rounds"], mean_accepted=mean_acc,
+                         tokens=toks, peak_gb=peak / 1e9, launches=counts)
+        if temp == 0.0:
+            out[name]["teacher_forced"] = tf = teacher_forced(
+                pair[2], tcfg, prompts, res, n_new, served=sl)
+            served[name] = (res, tf["top2"])
+        else:
+            if counts["verify_accept_batched"] == 0:
+                raise AssertionError("gemma3-4b temp1: verify not launched")
+            check_shadow(f"gemma3-4b {name}", sh, counts, chains=True)
+        del sl
+    (pres, ptop2), (dres, _) = served["paged greedy"], served["dense greedy"]
+    first = first_diff(pres, dres)
+    near = {i: round(ptop2[i][j], 5) for i, j in first.items()
+            if j is not None}
+    n_eq = sum(j is None for j in first.values())
+    log(f"  gemma3-4b dense vs paged greedy: {n_eq}/{len(first)} streams "
+        f"equal; first divergence {first}, the paged stream's top-2 gap "
+        f"there {near}")
+    if n_eq != len(first):
+        raise AssertionError("gemma3-4b: dense and paged greedy streams "
+                             "differ")
+    out["context_yardstick"] = context_yardstick(pair[2], tcfg, prompts,
+                                                 pres, n_new)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
+    res, counts, wall = seq_drive(pair, ecfg, "specbranch", prompts[:1], 32,
+                                  totals)
+    rounds = len(res[0].timeline)
+    log(f"  gemma3-4b sequential specbranch 1 x 32: {32 / wall:.1f} tok/s "
+        f"wall, rounds={rounds}, mean accepted="
+        f"{res[0].stats.mean_accepted:.2f}, flash launches "
+        f"{counts['flash_attention']}")
+    out["seq specbranch"] = dict(
+        tokens_per_s=32 / wall, wall_s=wall, rounds=rounds,
+        mean_accepted=res[0].stats.mean_accepted, launches=counts,
+        teacher_forced=teacher_forced(pair[2], tcfg, prompts[:1], res, 32))
+    free_device_memory()
+    prof = busy_profile(lambda: SV.serve(pair, ecfg, prompts, 8,
+                                         device=dev))
+    log(f"  gemma3-4b profile (paged greedy, 8 x 8 new tokens): card busy "
+        f"{prof['busy_share']:.3f} of {prof['wall_s']:.2f}s wall, device "
+        f"{prof['device_s'] * 1e3:.1f} ms; device time by kernel:")
+    for n, t in prof["top"]:
+        log(f"    {t * 1e3:9.2f} ms  {n}")
+    log_paged(prof)
+    out["profile"] = prof
+    return out
+
+
+def context_yardstick(tp, tcfg, prompts, res, n_new) -> dict:
+    """How far request 0's target logits at its served positions move
+    under two context faults, each a cache-less forward: the keys its
+    local rings evicted left visible (the window off), and the first
+    P - 8 prompt tokens swapped for request 1's (a prefill that wrote the
+    wrong keys).  The yardstick of ``teacher_forced(served=)``'s logit
+    comparison: a fault shows there only where it moves the logits by
+    more than TF_MARGIN, which the wrong prefill must do."""
+    P = len(prompts[0])
+
+    def logits(cfg, seq):
+        t = torch.tensor([seq], device=tp["embed"].device)
+        with torch.no_grad():
+            lg, _ = M.forward(tp, cfg, t)
+        return lg[0, P - 1:P - 1 + n_new].float()
+    tail = res[0].tokens
+    want = logits(tcfg, list(prompts[0]) + tail)
+    # positions whose window has evicted a key: q >= window
+    wrapped = slice(max(0, tcfg.sliding_window - P + 1), n_new)
+    ring = float((logits(tcfg.replace(sliding_window=0),
+                         list(prompts[0]) + tail) - want)[wrapped]
+                 .abs().max())
+    swapped = list(prompts[1][:P - 8]) + list(prompts[0][P - 8:]) + tail
+    ctx = float((logits(tcfg, swapped) - want).abs().max())
+    out = dict(evicted_keys_visible=ring, other_prompt=ctx,
+               margin=TF_MARGIN)
+    log(f"  gemma3-4b context yardstick (request 0): evicted keys visible "
+        f"move its logits by up to {ring:.5f} at the wrapped positions, "
+        f"another prompt's first {P - 8} tokens by up to {ctx:.5f} "
+        f"(the served-logit margin is {TF_MARGIN})")
+    if not ctx > TF_MARGIN:
+        raise AssertionError("gemma3-4b: another prompt moves the logits "
+                             f"by only {ctx}: the served-logit comparison "
+                             "cannot see a wrong prefill")
+    return out
+
+
+def phase_arch_vlm(dev, totals) -> dict:
+    """internvl2-2b at full width with its draft() (hd 128), bf16, random
+    weights: each request gets 256 seeded stub patch embeddings (the
+    draft its own, at its width) then a 32-token prompt; sequential AR,
+    SpS and SpecBranch, 2 requests x 32 new tokens, greedy, each token
+    teacher-forced against a cache-less target forward over embeddings +
+    prompt + stream."""
+    from repro_torch.configs import internvl2_2b
+    from repro_torch.runtime import prng
+    from repro_torch.runtime.scheduler import Request, Scheduler
+    pair = SV.load_pair("internvl2-2b", dev)
+    dcfg, tcfg = pair[1], pair[3]
+    if tcfg != internvl2_2b.CONFIG or dcfg.hd != 128:
+        raise AssertionError("internvl2-2b or its draft is not at full width")
+    prompts = SV.make_prompts(2, length=VLM_PROMPT)
+    rng = np.random.default_rng(11)
+
+    def stub(d):
+        return torch.from_numpy(rng.standard_normal(
+            (1, VLM_PATCHES, d)).astype(np.float32)).to(dev, tcfg.tdtype)
+    t_emb = [stub(tcfg.d_model) for _ in prompts]
+    d_emb = [stub(dcfg.d_model) for _ in prompts]
+    max_len = SV.auto_max_len([[0] * (VLM_PATCHES + VLM_PROMPT)], VLM_NEW,
+                              4, 10.0)
+    out = {}
+    for name in ("autoregressive", "sps", "specbranch"):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
+                            max_len=max_len)
+        eng = SV.build_engine(name, pair, ecfg)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=VLM_NEW,
+                        embeds=t_emb[i] if name == "autoregressive"
+                        else (t_emb[i], d_emb[i]))
+                for i, p in enumerate(prompts)]
+        ops.reset_launches()
+        t0 = time.time()
+        Scheduler(eng).run(reqs, key=prng.PRNGKey(0))
+        wall = time.time() - t0
+        counts = dict(ops.LAUNCHES)
+        for k, v in counts.items():
+            totals[k] += v
+        res = {r.rid: r.result for r in reqs}
+        if any(len(r.tokens) != VLM_NEW for r in res.values()) \
+                or counts["flash_attention"] == 0:
+            raise AssertionError(f"internvl2-2b {name}: {counts}")
+        log(f"  internvl2-2b {name} ({VLM_PATCHES} patches + "
+            f"{VLM_PROMPT} tokens): "
+            f"{len(prompts) * VLM_NEW / wall:.1f} tok/s wall, rounds="
+            f"{sum(len(r.timeline) for r in res.values())}, flash launches "
+            f"{counts['flash_attention']}")
+        out[name] = dict(tokens_per_s=len(prompts) * VLM_NEW / wall,
+                         wall_s=wall, launches=counts,
+                         teacher_forced=teacher_forced(
+                             pair[2], tcfg, prompts, res, VLM_NEW,
+                             embeds=t_emb))
+        del eng
+    return out
+
+
+def phase_arch_hubert(dev, totals) -> dict:
+    """hubert-xlarge at full width, bf16, random weights (seed 0): one
+    cache-less bidirectional forward over (2, 500, 1280) seeded frames;
+    finite (2, 500, 504) logits; the flash kernel once per layer, every
+    call with causal False; the forward's time and its flash device time
+    beside phase 2's SDPA case at the same attention shape."""
+    from repro_torch.configs import get_config
+    cfg = get_config("hubert-xlarge")
+    tp = M.init_params(cfg, 0, dev)
+    frames = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        HUBERT_FRAMES + (cfg.d_model,)).astype(np.float32)).to(dev,
+                                                              cfg.tdtype)
+    causal = []
+    orig = ops.flash_attention
+
+    def flash(*a, **kw):
+        causal.append(kw.get("causal", True))
+        return orig(*a, **kw)
+
+    def fwd():
+        with torch.no_grad():
+            return M.forward(tp, cfg, embeds=frames)[0]
+    ops.flash_attention = flash
+    try:
+        ops.reset_launches()
+        lg = fwd()
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+    finally:
+        ops.flash_attention = orig
+    for k, v in counts.items():
+        totals[k] += v
+    ok = (tuple(lg.shape) == HUBERT_FRAMES + (cfg.vocab_size,)
+          and bool(torch.isfinite(lg).all()))
+    log(f"  hubert-xlarge forward {tuple(lg.shape)} finite={ok}: flash "
+        f"launches {counts['flash_attention']}, causal flags "
+        f"{sorted(set(causal))}")
+    if not ok or counts["flash_attention"] != cfg.num_layers \
+            or causal != [False] * cfg.num_layers:
+        raise AssertionError(f"hubert-xlarge: {counts}, causal {causal}")
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fwd()
+        torch.cuda.synchronize()
+        walls.append((time.time() - t0) * 1e3)
+    ms = float(np.median(walls[2:]))
+    prof = busy_profile(fwd)
+    log(f"  hubert-xlarge forward: {ms:.2f} ms wall (median of 5, "
+        f"synchronised), device time {prof['device_s'] * 1e3:.2f} ms, busy "
+        f"{prof['busy_share']:.3f}; flash {prof['flash_ms']:.3f} ms over "
+        f"{prof['flash_launches']} launches (phase 2's {HUBERT_CASE} case "
+        "has SDPA beside it); device time by kernel:")
+    for n, t in prof["top"]:
+        log(f"    {t * 1e3:9.2f} ms  {n}")
+    return dict(forward_ms=ms, launches=counts, profile=prof)
+
+
 def log_ptxas(ptx: str) -> None:
     """Registers and spills of every kernel the build compiled, from
     ``nvcc -Xptxas -v``; the decode loop's variants (decode, and flash's
@@ -3591,6 +4120,9 @@ def main() -> int:
     if "--prefix" in sys.argv[1:]:
         phase_prefix(dev, totals, SV.load_pair("paper-llama", dev))
         return 3                # phases 1-2 and 14 only: no smoke result
+    if "--arch" in sys.argv[1:]:
+        phase_arch(dev, totals)
+        return 3                # phases 1-2 and 15 only: no smoke result
     log_phase("[3] tiny committed pair, f32")
     phase_tiny(dev, totals)
     log_phase("[4] full-width LLaMA-68M/7B pair, bf16, random weights")
@@ -3634,6 +4166,7 @@ def main() -> int:
     phase_parallel_full(dev, totals, pair, traced)
     phase_prefix(dev, totals, pair)
     del pair
+    phase_arch(dev, totals)
     for k, v in totals.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched on the "

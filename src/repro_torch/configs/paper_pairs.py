@@ -1,4 +1,5 @@
-"""The paper's draft/target model pairs (Table 7) as configs (port of
+"""The paper's draft/target model pairs (Table 7) as configs, plus the
+tiny pair used for CPU execution in tests (port of
 ``repro.configs.paper_pairs``).
 
 Speed ratios c follow Section 6: LLaMA 68M&7B c=10, Vicuna 68M&13B c=15,
@@ -32,3 +33,17 @@ PAPER_PAIRS = {
     "deepseek": (DEEPSEEK_1_3B, DEEPSEEK_33B, 4),
     "llama31": (LLAMA31_8B, LLAMA31_70B, 5),
 }
+
+
+def tiny_pair(vocab: int = 199, d_target: int = 128, layers_target: int = 4,
+              d_draft: int = 64, layers_draft: int = 1):
+    """CPU-runnable draft/target pair for tests and benchmarks."""
+    target = ModelConfig(
+        name="tiny-target", family="dense", num_layers=layers_target,
+        d_model=d_target, num_heads=4, num_kv_heads=2, d_ff=4 * d_target,
+        vocab_size=vocab, pattern=dense_pattern(0), dtype="float32")
+    draft = ModelConfig(
+        name="tiny-draft", family="dense", num_layers=layers_draft,
+        d_model=d_draft, num_heads=2, num_kv_heads=1, d_ff=4 * d_draft,
+        vocab_size=vocab, pattern=dense_pattern(0), dtype="float32")
+    return draft, target

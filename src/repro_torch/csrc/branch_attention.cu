@@ -12,8 +12,8 @@
 // key at all writes zeros.
 //
 // One fused pass: the tile loop of decode_attention.cuh (shared with the
-// paged and flash kernels, head dims 16, 32, 64, 80, 128 and 256), with
-// this file's addressing.  A block holds the query rows of every branch
+// paged and flash kernels, head dims 16, 32, 64, 80, 128, 144, 160 and
+// 256), with this file's addressing.  A block holds the query rows of every branch
 // of its row tile (all k branches at the 7B width: k * G * Tq = 6 rows)
 // for one kv head, so each prefix tile is read once per kv head, not
 // once per branch.  Its key range is the prefix (pair (k, v)) followed by the

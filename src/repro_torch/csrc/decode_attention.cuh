@@ -29,8 +29,13 @@
 // wraps, a rollback leaves stale slots).  Logits are scaled by 1/sqrt(hd)
 // in f32 after the product, then get the optional tanh softcap; sums are
 // f32 and the output is q's dtype.  A query that sees no key writes zeros.
-// Head dims: 16, 32, 64, 80, 128 and 256 (every head dim of the repo's
-// configurations); the host refuses any other.
+// Head dims: 16, 32, 64, 80, 128, 144, 160 and 256 (every head dim of the
+// repo's configurations and of their draft() variants but granite-moe's
+// 85, which no 16-byte row holds); the host refuses any other.  At 144
+// (HD / 16 = 9 k-steps, 18 chunks of a bf16 row) nothing steps over k in
+// pairs: the logits' even/odd accumulators alternate per k-step, the PV
+// product and ldmatrix walk one 16-column step at a time, and the copy
+// loops need only an even chunk count per row (18, 20; 36, 40 at f32).
 //
 // What bounds it on the H100: memory, and at decode sizes the latency
 // of the first bytes.  A decode block has 1-16 query rows per kv head,
@@ -51,7 +56,8 @@
 //    range and keeps its own ring of K/V tiles in shared memory, in the
 //    storage dtype, filled by 16-byte cp.async copies (zero-filled past
 //    the valid keys): 3 stages for rows of up to 256 bytes, 2 up to 512
-//    and 1 for f32 at hd 256 (two stages would need 266 KB).  A key's
+//    and 1 above (f32 at hd 144, 160 and 256: two stages at 256 would
+//    need 266 KB).  A key's
 //    position and page-table entry are read Keys::kAhead tiles before its
 //    copies are issued, so no copy waits on a dependent read, and with a
 //    deeper queue a run of tiles that no row sees (an early ring is mostly
@@ -59,9 +65,10 @@
 //    block barrier, only the warp's own cp.async groups.  A tile that no row of the block can see
 //    is neither copied nor computed.
 //  * bf16: mma.sync m16n8k16 with f32 accumulators.  Up to hd 128 the Q
-//    fragments stay in registers for the whole loop; at hd 256 they are
-//    read from shared memory (ldmatrix) at every tile, since 64 more
-//    registers beside the 128 of a warp's f32 O would not fit under 255.
+//    fragments stay in registers for the whole loop; above (144, 160,
+//    256) they are read from shared memory (ldmatrix) at every tile: at
+//    256, 64 more registers beside the 128 of a warp's f32 O would not
+//    fit under 255.
 //    K comes through ldmatrix, V through ldmatrix.trans.  P goes to bf16
 //    for the PV product as two terms, hi = bf16(p) and lo = bf16(p - hi),
 //    so the product keeps ~16 bits of p: one bf16 rounding of p (2^-9)
@@ -508,7 +515,7 @@ __global__ void __launch_bounds__(kDecThreads)
   constexpr bool kQRegs = kMma && HD <= 128;  // else Q is read per tile
   constexpr int RS = L::RS, CPR = L::CPR, NT = HD / 8;
   static_assert(HD % 16 == 0 && CPR % 2 == 0,
-                "head dim: 16, 32, 64, 80, 128 or 256");
+                "head dim: 16, 32, 64, 80, 128, 144, 160 or 256");
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* Qs = smem;
   unsigned char* ring = Qs + L::kQ;
@@ -750,7 +757,7 @@ __global__ void __launch_bounds__(kDecThreads)
   constexpr bool kQRegs = kMma && HD <= 128;  // else Q is read per tile
   constexpr int RS = L::RS, CPR = L::CPR, NT = HD / 8;
   static_assert(HD % 16 == 0 && (kWideKeys * CPR) % kDecThreads == 0,
-                "head dim: 16, 32, 64, 80, 128 or 256");
+                "head dim: 16, 32, 64, 80, 128, 144, 160 or 256");
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* Qs = smem;
   unsigned char* ring = Qs + L::kQ;
@@ -967,8 +974,8 @@ __global__ void __launch_bounds__(kDecThreads)
 }
 
 // ring stages: 3 for rows of up to 256 bytes, 2 up to 512, else 1 (f32
-// at hd 256: two stages of four warps' K/V tiles would need 266 KB); the
-// wide block's 64-key tiles: 2 up to 512 bytes, else 1
+// at hd 144, 160 and 256: two stages of four warps' K/V tiles would need
+// 266 KB at 256); the wide block's 64-key tiles: 2 up to 512 bytes, else 1
 template <bool kWide, typename scalar_t, int HD>
 constexpr int decode_stages() {
   constexpr int rb = HD * (int)sizeof(scalar_t);
@@ -1016,8 +1023,9 @@ int decode_launch_typed(const Keys& keys, const DecodeArgs& a, int n_items,
 
 // Launches the decode kernel (kWide: the wide block; a.row_tiles counts
 // blocks of 16 or 64 rows to match) over n_items items on bf16 (is_bf16)
-// or f32 storage with head dim hd (16, 32, 64, 80, 128 or 256).  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for another head dim.
+// or f32 storage with head dim hd (16, 32, 64, 80, 128, 144, 160 or 256).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for another head
+// dim.
 template <bool kWide, typename Keys>
 int decode_launch(const Keys& keys, const DecodeArgs& a, int n_items, int hd,
                   int is_bf16, void* stream) {
@@ -1035,6 +1043,8 @@ int decode_launch(const Keys& keys, const DecodeArgs& a, int n_items, int hd,
     REPRO_DECODE_CASE(64)
     REPRO_DECODE_CASE(80)
     REPRO_DECODE_CASE(128)
+    REPRO_DECODE_CASE(144)
+    REPRO_DECODE_CASE(160)
     REPRO_DECODE_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;

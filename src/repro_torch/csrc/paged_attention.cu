@@ -12,8 +12,8 @@
 //
 // The tile loop, and what bounds it, is decode_attention.cuh's (shared
 // with branch_attention.cu and flash_attention.cu, head dims 16, 32, 64,
-// 80, 128 and 256); this file gives it the paged addressing: key s of row
-// b is slot s % ps of page table[b, s / ps].  A block's key range is planned from n_max * ps,
+// 80, 128, 144, 160 and 256); this file gives it the paged addressing:
+// key s of row b is slot s % ps of page table[b, s / ps].  A block's key range is planned from n_max * ps,
 // which the host knows; the loop walks only the row's first lens[b] keys
 // (a serve's tables are as wide as its longest request), and the first
 // page-table entries are read together with lens, so no K/V copy waits

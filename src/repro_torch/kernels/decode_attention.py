@@ -25,7 +25,9 @@ WIDE_ROWS = 64            # query rows of a wide block: a 16-row tile a warp
 SPLIT_ALIGN = 64          # keys the block's four warps walk in one pass
 MIN_SPLIT_KEYS = 128      # fewer keys per split do not repay the merge
 MAX_SPLITS = 8            # a cluster's portable size
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the repo's configs' head dims
+# the head dims of the repo's configs and of their draft() variants that
+# a 16-byte row holds (granite-moe's draft, 85, is refused)
+HEAD_DIMS = (16, 32, 64, 80, 128, 144, 160, 256)
 
 _SM_COUNT: Dict[int, int] = {}
 

@@ -34,17 +34,22 @@ naming the later slice.
 ``misaligned`` / ``aligned`` pairs and the tiny random-init SSM-bearing
 ``falcon-shaped`` / ``jamba-shaped`` pairs (their mamba state rides the
 checkpoint ring in batched mode, checkpoint + replay in sequential
-mode) — and two configs the reference defines, served at full width with
+mode) — and configs the reference defines, served at full width with
 random weights from fixed seeds (target 0, draft 1; no checkpoint is
 needed): ``paper-llama``, the paper's LLaMA-68M draft / LLaMA-7B target,
-and ``falcon-mamba-7b`` with its ``draft()`` (2 Mamba layers, d 512),
-both bf16 (``paper-llama``'s draft heads from seed 2).
+and every assigned architecture that decodes (``configs.ARCH_IDS`` but
+the encoder-only hubert-xlarge), e.g. ``falcon-mamba-7b`` or
+``gemma3-4b``, with its ``draft()``; all bf16 (random draft heads from
+seed 2 in parallel draft mode).  The largest (grok-1-314b,
+jamba-1.5-large-398b, gemma2-27b at bf16) do not fit one 80 GB card.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
       --requests 8 --new-tokens 32 --pair paper-llama
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
       --requests 8 --new-tokens 32 --pair falcon-mamba-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
+      --requests 8 --new-tokens 32 --pair gemma3-4b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --mode sequential --engine specbranch
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -67,7 +72,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import falcon_mamba_7b
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.paper_pairs import PAPER_PAIRS
 from repro_torch.data.synthetic import ZipfMarkov
 from repro_torch.models import model as M
@@ -88,9 +93,13 @@ from repro_torch.training.pairs import (HYBRID_KINDS, VOCAB,
                                         draft_heads_for, get_pair,
                                         hybrid_pair)
 
-FULL_WIDTH = ("paper-llama", "falcon-mamba-7b")
+# the assigned architectures that decode, served with their draft()
+ARCH_PAIRS = tuple(a for a in ARCH_IDS if get_config(a).supports_decode())
+FULL_WIDTH = ("paper-llama",) + ARCH_PAIRS
 PAIRS = ("misaligned", "aligned") + HYBRID_KINDS + FULL_WIDTH
-SSM_PAIRS = HYBRID_KINDS + ("falcon-mamba-7b",)
+SSM_PAIRS = HYBRID_KINDS + tuple(
+    a for a in ARCH_PAIRS if any(m == "mamba" for m, _ in
+                                 get_config(a).pattern))
 HEADS_SEED = 2      # paper-llama's random draft heads (target 0, draft 1)
 
 ENGINES = {
@@ -112,13 +121,13 @@ def load_pair(kind: str, device):
     """(draft_params, draft_cfg, target_params, target_cfg): the committed
     Zipf-Markov pairs, the tiny random-init SSM-bearing pairs, or a
     full-width pair with random weights drawn on ``device`` (target seed
-    0, draft seed 1): the paper's LLaMA 68M/7B, or falcon-mamba-7b with
-    its ``draft()``."""
+    0, draft seed 1): the paper's LLaMA 68M/7B, or an assigned
+    architecture (``ARCH_PAIRS``) with its ``draft()``."""
     if kind in FULL_WIDTH:
         if kind == "paper-llama":
             dcfg, tcfg, _c = PAPER_PAIRS["llama"]
         else:
-            tcfg = falcon_mamba_7b.CONFIG
+            tcfg = get_config(kind)
             dcfg = tcfg.draft()
         return (M.init_params(dcfg, 1, device), dcfg,
                 M.init_params(tcfg, 0, device), tcfg)
@@ -288,7 +297,8 @@ def main(argv=None) -> None:
                     help="misaligned/aligned: the reference's trained "
                     "pairs (cached checkpoints); falcon-shaped/"
                     "jamba-shaped: tiny random-init SSM pairs; "
-                    "paper-llama, falcon-mamba-7b: full width, bf16, "
+                    "paper-llama and the assigned architectures that "
+                    "decode (with their draft()): full width, bf16, "
                     "random weights")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=48)

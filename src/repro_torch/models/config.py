@@ -90,6 +90,20 @@ class ModelConfig:
         return tuple(self.pattern[i % self.period]
                      for i in range(self.num_layers))
 
+    def has_attention(self) -> bool:
+        return any(m in ("attn", "local") for m, _ in self.pattern)
+
+    def pure_full_attention(self) -> bool:
+        """True if every mixer is full (non-windowed) attention."""
+        return all(m == "attn" for m, _ in self.pattern)
+
+    def supports_decode(self) -> bool:
+        return self.causal
+
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic-per-token state growth: SSM / hybrid / windowed."""
+        return self.supports_decode() and not self.pure_full_attention()
+
     def param_count(self) -> int:
         """Analytic parameter count (total, incl. all experts)."""
         D, F, V, hd = self.d_model, self.d_ff, self.vocab_size, self.hd
@@ -112,8 +126,48 @@ class ModelConfig:
                     + self.num_experts * 3 * D * self.expert_ff
         return n
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        n_moe_layers = sum(1 for _, f in self.layer_kinds() if f == "moe")
+        inactive = n_moe_layers * (self.num_experts
+                                   - self.num_experts_per_tok) \
+            * 3 * self.d_model * self.expert_ff
+        return self.param_count() - inactive
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: <= 2 periods, d_model <= 256, <= 4 experts,
+        vocab <= 512, float32, with a drop-free MoE capacity (C == n_tokens)
+        so outputs do not depend on the batch's composition."""
+        P = self.period
+        d = min(self.d_model, 256)
+        heads = min(self.num_heads, 4)
+        kv = min(self.num_kv_heads, max(1, heads // 2))
+        return self.replace(
+            name=self.name + "-reduced",
+            num_layers=min(self.num_layers, 2 * P),
+            d_model=d,
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=d // heads,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            moe_d_ff=min(self.expert_ff, 256) if self.num_experts else 0,
+            vocab_size=min(self.vocab_size, 512),
+            num_experts=min(self.num_experts, 4),
+            num_experts_per_tok=min(self.num_experts_per_tok,
+                                    min(self.num_experts, 4)) or 0,
+            sliding_window=(min(self.sliding_window, 32)
+                            if self.sliding_window else 0),
+            num_patches=16,
+            capacity_factor=(self.num_experts
+                             / max(1, self.num_experts_per_tok)
+                             if self.num_experts else self.capacity_factor),
+            dtype="float32",
+        )
 
     def draft(self) -> "ModelConfig":
         """Same-family scaled-down draft model for speculative decoding
@@ -143,16 +197,28 @@ def dense_pattern(local_ratio: int = 0) -> Tuple[Slot, ...]:
     return tuple([("local", "dense")] * local_ratio + [("attn", "dense")])
 
 
+class NoDecodeError(ValueError):
+    """A decode cache, a decode step or an engine was asked of a config
+    with no autoregressive decode (``supports_decode()`` false: the
+    encoder-only hubert-xlarge).  The reference has no decode path for
+    such a config either; it only runs the cache-less forward."""
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the architecture features a later slice of the port
-    brings (encoder-only stacks, stub frontends, unknown slot kinds)."""
+    """Raise for a slot kind the model stack does not have."""
     for mixer, ffn in cfg.pattern:
         if mixer not in ("attn", "local", "mamba") \
                 or ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: slot ({mixer}, {ffn}) is not a layer kind "
                 "of the port")
-    if not cfg.causal or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-only and stub-frontend configs are "
-            "ported in a later slice (ROADMAP.md queue A)")
+
+
+def check_decodes(cfg: ModelConfig) -> None:
+    """Raise ``NoDecodeError`` for a config that cannot decode."""
+    check_supported(cfg)
+    if not cfg.supports_decode():
+        raise NoDecodeError(
+            f"{cfg.name} is encoder-only (causal=False): it has no "
+            "autoregressive decode, no decode cache and no engine; run "
+            "its cache-less forward (models.model.forward)")

@@ -17,7 +17,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.config import (ModelConfig, check_decodes,
+                                       check_supported)
 
 Params = Dict[str, Any]
 
@@ -149,8 +150,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     batch is uniformly axis 1 — the runner's branch fork / select rely on
     this.  ``ssm_ring`` > 0 gives every mamba slot a position-indexed
     checkpoint ring of that depth (0: the carried state of the
-    sequential runner) and pads windowed attention rings by as much."""
-    check_supported(cfg)
+    sequential runner) and pads windowed attention rings by as much.  A
+    config that cannot decode (encoder-only) raises ``NoDecodeError``."""
+    check_decodes(cfg)
     return {"blocks": [_init_slot_cache(cfg, cfg.pattern[s], batch, max_len,
                                         device, cfg.n_periods, ssm_ring)
                        for s in range(cfg.period)],
@@ -181,8 +183,9 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     of the parameter tree and have no batch axis (rows exist only as
     page-table views).  Mamba slots cannot be paged: each carries a
     per-row checkpoint ring (``n_rows`` rows of depth ``ssm_ring``), so
-    an SSM or hybrid config gets a mixed tree."""
-    check_supported(cfg)
+    an SSM or hybrid config gets a mixed tree.  A config that cannot
+    decode (encoder-only) raises ``NoDecodeError``."""
+    check_decodes(cfg)
     if any(m == "mamba" for m, _ in cfg.pattern) \
             and (n_rows <= 0 or ssm_ring <= 0):
         raise ValueError("mamba slots in a paged cache ride per-row "
@@ -237,7 +240,9 @@ def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
     return x
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+def forward(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None,
             cache: Optional[Params] = None,
             positions: Optional[torch.Tensor] = None,
             paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -252,10 +257,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the model.
 
-    tokens (B, T) int; positions (B, T) absolute positions (default
-    arange); cache (written in place) a dense ring cache from
-    ``init_cache`` (``cache_mode`` "append" or "fresh", see
-    ``layers.attention``), a paged cache from ``init_paged_cache`` with
+    tokens (B, T) int, or None (pure-embedding input); embeds (B, Tp,
+    d_model), optional, are stub frontend embeddings (audio frames,
+    vision patches), cast to the model's dtype and put BEFORE the scaled
+    token embeddings (at least one of the two is given).  positions (B,
+    T) absolute positions over the joined length (default arange);
+    cache (written in place) a dense ring cache from ``init_cache``
+    (``cache_mode`` "append" or "fresh", see ``layers.attention``), a
+    paged cache from ``init_paged_cache`` with
     ``paged`` = (table (B, n_max) int32, lens (B,) int32), or None for a
     cache-less forward.  ``ring_rows`` (B,) maps lanes to the rows of
     mamba checkpoint rings (``layers.mamba``; default lane i = row i).
@@ -277,16 +286,25 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     raises).  Returns (logits (B, T', V) f32, aux).
     """
     check_supported(cfg)
-    emb = params["embed"][tokens.long()] * math.sqrt(cfg.d_model)
+    if tokens is None and embeds is None:
+        raise ValueError("forward needs tokens, embeds or both")
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(device=params["embed"].device,
+                               dtype=cfg.tdtype))
     pd_attn = None
-    if pdraft is not None:
-        K = pdraft["embed"].shape[0]
-        se = (pdraft["embed"][pdraft["sidx"].long().clamp(0, K - 1)]
-              * math.sqrt(cfg.d_model))
-        emb = torch.where(pdraft["cols"][..., None], se.to(emb.dtype), emb)
-        pd_attn = {"cols": pdraft["cols"],
-                   "ctx": pdraft["ctx"].to(torch.int32)}
-    x = emb.to(cfg.tdtype)
+    if tokens is not None:
+        emb = params["embed"][tokens.long()] * math.sqrt(cfg.d_model)
+        if pdraft is not None:
+            K = pdraft["embed"].shape[0]
+            se = (pdraft["embed"][pdraft["sidx"].long().clamp(0, K - 1)]
+                  * math.sqrt(cfg.d_model))
+            emb = torch.where(pdraft["cols"][..., None], se.to(emb.dtype),
+                              emb)
+            pd_attn = {"cols": pdraft["cols"],
+                       "ctx": pdraft["ctx"].to(torch.int32)}
+        parts.append(emb.to(cfg.tdtype))
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
@@ -394,18 +412,23 @@ def draft_head_logits(params: Params, cfg: ModelConfig, dhead: Params,
     return L.softcap(lg, cfg.final_softcap)
 
 
-def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: Params, kv_chunk: int = 2048
+def prefill(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor], *, cache: Params,
+            embeds: Optional[torch.Tensor] = None, kv_chunk: int = 2048
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Prefill: forward over the prompt writing the dense cache."""
-    return forward(params, cfg, tokens, cache=cache, kv_chunk=kv_chunk)
+    """Prefill: forward over the prompt (stub embeddings ``embeds``
+    first, when given) writing the dense cache."""
+    return forward(params, cfg, tokens, embeds=embeds, cache=cache,
+                   kv_chunk=kv_chunk)
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 cache: Params, pos: torch.Tensor, kv_chunk: int = 2048
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Decode T new tokens (T = 1 for plain AR, T = gamma to verify);
-    pos (B,) int32 is the absolute position of the first one."""
+    pos (B,) int32 is the absolute position of the first one.  A config
+    that cannot decode (encoder-only) raises ``NoDecodeError``."""
+    check_decodes(cfg)
     T = tokens.shape[1]
     positions = pos.to(torch.int32)[:, None] + torch.arange(
         T, dtype=torch.int32, device=pos.device)[None]

@@ -28,8 +28,17 @@ ONE masked draft forward through multi-position draft heads
 protocol, PRNG consumption and rollback are those of the sequential
 drafter, only the proposal distributions differ.  ``spec_predictor``
 "on" / "oracle" installs the history predictor (``runtime.predictor``),
-which SpecBranch consults each round.  Stub-frontend embeddings are a
-later slice (ROADMAP.md queue A).
+which SpecBranch consults each round.
+
+``generate(..., embeds=)`` (AR, SpS and its subclasses, Lookahead, PEARL,
+SpecBranch) ingests stub frontend embeddings (1, Tp, D) before the
+prompt, into the target's runner and the draft's, as the reference does;
+the committed stream then starts at ``Tp + len(prompt)``.  Where the
+draft's width differs from the target's (a config's ``draft()``), pass a
+pair ``(target_embeds, draft_embeds)`` of the same length: the reference
+hands both runners one tensor, which only a draft of the target's width
+takes.  A config that cannot decode (encoder-only) raises
+``NoDecodeError`` when the engine is built.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, check_decodes
 from repro_torch.obs.trace import NULL_RECORDER
 from repro_torch.runtime import predictor as P
 from repro_torch.runtime import prng
@@ -165,6 +174,9 @@ class Engine:
     def __init__(self, draft_params, draft_cfg: Optional[ModelConfig],
                  target_params, target_cfg: ModelConfig,
                  ecfg: EngineConfig, hrad_params=None, draft_heads=None):
+        for cfg in (target_cfg, draft_cfg):
+            if cfg is not None:
+                check_decodes(cfg)
         self.dp, self.dcfg = draft_params, draft_cfg
         self.tp, self.tcfg = target_params, target_cfg
         self.ecfg = ecfg
@@ -235,11 +247,21 @@ class Engine:
                  key: torch.Tensor, embeds=None) -> GenResult:
         raise NotImplementedError
 
-    def _check_embeds(self, embeds) -> None:
-        if embeds is not None:
-            raise NotImplementedError(
-                "stub-frontend embeddings are not in this slice of the "
-                "PyTorch port (ROADMAP.md queue A)")
+    def _ingest_embeds(self, embeds, target: ModelRunner,
+                       draft: Optional[ModelRunner] = None) -> int:
+        """Ingest stub frontend embeddings (module docstring: one tensor
+        for both runners, or a (target, draft) pair) before the prompt;
+        returns their length (0 without)."""
+        if embeds is None:
+            return 0
+        t_emb, d_emb = (embeds if isinstance(embeds, (tuple, list))
+                        else (embeds, embeds))
+        if t_emb.shape[1] != d_emb.shape[1]:
+            raise ValueError("target and draft embeddings differ in length")
+        target.forward_embeds(t_emb)
+        if draft is not None:
+            draft.forward_embeds(d_emb)
+        return int(t_emb.shape[1])
 
     # shared target verification ------------------------------------------
     def _verify(self, target: ModelRunner, drafts: List[int],
@@ -299,9 +321,9 @@ class AutoregressiveEngine(Engine):
         super().__init__(None, None, target_params, target_cfg, ecfg)
 
     def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
-        self._check_embeds(embeds)
         ctx = _Ctx(key)
         _, target = self._new_runners()
+        self._ingest_embeds(embeds, target)
         target.forward(list(prompt))
         ctx.stats.target_calls += 1
         for _ in range(n_new):
@@ -374,13 +396,13 @@ class SpSEngine(Engine):
         return drafted, torch.stack(qs), confs
 
     def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
-        self._check_embeds(embeds)
         ctx = _Ctx(key)
         draft, target = self._new_runners()
+        n_emb = self._ingest_embeds(embeds, target, draft)
         draft.prefill(prompt)
         target.prefill(prompt)
         ctx.stats.target_calls += 1
-        plen = len(prompt)
+        plen = len(prompt) + n_emb
         parallel_draft = self.ecfg.draft_mode == "parallel"
         while len(ctx.out) < n_new:
             draft.checkpoint(), target.checkpoint()
@@ -454,12 +476,12 @@ class LookaheadEngine(Engine):
         super().__init__(None, None, target_params, target_cfg, ecfg)
 
     def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
-        self._check_embeds(embeds)
         ctx = _Ctx(key)
         _, target = self._new_runners()
+        n_emb = self._ingest_embeds(embeds, target)
         target.prefill(prompt)
         ctx.stats.target_calls += 1
-        plen = len(prompt)
+        plen = len(prompt) + n_emb
         n = self.ecfg.lookahead_n
         pool: Dict[tuple, List[int]] = {}
         hist = list(prompt)
@@ -526,13 +548,13 @@ class PEARLEngine(SpSEngine):
             raise NotImplementedError(
                 "PEARL pipelines sequential drafting against verification; "
                 "use draft_mode='sequential'")
-        self._check_embeds(embeds)
         ctx = _Ctx(key)
         draft, target = self._new_runners()
+        n_emb = self._ingest_embeds(embeds, target, draft)
         draft.prefill(prompt)
         target.prefill(prompt)
         ctx.stats.target_calls += 1
-        plen = len(prompt)
+        plen = len(prompt) + n_emb
         gamma = self.ecfg.gamma
         cur: List[int] = []
         cur_q = None

@@ -30,8 +30,9 @@ captures nothing.
 
 ``forward_parallel`` is the single-pass parallel draft (DESIGN.md
 §7.12): the pending tokens plus g masked draft slots in one forward, the
-slots' keys stored invisible.  Stub-frontend embeddings are a later
-slice of the port (ROADMAP.md queue A).
+slots' keys stored invisible.  ``forward_embeds`` ingests stub frontend
+embeddings (VLM patches, audio frames) as the reference's does: their
+positions hold ``-1`` placeholder ids in ``tokens`` (not replayable).
 """
 from __future__ import annotations
 
@@ -43,12 +44,6 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-
-
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in this slice of the PyTorch port (ROADMAP.md "
-        "queue A)")
 
 
 def _has_ssm(cfg: ModelConfig) -> bool:
@@ -104,14 +99,16 @@ class ModelRunner:
         self._prefork: Optional[Tuple[Any, int]] = None
 
     @torch.no_grad()
-    def _fwd(self, tokens: torch.Tensor) -> torch.Tensor:
-        B, T = tokens.shape
+    def _fwd(self, tokens: Optional[torch.Tensor],
+             embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, T = tokens.shape if tokens is not None else embeds.shape[:2]
         positions = (self.pos + torch.arange(T, dtype=torch.int32,
                                              device=self.device)
                      ).expand(B, T).contiguous()
         capture = self.feature_points > 0
         logits, aux = M.forward(self.params, self.cfg, tokens,
-                                cache=self.cache, positions=positions,
+                                embeds=embeds, cache=self.cache,
+                                positions=positions,
                                 feature_mode="last" if capture else None,
                                 feature_points=self.feature_points)
         self.last_features = aux["features"] if capture else None
@@ -179,8 +176,18 @@ class ModelRunner:
                                 pos=self.pos)
         return q_all
 
-    def forward_embeds(self, embeds) -> torch.Tensor:
-        raise _later_slice("stub-frontend embeddings")
+    def forward_embeds(self, embeds: torch.Tensor) -> torch.Tensor:
+        """Ingest stub frontend embeddings (B=1, Tp, D) — VLM/audio
+        prefill.  Returns logits (1, Tp, V)."""
+        assert self.batch == 1 and not self.pending
+        logits = self._fwd(None, embeds)
+        n = embeds.shape[1]
+        self.pos += n
+        self.tokens.extend([-1] * n)       # placeholder ids (not replayable)
+        self.n_calls += 1
+        self.n_call_tokens += n
+        self.last_logits = logits[:, -1]
+        return logits
 
     def forward_batched(self, token_rows: np.ndarray) -> torch.Tensor:
         """Branch-mode forward: token_rows (k, T), one row per branch."""

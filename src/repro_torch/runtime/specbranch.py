@@ -169,13 +169,13 @@ class SpecBranchEngine(Engine):
 
     # ----------------------------------------------------------- generate
     def generate(self, prompt, n_new, key, embeds=None) -> GenResult:
-        self._check_embeds(embeds)
         ctx = _Ctx(key)
         draft, target = self._new_runners()
+        n_emb = self._ingest_embeds(embeds, target, draft)
         draft.prefill(prompt)
         target.prefill(prompt)
         ctx.stats.target_calls += 1
-        plen = len(prompt)
+        plen = len(prompt) + n_emb
         gb = self.ecfg.gamma_branch
         parallel = self.ecfg.use_branch
         parallel_draft = self.ecfg.draft_mode == "parallel"

@@ -91,7 +91,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import hrad as H
 from repro_torch.models import model as M
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, check_decodes
 from repro_torch.obs.trace import NULL_RECORDER
 from repro_torch.runtime import predictor as PRED
 from repro_torch.runtime import prng
@@ -463,6 +463,8 @@ class BatchedEngineBase:
                  device="cuda"):
         if attn_backend not in ("dense", "paged"):
             raise ValueError(f"unknown attn_backend {attn_backend!r}")
+        check_decodes(target_cfg)       # NoDecodeError for encoder-only
+        check_decodes(draft_cfg)
         if prefix_cache and attn_backend != "paged":
             raise ValueError(
                 "prefix_cache=True requires attn_backend='paged': dense "

@@ -56,14 +56,16 @@ def from_numpy_params(tree: Any, cfg: ModelConfig, device) -> Any:
     the reference's init gives its leaf (``model.param_dtype``: float32
     for Mamba's ``A_log`` / ``Dskip`` and the MoE ``router``, ``cfg``'s
     dtype otherwise); ``blocks`` keeps an empty ``rem`` list when
-    absent."""
-    def conv(node, name=""):
+    absent.  The reference's remainder layers carry no stack axis; the
+    port's carry one of size 1, as their caches do in both packages."""
+    def conv(node, name="", lead=False):
         if isinstance(node, dict):
-            return {k: conv(v, k) for k, v in node.items()}
+            return {k: conv(v, k, lead) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [conv(v) for v in node]
-        return _to_tensor(node, param_dtype(name, cfg), device)
-    out = conv(tree)
+            return [conv(v, lead=lead) for v in node]
+        t = _to_tensor(node, param_dtype(name, cfg), device)
+        return t[None] if lead else t
+    out = {k: conv(v, k, lead=k == "rem") for k, v in tree.items()}
     out.setdefault("rem", [])
     emb = out["embed"]
     if tuple(emb.shape) != (cfg.vocab_size, cfg.d_model):

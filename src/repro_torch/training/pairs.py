@@ -10,8 +10,9 @@ reference's trained parallel-draft heads from the same cache
 (``heads-<key>.npz``, written by the reference on first use) and raises
 when they are missing: training them is a later slice too.
 ``hybrid_pair`` builds the
-reference's tiny random-init SSM-bearing pairs (same configs, weights
-drawn by the port's own generator).  ``PAIR_C``, ``default_ecfg`` and
+reference's tiny random-init SSM-bearing pairs and ``local_pair`` its
+gemma3-shaped sliding-window pair (same configs, weights drawn by the
+port's own generator).  ``PAIR_C``, ``default_ecfg`` and
 ``hrad_for_pair`` are the port's copies of the reference's benchmark
 presets (``benchmarks/common.py``) that the examples use;
 ``hrad_for_pair`` loads the reference's trained H-RAD MLP from the same
@@ -195,5 +196,43 @@ def hybrid_pair(kind: str, seed: int = 0, device="cuda"
     Greedy losslessness and rollback correctness are properties of the
     engine, not of model quality, so no training is needed."""
     dcfg, tcfg = hybrid_configs(kind)
+    return (M.init_params(dcfg, seed + 1, device), dcfg,
+            M.init_params(tcfg, seed, device), tcfg)
+
+
+LOCAL_KINDS = ("gemma3-shaped",)
+
+
+def local_configs(kind: str = "gemma3-shaped"
+                  ) -> Tuple[ModelConfig, ModelConfig]:
+    """(draft_cfg, target_cfg) of the tiny local-attention
+    (sliding-window) pair, the reference's ``local_pair`` configs:
+    gemma3's family, interleaved local (windowed ring cache) and global
+    layers with qk-norm.  The window (8) is deliberately smaller than
+    prompt + generation, so a serving test's rings wrap end to end while
+    speculation overshoots and rolls back around them."""
+    if kind != "gemma3-shaped":
+        raise ValueError(kind)
+    common = dict(vocab_size=VOCAB, dtype="float32", sliding_window=8)
+    tcfg = ModelConfig(
+        name="lo-gemma3-t", family="dense", num_layers=3, d_model=64,
+        num_heads=2, num_kv_heads=1, d_ff=128, qk_norm=True,
+        pattern=dense_pattern(2),            # 2 local : 1 global
+        **common)
+    dcfg = ModelConfig(
+        name="lo-gemma3-d", family="dense", num_layers=1, d_model=32,
+        num_heads=2, num_kv_heads=1, d_ff=64,
+        pattern=(("local", "dense"),), **common)
+    return dcfg, tcfg
+
+
+def local_pair(kind: str = "gemma3-shaped", seed: int = 0, device="cuda"
+               ) -> Tuple[Any, ModelConfig, Any, ModelConfig]:
+    """(draft_params, draft_cfg, target_params, target_cfg) of
+    ``local_configs(kind)``: random-init weights from ``init_params``
+    (target ``seed``, draft ``seed + 1``; not the reference's draws —
+    tests carry the reference's over with
+    ``training.checkpoint.from_numpy_params``)."""
+    dcfg, tcfg = local_configs(kind)
     return (M.init_params(dcfg, seed + 1, device), dcfg,
             M.init_params(tcfg, seed, device), tcfg)

@@ -111,6 +111,12 @@ ATTN_CASES = [
     dict(B=2, T=16, H=16, KV=8, hd=80, ps=16),
     dict(B=3, T=4, H=8, KV=4, hd=256, ps=16, window=9),
     dict(B=1, T=2, H=8, KV=4, hd=256, ps=16, lens=[3000], window=1024),
+    # the draft() head dims: 160 (gemma3-4b's draft, window; mistral-nemo's)
+    # and 144 (gemma2-27b's: nine k-steps), unsplit and over a split row
+    dict(B=8, T=4, H=2, KV=2, hd=160, ps=16, window=9),
+    dict(B=3, T=4, H=4, KV=4, hd=144, ps=16),
+    dict(B=1, T=2, H=4, KV=4, hd=144, ps=16, lens=[3000], window=1024),
+    dict(B=1, T=1, H=4, KV=4, hd=160, ps=16, lens=[3000]),
 ]
 
 
@@ -339,6 +345,15 @@ FLASH_CASES = [
     dict(B=1, T=40, S=512, H=8, KV=4, hd=256, L=500, window=128),
     dict(B=2, T=33, S=48, H=8, KV=2, hd=32, L=60, stale=3, dead=2,
          cap=20.0),
+    # the draft() head dims 160 and 144: gemma3-4b's draft ring (window,
+    # split), a bidirectional wide block with a 6-row last block, a wide
+    # GQA block under a window, and a softcapped decode (gemma2's draft)
+    dict(B=1, T=5, S=2048, H=2, KV=2, hd=160, L=1800, stale=3,
+         window=1024),
+    dict(B=2, T=70, S=70, H=4, KV=4, hd=144, L=70, causal=False),
+    dict(B=1, T=64, S=512, H=4, KV=2, hd=160, L=500, window=128),
+    dict(B=3, T=1, S=512, H=4, KV=4, hd=144, L=300, window=256,
+         cap=50.0),
 ]
 
 
@@ -584,11 +599,13 @@ def test_hybrid_pairs_on_the_card_are_greedy_lossless(cuda, kind):
 # (k branches, Tq, Sp, Ss, H, KV, hd): the 7B branch-decode width, a GQA
 # case with odd lengths and Tq > 1, a tile straddling the boundary;
 # k * G * Tq = 36 rows (three row tiles) with Sp not a multiple of the
-# 16-key tile; a long prefix that splits; head dims 16, 80 and 256
+# 16-key tile; a long prefix that splits; head dims 16, 80, 256 and the
+# draft() head dims 160 and 144
 BRANCH_CASES = [(6, 1, 504, 8, 32, 32, 128), (3, 3, 29, 5, 4, 2, 32),
                 (4, 2, 70, 13, 8, 2, 64), (6, 3, 70, 5, 8, 4, 64),
                 (6, 1, 2048, 8, 32, 32, 128), (4, 2, 45, 3, 4, 4, 16),
-                (6, 1, 504, 8, 16, 16, 80), (4, 2, 70, 13, 8, 4, 256)]
+                (6, 1, 504, 8, 16, 16, 80), (4, 2, 70, 13, 8, 4, 256),
+                (6, 1, 504, 8, 2, 2, 160), (4, 2, 70, 13, 4, 4, 144)]
 
 
 @pytest.mark.requires_cuda

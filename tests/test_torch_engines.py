@@ -146,8 +146,12 @@ def test_serve_cli_sequential_on_cpu(tmp_path, capsys):
 def test_later_slice_engine_options_raise(pairs):
     _, (dp, dcfg, tp, tcfg) = pairs
     eng = TE.SpSEngine(dp, dcfg, tp, tcfg, TE.EngineConfig(max_len=64))
-    with pytest.raises(NotImplementedError, match="slice"):
-        eng.generate([1, 2, 3], 2, prng.PRNGKey(0), embeds=object())
+    # stub-frontend embeddings are ported (tests/test_torch_arch_serving):
+    # the draft of another width takes its own through a (target, draft)
+    # pair, and the stream starts after them
+    emb = (torch.zeros(1, 2, tcfg.d_model), torch.zeros(1, 2, dcfg.d_model))
+    assert len(eng.generate([1, 2, 3], 2, prng.PRNGKey(0),
+                            embeds=emb).tokens) == 2
     # parallel drafting and the predictor are ported
     # (tests/test_torch_parallel_draft.py, tests/test_torch_predictor.py):
     # parallel mode now asks for heads, the predictor is built, and heads

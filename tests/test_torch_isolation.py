@@ -43,7 +43,16 @@ NEED = ["repro_torch.kernels.flash_attention", "repro_torch.runtime.runner",
         "repro_torch.serving.decode_state", "repro_torch.training.pairs",
         "repro_torch.core.hrad", "repro_torch.kernels.branch_attention",
         "repro_torch.kernels.decode_attention",
-        "repro_torch.serving.prefix_cache", "repro_torch.core.theory"]
+        "repro_torch.serving.prefix_cache", "repro_torch.core.theory",
+        "repro_torch.configs", "repro_torch.configs.gemma2_27b",
+        "repro_torch.configs.gemma3_4b",
+        "repro_torch.configs.granite_moe_3b_a800m",
+        "repro_torch.configs.grok_1_314b",
+        "repro_torch.configs.hubert_xlarge",
+        "repro_torch.configs.internvl2_2b",
+        "repro_torch.configs.jamba_1_5_large_398b",
+        "repro_torch.configs.mistral_nemo_12b",
+        "repro_torch.configs.qwen3_8b"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

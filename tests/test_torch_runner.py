@@ -266,8 +266,11 @@ def test_later_slice_paths_raise(pair):
     _, (tdp, tdcfg, _, _) = pair
     r = TR.ModelRunner(tdp, tdcfg, max_len=16)
     assert not r.has_ssm          # mamba runners: tests/test_torch_ssm.py
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        r.forward_embeds(None)
+    # stub-frontend embeddings are ported (tests/test_torch_arch_serving):
+    # placeholder ids, as in the reference
+    re_ = TR.ModelRunner(tdp, tdcfg, max_len=16)
+    re_.forward_embeds(torch.zeros(1, 2, tdcfg.d_model))
+    assert (re_.pos, re_.tokens, re_.n_calls) == (2, [-1, -1], 1)
     # the parallel draft forward is ported (tests/test_torch_parallel_draft)
     heads = TM.init_draft_heads(tdcfg, 3, torch.Generator().manual_seed(0),
                                 "cpu")

@@ -32,7 +32,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ssm_scan as tss
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
-from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.config import (ModelConfig, NoDecodeError,
+                                       check_decodes, check_supported)
 from repro_torch.runtime import engines as TE
 from repro_torch.runtime import prng
 from repro_torch.runtime import runner as TR
@@ -513,5 +514,8 @@ def test_configs_match_reference():
         assert t.param_count() == j.param_count()
     assert tcfg.draft().num_layers == 2 and tcfg.draft().d_model == 512
     check_supported(_tcfg(JJ.CONFIG))
-    with pytest.raises(NotImplementedError, match="encoder"):
-        check_supported(tcfg.replace(causal=False))
+    # an encoder-only stack builds and runs its cache-less forward; it has
+    # no decode path (tests/test_torch_configs.py)
+    check_supported(tcfg.replace(causal=False))
+    with pytest.raises(NoDecodeError, match="encoder"):
+        check_decodes(tcfg.replace(causal=False))
