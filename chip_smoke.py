@@ -47,7 +47,7 @@ Phases (any failure raises, so the script exits non-zero):
                must preempt and read the swap back through the gather
                kernel.
   4. full    — the paper's LLaMA-68M / LLaMA-7B pair at full width, bf16,
-               random weights from fixed seeds: 8 requests x 32 new tokens
+               random weights from fixed seeds: 8 requests x FULL_NEW tokens
                at temperature 0 and at temperature 1 as in phase 3.  Every
                greedy token must be the argmax, within TF_MARGIN, of a
                cache-less target forward over its own request's served
@@ -61,7 +61,7 @@ Phases (any failure raises, so the script exits non-zero):
                temperature 1 are compared with the same serve on the CPU
                (printed); the flash kernel must have run.
   6. seq full — the full-width pair through the sequential engines: AR,
-               SpS and SpecBranch greedy (2 requests x 32 new tokens,
+               SpS and SpecBranch greedy (2 requests x FULL_NEW tokens,
                teacher-forced as in phase 4) and SpecBranch at
                temperature 1 with epsilon 0; wall tokens/s and rounds per
                engine; one profiled SpecBranch serve for the busy share.
@@ -93,9 +93,9 @@ Phases (any failure raises, so the script exits non-zero):
                decode; temperature 1 is shadowed as in phase 3 and
                compared with the same serve on the CPU (printed); the
                H-RAD signal histogram must hold all three classes.
- 10. H-RAD and SpS full — the LLaMA-68M/7B pair again: batched SpS 8 x 32
+ 10. H-RAD and SpS full — the LLaMA-68M/7B pair again: batched SpS 8 x 16
                greedy and temperature 1, batched SpecBranch with H-RAD
-               8 x 32 greedy, sequential SpecBranch with H-RAD 2 x 32
+               8 x 16 greedy, sequential SpecBranch with H-RAD 2 x 16
                greedy, each greedy serve teacher-forced as in phase 4;
                wall tokens/s, rounds, mean accepted length, signal
                histogram, peak memory and a profiled serve's busy share,
@@ -108,7 +108,7 @@ Phases (any failure raises, so the script exits non-zero):
                drive's streams must equal the same serve on the CPU and
                the card's own paged serve; the jamba-shaped hybrid, whose
                preempted rows recompute their prefix; the full-width
-               LLaMA-68M/7B batched SpecBranch 8 x 32 greedy,
+               LLaMA-68M/7B batched SpecBranch 8 x LATE_NEW greedy,
                teacher-forced as in phase 4, what a fork's row copy costs,
                and a profiled serve's flash launches and device time
                beside phase 4's paged figures.
@@ -132,7 +132,7 @@ Phases (any failure raises, so the script exits non-zero):
                the same serve on the CPU, every greedy stream the
                target's greedy decode, and batched SpS must take exactly
                2 dispatches a round.  Full width (LLaMA-68M/7B, bf16,
-               random weights and heads, 8 x 32, paged): batched
+               random weights and heads, 8 x LATE_NEW, paged): batched
                SpecBranch and SpS in parallel draft mode beside the same
                serves in sequential draft mode (wall tokens/s,
                dispatches per round, rounds, greedy teacher-forced as in
@@ -170,8 +170,8 @@ Phases (any failure raises, so the script exits non-zero):
                against the CPU's within 1e-4.  gemma3-4b at full width
                with its draft() (hd 160; window 1024, qk-norm, vocab
                262144; bf16, random weights): batched SpecBranch on the
-               paged backend, 8 requests of 1000-token prompts x 48 new
-               tokens (every local ring wraps), greedy teacher-forced as
+               paged backend, 8 requests of 1000-token prompts x G3_NEW new
+               tokens (past the window of 1024), greedy teacher-forced as
                in phase 4, the serve's own target logits (prefill and
                every later target forward) within TF_MARGIN of the
                cache-less forward's, and at temperature 1 shadowed as in
@@ -181,7 +181,7 @@ Phases (any failure raises, so the script exits non-zero):
                1 x 32; tokens/s, rounds, M, peak memory, a profiled
                serve.  internvl2-2b at full width with
                its draft(): 256 stub patch embeddings then 32 tokens,
-               sequential AR, SpS and SpecBranch, 2 x 32 greedy,
+               sequential AR, SpS and SpecBranch, 2 x VLM_NEW greedy,
                teacher-forced over embeddings + prompt + stream.
                hubert-xlarge at full width: one cache-less bidirectional
                forward over (2, 500, 1280) frames, the flash kernel once
@@ -190,6 +190,34 @@ Phases (any failure raises, so the script exits non-zero):
                144 and 160 (paged, flash, branch decode; bf16 and f32)
                and gemma3-4b's 8 x 1000 prefill rung (paged and flash,
                the target's local and global layers and the draft's).
+ 16. train   — training.  Phase 2 holds the two backward kernels (flash:
+               the tiny pair's training frame, gemma3-4b's 1280-token
+               frame with window 1024 and global, a softcap, hubert's
+               bidirectional hd 80, the draft-head loss frame with
+               invisible slot keys; the scan at falcon-mamba-7b's width)
+               against their plain backwards, with SDPA's forward and
+               backward as flash's library figure.  (a) The committed
+               pair's aligned draft (400 steps), the misaligned draft's
+               parallel-draft heads and its H-RAD MLP trained on the
+               card into a fresh port cache; measure_alpha of both
+               drafts (the aligned must beat the misaligned with greedy
+               drafts); batched SpecBranch in parallel draft mode with
+               the trained heads and MLP, greedy, equal to the target's
+               greedy decode.  (b) The ten reduced configs: one train
+               step's loss and gradients on the card equal the CPU's
+               within TRAIN_RTOL / TRAIN_ATOL, every CPU-live leaf
+               non-zero and finite on the card.  (c) gemma3-4b at full
+               width through launch.train's path (G3_TRAIN: 2 x 1281
+               tokens in 2 micro-batches, 3 steps) and (d)
+               falcon-mamba-7b at full width cut to 16 layers
+               (FALCON_TRAIN): finite losses, every leaf's gradient
+               non-zero and finite, the backward kernels launched, step
+               wall time and peak memory.
+The full-width 7B pair's drives take FULL_NEW (16) new tokens a request
+in phases 4, 6 and 10 and LATE_NEW (8) in phases 11-14, gemma3-4b's
+G3_NEW (32), internvl2-2b's VLM_NEW (16) and the reduced families'
+ARCH_N_NEW (8): each was cut (from 32, 32, 48, 32 and 12) to make room
+for phase 16 in the time limit on a slow host.
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -200,9 +228,10 @@ Exits non-zero without a result when no CUDA device is visible.
 
 Modes that give no smoke result (exit 3): ``--kernels`` stops after
 phase 2; ``--prefix`` runs phases 1-2 and 14 only; ``--arch`` phases
-1-2 and 15 only; ``--probe`` times the attention tile loops phase by phase from
-variants built with -DREPRO_ATTN_STOP (1: K/V loads only, 2: loads and
-logits, 0: whole kernel) beside the timing floor, and the batched
+1-2 and 15 only; ``--train`` phases 1-2 and 16 only; ``--probe`` times
+the attention tile loops phase by phase from variants built with
+-DREPRO_ATTN_STOP (1: K/V loads only, 2: loads and logits, 0: whole
+kernel) beside the timing floor, and the batched
 verify's rounds (-DREPRO_VERIFY_STOP) and cluster barrier cost;
 ``--scan`` times phase 2's plain-scan cases (states and carry modes)
 alone; ``--profile`` runs phases 4 and 6's profiled serves, the batched LLaMA
@@ -218,6 +247,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -296,6 +326,14 @@ KERNELS = {
     "verify_accept": dict(
         route="cuda", source="src/repro_torch/csrc/verify_accept.cu",
         replaces="src/repro/kernels/verify_accept.py:74"),
+    # the backwards of the two kernels under the training forward (the
+    # TPU kernels have none: the reference differentiates their jnp twins)
+    "flash_attention_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:102"),
+    "ssm_scan_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/ssm_scan_bwd.cu",
+        replaces="src/repro/kernels/ssm_scan.py:80"),
 }
 # the H-RAD MLP of phases 9-10: the port's init_mlp under this generator
 # seed (untrained; on the tiny pair it gives all three signal classes)
@@ -314,13 +352,30 @@ GATHER_FULL_CASE = "llama-7b swap 4x16 dim=262144 60 rows"
 # the prefix cache's 7B suffix prefill frame (phase 14's followers)
 PC_ATTN_CASE = "llama-7b suffix B=8 T=32 q0=512"
 # phase 15: the reduced families' new tokens (tests/test_arch_serving.py),
-# gemma3-4b's prompts and new tokens (every local ring, window 1024,
-# wraps), internvl2-2b's stub patches and prompt, hubert's frames
-ARCH_N_NEW = 12
-G3_PROMPT, G3_NEW = 1000, 48
-VLM_PATCHES, VLM_PROMPT, VLM_NEW = 256, 32, 32
+# gemma3-4b's prompts and new tokens (the last positions past the local
+# window of 1024), internvl2-2b's stub patches and prompt, hubert's frames
+ARCH_N_NEW = 8
+G3_PROMPT, G3_NEW = 1000, 32
+VLM_PATCHES, VLM_PROMPT, VLM_NEW = 256, 32, 16
 HUBERT_FRAMES = (2, 500)
 HUBERT_CASE = "hubert-xl hd80 B=2 T=S=500 bidir"
+# new tokens a request of the full-width 7B drives of phases 4, 6 and 10
+# (FULL_NEW) and of phases 11-14 (LATE_NEW), both cut from 32 so that
+# phase 16 fits the script's time limit on a slow host
+FULL_NEW = 16
+LATE_NEW = 8
+# phase 16: the backward kernels' representative phase-2 cases (gemma3-4b's
+# local layers at the training frame of phase 16c, falcon-mamba-7b's
+# width), the gemma3-4b and falcon-mamba-7b training drives (batch x seq
+# tokens, micro-batches, steps; falcon's depth cut to fit four bf16
+# copies of its weights), and the reduced card-vs-CPU gradient tolerance
+# (kernels' and PyTorch's f32 summation orders through a forward and
+# backward)
+FLASH_BWD_CASE = "gemma3-4b train B=1 T=S=1280 w1024"
+SCAN_BWD_CASE = "falcon-7b train B=1 T=256 E=8192"
+G3_TRAIN = dict(batch=2, seq=1281, micro=2, steps=3)
+FALCON_TRAIN = dict(batch=2, seq=257, micro=2, steps=2, layers=16)
+TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4
 
 
 def log(*a) -> None:
@@ -1117,6 +1172,172 @@ def probe_verify(rng) -> dict:
     return {f"{n} {w}": v for (n, w), v in out.items()}
 
 
+def check_grads(name, got, want) -> float:
+    """Hold a backward kernel's gradients against the plain backward's;
+    returns the largest error's share of its bound.  f32: 1e-4 x max(1,
+    max |want|) (another f32 summation order); bf16: 2^-6 x max |want|
+    (a few bf16 spacings at the gradient's scale: both sides read the
+    same bf16 inputs, accumulate in f32 and round once)."""
+    share = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        lim = (1e-4 * max(1.0, scale) if w.dtype == torch.float32
+               else 2.0 ** -6 * scale)
+        if not math.isfinite(err) or err > lim:
+            raise AssertionError(f"{name}: gradient {i} err {err:.3e} above "
+                                 f"{lim:.3e}")
+        share = max(share, err / lim)
+    return share
+
+
+def flash_bwd_inputs(rng, B, T, S, H, KV, hd, dtype, frame=None):
+    """q, k, v, dO and positions of a training frame: T = S queries at
+    positions 0..S-1 over keys at the same positions (``frame``: the
+    draft-head loss's layout, (positions, k_pos, q_ctx) as numpy)."""
+    dev = "cuda"
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                    ).to(dev, dtype)
+                   for shape in ((B, T, H, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd), (B, T, H, hd)))
+    if frame is None:
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+        qp = kp = torch.from_numpy(np.ascontiguousarray(pos)).to(dev)
+        qc = None
+    else:
+        qp, kp, qc = (torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(x, (B, S)).astype(np.int32))).to(dev)
+            for x in frame)
+    return q, k, v, do, qp, kp, qc
+
+
+def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
+                    window=0, cap=None, frame=None):
+    """The flash backward kernel against ``flash_attention_bwd_ref`` on a
+    training frame; its bound is the work the visible (query, key) pairs
+    need (five hd-long products each: q.k, dO.v, and the dq, dk and dv
+    accumulations) or the bytes of q, k, v, o, dO in and dq, dk, dv out;
+    the library figure is SDPA's forward and backward over the same
+    visibility mask (none with a softcap, which SDPA lacks)."""
+    q, k, v, do, qp, kp, qc = flash_bwd_inputs(rng, B, T, S, H, KV, hd,
+                                               dtype, frame)
+    kw = dict(causal=causal, window=window, cap=cap, q_ctx=qc)
+    o = FA.flash_attention(q, k, v, qp, kp, **kw)
+    got = FA.flash_attention_bwd(q, k, v, o, do, qp, kp, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, qp, kp, **kw)
+    torch.cuda.synchronize()
+    share = check_grads(f"flash_attention_bwd {label}", got, want)
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    kpl = kp.long()[:, None, :]
+    qcl = (qc if qc is not None else qp).long()[:, :, None]
+    vis = (kpl >= 0) & ((kpl <= qcl) if causal else True)
+    if window > 0:
+        vis = vis & ((qp.long()[:, :, None] - kpl) < window)
+    G = H // KV
+    es = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * es + 3 * qp.numel() * 4
+    bms, by = bound(nbytes, 10 * hd * int(vis.sum()) * H, dtype)
+    ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, qp, kp,
+                                                **kw))
+    plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, qp,
+                                                        kp, **kw))
+    lib = None
+    if cap is None:
+        qd = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kd = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() \
+            .requires_grad_(True)
+        vd = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() \
+            .requires_grad_(True)
+        dod = do.transpose(1, 2).contiguous()
+        mask = vis[:, None]
+
+        def sdpa():
+            out = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+            torch.autograd.grad(out, (qd, kd, vd), dod)
+        lib = time_ms(sdpa)
+    return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def check_ssm_bwd(rng, label, B, T, E, N, xdtype):
+    """The scan backward kernel against ``ssm_scan_bwd_ref`` from the
+    forward's states, on inputs shaped like a Mamba layer's (as
+    ``check_ssm``), with and without a gradient on hT; bound: the bytes
+    of its inputs (hs above all) and outputs."""
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).cuda()
+    x = f(B, T, E).to(xdtype)
+    dt = F.softplus(f(B, T, E))
+    Bm, Cm, h0 = f(B, T, N), f(B, T, N), f(B, E, N)
+    A = -torch.exp(f(E, N) * 0.2)
+    D = torch.ones(E, device="cuda")
+    _y, _hT, hs = SS.ssm_scan(x, dt, Bm, Cm, A, D, h0, return_states=True)
+    dy, dhT = f(B, T, E), f(B, E, N)
+    args = (x, dt, Bm, Cm, A, D, h0, hs, dy)
+    share, err = 0.0, 0.0
+    for dh in (None, dhT):
+        got = SS.ssm_scan_bwd(*args, dh)
+        want = ref.ssm_scan_bwd_ref(*args, dh)
+        torch.cuda.synchronize()
+        share = max(share, check_grads(f"ssm_scan_bwd {label}", got, want))
+        err = max([err] + [(g.float() - w.float()).abs().max().item()
+                           for g, w in zip(got, want)])
+    outs = SS.ssm_scan_bwd(*args, None)
+    nbytes = sum(t.numel() * t.element_size() for t in args + outs)
+    bms, by = bound(nbytes, 20 * B * T * E * N, torch.float32)
+    ms = time_ms(lambda: SS.ssm_scan_bwd(*args, None))
+    plain = time_ms(lambda: ref.ssm_scan_bwd_ref(*args, None), iters=5,
+                    warmup=1)
+    # no single PyTorch call computes a selective scan's backward
+    return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def draft_frame(Lp: int, K: int, A: int):
+    """The draft-head loss's frame (``training.train.draft_head_loss``):
+    Lp real columns, then A groups of K slot columns whose keys are
+    invisible and whose queries see up to their anchor.  Returns
+    (positions, k_pos, q_ctx) as numpy."""
+    from repro_torch.training.train import head_anchors
+    anc = np.repeat(np.asarray(head_anchors(Lp, K)), K)[:A * K]
+    off = np.tile(np.arange(K), A)
+    t = np.arange(Lp)
+    pos = np.concatenate([t, anc + 1 + off])
+    kpos = np.concatenate([t, np.full(A * K, -1)])
+    ctx = np.concatenate([t, anc])
+    return pos, kpos, ctx
+
+
+def phase_kernels_bwd(rng) -> dict:
+    """Phase 2's backward cases: the flash backward at the tiny pair's
+    training frame, gemma3-4b's (window 1024 and global), a softcap
+    (gemma2-27b's heads), hubert's bidirectional frame and the tiny
+    draft's head-loss frame (invisible slot keys, clamped queries); the
+    scan backward at falcon-mamba-7b's width and a tiny f32 one."""
+    bf, f32 = torch.bfloat16, torch.float32
+    fl = [check_flash_bwd(rng, "zm-target train B=16 T=S=63", 16, 63, 63, 4,
+                          2, 32, f32),
+          check_flash_bwd(rng, FLASH_BWD_CASE, 1, 1280, 1280, 8, 4, 256, bf,
+                          window=1024),
+          check_flash_bwd(rng, "gemma3-4b train B=1 T=S=1280 global", 1,
+                          1280, 1280, 8, 4, 256, bf),
+          check_flash_bwd(rng, "gemma2 cap B=1 T=S=512 w4096", 1, 512, 512,
+                          32, 16, 128, bf, window=4096, cap=50.0),
+          check_flash_bwd(rng, "hubert-xl hd80 B=2 T=S=500 bidir", 2, 500,
+                          500, 16, 16, 80, bf, causal=False)]
+    Lp, K = 64, 4
+    frame = draft_frame(Lp, K, 8)
+    T = len(frame[0])
+    fl.append(check_flash_bwd(rng, f"zm-draft head loss B=16 T=S={T}", 16,
+                              T, T, 2, 1, 16, f32, frame=frame))
+    ss = [check_ssm_bwd(rng, SCAN_BWD_CASE, 1, 256, 8192, 16, bf),
+          check_ssm_bwd(rng, "tiny f32 B=16 T=64 E=128", 16, 64, 128, 16,
+                        f32)]
+    return {"flash_attention_bwd": fl, "ssm_scan_bwd": ss}
+
+
 def phase_kernel_api(cases, totals) -> dict:
     """The path of the two kernels no engine calls, in either package: the
     kernel API ``kernels.ops``, driven once per checked shape (as the
@@ -1341,8 +1562,10 @@ def phase_kernels() -> dict:
                               1000, S, H, KV, hd, 1000, bf, window=w))
     fl.append(check_flash(rng, "gemma3-4b global prefill B=1 T=1000 S=2048",
                           1, 1000, 2048, 8, 4, 256, 1000, bf))
+    bwd = phase_kernels_bwd(rng)
     timing_floor()
-    for r in att + ver + gat + fl + ss + rr + br + sv:
+    for r in (att + ver + gat + fl + ss + rr + br + sv
+              + bwd["flash_attention_bwd"] + bwd["ssm_scan_bwd"]):
         lib = r["library_ms"]
         log(f"  {r['case']:32s} err={r['max_abs_err']:.2e} "
             + (f"({r['err_share']:.2f} of bound) "
@@ -1358,7 +1581,7 @@ def phase_kernels() -> dict:
     return {"paged_attention": att, "verify_accept_batched": ver,
             "paged_gather": gat, "flash_attention": fl, "ssm_scan": ss,
             "ssm_scan_ring": rr, "branch_decode_attention": br,
-            "verify_accept": sv}
+            "verify_accept": sv, **bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -1910,7 +2133,7 @@ def phase_profile(dev) -> dict:
 
 def phase_full(dev, totals, pair) -> dict:
     prompts = SV.make_prompts(8)
-    n_new = 32
+    n_new = FULL_NEW
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
     with torch.no_grad():
         lg, _ = M.forward(pair[2], pair[3],
@@ -2042,7 +2265,7 @@ def phase_seq_tiny(dev, totals) -> dict:
 
 def phase_seq_full(dev, totals, pair) -> dict:
     prompts = SV.make_prompts(2)
-    n_new = 32
+    n_new = FULL_NEW
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
     greedy = [RN.greedy_reference(pair[2], pair[3], p, n_new,
                                   max_len=max_len) for p in prompts]
@@ -2397,7 +2620,7 @@ def phase_hrad_full(dev, totals, pair, without) -> dict:
     """``without``: phase 4's and phase 6's results, the same serves
     without H-RAD, printed beside."""
     prompts = SV.make_prompts(8)
-    n_new = 32
+    n_new = FULL_NEW
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
     greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
     hp = hrad_mlp(pair[3], dev)
@@ -2598,12 +2821,12 @@ def phase_dense_tiny(dev, totals) -> dict:
 
 def phase_dense_full(dev, totals, pair, paged_prof) -> dict:
     """The full-width LLaMA-68M/7B pair on the dense backend: batched
-    SpecBranch 8 x 32 greedy, teacher-forced as in phase 4; a profiled
+    SpecBranch 8 x LATE_NEW greedy, teacher-forced as in phase 4; a profiled
     8-token serve's flash launches and device time beside phase 4's paged
     figures (``paged_prof``); what a SpecBranch fork copies (the draft
     decoder's row, on the dense backend) and what that costs."""
     prompts = SV.make_prompts(8)
-    n_new = 32
+    n_new = LATE_NEW
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
     greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
     ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
@@ -2782,7 +3005,7 @@ def phase_trace(dev, totals, pair, modes) -> list:
     card right after a recorder reading, at both ends of the serve."""
     from repro_torch.obs import TraceRecorder, profiler_session
     prompts = SV.make_prompts(8)
-    n_new = 32
+    n_new = LATE_NEW
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
     runs = []
     for mode, heads in modes:
@@ -3133,11 +3356,11 @@ def phase_trace_modes(dev, path) -> None:
 
 
 def phase_parallel_full(dev, totals, pair, traced) -> dict:
-    """Parallel drafting and the predictor at full width, paged, 8 x 32
+    """Parallel drafting and the predictor at full width, paged, 8 x LATE_NEW
     greedy; ``traced``: phase 12's host-share tables by draft mode (both
     serves in one profiler session)."""
     prompts = SV.make_prompts(8)
-    n_new = 32
+    n_new = LATE_NEW
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
     greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
     heads = draft_heads(pair[1], EngineConfig(gamma=4, c=10.0), dev)
@@ -3541,7 +3764,7 @@ def phase_prefix_full(dev, totals, pair) -> dict:
     system = SV.make_prompts(1, length=512, seed=5)[0]
     prompts = [system + p for p in SV.make_prompts(8, length=32, seed=9)]
     arrivals = [0.0] + [1e6] * 7
-    n_new = 32
+    n_new = LATE_NEW
     ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0,
                         max_len=SV.auto_max_len(prompts, n_new, 4, 10.0))
     followers = list(range(1, 8))
@@ -3790,7 +4013,8 @@ def phase_arch_reduced(dev, totals) -> dict:
 def phase_arch_gemma3(dev, totals) -> dict:
     """gemma3-4b at full width with its draft() (hd 160), bf16, random
     weights (target seed 0, draft seed 1): 8 requests of 1000-token
-    prompts and 48 new tokens, so every local ring (window 1024) wraps.
+    prompts and G3_NEW (32) new tokens, so the last positions lie past
+    the local layers' window (1024).
     Batched SpecBranch on the paged backend greedy (teacher-forced, with
     the serve's own target logits held against the cache-less forward's)
     and at temperature 1 with epsilon 0 (shadowed: the batched verify at
@@ -3931,7 +4155,7 @@ def phase_arch_vlm(dev, totals) -> dict:
     """internvl2-2b at full width with its draft() (hd 128), bf16, random
     weights: each request gets 256 seeded stub patch embeddings (the
     draft its own, at its width) then a 32-token prompt; sequential AR,
-    SpS and SpecBranch, 2 requests x 32 new tokens, greedy, each token
+    SpS and SpecBranch, 2 requests x VLM_NEW tokens, greedy, each token
     teacher-forced against a cache-less target forward over embeddings +
     prompt + stream."""
     from repro_torch.configs import internvl2_2b
@@ -4044,6 +4268,247 @@ def phase_arch_hubert(dev, totals) -> dict:
     return dict(forward_ms=ms, launches=counts, profile=prof)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+def add_counts(totals, counts) -> None:
+    for k, v in counts.items():
+        totals[k] += v
+
+
+def phase_train(dev, totals) -> dict:
+    t16 = time.time()
+    log_phase("[16] training: the tiny pairs, heads and H-RAD MLP trained on "
+              "the card (f32); the ten reduced configs card == CPU; "
+              "gemma3-4b full width and falcon-mamba-7b at 16 layers (bf16)")
+    out = {}
+    for name, part in (("tiny", phase_train_tiny),
+                       ("reduced", phase_train_reduced),
+                       ("gemma3-4b", phase_train_gemma3),
+                       ("falcon-mamba-7b", phase_train_falcon)):
+        free_device_memory()
+        t0 = time.time()
+        out[name] = part(dev, totals)
+        log(f"  phase 16 {name}: {time.time() - t0:.1f}s")
+    free_device_memory()
+    log(f"  phase 16: {time.time() - t16:.1f}s")
+    return out
+
+
+def phase_train_tiny(dev, totals) -> dict:
+    """(a) The committed pair's aligned draft (zm-draft-ali, 400 steps),
+    the misaligned draft's parallel-draft heads (K=4, 200 steps) and its
+    H-RAD MLP (collect over 6 x 48 tokens, 12 epochs), each trained on
+    the card into a fresh port cache (the launch counters zeroed before
+    and read after: the flash backward must run); measure_alpha of both
+    drafts (the engines' draft temperature 1 as the reference measures,
+    and greedy drafts, whose argmax agreement the training budgets aim
+    at: ali must beat mis there); then batched SpecBranch serving in
+    parallel draft mode with the trained heads and MLP, greedy, whose
+    streams must equal the target's greedy decode."""
+    from repro_torch.training import pairs as TP
+    cache = tempfile.mkdtemp(prefix="torch_pairs_", dir=ROOT)
+    TP.TORCH_CACHE_DIR = cache
+    out = {}
+    try:
+        ops.reset_launches()
+        t0 = time.time()
+        ali = TP.get_pair("aligned", device=dev)
+        t_ali = time.time() - t0
+        t0 = time.time()
+        heads = TP.draft_heads_for("misaligned", device=dev)
+        t_heads = time.time() - t0
+        t0 = time.time()
+        mlp = TP.hrad_for_pair("misaligned", device=dev)
+        t_hrad = time.time() - t0
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        add_counts(totals, counts)
+        files = sorted(os.listdir(cache))
+        log(f"  trained on the card: zm-draft-ali {TP.ALI_STEPS} steps "
+            f"{t_ali:.1f}s, heads {t_heads:.1f}s, H-RAD MLP {t_hrad:.1f}s; "
+            f"files {files}; launches {counts}")
+        if counts["flash_attention_bwd"] == 0 or len(files) != 3:
+            raise AssertionError(f"tiny training: {counts} / {files}")
+        mis = TP.get_pair("misaligned", device=dev)
+        alpha = {}
+        for kind, pair in (("mis", mis), ("ali", ali)):
+            for temp in (1.0, 0.0):
+                alpha[f"{kind} t={temp:g}"] = TP.measure_alpha(
+                    *pair, draft_temperature=temp)
+        log(f"  measure_alpha (draft temperature 1 / greedy): "
+            f"mis {alpha['mis t=1']:.3f} / {alpha['mis t=0']:.3f}, "
+            f"ali {alpha['ali t=1']:.3f} / {alpha['ali t=0']:.3f} "
+            "(the reference's comment: argmax agreement ~0.53 / ~0.91)")
+        if not alpha["ali t=0"] > alpha["mis t=0"]:
+            raise AssertionError(f"aligned draft no better: {alpha}")
+        prompts = SV.make_prompts(4)
+        n_new = 32
+        greedy = M.greedy_reference(mis[2], mis[3], prompts, n_new)
+        ecfg = TP.default_ecfg(
+            "misaligned", draft_mode="parallel",
+            max_len=SV.auto_max_len(prompts, n_new, 4, 15.0))
+        res, rep, counts, wall, _ = drive(
+            mis, ecfg, prompts, n_new, dev, hrad_params=mlp,
+            draft_heads=heads)
+        add_counts(totals, counts)
+        sig = signal_hist(res.values())
+        log(f"  SpecBranch parallel drafting + trained heads + trained "
+            f"H-RAD: rounds={rep['rounds']} dispatches/round="
+            f"{rep['dispatches_per_round']:.2f} signals={sig} "
+            f"M={np.mean([r.stats.mean_accepted for r in res.values()]):.2f}"
+            f" wall={wall:.2f}s")
+        bad = [i for i in range(len(prompts)) if res[i].tokens != greedy[i]]
+        if bad:
+            raise AssertionError(f"trained heads + MLP serve: requests {bad} "
+                                 "differ from greedy decoding")
+        out = dict(alpha=alpha, seconds=dict(ali=t_ali, heads=t_heads,
+                                             hrad=t_hrad), signals=sig,
+                   rounds=rep["rounds"])
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    return out
+
+
+def phase_train_reduced(dev, totals) -> dict:
+    """(b) Every assigned config's reduced() (f32): one train step's loss
+    and gradients on the card (the flash and scan backward kernels) and
+    on the CPU (autograd over the plain versions) from the same params,
+    within TRAIN_RTOL / TRAIN_ATOL; every leaf with a gradient on the CPU
+    has a non-zero finite one on the card; then the AdamW step on both."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.training import optim as TO
+    from repro_torch.training import train as TT
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        params = M.init_params(cfg, 0, "cpu")
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, size=(2, 17)))
+        cl, _, cg = TT.value_and_grad(TT.lm_loss, params, cfg, toks)
+        card = tree_to(params, dev)
+        ops.reset_launches()
+        gl, _, gg = TT.value_and_grad(TT.lm_loss, card, cfg, toks.to(dev))
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        add_counts(totals, counts)
+        err, n_live = 0.0, 0
+        for i, (a, b) in enumerate(zip(TO.tree_leaves(gg),
+                                       TO.tree_leaves(cg))):
+            a = a.cpu()
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{arch} reduced: leaf {i} not finite")
+            if bool((b != 0).any()):
+                n_live += 1
+                if not bool((a != 0).any()):
+                    raise AssertionError(f"{arch} reduced: leaf {i} has no "
+                                         "gradient on the card")
+            d = (a - b).abs()
+            if not bool((d <= TRAIN_ATOL + TRAIN_RTOL * b.abs()).all()):
+                raise AssertionError(f"{arch} reduced: leaf {i} off by "
+                                     f"{d.max().item():.3e}")
+            err = max(err, d.max().item())
+        lerr = abs(float(gl) - float(cl))
+        if lerr > TRAIN_ATOL + TRAIN_RTOL * abs(float(cl)):
+            raise AssertionError(f"{arch} reduced: loss {float(gl)} vs "
+                                 f"{float(cl)}")
+        for tree, grads in ((params, cg), (card, gg)):
+            TO.apply(TO.AdamWConfig(), tree, grads, TO.init(tree))
+        step_err = max((a.cpu() - b).abs().max().item() for a, b in zip(
+            TO.tree_leaves(card), TO.tree_leaves(params)))
+        log(f"  {arch} reduced: loss card {float(gl):.5f} cpu "
+            f"{float(cl):.5f}; grads max err {err:.2e} over {n_live} live "
+            f"leaves; after a step params max err {step_err:.2e}; launches "
+            f"flash_bwd {counts['flash_attention_bwd']} scan_bwd "
+            f"{counts['ssm_scan_bwd']}")
+        out[arch] = dict(loss_err=lerr, grad_err=err, launches=counts)
+    return out
+
+
+def train_full(label, cfg, dev, totals, batch, seq, micro, steps) -> dict:
+    """The port's ``launch.train`` path (``launch.train.run``: the remat,
+    gradient-accumulated step and AdamW, random bf16 weights) at full
+    width: finite losses; after the first step every leaf's m (0.1 x its
+    clipped gradient) non-zero and finite; the backward kernels
+    launched; per-step wall time and peak device memory."""
+    from repro_torch.launch import train as LT
+    from repro_torch.training import optim as TO
+    checked = {}
+
+    def on_step(i, params, opt_state):
+        if i == 0:
+            bad = [j for j, m in enumerate(TO.tree_leaves(opt_state.m))
+                   if not bool(torch.isfinite(m).all())
+                   or not bool((m != 0).any())]
+            checked["leaves"] = len(TO.tree_leaves(opt_state.m))
+            checked["bad"] = bad
+            checked["bytes"] = sum(x.numel() * x.element_size()
+                                   for tree in (params, opt_state.m,
+                                                opt_state.v)
+                                   for x in TO.tree_leaves(tree))
+
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    rep = LT.run(cfg, steps, batch, seq, micro, dev,
+                 log=lambda m: log(f"  {label} {m}"), on_step=on_step)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    add_counts(totals, counts)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  {label}: {cfg.num_layers} layers d{cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.2f}B params, batch {batch} x {seq} "
+        f"in {micro} micro-batches: losses {rep['loss']}, step wall "
+        f"{[round(t, 2) for t in rep['seconds']]} s, params + m + v "
+        f"{checked['bytes'] / 1e9:.1f} GB, peak {peak:.1f} GB; launches "
+        f"flash {counts['flash_attention']} flash_bwd "
+        f"{counts['flash_attention_bwd']} scan {counts['ssm_scan']} "
+        f"scan_bwd {counts['ssm_scan_bwd']}")
+    if not all(math.isfinite(x) for x in rep["loss"]):
+        raise AssertionError(f"{label}: non-finite loss {rep['loss']}")
+    if checked["bad"]:
+        raise AssertionError(f"{label}: leaves {checked['bad']} of "
+                             f"{checked['leaves']} have a zero or "
+                             "non-finite gradient")
+    return dict(loss=rep["loss"], step_s=rep["seconds"], peak_gb=peak,
+                state_gb=checked["bytes"] / 1e9, launches=counts)
+
+
+def phase_train_gemma3(dev, totals) -> dict:
+    """(c) gemma3-4b at full width through the training CLI's path, 3
+    steps of 2 x 1281 tokens in 2 micro-batches: each micro-batch is one
+    1280-token row, so the local layers' window (1024) masks in the
+    backward."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-4b")
+    if (cfg.num_layers, cfg.d_model, cfg.sliding_window) != (34, 2560, 1024):
+        raise AssertionError(f"gemma3-4b config changed: {cfg}")
+    res = train_full("gemma3-4b", cfg, dev, totals, G3_TRAIN["batch"],
+                     G3_TRAIN["seq"], G3_TRAIN["micro"], G3_TRAIN["steps"])
+    if res["launches"]["flash_attention_bwd"] == 0:
+        raise AssertionError("gemma3-4b: the flash backward did not run")
+    return res
+
+
+def phase_train_falcon(dev, totals) -> dict:
+    """(d) falcon-mamba-7b at full width with its depth cut to 16 of 64
+    layers (four bf16 copies of its ~7B parameters, ~56 GB, would leave
+    no room for activations): 2 steps of 2 x 257 tokens in 2
+    micro-batches."""
+    from repro_torch.configs import get_config
+    cfg = get_config("falcon-mamba-7b")
+    if (cfg.num_layers, cfg.d_model) != (64, 4096):
+        raise AssertionError(f"falcon-mamba-7b config changed: {cfg}")
+    cfg = cfg.replace(num_layers=FALCON_TRAIN["layers"])
+    res = train_full("falcon-mamba-7b/16", cfg, dev, totals,
+                     FALCON_TRAIN["batch"], FALCON_TRAIN["seq"],
+                     FALCON_TRAIN["micro"], FALCON_TRAIN["steps"])
+    if res["launches"]["ssm_scan_bwd"] == 0:
+        raise AssertionError("falcon-mamba-7b: the scan backward did not run")
+    return res
+
+
 def log_ptxas(ptx: str) -> None:
     """Registers and spills of every kernel the build compiled, from
     ``nvcc -Xptxas -v``; the decode loop's variants (decode, and flash's
@@ -4123,6 +4588,9 @@ def main() -> int:
     if "--arch" in sys.argv[1:]:
         phase_arch(dev, totals)
         return 3                # phases 1-2 and 15 only: no smoke result
+    if "--train" in sys.argv[1:]:
+        phase_train(dev, totals)
+        return 3                # phases 1-2 and 16 only: no smoke result
     log_phase("[3] tiny committed pair, f32")
     phase_tiny(dev, totals)
     log_phase("[4] full-width LLaMA-68M/7B pair, bf16, random weights")
@@ -4167,6 +4635,7 @@ def main() -> int:
     phase_prefix(dev, totals, pair)
     del pair
     phase_arch(dev, totals)
+    phase_train(dev, totals)
     for k, v in totals.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched on the "
@@ -4179,7 +4648,9 @@ def main() -> int:
                 "ssm_scan": SEQ_CARRY_CASE,
                 "ssm_scan_ring": FALCON_RING_CASE,
                 "branch_decode_attention": "llama-7b k=6 Sp=504 Ss=8",
-                "verify_accept": "llama V=32000 R=9"}
+                "verify_accept": "llama V=32000 R=9",
+                "flash_attention_bwd": FLASH_BWD_CASE,
+                "ssm_scan_bwd": SCAN_BWD_CASE}
     table = []
     for name, meta in KERNELS.items():
         c = next(r for r in cases[name] if r["case"] == rep_case[name])

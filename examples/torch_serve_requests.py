@@ -9,9 +9,10 @@ aggregate serving report.
 The default run serves the requests one after another through the
 sequential SpecBranch engine, as the reference example does.  H-RAD uses
 the trained MLP that the reference caches in ``.cache/pairs``
-(``hrad-misaligned-K4.npz``, written by ``examples/serve_requests.py``);
-the port cannot train it yet, so without that file the run goes on
-without H-RAD and says so.  A second argument records a
+(``hrad-misaligned-K4.npz``, written by ``examples/serve_requests.py``)
+or else the port's own (``.cache/torch_pairs``), which
+``training.pairs.hrad_for_pair`` trains on the device at first use, as
+the reference's benchmarks do.  A second argument records a
 speculation-aware trace (open it at https://ui.perfetto.dev).
 
 ``--prefix-cache on`` serves instead through the batched paged
@@ -49,13 +50,6 @@ from repro_torch.training.pairs import (VOCAB, default_ecfg,  # noqa: E402
 SYSTEM_PROMPT_LEN = 32
 SUFFIX_LEN = 8
 
-
-def load_hrad(kind: str, device):
-    try:
-        return hrad_for_pair(kind, device=device)
-    except FileNotFoundError as e:
-        print(f"no trained H-RAD MLP, serving without H-RAD: {e}")
-        return None
 
 
 def serve_sequential(pair, ecfg, hrad, n_req: int, n_new: int,
@@ -131,7 +125,7 @@ def main(argv=None) -> None:
     kind = "misaligned"
     pair = get_pair(kind, device=device)
     ecfg = default_ecfg(kind)
-    hrad = load_hrad(kind, device)
+    hrad = hrad_for_pair(kind, device=device)
     rec = TraceRecorder() if args.trace else NULL_RECORDER
     if args.prefix_cache == "on":
         serve_prefix_cached(pair, ecfg, hrad, args.n_requests,

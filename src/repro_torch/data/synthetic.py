@@ -4,7 +4,9 @@ copy so it never imports the JAX package).
 
 A vocabulary-V first-order Markov chain whose rows are Zipf-distributed with
 random per-state permutations plus a low-rank "topic" component.  The
-serving driver draws its prompts from it.
+serving CLI draws its prompts from it and the trainers their batches;
+``token_stream`` is the uniform-random stream the training CLI uses
+for a vocabulary too small for the chain.
 """
 from __future__ import annotations
 
@@ -57,3 +59,12 @@ class ZipfMarkov:
     def prompts(self, n: int, length: int, seed: int = 100):
         rng = np.random.default_rng(seed)
         return [self.sample(rng, length).tolist() for _ in range(n)]
+
+
+def token_stream(vocab: int, batch: int, seq_len: int, seed: int = 0
+                 ) -> Iterator[np.ndarray]:
+    """Uniform-random fallback stream (shape-compatible with batch_iter)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield rng.integers(0, vocab, size=(batch, seq_len + 1)).astype(
+            np.int32)

@@ -26,7 +26,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 SOURCES = ("paged_attention.cu", "verify_accept.cu", "paged_gather.cu",
-           "flash_attention.cu", "ssm_scan.cu", "branch_attention.cu")
+           "flash_attention.cu", "ssm_scan.cu", "branch_attention.cu",
+           "flash_attention_bwd.cu", "ssm_scan_bwd.cu")
 HEADERS = ("decode_attention.cuh",)  # hashed with the sources
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -41,7 +42,9 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                             "ssm_scan": 0,
                             "ssm_scan_ring": 0,
                             "branch_decode_attention": 0,
-                            "verify_accept": 0}
+                            "verify_accept": 0,
+                            "flash_attention_bwd": 0,
+                            "ssm_scan_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -130,6 +133,9 @@ def _signatures() -> Dict[str, tuple]:
         "repro_ssm_scan_ring": ([P] * 10 + [I] * 7 + [P], I),
         "repro_branch_attention": ([P] * 9 + [I] * 9 + [F, F, I, P], I),
         "repro_verify_accept": ([P] * 9 + [I] * 4 + [P], I),
+        "repro_flash_attention_bwd": ([P] * 13 + [I] * 8 + [F, F, I, P], I),
+        "repro_ssm_scan_bwd": ([P] * 20 + [I] * 5 + [P], I),
+        "repro_ssm_scan_bwd_blocks": ([I, I], I),
     }
 
 

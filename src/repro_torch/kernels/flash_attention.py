@@ -17,6 +17,13 @@ would leave SMs idle, planned from S (``kernels.decode_attention``).
 A query that sees no key at all gets zeros (the plain version averages V
 over its padded width there); the sequential runner never produces one,
 because every query's own key is written before it attends.
+
+``flash_attention_bwd`` launches the backward kernel
+(``csrc/flash_attention_bwd.cu``: dq, and dk / dv summed over each kv
+head's query heads, for the forward's whole contract), and
+``FlashAttentionFn`` joins the two for autograd: its forward launches the
+forward kernel unchanged and saves q, k, v, the output and the
+positions; its backward launches the backward kernel.
 """
 from __future__ import annotations
 
@@ -99,3 +106,87 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(rc, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, dout: torch.Tensor,
+                        q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        cap: Optional[float] = None,
+                        q_ctx: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernel (one call: the dq kernel, then the dk/dv
+    kernel, on the current stream) on CUDA tensors: o is the forward's
+    output and dout its gradient, both (B, T, H, hd) in q's dtype.
+    Returns (dq, dk, dv) in the dtypes of q, k, v.  Raises as
+    ``flash_attention`` does."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if q_ctx is None:
+        q_ctx = q_pos
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("dout", dout),
+                    ("q_pos", q_pos), ("k_pos", k_pos), ("q_ctx", q_ctx)):
+        if x.device.type != "cuda":
+            raise ValueError(f"flash_attention_bwd: {name} is on {x.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention_bwd: dtype {q.dtype} unsupported")
+    if any(x.dtype != q.dtype for x in (k, v, o, dout)):
+        raise TypeError("flash_attention_bwd: q, k, v, o and dout differ "
+                        "in dtype")
+    if (tuple(k.shape) != (B, S, KV, hd) or v.shape != k.shape
+            or o.shape != q.shape or dout.shape != q.shape or H % KV):
+        raise ValueError("flash_attention_bwd: shape mismatch "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} o{tuple(o.shape)} "
+                         f"dout{tuple(dout.shape)}")
+    for name, x, shape in (("q_pos", q_pos, (B, T)), ("q_ctx", q_ctx, (B, T)),
+                           ("k_pos", k_pos, (B, S))):
+        if tuple(x.shape) != shape or x.dtype.is_floating_point:
+            raise ValueError(f"flash_attention_bwd: {name} must be integer "
+                             f"{shape}, got {x.dtype} {tuple(x.shape)}")
+    DA.check_head_dim("flash_attention_bwd", hd)
+    q, k, v, o, dout = (x.contiguous() for x in (q, k, v, o, dout))
+    q_pos, k_pos, q_ctx = (x.to(torch.int32).contiguous()
+                           for x in (q_pos, k_pos, q_ctx))
+    if B == 0 or T == 0 or S == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    L = build.lib()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        rc = L.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), q_pos.data_ptr(), q_ctx.data_ptr(),
+            k_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), B, T, S, H, KV, hd,
+            int(causal), int(window),
+            float(cap) if cap is not None else 0.0, 1.0 / math.sqrt(hd),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "flash_attention_bwd")
+    build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its backward kernel for autograd.
+    ``apply(q, k, v, q_pos, k_pos, q_ctx, causal, window, cap)``; q_ctx
+    may be None.  Gradients flow to q, k and v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, q_ctx, causal, window, cap):
+        out = flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                              window=window, cap=cap, q_ctx=q_ctx)
+        ctx.save_for_backward(q, k, v, out, q_pos, k_pos, q_ctx)
+        ctx.opts = (causal, window, cap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, q_pos, k_pos, q_ctx = ctx.saved_tensors
+        causal, window, cap = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, q_pos, k_pos,
+                                         causal=causal, window=window,
+                                         cap=cap, q_ctx=q_ctx)
+        return dq, dk, dv, None, None, None, None, None, None

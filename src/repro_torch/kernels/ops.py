@@ -1,9 +1,15 @@
 """Routes for the port's kernels (port of ``repro.kernels.ops``).
 
 A tensor on the CPU takes the kernel's plain PyTorch version
-(``kernels.ref``); a CUDA tensor launches the hand-written CUDA kernel or
-raises.  There is no override that sends CUDA tensors to the plain
-version and no ``try`` that falls back to it.
+(``kernels.ref``), which autograd differentiates; a CUDA tensor launches
+the hand-written CUDA kernel or raises.  There is no override that sends
+CUDA tensors to the plain version and no ``try`` that falls back to it.
+
+Gradients on the card: ``flash_attention`` and ``ssm_scan`` (carry mode)
+route an input that requires grad, with grad mode on, through their
+autograd functions (``FlashAttentionFn``, ``SsmScanFn``), whose backward
+is a CUDA kernel too.  Every other route serves only and raises on such
+an input, so no route returns a tensor cut off from the graph.
 """
 from __future__ import annotations
 
@@ -23,6 +29,20 @@ LAUNCHES = build.LAUNCHES
 reset_launches = build.reset_launches
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _forward_only(name: str, *tensors) -> None:
+    """Raise when a forward-only kernel would take an input that requires
+    grad with grad mode on: its output would carry no graph."""
+    if _needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel (it serves only): call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
@@ -35,6 +55,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                        window=window, cap=cap,
                                        kv_chunk=kv_chunk, q_ctx=q_ctx)
+    if _needs_grad(q, k, v):
+        return _fa.FlashAttentionFn.apply(q, k, v, q_pos, k_pos, q_ctx,
+                                          causal, window, cap)
     return _fa.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
                                window=window, cap=cap, q_ctx=q_ctx)
 
@@ -51,6 +74,8 @@ def branch_decode_attention(q: torch.Tensor, prefix_k: torch.Tensor,
         return ref.branch_decode_ref(q, prefix_k, prefix_v, prefix_pos,
                                      suffix_k, suffix_v, suffix_pos, q_pos,
                                      cap=cap)
+    _forward_only("branch_decode_attention", q, prefix_k, prefix_v,
+                  suffix_k, suffix_v)
     return _ba.branch_decode_attention(q, prefix_k, prefix_v, prefix_pos,
                                        suffix_k, suffix_v, suffix_pos, q_pos,
                                        cap=cap)
@@ -65,6 +90,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pages, v_pages, table, lens,
                                        q_start, window=window, cap=cap)
+    _forward_only("paged_attention", q, k_pages, v_pages)
     return _pa.paged_attention(q, k_pages, v_pages, table, lens, q_start,
                                window=window, cap=cap)
 
@@ -77,6 +103,7 @@ def verify_accept(p_logits: torch.Tensor, q_logits: torch.Tensor,
     if p_logits.device.type == "cpu":
         return ref.verify_accept_ref(p_logits, q_logits, tokens, uniforms,
                                      res_uniforms)
+    _forward_only("verify_accept", p_logits, q_logits)
     return _va.verify_accept(p_logits, q_logits, tokens, uniforms,
                              res_uniforms)
 
@@ -89,6 +116,7 @@ def verify_accept_batched(p_logits: torch.Tensor, q_logits: torch.Tensor,
     if p_logits.device.type == "cpu":
         return ref.verify_accept_batched_ref(p_logits, q_logits, tokens,
                                              lens, uniforms, res_uniforms)
+    _forward_only("verify_accept_batched", p_logits, q_logits)
     return _va.verify_accept_batched(p_logits, q_logits, tokens, lens,
                                      uniforms, res_uniforms)
 
@@ -98,6 +126,7 @@ def paged_gather(pages: torch.Tensor, table: torch.Tensor,
     """Gather logical pages through a page table (see kernels.paged)."""
     if pages.device.type == "cpu":
         return ref.paged_gather_ref(pages, table, valid_len)
+    _forward_only("paged_gather", pages)
     return _paged.paged_gather(pages, table, valid_len)
 
 
@@ -106,10 +135,16 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
              h0: torch.Tensor, *, return_states: bool = False
              ) -> Tuple[torch.Tensor, ...]:
     """Mamba-1 selective scan (see kernels.ssm_scan); with
-    ``return_states`` also the post-step carry at every position."""
+    ``return_states`` also the post-step carry at every position (a
+    serving output: on the card it has no backward)."""
     if x.device.type == "cpu":
         return ref.ssm_scan_ref(x, dt, Bm, Cm, A, D, h0,
                                 return_states=return_states)
+    if return_states:
+        _forward_only("ssm_scan(return_states=True)", x, dt, Bm, Cm, A, D,
+                      h0)
+    elif _needs_grad(x, dt, Bm, Cm, A, D, h0):
+        return _ssm.SsmScanFn.apply(x, dt, Bm, Cm, A, D, h0)
     return _ssm.ssm_scan(x, dt, Bm, Cm, A, D, h0,
                          return_states=return_states)
 
@@ -122,4 +157,5 @@ def ssm_scan_ring(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     (see kernels.ssm_scan.ssm_scan_ring); returns y."""
     if x.device.type == "cpu":
         return ref.ssm_scan_ring_ref(x, dt, Bm, Cm, A, D, h_ring, p0, rows)
+    _forward_only("ssm_scan_ring", x, dt, Bm, Cm, A, D, h_ring)
     return _ssm.ssm_scan_ring(x, dt, Bm, Cm, A, D, h_ring, p0, rows)

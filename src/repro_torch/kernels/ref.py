@@ -16,6 +16,14 @@ TPU kernel ``repro.kernels.flash_attention.flash_attention`` computes),
 ``branch_decode_ref`` is ``repro.kernels.ref.branch_decode_ref`` (the
 broadcast prefix concatenated with each branch's suffix) and
 ``verify_accept_ref`` is ``repro.kernels.ref.verify_accept_ref``.
+
+``flash_attention_bwd_ref`` and ``ssm_scan_bwd_ref`` are the explicit
+backwards of the flash and scan kernels, written out step by step (the
+reference has no backward kernel: it differentiates ``attend`` and the
+scan with ``jax.value_and_grad``); the card holds the two backward
+kernels against them, and the CPU tests hold them against
+``torch.autograd.grad`` of the plain forwards and ``jax.vjp`` of the
+reference's.
 """
 from __future__ import annotations
 
@@ -164,6 +172,56 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l).reshape(B, T, H, hd).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            dout: torch.Tensor, q_pos: torch.Tensor,
+                            k_pos: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, cap: Optional[float] = None,
+                            q_ctx: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The backward of ``flash_attention_ref``, written out: with z the
+    (soft-capped) scaled logits, p their softmax over the visible keys,
+    o the forward's output and dO = ``dout``,
+
+        D = rowsum(dO * o), dp = dO v^T, dz = p (dp - D),
+        ds = dz (1 - (z / cap)^2) (no factor without a cap),
+        dq = scale ds k, dk = scale ds^T q, dv = p^T dO,
+
+    dk and dv summed over the G query heads of each kv head.  A query
+    that sees no key gets p = 0 (the kernels' zeros).  Returns (dq, dk,
+    dv) in the dtypes of q, k and v; all arithmetic in float32."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if q_ctx is None:
+        q_ctx = q_pos
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, T, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(B, T, KV, G, hd)
+    s = torch.einsum("btkgh,bskh->bkgts", qf, kf) * scale
+    z = cap * torch.tanh(s / cap) if cap is not None else s
+    kp = k_pos[:, None, None, None, :]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (kp <= q_ctx[:, None, None, :, None])
+    if window > 0:
+        mask = mask & ((q_pos[:, None, None, :, None] - kp) < window)
+    zm = torch.where(mask, z, torch.full_like(z, NEG_INF))
+    m = zm.amax(-1, keepdim=True)
+    e = torch.where(mask, torch.exp(zm - m), torch.zeros_like(zm))
+    p = e / e.sum(-1, keepdim=True).clamp_min(1e-30)       # (B,KV,G,T,S)
+    delta = (dof * o.float().reshape(B, T, KV, G, hd)).sum(-1)  # (B,T,KV,G)
+    dp = torch.einsum("btkgh,bskh->bkgts", dof, vf)
+    dz = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    ds = dz * (1.0 - (z / cap) ** 2) if cap is not None else dz
+    ds = ds * scale
+    dq = torch.einsum("bkgts,bskh->btkgh", ds, kf).reshape(B, T, H, hd)
+    dk = torch.einsum("bkgts,btkgh->bskh", ds, qf)
+    dv = torch.einsum("bkgts,btkgh->bskh", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                  Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
                  h0: torch.Tensor, *, return_states: bool = False
@@ -188,6 +246,48 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     if return_states:
         return y, h, hs_t
     return y, h
+
+
+def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                     Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                     h0: torch.Tensor, hs: torch.Tensor, dy: torch.Tensor,
+                     dhT: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The backward of ``ssm_scan_ref``'s (y, hT), written out as the
+    reverse recurrence over the forward's states hs (B, T, E, N): with
+    a_t = exp(dt_t A) and g_t the total gradient reaching h_t
+    (g_{T-1} = dhT + dy_{T-1} C_{T-1}, g_t = a_{t+1} g_{t+1} + dy_t C_t),
+
+        dx_t = dy_t D + dt_t <g_t, B_t>,
+        ddt_t = x_t <g_t, B_t> + <g_t, h_{t-1} a_t A>,
+        dB_t = sum_e g_t dt_t x_t,  dC_t = sum_e dy_t h_t,
+        dA = sum_{b,t} g_t h_{t-1} a_t dt_t,  dD = sum_{b,t} dy_t x_t,
+        dh0 = a_0 g_0.
+
+    Returns (dx in x's dtype, ddt, dBm, dCm, dA, dD, dh0) in float32."""
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf, Af = Bm.float(), Cm.float(), A.float()
+    dyf = dy.float()
+    T = x.shape[1]
+    g = (torch.zeros_like(h0, dtype=torch.float32) if dhT is None
+         else dhT.float().clone())
+    dx = torch.empty_like(xf)
+    ddt = torch.empty_like(dtf)
+    dB = torch.empty_like(Bf)
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(T)):
+        g = g + dyf[:, t, :, None] * Cf[:, t, None, :]        # (B, E, N)
+        hp = hs[:, t - 1].float() if t > 0 else h0.float()
+        a = torch.exp(dtf[:, t, :, None] * Af)
+        gB = (g * Bf[:, t, None, :]).sum(-1)                  # (B, E)
+        dx[:, t] = dyf[:, t] * D.float() + dtf[:, t] * gB
+        ddt[:, t] = xf[:, t] * gB + (g * hp * a * Af).sum(-1)
+        dB[:, t] = (g * (dtf[:, t] * xf[:, t])[..., None]).sum(1)
+        dA = dA + (g * hp * a * dtf[:, t, :, None]).sum(0)
+        g = g * a
+    dC = torch.einsum("bte,bten->btn", dyf, hs.float())
+    dD = (dyf * xf).sum((0, 1))
+    return dx.to(x.dtype), ddt, dB, dC, dA, dD, g
 
 
 def ssm_scan_ring_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,

@@ -10,6 +10,12 @@ x (B, T, E) float32 or bfloat16; dt (B, T, E), Bm and Cm (B, T, N), A
 reads its initial state from, and writes its checkpoints into, a
 serving checkpoint ring h_ring (rows, Rg, E, N) in place, and returns y
 only.
+
+``ssm_scan_bwd`` launches the backward kernel (``csrc/ssm_scan_bwd.cu``,
+the reverse recurrence over the forward's states) and ``SsmScanFn`` joins
+the carry mode to it for autograd: its forward launches the states mode
+(one launch) and saves hs (B, T, E, N) float32 for its backward.  The
+ring entry serves only and has no backward.
 """
 from __future__ import annotations
 
@@ -131,3 +137,80 @@ def ssm_scan_ring(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     build.check(rc, "ssm_scan_ring")
     build.LAUNCHES["ssm_scan_ring"] += 1
     return y
+
+
+def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                 h0: torch.Tensor, hs: torch.Tensor, dy: torch.Tensor,
+                 dhT: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernel (one call: the reverse scan, then the
+    kernel that sums its block and row partials) on CUDA tensors: hs (B,
+    T, E, N) the forward's states, dy (B, T, E) and dhT (B, E, N) or None,
+    float32.  Returns (dx in x's dtype, ddt, dBm, dCm, dA, dD, dh0) in
+    float32.  Raises as ``ssm_scan`` does."""
+    if x.dim() != 3:
+        raise ValueError(f"ssm_scan_bwd: x must be (B, T, E), got "
+                         f"{tuple(x.shape)}")
+    B, T, E = x.shape
+    N = A.shape[-1]
+    extra = {"h0": (h0, (B, E, N)), "hs": (hs, (B, T, E, N)),
+             "dy": (dy, (B, T, E))}
+    if dhT is not None:
+        extra["dhT"] = (dhT, (B, E, N))
+    _check_scan("ssm_scan_bwd", x, dt, Bm, Cm, A, D, extra)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    if B == 0 or E == 0 or T == 0:
+        return (torch.zeros_like(x), torch.zeros_like(dt),
+                torch.zeros_like(Bm), torch.zeros_like(Cm),
+                torch.zeros_like(A), torch.zeros_like(D),
+                torch.zeros_like(h0) if dhT is None else dhT.clone())
+    L = build.lib()
+    nblk = L.repro_ssm_scan_bwd_blocks(E, N)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((B, T, E), **f32)
+    dBm = torch.empty((B, T, N), **f32)
+    dCm = torch.empty((B, T, N), **f32)
+    dA = torch.empty((E, N), **f32)
+    dD = torch.empty((E,), **f32)
+    dh0 = torch.empty((B, E, N), **f32)
+    part_bc = torch.empty((B, T, nblk, 2 * N), **f32)
+    part_a = torch.empty((B, E, N), **f32)
+    part_d = torch.empty((B, E), **f32)
+    with torch.cuda.device(dev):
+        rc = L.repro_ssm_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            A.data_ptr(), D.data_ptr(), h0.data_ptr(), hs.data_ptr(),
+            dy.data_ptr(), dhT.data_ptr() if dhT is not None else None,
+            dx.data_ptr(), ddt.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+            dA.data_ptr(), dD.data_ptr(), dh0.data_ptr(), part_bc.data_ptr(),
+            part_a.data_ptr(), part_d.data_ptr(), B, T, E, N,
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "ssm_scan_bwd")
+    build.LAUNCHES["ssm_scan_bwd"] += 1
+    return dx, ddt, dBm, dCm, dA, dD, dh0
+
+
+class SsmScanFn(torch.autograd.Function):
+    """``ssm_scan`` (carry mode) with its backward kernel for autograd.
+    ``apply(x, dt, Bm, Cm, A, D, h0)`` returns (y, hT); gradients flow to
+    all seven inputs.  The forward runs the kernel's states mode and saves
+    hs (B, T, E, N) float32 for the backward (under activation
+    checkpointing, one layer's at a time)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, Bm, Cm, A, D, h0):
+        y, hT, hs = ssm_scan(x, dt, Bm, Cm, A, D, h0, return_states=True)
+        ctx.save_for_backward(x, dt, Bm, Cm, A, D, h0, hs)
+        ctx.set_materialize_grads(False)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, dt, Bm, Cm, A, D, h0, hs = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return ssm_scan_bwd(x, dt, Bm, Cm, A, D, h0, hs, dy.contiguous(),
+                            None if dhT is None else dhT.contiguous())

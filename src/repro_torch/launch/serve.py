@@ -145,8 +145,9 @@ def heads_k(ecfg: EngineConfig) -> int:
 def load_draft_heads(pair_kind: str, ecfg: EngineConfig, pair, device):
     """Multi-position draft heads for ``draft_mode="parallel"``
     (DESIGN.md §7.12); None in sequential mode, where heads are inert.
-    The tiny pairs' trained heads come from the reference's cache
-    (``training.pairs.draft_heads_for``); ``paper-llama`` draws random
+    The tiny pairs' trained heads come from ``training.pairs.
+    draft_heads_for`` (the reference's cache, the port's, or trained on
+    the device at first use); ``paper-llama`` draws random
     heads from a seeded generator, as its weights are (``main`` has
     refused SSM-bearing pairs and non-drafting engines)."""
     if ecfg.draft_mode != "parallel":
@@ -156,10 +157,7 @@ def load_draft_heads(pair_kind: str, ecfg: EngineConfig, pair, device):
         gen = torch.Generator(device=device)
         gen.manual_seed(HEADS_SEED)
         return M.init_draft_heads(pair[1], K, gen, device)
-    try:
-        return draft_heads_for(pair_kind, K=K, device=device)
-    except FileNotFoundError as e:
-        raise SystemExit(str(e))
+    return draft_heads_for(pair_kind, K=K, device=device)
 
 
 def make_prompts(n: int, length: int = 16, seed: int = 3
@@ -374,10 +372,7 @@ def main(argv=None) -> None:
                         temperature=args.temperature,
                         spec_predictor=args.spec_predictor,
                         draft_mode=args.draft_mode, max_len=max_len)
-    try:
-        pair = load_pair(args.pair, device)
-    except FileNotFoundError as e:
-        raise SystemExit(str(e))
+    pair = load_pair(args.pair, device)
     tracing = bool(args.trace or args.metrics_out or args.profile_dir)
     rec = TraceRecorder() if tracing else NULL_RECORDER
     if args.profile_dir:

@@ -8,7 +8,10 @@ dense ring cache (attending through ``attend``) or into paged buffers
 (attending through ``ops.paged_attention``).  ``mamba`` runs its scan
 through ``ops.ssm_scan`` (the CUDA selective-scan kernel on the card) and
 updates its carried state or checkpoint ring in place; ``moe_ffn`` is
-plain PyTorch, as the reference's is plain jnp.
+plain PyTorch, as the reference's is plain jnp, and returns its Switch
+load-balance loss beside its output.  Without a cache every path is
+differentiable: on the card the flash and scan kernels carry their own
+backward kernels (``kernels.ops``).
 """
 from __future__ import annotations
 
@@ -250,13 +253,15 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(4, min(c, n_tokens))
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Top-k routed MoE (the reference's output; its load-balance loss is
-    a training term and is not computed here).  Each (token, choice) gets
-    its rank within its expert by a stable sort, tokens past the capacity
-    C are dropped, and the expert products run over the (E, C, D)
-    dispatch buffer.  ``torch.topk`` may order exactly tied probabilities
-    differently from ``jax.lax.top_k``."""
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed MoE.  Returns (out (B, T, D), the Switch load-balance
+    loss E * sum_e frac_tokens_e * frac_probs_e, float32 scalar), as the
+    reference does.  Each (token, choice) gets its rank within its expert
+    by a stable sort, tokens past the capacity C are dropped, and the
+    expert products run over the (E, C, D) dispatch buffer.
+    ``torch.topk`` may order exactly tied probabilities differently from
+    ``jax.lax.top_k``."""
     B, T, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -291,7 +296,12 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gathered = out_buf[e_flat, safe_pos]                         # (n*K, D)
     w = (gate.reshape(n * K) * keep).to(flat.dtype)
     y = (gathered * w[:, None]).reshape(n, K, D).sum(dim=1)
-    return y.reshape(B, T, D)
+
+    # load-balance auxiliary loss (Switch-style)
+    frac_tokens = counts.float() / max(n * K, 1)
+    frac_probs = probs.mean(dim=0)
+    aux = E * (frac_tokens * frac_probs).sum()
+    return y.reshape(B, T, D), aux
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@
 The parameter tree keeps the reference's layout: ``blocks[s]`` holds slot
 ``s`` of the period with every leaf stacked on a leading ``n_periods``
 axis, ``rem`` the unrolled remainder layers.  The reference scans the
-stacked periods; here a Python loop indexes them.  Caches (dense ring
+stacked periods; here a Python loop indexes them (``remat`` checkpoints
+each period body and each remainder layer, as the reference's
+``jax.checkpoint`` does).  Caches (dense ring
 caches from ``init_cache``, paged ones from ``init_paged_cache``) keep
 the same leading stack axis and are updated IN PLACE by the forward,
 where the reference returns a new cache.
@@ -15,6 +17,7 @@ import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import (ModelConfig, check_decodes,
@@ -218,8 +221,12 @@ def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
                 positions: torch.Tensor, cache: Optional[Params],
                 paged, kv_chunk: int, cache_mode: str,
                 ring_rows: Optional[torch.Tensor],
-                pdraft: Optional[Params] = None) -> torch.Tensor:
+                pdraft: Optional[Params] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer; returns (x, its MoE load-balance loss, None without
+    MoE)."""
     mixer, ffn_kind = slot
+    aux = None
     if mixer in ("attn", "local"):
         x = x + L.attention(p["mixer"], x, cfg, positions=positions,
                             cache=cache, window=_slot_window(cfg, mixer),
@@ -236,8 +243,9 @@ def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
     if ffn_kind == "dense":
         x = x + L.ffn(p["ffn"], x, cfg)
     elif ffn_kind == "moe":
-        x = x + L.moe_ffn(p["ffn"], x, cfg)
-    return x
+        y, aux = L.moe_ffn(p["ffn"], x, cfg)
+        x = x + y
+    return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig,
@@ -253,7 +261,8 @@ def forward(params: Params, cfg: ModelConfig,
             kv_chunk: int = 2048,
             cache_mode: str = "append",
             ring_rows: Optional[torch.Tensor] = None,
-            pdraft: Optional[Params] = None
+            pdraft: Optional[Params] = None,
+            remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the model.
 
@@ -283,7 +292,15 @@ def forward(params: Params, cfg: ModelConfig,
     and clamp their queries to the ``ctx`` horizon
     (``layers.attention``); ``draft_head_logits`` turns their last-point
     features into head logits.  Attention-only models (a mamba slot
-    raises).  Returns (logits (B, T', V) f32, aux).
+    raises).
+
+    ``remat`` (training) recomputes each period body and each remainder
+    layer in the backward instead of keeping its activations
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint``; a cache-less forward.  Returns (logits (B, T', V)
+    f32, aux) with aux["moe_aux"] the MoE load-balance loss summed over
+    the layers (a float32 scalar, 0 without MoE) and aux["features"] as
+    above.
     """
     check_supported(cfg)
     if tokens is None and embeds is None:
@@ -325,21 +342,41 @@ def forward(params: Params, cfg: ModelConfig,
             feats.append(x)
         point += 1
 
-    for i in range(cfg.n_periods):
+    if remat and cache is not None:
+        raise ValueError("remat is for cache-less (training) forwards")
+    kw = dict(positions=positions, paged=paged, kv_chunk=kv_chunk,
+              cache_mode=cache_mode, ring_rows=ring_rows, pdraft=pd_attn)
+
+    def add(total, al):
+        return al if total is None else total if al is None else total + al
+
+    def period(x, i):
+        aux = None
         for s, slot in enumerate(cfg.pattern):
             c = None if cache is None else _index(cache["blocks"][s], i)
-            x = _apply_slot(_index(params["blocks"][s], i), x, cfg, slot,
-                            positions=positions, cache=c, paged=paged,
-                            kv_chunk=kv_chunk, cache_mode=cache_mode,
-                            ring_rows=ring_rows, pdraft=pd_attn)
+            x, al = _apply_slot(_index(params["blocks"][s], i), x, cfg,
+                                slot, cache=c, **kw)
+            aux = add(aux, al)
+        return x, aux
+
+    def remainder(x, r):
+        c = None if cache is None else _index(cache["rem"][r], 0)
+        return _apply_slot(_index(params["rem"][r], 0), x, cfg,
+                           cfg.pattern[r], cache=c, **kw)
+
+    moe_aux = None
+    for i in range(cfg.n_periods):
+        x, al = (checkpoint(period, x, i, use_reentrant=False) if remat
+                 else period(x, i))
+        moe_aux = add(moe_aux, al)
         keep(x)
     for r in range(cfg.n_rem):
-        c = None if cache is None else _index(cache["rem"][r], 0)
-        x = _apply_slot(_index(params["rem"][r], 0), x, cfg, cfg.pattern[r],
-                        positions=positions, cache=c, paged=paged,
-                        kv_chunk=kv_chunk, cache_mode=cache_mode,
-                        ring_rows=ring_rows, pdraft=pd_attn)
+        x, al = (checkpoint(remainder, x, r, use_reentrant=False) if remat
+                 else remainder(x, r))
+        moe_aux = add(moe_aux, al)
         keep(x)
+    if moe_aux is None:
+        moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if logits_mode == "last":
         x = x[:, -1:]
@@ -348,7 +385,7 @@ def forward(params: Params, cfg: ModelConfig,
     if head is None:
         head = params["embed"].T
     logits = L.softcap((x @ head).float(), cfg.final_softcap)
-    aux: Dict[str, Any] = {}
+    aux: Dict[str, Any] = {"moe_aux": moe_aux}
     if feature_mode is not None:
         aux["features"] = torch.stack(feats)
     return logits, aux

@@ -12,11 +12,19 @@ attention rings, Mamba carries and checkpoint rings), so
 both frameworks can also start from one mid-stream state;
 ``from_numpy_hrad`` carries an H-RAD MLP (``core.hrad``) the same way,
 and ``from_numpy_draft_heads`` a set of parallel-draft heads
-(``models.model.init_draft_heads``).  Saving is a later slice
-(training).
+(``models.model.init_draft_heads``).
+
+``save`` writes a tree in the reference's layout (``_flatten``'s path
+keys; a model's remainder layers without the port's size-1 stack axis),
+bfloat16 leaves as float32 (numpy has no bfloat16; the reference's
+``load`` casts to its template's dtype), to a temporary file that is then
+renamed, so a concurrent reader never sees a torn file.  The reference's
+``load`` reads what ``save`` writes, and ``load`` here reads the
+reference's files.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -46,7 +54,11 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
 
 def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        # bfloat16 bits as an npz holds them without ml_dtypes: the top
+        # half of a float32
+        a = (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    elif a.dtype.name == "bfloat16":
         a = a.astype(np.float32)     # numpy has no native bfloat16
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
@@ -125,3 +137,62 @@ def load(path: str, cfg: ModelConfig, device) -> Any:
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     return from_numpy_params(_unflatten(flat), cfg, device)
+
+
+def _to_numpy(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Path-keyed numpy arrays of a tree ("blocks.0.mixer.wq": dict keys
+    and list indices joined by dots), as the reference flattens."""
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}."))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}."))
+    elif tree is None:
+        pass
+    else:
+        out[prefix[:-1]] = _to_numpy(tree)
+    return out
+
+
+def _reference_layout(tree: Any) -> Any:
+    """A model's params tree with its remainder layers' size-1 stack axis
+    dropped (the reference's ``rem`` leaves carry none); other trees as
+    they are."""
+    if not (isinstance(tree, dict) and "embed" in tree
+            and isinstance(tree.get("rem"), list)):
+        return tree
+
+    def unstack(node):
+        if isinstance(node, dict):
+            return {k: unstack(v) for k, v in node.items()}
+        return node[0]
+    return {**tree, "rem": [unstack(r) for r in tree["rem"]]}
+
+
+def save(path: str, params: Any) -> None:
+    """Write ``params`` (a model's params, draft heads, an H-RAD MLP or
+    any tree of tensors / arrays) as a flat npz at ``path`` (".npz"
+    appended when missing), through a temporary file and a rename."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    flat = _flatten(_reference_layout(params))
+    if not path.endswith(".npz"):
+        path += ".npz"        # np.savez appends it; keep tmp/final in sync
+    tmp = f"{path}.tmp.{os.getpid()}.npz"
+    try:
+        np.savez(tmp, **flat)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)

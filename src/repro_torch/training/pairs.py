@@ -1,22 +1,27 @@
-"""The draft/target pairs on the Zipf-Markov language (load side of
+"""The draft/target pairs on the Zipf-Markov language (port of
 ``repro.training.pairs``).
 
-``get_pair`` reads the reference's cached checkpoints
+``get_pair`` reads the reference's cached checkpoints from ``CACHE_DIR``
 (``.cache/pairs/zm-target.npz`` and ``zm-draft-mis.npz``, committed with
-the repo) through ``training.checkpoint.load``.  Training a pair whose
-checkpoint is missing (the aligned draft trains on first use in the
-reference) is a later slice of the port.  ``draft_heads_for`` loads the
-reference's trained parallel-draft heads from the same cache
-(``heads-<key>.npz``, written by the reference on first use) and raises
-when they are missing: training them is a later slice too.
-``hybrid_pair`` builds the
-reference's tiny random-init SSM-bearing pairs and ``local_pair`` its
-gemma3-shaped sliding-window pair (same configs, weights drawn by the
-port's own generator).  ``PAIR_C``, ``default_ecfg`` and
-``hrad_for_pair`` are the port's copies of the reference's benchmark
-presets (``benchmarks/common.py``) that the examples use;
-``hrad_for_pair`` loads the reference's trained H-RAD MLP from the same
-cache and raises when it is missing (H-RAD training is a later slice).
+the repo) through ``training.checkpoint.load``.  A pair member missing
+there is read from the port's own cache, ``TORCH_CACHE_DIR``
+(``.cache/torch_pairs``, ignored by git), or trained on the device with
+the reference's recipe (``_train``: the aligned draft ``zm-draft-ali``
+for ``ALI_STEPS``) and saved there.  ``draft_heads_for`` and
+``hrad_for_pair`` do the same for the trained parallel-draft heads
+(``heads-<key>.npz``, the reference's key) and the trained H-RAD MLP
+(``hrad-<kind>-K<k>.npz``): a file the reference wrote into its cache
+loads first; otherwise the port trains its own into ``TORCH_CACHE_DIR``.
+The port never writes into the reference's cache, and its own files
+never stand in for the reference's: their weights start from the port's
+generator, not the reference's draws.  ``measure_alpha`` is the
+reference's greedy acceptance rate.
+
+``hybrid_pair`` builds the reference's tiny random-init SSM-bearing
+pairs and ``local_pair`` its gemma3-shaped sliding-window pair (same
+configs, weights drawn by the port's own generator).  ``PAIR_C`` and
+``default_ecfg`` are the port's copies of the reference's benchmark
+presets (``benchmarks/common.py``) that the examples use.
 """
 from __future__ import annotations
 
@@ -26,12 +31,20 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core import hrad as H
+from repro_torch.data.synthetic import ZipfMarkov
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, dense_pattern
-from repro_torch.runtime.engines import EngineConfig
+from repro_torch.runtime import hrad_data, prng
+from repro_torch.runtime.engines import EngineConfig, SpSEngine
 from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.optim import AdamWConfig
+from repro_torch.training.train import (TrainConfig, train_draft_heads,
+                                        train_lm)
 
 CACHE_DIR = os.environ.get("REPRO_PAIR_CACHE", ".cache/pairs")
+TORCH_CACHE_DIR = os.environ.get("REPRO_TORCH_PAIR_CACHE",
+                                 ".cache/torch_pairs")
 
 VOCAB = 199
 
@@ -44,33 +57,67 @@ def _cfg(name: str, layers: int, d: int, heads: int) -> ModelConfig:
 
 
 TARGET_CFG = _cfg("zm-target", 4, 128, 4)
+# same 1-layer d32 draft arch; alignment is steered by training budget:
+# 200 steps -> ~0.53 argmax agreement with the target (the paper's poorly
+# aligned 68M-vs-13B regime); 400 steps -> ~0.91 (Deepseek/LLaMA-3.1
+# regime)
 DRAFT_MIS_CFG = _cfg("zm-draft-mis", 1, 32, 2)
 DRAFT_ALI_CFG = _cfg("zm-draft-ali", 1, 32, 2)
+TARGET_STEPS = 400
+MIS_STEPS = 200
+ALI_STEPS = 400
 
 
-def _get(cfg: ModelConfig, cache_dir: str, device) -> Any:
-    path = os.path.join(cache_dir, f"{cfg.name}.npz")
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"{path} is missing: the port loads the reference's cached "
-            "pairs and cannot train them yet (training is a later slice; "
-            "run the reference once with PYTHONPATH=src python -m "
-            "repro.launch.serve to create it)")
-    return ckpt.load(path, cfg, device)
+def _train(cfg: ModelConfig, steps: int, seed: int, device="cuda"):
+    """The reference's recipe: ``steps`` AdamW steps (lr 1e-3, cosine over
+    ``steps``) on Zipf-Markov batches of 16 x 64 (chain seed 7, batch
+    seed ``seed``) from ``init_params(cfg, seed)``."""
+    zm = ZipfMarkov(vocab=VOCAB, seed=7)
+    data = zm.batch_iter(16, 64, seed=seed)
+    tc = TrainConfig(steps=steps, batch=16, seq_len=64,
+                     optim=AdamWConfig(lr=1e-3, total_steps=steps))
+    return train_lm(cfg, data, tc, seed=seed, verbose=False, device=device)
+
+
+def _cached(name: str, cache_dir: Optional[str]) -> Optional[str]:
+    """The reference's file ``name`` if it exists, else the port's own,
+    else None."""
+    for d in (cache_dir or CACHE_DIR, TORCH_CACHE_DIR):
+        path = os.path.join(d, name)
+        if os.path.exists(path):
+            return path
+    return None
+
+
+def _get(cfg: ModelConfig, steps: int, seed: int, device,
+         cache_dir: Optional[str] = None) -> Any:
+    """A pair member's params: the reference's cached file, the port's
+    own, or trained now and saved into the port's cache."""
+    path = _cached(f"{cfg.name}.npz", cache_dir)
+    if path is not None:
+        try:
+            return ckpt.load(path, cfg, device)
+        except (OSError, KeyError, ValueError):
+            pass                      # a torn or stale file: train anew
+    params, _ = _train(cfg, steps, seed, device)
+    ckpt.save(os.path.join(TORCH_CACHE_DIR, f"{cfg.name}.npz"), params)
+    return params
 
 
 def get_pair(kind: str = "misaligned", device="cuda",
              cache_dir: str = CACHE_DIR
              ) -> Tuple[Any, ModelConfig, Any, ModelConfig]:
-    """Returns (draft_params, draft_cfg, target_params, target_cfg)."""
+    """Returns (draft_params, draft_cfg, target_params, target_cfg), read
+    from ``cache_dir`` (by default the reference's cache as the module
+    was imported: the committed pairs), the port's cache or trained."""
     if kind == "misaligned":
-        dcfg = DRAFT_MIS_CFG
+        dcfg, steps = DRAFT_MIS_CFG, MIS_STEPS
     elif kind == "aligned":
-        dcfg = DRAFT_ALI_CFG
+        dcfg, steps = DRAFT_ALI_CFG, ALI_STEPS
     else:
         raise ValueError(kind)
-    tgt = _get(TARGET_CFG, cache_dir, device)
-    return _get(dcfg, cache_dir, device), dcfg, tgt, TARGET_CFG
+    tgt = _get(TARGET_CFG, TARGET_STEPS, 0, device, cache_dir)
+    return _get(dcfg, steps, 6, device, cache_dir), dcfg, tgt, TARGET_CFG
 
 
 def _head_cache_key(cfg: ModelConfig, K: int, steps: int, seed: int) -> str:
@@ -88,28 +135,32 @@ def draft_heads_for(kind: str = "misaligned", K: int = 4,
                     steps: int = 200, seed: int = 11, device="cuda",
                     cache_dir: Optional[str] = None) -> Dict[str, Any]:
     """The trained multi-position draft heads (DESIGN.md §7.12) of the
-    draft model of ``get_pair(kind)``, read from the reference's cache
-    file ``heads-<key>.npz``.  A missing file raises: the port cannot
-    train heads yet, and random heads would not be the trained ones."""
+    draft model of ``get_pair(kind)``: the reference's ``heads-<key>.npz``
+    when it exists, else the port's own, else trained now over the frozen
+    draft (the reference's recipe: ``steps`` steps of 16 x 64 Zipf-Markov
+    batches, lr 1e-3, data and init seed ``seed``) and saved into the
+    port's cache."""
     if kind == "misaligned":
         dcfg = DRAFT_MIS_CFG
     elif kind == "aligned":
         dcfg = DRAFT_ALI_CFG
     else:
         raise ValueError(kind)
-    path = os.path.join(
-        cache_dir or CACHE_DIR,
-        f"heads-{_head_cache_key(dcfg, K, steps, seed)}.npz")
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"{path} is missing: the port loads trained draft heads from "
-            "the reference's cache and cannot train them yet (training, "
-            "ROADMAP.md queue A item 4); create it with the reference "
-            "(PYTHONPATH=src python -m repro.launch.serve --draft-mode "
-            "parallel)")
-    with np.load(path) as data:
-        heads = {k: data[k] for k in data.files}
-    return ckpt.from_numpy_draft_heads(heads, dcfg, device)
+    name = f"heads-{_head_cache_key(dcfg, K, steps, seed)}.npz"
+    path = _cached(name, cache_dir)
+    if path is not None:
+        with np.load(path) as data:
+            heads = {k: data[k] for k in data.files}
+        return ckpt.from_numpy_draft_heads(heads, dcfg, device)
+    dp, dcfg, _, _ = get_pair(kind, device)
+    zm = ZipfMarkov(vocab=VOCAB, seed=7)
+    data = zm.batch_iter(16, 64, seed=seed)
+    tc = TrainConfig(steps=steps, batch=16, seq_len=64,
+                     optim=AdamWConfig(lr=1e-3, total_steps=steps))
+    dhead, _ = train_draft_heads(dp, dcfg, data, K, tc, seed=seed,
+                                 verbose=False, device=device)
+    ckpt.save(os.path.join(TORCH_CACHE_DIR, name), dhead)
+    return dhead
 
 
 # the paper's target/draft cost ratio c per pair (Sec. 6), as the
@@ -134,21 +185,53 @@ def default_ecfg(kind: str, **kw) -> EngineConfig:
 def hrad_for_pair(kind: str, k_layers: int = 4, device="cuda",
                   cache_dir: Optional[str] = None
                   ) -> Dict[str, Any]:
-    """The trained H-RAD MLP of a committed pair, read from the
-    reference's cache file ``hrad-<kind>-K<k_layers>.npz`` as float32
-    tensors on ``device``.  A missing file raises: the port cannot train
-    the MLP yet (ROADMAP.md queue A item 4)."""
-    path = os.path.join(cache_dir or CACHE_DIR,
-                        f"hrad-{kind}-K{k_layers}.npz")
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"{path} is missing: the port loads the trained H-RAD MLP "
-            "from the reference's cache and cannot train it yet "
-            "(training, ROADMAP.md queue A item 4); create it with the "
-            "reference (PYTHONPATH=src python examples/serve_requests.py)")
-    with np.load(path) as data:
-        params = {k: data[k] for k in data.files}
-    return ckpt.from_numpy_hrad(params, device)
+    """The trained H-RAD MLP of a committed pair as float32 tensors on
+    ``device``: the reference's ``hrad-<kind>-K<k_layers>.npz`` when it
+    exists, else the port's own, else trained now with the reference
+    benchmarks' recipe (``benchmarks/common.py``: ``collect`` over 6
+    prompts of 12 tokens x 48 new tokens under ``default_ecfg(kind)``,
+    then ``train_mlp`` for 12 epochs at lr 1e-3) and saved into the
+    port's cache."""
+    name = f"hrad-{kind}-K{k_layers}.npz"
+    path = _cached(name, cache_dir)
+    if path is not None:
+        with np.load(path) as data:
+            params = {k: data[k] for k in data.files}
+        return ckpt.from_numpy_hrad(params, device)
+    dp, dcfg, tp, tcfg = get_pair(kind, device)
+    zm = ZipfMarkov(vocab=VOCAB, seed=7)
+    z, labels = hrad_data.collect(
+        dp, dcfg, tp, tcfg, zm.prompts(6, 12, seed=5), 48,
+        default_ecfg(kind, hrad_k_layers=k_layers))
+    hcfg = H.HRADConfig(k_layers=k_layers, d_model=tcfg.d_model, epochs=12,
+                        lr=1e-3)
+    params, _ = H.train_mlp(z, labels, hcfg, device=device)
+    ckpt.save(os.path.join(TORCH_CACHE_DIR, name), params)
+    return params
+
+
+def measure_alpha(draft_params, draft_cfg, target_params, target_cfg,
+                  n_prompts: int = 4, plen: int = 16, n_new: int = 48,
+                  gamma: int = 4, seed: int = 0,
+                  draft_temperature: float = 1.0) -> float:
+    """Empirical acceptance rate alpha = E[beta] under the greedy target:
+    accepted over drafted tokens of sequential SpS (gamma, temperature 0)
+    on ``n_prompts`` Zipf-Markov prompts of ``plen`` tokens.  Drafts are
+    sampled at ``draft_temperature`` (the engine's default 1.0, as the
+    reference measures); 0 drafts greedily, and alpha is then the
+    draft's argmax agreement with the target, the figure the pairs'
+    training budgets are set by."""
+    zm = ZipfMarkov(vocab=VOCAB, seed=7)
+    eng = SpSEngine(draft_params, draft_cfg, target_params, target_cfg,
+                    EngineConfig(gamma=gamma, temperature=0.0,
+                                 draft_temperature=draft_temperature,
+                                 max_len=1024))
+    acc, tot = 0, 0
+    for i, p in enumerate(zm.prompts(n_prompts, plen, seed=seed)):
+        r = eng.generate(p, n_new, prng.PRNGKey(i))
+        acc += r.stats.draft_tokens - r.stats.rollback_tokens
+        tot += r.stats.draft_tokens
+    return acc / max(tot, 1)
 
 
 HYBRID_KINDS = ("falcon-shaped", "jamba-shaped")

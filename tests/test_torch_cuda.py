@@ -17,7 +17,15 @@ tolerance), untouched ring slots bitwise; a Mamba ring forward's
 logits against the CPU atol 1e-4 and its conv tails 1e-5 (PyTorch's
 elementwise ops on two devices); branch decode as
 the other attention kernels; the single-request verify as the batched
-one, p_tok/q_tok atol 1e-6.
+one, p_tok/q_tok atol 1e-6.  Backward kernels against their plain
+backwards (``ref.flash_attention_bwd_ref``, ``ref.ssm_scan_bwd_ref``):
+f32 within 1e-4 x max(1, max |want|) (another summation order in
+float32), bf16 within 2^-6 x max |want| of each gradient (a few bf16
+spacings at the gradient's scale: both sides read the same bf16
+inputs, accumulate in f32 and round once); an f32 training step's
+loss and gradients on the card against the CPU's within rtol 1e-3,
+atol 1e-4 (the kernels' and PyTorch's summation orders through a whole
+forward and backward).
 """
 import os
 
@@ -31,6 +39,7 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import ssm_scan as SS
 from repro_torch.kernels import verify_accept as VA
 from repro_torch.launch import serve as SV
 from repro_torch.models import model as M
@@ -38,6 +47,9 @@ from repro_torch.runtime import prng
 from repro_torch.runtime import runner as R
 from repro_torch.runtime.engines import EngineConfig, SpSEngine
 from repro_torch.runtime.specbranch import SpecBranchEngine
+from repro_torch.configs import get_config
+from repro_torch.training import optim as TO
+from repro_torch.training import train as TT
 from repro_torch.training.pairs import get_pair
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -964,3 +976,170 @@ def test_prefix_cached_serve_on_the_card_equals_the_cpu(cuda, engine):
         if temp == 0.0:
             assert card[0] == M.greedy_reference(pair[2], pair[3], prompts,
                                                  12)
+
+
+def _assert_grad_close(name, got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    lim = (1e-4 * max(1.0, scale) if want.dtype == torch.float32
+           else 2.0 ** -6 * scale)
+    assert err <= lim, (name, err, lim)
+
+
+# (B, T, S, H, KV, hd, causal, window, cap, frame)
+BWD_FLASH_CASES = [
+    (2, 33, 47, 4, 2, 32, True, 0, None, False),
+    (1, 70, 70, 8, 4, 256, True, 24, None, False),
+    (2, 40, 40, 8, 4, 128, True, 0, 50.0, False),
+    (2, 50, 50, 16, 16, 80, False, 0, None, False),
+    (3, 24, 24, 2, 1, 16, True, 0, None, True),
+    (2, 9, 30, 4, 4, 144, True, 0, None, False),
+    (2, 9, 30, 2, 2, 160, True, 0, None, False),
+    (1, 5, 20, 4, 2, 64, True, 0, None, False),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_FLASH_CASES,
+                         ids=[f"case{i}" for i in range(len(BWD_FLASH_CASES))])
+def test_flash_backward_kernel_matches_plain(cuda, case, dtype):
+    B, T, S, H, KV, hd, causal, window, cap, frame = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(hd + T)
+    q, do = (torch.randn(B, T, H, hd, device=cuda, generator=g).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, hd, device=cuda, generator=g).to(dt)
+            for _ in range(2))
+    qp = torch.arange(S - T, S, device=cuda,
+                      dtype=torch.int32)[None].expand(B, T).contiguous()
+    kp = torch.arange(S, device=cuda, dtype=torch.int32)[None].repeat(B, 1)
+    qc = None
+    if frame:                      # 6 slot columns: keys -1, queries clamped
+        kp[:, -6:] = -1
+        qc = qp.clone()
+        qc[:, -6:] = S - 7
+    kw = dict(causal=causal, window=window, cap=cap, q_ctx=qc)
+    o = FA.flash_attention(q, k, v, qp, kp, **kw)
+    n0 = ops.LAUNCHES["flash_attention_bwd"]
+    got = FA.flash_attention_bwd(q, k, v, o, do, qp, kp, **kw)
+    assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, qp, kp, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == dt
+        _assert_grad_close(name, a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,E,N", [(2, 37, 96, 16), (1, 20, 40, 8),
+                                     (2, 33, 130, 4), (1, 64, 8192, 16)])
+def test_ssm_scan_backward_kernel_matches_plain(cuda, B, T, E, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(E + N)
+    x = torch.randn(B, T, E, device=cuda, generator=g).to(getattr(torch,
+                                                                  dtype))
+    dt = torch.rand(B, T, E, device=cuda, generator=g) * 0.2
+    Bm, Cm = (torch.randn(B, T, N, device=cuda, generator=g)
+              for _ in range(2))
+    A = -torch.rand(E, N, device=cuda, generator=g) * 2
+    D = torch.randn(E, device=cuda, generator=g)
+    h0 = torch.randn(B, E, N, device=cuda, generator=g)
+    _y, _hT, hs = SS.ssm_scan(x, dt, Bm, Cm, A, D, h0, return_states=True)
+    dy = torch.randn(B, T, E, device=cuda, generator=g)
+    dhT = torch.randn(B, E, N, device=cuda, generator=g)
+    for dh in (None, dhT):
+        got = SS.ssm_scan_bwd(x, dt, Bm, Cm, A, D, h0, hs, dy, dh)
+        want = ref.ssm_scan_bwd_ref(x, dt, Bm, Cm, A, D, h0, hs, dy, dh)
+        for name, a, b in zip(("dx", "ddt", "dBm", "dCm", "dA", "dD",
+                               "dh0"), got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            _assert_grad_close(name, a, b)
+
+
+@pytest.mark.requires_cuda
+def test_forward_only_routes_raise_on_grad(cuda):
+    """With grad mode on, a CUDA input that requires grad makes every
+    serving route raise (its kernel has no backward); flash and the
+    carry scan return tensors with a graph instead."""
+    f = dict(device=cuda, requires_grad=True)
+    q = torch.randn(1, 1, 2, 16, **f)
+    pages = torch.randn(3, 4, 2, 16, **f)
+    table = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    calls = {
+        "paged_attention": lambda: ops.paged_attention(
+            q, pages, pages, table, lens, lens - 1),
+        "branch_decode_attention": lambda: ops.branch_decode_attention(
+            q, pages[:1], pages[:1],
+            torch.zeros(1, 4, dtype=torch.int32, device=cuda), pages[1:2],
+            pages[1:2], torch.full((1, 4), 4, dtype=torch.int32,
+                                   device=cuda),
+            torch.full((1, 1), 8, dtype=torch.int32, device=cuda)),
+        "verify_accept": lambda: ops.verify_accept(
+            torch.randn(2, 8, **f), torch.randn(2, 8, device=cuda),
+            torch.zeros(2, dtype=torch.int32, device=cuda),
+            torch.rand(2, device=cuda), torch.rand(2, device=cuda)),
+        "verify_accept_batched": lambda: ops.verify_accept_batched(
+            torch.randn(1, 2, 8, **f), torch.randn(1, 2, 8, device=cuda),
+            torch.zeros(1, 2, dtype=torch.int32, device=cuda),
+            torch.full((1,), 2, dtype=torch.int32, device=cuda),
+            torch.rand(1, 2, device=cuda), torch.rand(1, 2, device=cuda)),
+        "paged_gather": lambda: ops.paged_gather(
+            torch.randn(3, 4, 8, **f), table[0], 2),
+        "ssm_scan_ring": lambda: ops.ssm_scan_ring(
+            torch.randn(1, 2, 4, **f), torch.rand(1, 2, 4, device=cuda),
+            torch.randn(1, 2, 4, device=cuda),
+            torch.randn(1, 2, 4, device=cuda),
+            -torch.rand(4, 4, device=cuda), torch.ones(4, device=cuda),
+            torch.zeros(1, 3, 4, 4, device=cuda),
+            torch.zeros(1, dtype=torch.int32, device=cuda)),
+        "ssm_scan(return_states=True)": lambda: ops.ssm_scan(
+            torch.randn(1, 2, 4, **f), torch.rand(1, 2, 4, device=cuda),
+            torch.randn(1, 2, 4, device=cuda),
+            torch.randn(1, 2, 4, device=cuda),
+            -torch.rand(4, 4, device=cuda), torch.ones(4, device=cuda),
+            torch.zeros(1, 4, 4, device=cuda), return_states=True),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward kernel"):
+            call()
+        with torch.no_grad():
+            call()                       # serving: no grad, no error
+    kv = torch.randn(1, 3, 2, 16, **f)
+    pos = torch.arange(3, dtype=torch.int32, device=cuda)[None]
+    assert ops.flash_attention(torch.randn(1, 3, 2, 16, **f), kv, kv, pos,
+                               pos).grad_fn is not None
+    y, hT = ops.ssm_scan(torch.randn(1, 2, 4, **f),
+                         torch.rand(1, 2, 4, device=cuda),
+                         torch.randn(1, 2, 4, device=cuda),
+                         torch.randn(1, 2, 4, device=cuda),
+                         -torch.rand(4, 4, device=cuda),
+                         torch.ones(4, device=cuda),
+                         torch.zeros(1, 4, 4, device=cuda))
+    assert y.grad_fn is not None and hT.grad_fn is not None
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["gemma3-4b", "falcon-mamba-7b",
+                                  "jamba-1.5-large-398b", "hubert-xlarge"])
+def test_train_step_gradients_on_the_card_equal_the_cpu(cuda, arch):
+    """One f32 lm_loss backward of a reduced config on the card (the
+    flash and scan backward kernels) against the CPU's (autograd over
+    the plain versions), from the same parameters."""
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, 0, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 17)))
+    want = TT.value_and_grad(TT.lm_loss, params, cfg, toks)
+    card = TO.tree_map(lambda t: t.to(cuda), params)
+    ops.reset_launches()
+    got = TT.value_and_grad(TT.lm_loss, card, cfg, toks.to(cuda))
+    mamba = any(m == "mamba" for m, _ in cfg.pattern)
+    attn = any(m in ("attn", "local") for m, _ in cfg.pattern)
+    assert (ops.LAUNCHES["ssm_scan_bwd"] > 0) == mamba
+    assert (ops.LAUNCHES["flash_attention_bwd"] > 0) == attn
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-3,
+                               atol=1e-4)
+    for a, b in zip(TO.tree_leaves(got[2]), TO.tree_leaves(want[2])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-3,
+                                   atol=1e-4)

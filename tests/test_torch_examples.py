@@ -1,5 +1,6 @@
-"""The port's examples (``examples/torch_quickstart.py`` and
-``examples/torch_serve_requests.py``) run on the CPU at a small size:
+"""The port's examples (``examples/torch_quickstart.py``,
+``examples/torch_serve_requests.py``, ``examples/torch_train_tiny_lm.py``
+and ``examples/torch_train_hrad.py``) run on the CPU at a small size:
 their ``main`` with ``--device cpu``, in this process.  Without
 ``--device`` they default to the card, and without one they raise."""
 import importlib.util
@@ -36,13 +37,17 @@ def test_quickstart_on_cpu(capsys):
 
 def test_serve_requests_on_cpu(tmp_path, capsys, monkeypatch):
     mod = _load("torch_serve_requests")
-    # without the reference's trained H-RAD file: served without H-RAD
+    # without any trained H-RAD file: the port trains one into its own
+    # cache (collect + train_mlp on the CPU), the reference's untouched
     monkeypatch.setattr(TP, "CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(TP, "TORCH_CACHE_DIR", str(tmp_path / "torch"))
     trace = tmp_path / "trace.json"
     mod.main(["2", str(trace), "--device", "cpu", "--new-tokens", "6"])
     out = capsys.readouterr().out
-    assert "serving without H-RAD" in out and "aggregate:" in out
+    assert "aggregate:" in out
     assert trace.exists()
+    assert (tmp_path / "torch" / "hrad-misaligned-K4.npz").exists()
+    assert not (tmp_path / "hrad-misaligned-K4.npz").exists()
     # with a cached MLP (here an untrained one saved where the reference
     # caches its trained MLP): loaded, and every signal comes from it
     gen = torch.Generator().manual_seed(0)
@@ -54,12 +59,26 @@ def test_serve_requests_on_cpu(tmp_path, capsys, monkeypatch):
     mod.main(["2", "--device", "cpu", "--new-tokens", "6",
               "--prefix-cache", "on"])
     out = capsys.readouterr().out
-    assert "serving without H-RAD" not in out
     assert "prefix cache: hits=1/2 saved_tokens=32" in out
+
+
+def test_train_examples_on_cpu(tmp_path, capsys):
+    out_path = tmp_path / "tiny.npz"
+    _load("torch_train_tiny_lm").main(
+        ["--device", "cpu", "--arch", "qwen3-8b", "--steps", "2",
+         "--batch", "2", "--seq", "16", "--out", str(out_path)])
+    out = capsys.readouterr().out
+    assert "final loss" in out and "greedy sample" in out
+    assert out_path.exists()
+    _load("torch_train_hrad").main(["--device", "cpu", "--prompts", "2",
+                                    "--new-tokens", "16", "--epochs", "1"])
+    out = capsys.readouterr().out
+    assert "with H-RAD:" in out and "without H-RAD:" in out
 
 
 def test_examples_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("torch_quickstart", "torch_serve_requests"):
+    for name in ("torch_quickstart", "torch_serve_requests",
+                 "torch_train_tiny_lm", "torch_train_hrad"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             _load(name).main([])

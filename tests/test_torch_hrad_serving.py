@@ -37,7 +37,7 @@ from repro_torch.serving import (BatchedSpecBranchEngine, BatchedSpSEngine,
 from repro_torch.training import pairs as TP
 from repro_torch.training.checkpoint import (from_numpy_hrad,
                                              from_numpy_params)
-from torch_parity import synchronous_reference_ticks
+from torch_parity import stub_head_trainer, synchronous_reference_ticks
 
 # One intra-op thread: the tiny models gain nothing from more, and the
 # test workers share the machine's cores (eight threads in each of six
@@ -194,8 +194,12 @@ def test_serve_cli_batched_sps_on_cpu(tmp_path, capsys, monkeypatch):
              "--new-tokens", "4"])
     assert "batched sps" in capsys.readouterr().out
     # parallel drafting is ported (tests/test_torch_parallel_draft.py):
-    # without the trained heads' cache file it exits naming training
+    # without the trained heads' cache file it trains them into the
+    # port's own cache first (a stub trainer here)
     monkeypatch.setattr(TP, "CACHE_DIR", str(tmp_path))
-    with pytest.raises(SystemExit, match="queue A item 4"):
-        SV.main(["--device", "cpu", "--engine", "sps", "--draft-mode",
-                 "parallel"])
+    monkeypatch.setattr(TP, "TORCH_CACHE_DIR", str(tmp_path / "torch"))
+    calls = []
+    stub_head_trainer(monkeypatch, calls)
+    SV.main(["--device", "cpu", "--engine", "sps", "--draft-mode",
+             "parallel", "--requests", "1", "--new-tokens", "4"])
+    assert len(calls) == 1 and "batched sps" in capsys.readouterr().out

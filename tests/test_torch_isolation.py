@@ -52,7 +52,11 @@ NEED = ["repro_torch.kernels.flash_attention", "repro_torch.runtime.runner",
         "repro_torch.configs.internvl2_2b",
         "repro_torch.configs.jamba_1_5_large_398b",
         "repro_torch.configs.mistral_nemo_12b",
-        "repro_torch.configs.qwen3_8b"]
+        "repro_torch.configs.qwen3_8b",
+        "repro_torch.training.optim", "repro_torch.training.train",
+        "repro_torch.training.checkpoint", "repro_torch.runtime.hrad_data",
+        "repro_torch.launch.steps", "repro_torch.launch.train",
+        "repro_torch.data.synthetic"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -65,7 +69,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     n_modules, bad = out.stdout.split(" ", 1)
     assert int(n_modules) >= 48 and bad.strip() == "[]"
     assert [os.path.basename(p) for p in EXAMPLES] == [
-        "torch_quickstart.py", "torch_serve_requests.py"]
+        "torch_quickstart.py", "torch_serve_requests.py",
+        "torch_train_hrad.py", "torch_train_tiny_lm.py"]
 
 
 def test_port_sources_have_no_jax_or_reference_imports():

@@ -52,7 +52,7 @@ from repro_torch.serving import device_loop as TDL
 from repro_torch.training import pairs as TP
 from repro_torch.training.checkpoint import (from_numpy_draft_heads,
                                              from_numpy_params)
-from torch_parity import synchronous_reference_ticks
+from torch_parity import stub_head_trainer, synchronous_reference_ticks
 
 # One intra-op thread: the tiny models gain nothing from more, and the
 # test workers share the machine's cores.
@@ -495,7 +495,8 @@ def test_validation_messages(pair):
 
 def test_heads_cache_key_and_file(tmp_path, monkeypatch):
     """The heads cache key equals the reference's; a file the reference
-    writes loads into the port; a missing one raises naming training."""
+    writes loads into the port; a missing one is trained into the port's
+    own cache (never the reference's) and read back from there."""
     for cfg in (JP.DRAFT_MIS_CFG, JP.DRAFT_ALI_CFG, JP.TARGET_CFG):
         for K, steps, seed in ((4, 200, 11), (9, 200, 11), (4, 50, 3)):
             assert TP._head_cache_key(_port_cfg(cfg), K, steps, seed) == \
@@ -508,16 +509,35 @@ def test_heads_cache_key_and_file(tmp_path, monkeypatch):
     for k in ("mask_embed", "heads"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(jheads[k]))
     monkeypatch.setattr(TP, "CACHE_DIR", str(tmp_path / "empty"))
-    with pytest.raises(FileNotFoundError, match="queue A item 4"):
-        TP.draft_heads_for("misaligned", K=4, device="cpu")
+    port = tmp_path / "torch"
+    monkeypatch.setattr(TP, "TORCH_CACHE_DIR", str(port))
+    calls = []
+    stub_head_trainer(monkeypatch, calls)
+    got = TP.draft_heads_for("misaligned", K=4, device="cpu")
+    key4 = JP._head_cache_key(JP.DRAFT_MIS_CFG, 4, 200, 11)
+    assert calls == [(4, 200, 11)]
+    assert sorted(p.name for p in port.iterdir()) == [f"heads-{key4}.npz"]
+    assert not (tmp_path / "empty").exists()
+    again = TP.draft_heads_for("misaligned", K=4, device="cpu")
+    assert len(calls) == 1
+    assert torch.equal(again["heads"], got["heads"])
 
 
 def test_cli_parallel_without_heads_exits_naming_training(tmp_path,
-                                                          monkeypatch):
-    monkeypatch.setattr(TP, "CACHE_DIR", str(tmp_path))
-    with pytest.raises(SystemExit, match="queue A item 4"):
-        SV.main(["--device", "cpu", "--draft-mode", "parallel",
-                 "--requests", "1", "--new-tokens", "4"])
+                                                          monkeypatch,
+                                                          capsys):
+    """Without trained heads in either cache a parallel-draft serve
+    trains them into the port's own cache first (a stub trainer here),
+    then serves; an SSM pair and a non-drafting engine exit naming why."""
+    monkeypatch.setattr(TP, "CACHE_DIR", str(tmp_path / "ref"))
+    monkeypatch.setattr(TP, "TORCH_CACHE_DIR", str(tmp_path / "torch"))
+    calls = []
+    stub_head_trainer(monkeypatch, calls)
+    SV.main(["--device", "cpu", "--draft-mode", "parallel",
+             "--requests", "1", "--new-tokens", "4"])
+    assert len(calls) == 1
+    assert len(list((tmp_path / "torch").iterdir())) == 1
+    assert "aggregate tokens/s" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="attention-only"):
         SV.main(["--device", "cpu", "--draft-mode", "parallel",
                  "--pair", "falcon-shaped"])

@@ -28,7 +28,7 @@ from repro_torch.serving import (BatchedSpecBranchEngine,
 from repro_torch.serving.kv_pool import PagedStore
 from repro_torch.training import pairs as TP
 from repro_torch.training.checkpoint import from_numpy_params
-from torch_parity import synchronous_reference_ticks
+from torch_parity import stub_head_trainer, synchronous_reference_ticks
 
 # One intra-op thread: the tiny models gain nothing from more, and the
 # test workers share the machine's cores (eight threads in each of six
@@ -181,10 +181,16 @@ def test_serve_cli_on_cpu_and_unsupported_flags(tmp_path, capsys,
         SV.main(["--device", "cpu", "--mesh", "1,1"])
     # --spec-predictor and --draft-mode parallel are ported
     # (tests/test_torch_parallel_draft.py): without the trained heads'
-    # cache file, parallel drafting exits naming training
+    # cache file, parallel drafting trains them into the port's own cache
+    # first (a stub trainer here)
     monkeypatch.setattr(TP, "CACHE_DIR", str(tmp_path))
-    with pytest.raises(SystemExit, match="queue A item 4"):
-        SV.main(["--device", "cpu", "--draft-mode", "parallel"])
+    monkeypatch.setattr(TP, "TORCH_CACHE_DIR", str(tmp_path / "torch"))
+    calls = []
+    stub_head_trainer(monkeypatch, calls)
+    SV.main(["--device", "cpu", "--draft-mode", "parallel", "--requests",
+             "1", "--new-tokens", "4"])
+    assert len(calls) == 1 and "batched specbranch" in \
+        capsys.readouterr().out
     # as in the reference: only SpS and SpecBranch have a batched form
     with pytest.raises(SystemExit, match="--mode batched supports"):
         SV.main(["--device", "cpu", "--mode", "batched", "--engine",

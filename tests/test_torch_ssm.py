@@ -274,13 +274,17 @@ def test_moe_ffn_matches_reference(hybrid_pairs):
          "p": _np(jp)}, _tcfg(jcfg), "cpu")["p"]
     x = np.random.default_rng(9).standard_normal(
         (3, 5, jcfg.d_model)).astype(np.float32)
-    jy, _ = J_MOE(jp, jnp.asarray(x), jcfg)
-    _close(TL.moe_ffn(tp, torch.from_numpy(x), _tcfg(jcfg)), jy)
+    jy, jaux = J_MOE(jp, jnp.asarray(x), jcfg)
+    ty, taux = TL.moe_ffn(tp, torch.from_numpy(x), _tcfg(jcfg))
+    _close(ty, jy)
+    _close(taux, jaux)            # the load-balance loss, too
     # a capacity that drops tokens takes the same ones as the reference
     small = jcfg.replace(capacity_factor=0.5)
     assert JL.moe_capacity(small, 15) == TL.moe_capacity(_tcfg(small), 15)
-    jy, _ = J_MOE(jp, jnp.asarray(x), small)
-    _close(TL.moe_ffn(tp, torch.from_numpy(x), _tcfg(small)), jy)
+    jy, jaux = J_MOE(jp, jnp.asarray(x), small)
+    ty, taux = TL.moe_ffn(tp, torch.from_numpy(x), _tcfg(small))
+    _close(ty, jy)
+    _close(taux, jaux)
 
 
 @pytest.fixture(scope="module")

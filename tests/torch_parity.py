@@ -66,3 +66,18 @@ def gen_stats(r):
     s = r.stats
     return (s.emitted, s.draft_tokens, s.target_calls, s.rollback_tokens,
             s.pruned_tokens, list(s.accept_runs))
+
+
+def stub_head_trainer(monkeypatch, calls):
+    """Replace ``training.pairs.train_draft_heads`` (200 steps when a
+    parallel-draft serve finds no trained heads) by one that records its
+    call (K, steps, seed) and returns untrained heads."""
+    import torch
+    from repro_torch.models import model as TM
+    from repro_torch.training import pairs as TP
+
+    def stub(dp, dcfg, data, K, tc, seed=0, verbose=True, device="cpu"):
+        calls.append((K, tc.steps, seed))
+        gen = torch.Generator().manual_seed(seed)
+        return TM.init_draft_heads(dcfg, K, gen, device), {}
+    monkeypatch.setattr(TP, "train_draft_heads", stub)
