@@ -196,7 +196,10 @@ Phases (any failure raises, so the script exits non-zero):
                bidirectional hd 80, the draft-head loss frame with
                invisible slot keys; the scan at falcon-mamba-7b's width)
                against their plain backwards, with SDPA's forward and
-               backward as flash's library figure.  (a) The committed
+               backward as flash's library figure and SDPA's backward
+               alone beside it, the bound's work over the kernel's time
+               (TFLOP/s), the kernels' blocks and the largest error's
+               share of its tolerance.  (a) The committed
                pair's aligned draft (400 steps), the misaligned draft's
                parallel-draft heads and its H-RAD MLP trained on the
                card into a fresh port cache; measure_alpha of both
@@ -212,7 +215,10 @@ Phases (any failure raises, so the script exits non-zero):
                falcon-mamba-7b at full width cut to 16 layers
                (FALCON_TRAIN): finite losses, every leaf's gradient
                non-zero and finite, the backward kernels launched, step
-               wall time and peak memory.
+               wall time and peak memory; gemma3-4b's second step under
+               the CUDA profiler (the device's busy share of its wall
+               time, the top kernels by device time, the flash
+               backward's share).
 The full-width 7B pair's drives take FULL_NEW (16) new tokens a request
 in phases 4, 6 and 10 and LATE_NEW (8) in phases 11-14, gemma3-4b's
 G3_NEW (32), internvl2-2b's VLM_NEW (16) and the reduced families'
@@ -234,11 +240,15 @@ the attention tile loops phase by phase from variants built with
 kernel) beside the timing floor, and the batched
 verify's rounds (-DREPRO_VERIFY_STOP) and cluster barrier cost;
 ``--scan`` times phase 2's plain-scan cases (states and carry modes)
-alone; ``--profile`` runs phases 4 and 6's profiled serves, the batched LLaMA
-serve at temperature 1 (verify device time) and phase 8's falcon serve
-(scan and h-ring device time) only, and with ``--src DIR`` imports the
-port from DIR (another checkout's src) to compare two commits in one
-run.
+alone; ``--flash-bwd`` times phase 2's flash backward cases alone, the
+backward's kernels at gemma3-4b's window frame (profiler) and, for this
+checkout's port, that frame phase by phase (-DREPRO_BWD_STOP variants)
+and at B=2; ``--profile`` runs phases 4 and 6's profiled serves, the
+batched LLaMA serve at temperature 1 (verify device time) and phase 8's
+falcon serve (scan and h-ring device time) only.  With ``--src DIR``
+(``--profile``, ``--scan``, ``--flash-bwd``, ``--train``) the script
+imports the port from DIR (another checkout's src, e.g. the parent
+commit unpacked under build/) to compare two commits in one call.
 """
 from __future__ import annotations
 
@@ -255,8 +265,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # ``--src DIR`` imports the port from another checkout's src (a parent
-# commit unpacked beside this one) for ``--profile`` or ``--scan``;
-# default: this one's
+# commit unpacked beside this one) for ``--profile``, ``--scan``,
+# ``--flash-bwd`` or ``--train``; default: this one's
 SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv
        else os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.abspath(SRC))
@@ -1211,6 +1221,26 @@ def flash_bwd_inputs(rng, B, T, S, H, KV, hd, dtype, frame=None):
     return q, k, v, do, qp, kp, qc
 
 
+def bwd_kernel_times(fn, n: int = 5) -> dict:
+    """Device ms per call of each kernel ``fn`` launches (by name), from
+    the CUDA profiler over n back-to-back calls after one warm-up (warm
+    L2)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"flash_bwd_\w+?_kernel", e.name())
+            k = m.group(0) if m else e.name()[:40]
+            out[k] = out.get(k, 0.0) + e.duration_ns() / 1e6 / n
+    return out
+
+
 def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
                     window=0, cap=None, frame=None):
     """The flash backward kernel against ``flash_attention_bwd_ref`` on a
@@ -1218,7 +1248,11 @@ def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
     need (five hd-long products each: q.k, dO.v, and the dq, dk and dv
     accumulations) or the bytes of q, k, v, o, dO in and dq, dk, dv out;
     the library figure is SDPA's forward and backward over the same
-    visibility mask (none with a softcap, which SDPA lacks)."""
+    visibility mask (none with a softcap, which SDPA lacks), and beside it
+    SDPA's backward alone (its forward and graph built outside the timed
+    window: the like-for-like figure for a backward).  Also: the bound's
+    work over the kernel's time (TFLOP/s) and the kernels' blocks
+    (``FA.bwd_plan``; absent from an older checkout's port)."""
     q, k, v, do, qp, kp, qc = flash_bwd_inputs(rng, B, T, S, H, KV, hd,
                                                dtype, frame)
     kw = dict(causal=causal, window=window, cap=cap, q_ctx=qc)
@@ -1231,18 +1265,26 @@ def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
               for g, w in zip(got, want))
     kpl = kp.long()[:, None, :]
     qcl = (qc if qc is not None else qp).long()[:, :, None]
-    vis = (kpl >= 0) & ((kpl <= qcl) if causal else True)
+    vis = ((kpl >= 0) & ((kpl <= qcl) if causal else True)).expand(
+        B, T, S)
     if window > 0:
         vis = vis & ((qp.long()[:, :, None] - kpl) < window)
     G = H // KV
     es = q.element_size()
     nbytes = (4 * q.numel() + 4 * k.numel()) * es + 3 * qp.numel() * 4
-    bms, by = bound(nbytes, 10 * hd * int(vis.sum()) * H, dtype)
+    work = 10 * hd * int(vis.sum()) * H
+    bms, by = bound(nbytes, work, dtype)
     ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, qp, kp,
                                                 **kw))
     plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, qp,
                                                         kp, **kw))
-    lib = None
+    blocks = (FA.bwd_plan(B, T, S, H, KV, hd, dtype)["blocks"]
+              if hasattr(FA, "bwd_plan") else None)
+    # one profiler session a process: a later one may lose events
+    split = (bwd_kernel_times(lambda: FA.flash_attention_bwd(
+        q, k, v, o, do, qp, kp, **kw))
+        if "--flash-bwd" in sys.argv and label == FLASH_BWD_CASE else None)
+    lib = lib_bwd = None
     if cap is None:
         qd = q.transpose(1, 2).contiguous().requires_grad_(True)
         kd = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() \
@@ -1256,8 +1298,14 @@ def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
             out = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
             torch.autograd.grad(out, (qd, kd, vd), dod)
         lib = time_ms(sdpa)
+        out = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qd, kd, vd), dod, retain_graph=True))
+        del out
     return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
-                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+                plain_ms=plain, library_ms=lib, sdpa_bwd_ms=lib_bwd,
+                bound_ms=bms, bound_by=by, tflops=work / ms / 1e9,
+                blocks=blocks, split=split)
 
 
 def check_ssm_bwd(rng, label, B, T, E, N, xdtype):
@@ -1310,12 +1358,11 @@ def draft_frame(Lp: int, K: int, A: int):
     return pos, kpos, ctx
 
 
-def phase_kernels_bwd(rng) -> dict:
-    """Phase 2's backward cases: the flash backward at the tiny pair's
-    training frame, gemma3-4b's (window 1024 and global), a softcap
-    (gemma2-27b's heads), hubert's bidirectional frame and the tiny
-    draft's head-loss frame (invisible slot keys, clamped queries); the
-    scan backward at falcon-mamba-7b's width and a tiny f32 one."""
+def flash_bwd_cases(rng) -> list:
+    """Phase 2's flash backward cases: the tiny pair's training frame,
+    gemma3-4b's (window 1024 and global), a softcap (gemma2-27b's heads),
+    hubert's bidirectional frame and the tiny draft's head-loss frame
+    (invisible slot keys, clamped queries)."""
     bf, f32 = torch.bfloat16, torch.float32
     fl = [check_flash_bwd(rng, "zm-target train B=16 T=S=63", 16, 63, 63, 4,
                           2, 32, f32),
@@ -1332,6 +1379,74 @@ def phase_kernels_bwd(rng) -> dict:
     T = len(frame[0])
     fl.append(check_flash_bwd(rng, f"zm-draft head loss B=16 T=S={T}", 16,
                               T, T, 2, 1, 16, f32, frame=frame))
+    return fl
+
+
+def log_bwd_rows(rows) -> None:
+    """The flash backward cases' extra columns: SDPA's backward alone, the
+    bound's work over the kernel's time and the kernels' blocks."""
+    def fmt(x):
+        return "null" if x is None else f"{x:.4f}"
+    for r in rows:
+        log(f"  {r['case']:32s} ms={r['ms']:.4f} "
+            f"sdpa_fwd_bwd={fmt(r['library_ms'])} "
+            f"sdpa_bwd={fmt(r['sdpa_bwd_ms'])} "
+            f"{r['tflops']:.1f} TFLOP/s of the bound's work; "
+            f"blocks {r['blocks']}; err {r['err_share']:.3f} of its bound"
+            + ("" if r["split"] is None else "; by kernel (warm L2) " +
+               " ".join(f"{k} {v:.4f}" for k, v in r["split"].items())))
+
+
+def phase_flash_bwd() -> None:
+    """``--flash-bwd``: phase 2's flash backward cases alone (with
+    ``--src``, of another checkout's kernel), the kernels' device time at
+    gemma3-4b's window frame from the profiler, and (this checkout's
+    port) ``probe_flash_bwd``."""
+    rows = flash_bwd_cases(np.random.default_rng(0))
+    timing_floor()
+    log_bwd_rows(rows)
+    if hasattr(FA, "bwd_plan"):
+        probe_flash_bwd()
+
+
+def probe_flash_bwd() -> None:
+    """The bf16 backward at gemma3-4b's window frame phase by phase, from
+    variants built with -DREPRO_BWD_STOP (1: every tile stops after its
+    copies; 3: the copies of every tile after the first skipped, compute
+    alone; 4: the dk/dv kernel left out), beside the whole call and the
+    whole call at B=2 per item (how far one item is from filling the
+    card)."""
+    import ctypes
+    rng = np.random.default_rng(1)
+    frames = {}
+    for B in (1, 2):
+        q, k, v, do, qp, kp, _ = flash_bwd_inputs(rng, B, 1280, 1280, 8, 4,
+                                                  256, torch.bfloat16)
+        o = FA.flash_attention(q, k, v, qp, kp, window=1024)
+        frames[B] = (q, k, v, o, do, qp, kp)
+
+    def call(B):
+        return lambda: FA.flash_attention_bwd(*frames[B], window=1024)
+    out = {"whole": time_ms(call(1)),
+           "whole at B=2, per item": time_ms(call(2)) / 2}
+    saved = build._lib
+    try:
+        for stop, what in ((1, "copies only"), (3, "compute only"),
+                           (4, "without the dk/dv kernel")):
+            build._lib = build.bind(ctypes.CDLL(str(build.build(
+                ("flash_attention_bwd.cu",), (f"-DREPRO_BWD_STOP={stop}",)))))
+            out[what] = time_ms(call(1))
+    finally:
+        build._lib = saved
+    for k, v in out.items():
+        log(f"  flash-bwd probe {FLASH_BWD_CASE}: {k:26s} ms={v:.4f}")
+
+
+def phase_kernels_bwd(rng) -> dict:
+    """Phase 2's backward cases: ``flash_bwd_cases``, then the scan
+    backward at falcon-mamba-7b's width and a tiny f32 one."""
+    bf, f32 = torch.bfloat16, torch.float32
+    fl = flash_bwd_cases(rng)
     ss = [check_ssm_bwd(rng, SCAN_BWD_CASE, 1, 256, 8192, 16, bf),
           check_ssm_bwd(rng, "tiny f32 B=16 T=64 E=128", 16, 64, 128, 16,
                         f32)]
@@ -1578,6 +1693,7 @@ def phase_kernels() -> dict:
             + (f" splits={r['splits']}" if "splits" in r else "")
             + (f" live_rows={r['live_rows']}" if "live_rows" in r else "")
             + (f" glue={r['glue_ms']:.4f}" if "glue_ms" in r else ""))
+    log_bwd_rows(bwd["flash_attention_bwd"])
     return {"paged_attention": att, "verify_accept_batched": ver,
             "paged_gather": gat, "flash_attention": fl, "ssm_scan": ss,
             "ssm_scan_ring": rr, "branch_decode_attention": br,
@@ -1911,18 +2027,9 @@ class ServedLogits:
         BE.BatchedDecoder.prefill_rows = self._prefill
 
 
-def busy_profile(run) -> dict:
-    """Run ``run()`` under the CUDA profiler: the share of the wall window
-    in which the card ran a kernel or copy (the union of their intervals
-    over the host-clock wall time, profiler overhead included) and the
-    device time by kernel name."""
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.time()
-        run()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+def device_events(prof):
+    """A finished profiler's CUDA events, the ns of the union of their
+    intervals, and their device ns by name (60 characters)."""
     evs = [e for e in prof.profiler.kineto_results.events()
            if e.device_type() == torch.autograd.DeviceType.CUDA]
     busy, end, by_name = 0, None, {}
@@ -1936,6 +2043,22 @@ def busy_profile(run) -> dict:
     for e in evs:
         by_name[e.name()[:60]] = by_name.get(e.name()[:60], 0) \
             + e.duration_ns()
+    return evs, busy, by_name
+
+
+def busy_profile(run) -> dict:
+    """Run ``run()`` under the CUDA profiler: the share of the wall window
+    in which the card ran a kernel or copy (the union of their intervals
+    over the host-clock wall time, profiler overhead included) and the
+    device time by kernel name."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    evs, busy, by_name = device_events(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     # the attention kernels by their addressing struct (the same names in
     # the parent's tile loops, so an A/B reads both)
@@ -4426,15 +4549,21 @@ def phase_train_reduced(dev, totals) -> dict:
     return out
 
 
-def train_full(label, cfg, dev, totals, batch, seq, micro, steps) -> dict:
+def train_full(label, cfg, dev, totals, batch, seq, micro, steps,
+               profile: bool = False) -> dict:
     """The port's ``launch.train`` path (``launch.train.run``: the remat,
     gradient-accumulated step and AdamW, random bf16 weights) at full
     width: finite losses; after the first step every leaf's m (0.1 x its
     clipped gradient) non-zero and finite; the backward kernels
-    launched; per-step wall time and peak device memory."""
+    launched; per-step wall time and peak device memory.  ``profile``:
+    the CUDA profiler over the second step (from the end of the first
+    step's checks to the second step's synchronised loss): the device's
+    busy share of that wall time, the top kernels by device time and the
+    flash backward's kernels (the step's wall time includes the
+    profiler's overhead)."""
     from repro_torch.launch import train as LT
     from repro_torch.training import optim as TO
-    checked = {}
+    checked, prof = {}, {}
 
     def on_step(i, params, opt_state):
         if i == 0:
@@ -4447,6 +4576,27 @@ def train_full(label, cfg, dev, totals, batch, seq, micro, steps) -> dict:
                                    for tree in (params, opt_state.m,
                                                 opt_state.v)
                                    for x in TO.tree_leaves(tree))
+        if profile and i == 0:
+            torch.cuda.synchronize()
+            prof["p"] = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.time()
+            prof["n0"] = ops.LAUNCHES["flash_attention_bwd"]
+        elif profile and i == 1:
+            torch.cuda.synchronize()
+            wall = time.time() - prof["t0"]
+            prof["p"].__exit__(None, None, None)
+            evs, busy, by_name = device_events(prof["p"])
+            bwd = [e.duration_ns() for e in evs if "flash_bwd" in e.name()]
+            prof["stats"] = dict(
+                wall_s=wall, busy_share=busy / 1e9 / wall,
+                device_s=sum(by_name.values()) / 1e9,
+                top=[(n, t / 1e6) for n, t in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:8]],
+                flash_bwd_ms=sum(bwd) / 1e6, flash_bwd_kernels=len(bwd),
+                flash_bwd_calls=ops.LAUNCHES["flash_attention_bwd"]
+                - prof["n0"])
 
     free_device_memory()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4471,21 +4621,34 @@ def train_full(label, cfg, dev, totals, batch, seq, micro, steps) -> dict:
         raise AssertionError(f"{label}: leaves {checked['bad']} of "
                              f"{checked['leaves']} have a zero or "
                              "non-finite gradient")
+    st = prof.get("stats")
+    if st is not None:
+        log(f"  {label} step 1 profiled: wall {st['wall_s']:.3f} s, device "
+            f"busy {st['busy_share']:.3f} of it, device time "
+            f"{st['device_s']:.3f} s; flash backward kernels "
+            f"{st['flash_bwd_ms']:.1f} ms in {st['flash_bwd_kernels']} "
+            f"kernel events over {st['flash_bwd_calls']} calls (a late "
+            "profiler session of one process may lose events); top "
+            "kernels (ms):")
+        for n, t in st["top"]:
+            log(f"    {t:9.2f}  {n}")
     return dict(loss=rep["loss"], step_s=rep["seconds"], peak_gb=peak,
-                state_gb=checked["bytes"] / 1e9, launches=counts)
+                state_gb=checked["bytes"] / 1e9, launches=counts,
+                profile=st)
 
 
 def phase_train_gemma3(dev, totals) -> dict:
     """(c) gemma3-4b at full width through the training CLI's path, 3
     steps of 2 x 1281 tokens in 2 micro-batches: each micro-batch is one
     1280-token row, so the local layers' window (1024) masks in the
-    backward."""
+    backward; the second step profiled."""
     from repro_torch.configs import get_config
     cfg = get_config("gemma3-4b")
     if (cfg.num_layers, cfg.d_model, cfg.sliding_window) != (34, 2560, 1024):
         raise AssertionError(f"gemma3-4b config changed: {cfg}")
     res = train_full("gemma3-4b", cfg, dev, totals, G3_TRAIN["batch"],
-                     G3_TRAIN["seq"], G3_TRAIN["micro"], G3_TRAIN["steps"])
+                     G3_TRAIN["seq"], G3_TRAIN["micro"], G3_TRAIN["steps"],
+                     profile=True)
     if res["launches"]["flash_attention_bwd"] == 0:
         raise AssertionError("gemma3-4b: the flash backward did not run")
     return res
@@ -4514,7 +4677,8 @@ def log_ptxas(ptx: str) -> None:
     ``nvcc -Xptxas -v``; the decode loop's variants (decode, and flash's
     wide block) by addressing struct, dtype, head dim and ring stages,
     the scan's by N, x dtype and entry (carry, states, ring), the
-    verify's by entry and logit dtype."""
+    verify's by entry and logit dtype, the flash backward's by kernel,
+    head dim and dtype."""
     name, spill = "?", ""
     for ln in ptx.splitlines():
         if "Compiling entry function" in ln:
@@ -4531,6 +4695,13 @@ def log_ptxas(ptx: str) -> None:
                 dt = "bf16" if "bfloat" in m.group(2) else "f32"
                 mode = ("carry", "states", "ring")[int(m.group(3))]
                 name = f"ssm_scan N={m.group(1)} x {dt} {mode}"
+            m = re.search(r"(flash_bwd_(?:dq_mma|dkdv_mma|dq_merge|dkdv_reduce"
+                          r"|rows|dq|dkdv|spans)"
+                          r"_kernel)(?:ILi(\d+)E(f?))?", name)
+            if m:
+                name = (m.group(1) + (f" hd={m.group(2)}" if m.group(2)
+                                      else "")
+                        + (" f32" if m.group(3) else " bf16"))
             m = re.search(r"verify_accept_(batched_)?kernel(I13__nv_bfloat16"
                           r"|If)?E", name)
             if m:
@@ -4566,6 +4737,10 @@ def main() -> int:
         log(f"[scan] the plain scan's cases, port from {SRC}")
         phase_scan()
         return 3                # a scan run gives no smoke result
+    if "--flash-bwd" in sys.argv[1:]:
+        log(f"[flash-bwd] phase 2's flash backward cases, port from {SRC}")
+        phase_flash_bwd()
+        return 3                # no smoke result
     if "--probe" in sys.argv[1:]:
         log("[probe] attention tile loop phase by phase")
         phase_probe()

@@ -18,9 +18,11 @@ A query that sees no key at all gets zeros (the plain version averages V
 over its padded width there); the sequential runner never produces one,
 because every query's own key is written before it attends.
 
-``flash_attention_bwd`` launches the backward kernel
+``flash_attention_bwd`` launches the backward kernels
 (``csrc/flash_attention_bwd.cu``: dq, and dk / dv summed over each kv
-head's query heads, for the forward's whole contract), and
+head's query heads, for the forward's whole contract; on tensor cores at
+bf16, CUDA cores at f32; ``bwd_plan`` gives their grids and scratch),
+and
 ``FlashAttentionFn`` joins the two for autograd: its forward launches the
 forward kernel unchanged and saves q, k, v, the output and the
 positions; its backward launches the backward kernel.
@@ -50,6 +52,57 @@ def split_plan(B: int, T: int, H: int, KV: int, S: int,
     rows = block_rows(T, H, KV)
     return DA.plan_splits(B * DA.row_tiles(T * (H // KV), rows) * KV, S,
                           sm_count)
+
+
+# the backward kernels' tiles (csrc/flash_attention_bwd.cu): position
+# summaries of SPAN rows or keys; at bf16 the dq kernel's blocks of
+# BWD_ROWS query rows over key tiles of 32 keys (16 above hd 128), the
+# dk/dv kernel's blocks of BWD_KEYS keys over tiles of BWD_RTILE rows,
+# each block's walk split into chunks (``bwd_chunks``); at f32 (the
+# CUDA-core kernels) blocks of 16 rows and of 16 keys
+SPAN, BWD_ROWS, BWD_KEYS, BWD_RTILE = 16, 64, 32, 32
+TARGET_BLOCKS, MIN_CHUNK, MAX_CHUNKS, BWD_F32_BLOCK = 800, 8, 8, 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_chunks(n_tiles: int, n_units: int) -> int:
+    """Chunks each of ``n_units`` walks of ``n_tiles`` tiles is split into
+    (the C entry's ``chunks_of``): as many as bring the grid to about
+    TARGET_BLOCKS, each at least MIN_CHUNK tiles, at most MAX_CHUNKS."""
+    n = min(_cdiv(TARGET_BLOCKS, n_units), n_tiles // MIN_CHUNK)
+    return max(1, min(MAX_CHUNKS, n))
+
+
+def bwd_plan(B: int, T: int, S: int, H: int, KV: int, hd: int,
+             dtype: torch.dtype) -> dict:
+    """The backward's launches and scratch: ``blocks`` of each kernel,
+    ``chunks`` of the dq and dk/dv walks (bf16), and the f32 (``work``)
+    and int32 (``ints``) scratch elements the C entry lays out."""
+    rows = T * (H // KV)
+    n_spans = _cdiv(rows, SPAN) + _cdiv(S, SPAN)
+    if dtype != torch.bfloat16:
+        return {"work": 4 * B * H * T, "ints": 4 * B * n_spans,
+                "chunks": None,
+                "blocks": {"dq": B * KV * _cdiv(rows, BWD_F32_BLOCK),
+                           "dkdv": B * KV * _cdiv(S, BWD_F32_BLOCK)}}
+    n_rb, n_kb = _cdiv(rows, BWD_ROWS), _cdiv(S, BWD_KEYS)
+    n_cq = bwd_chunks(_cdiv(S, 16 if hd > 128 else 32), B * KV * n_rb)
+    n_ck = bwd_chunks(_cdiv(rows, BWD_RTILE), B * KV * n_kb)
+    q_rows = n_cq * B * KV * n_rb * BWD_ROWS
+    row_warps = _cdiv(B * KV * rows, 4)          # one row a warp
+    return {"work": 4 * B * H * T + q_rows * (2 + hd)
+                    + n_ck * 2 * B * n_kb * BWD_KEYS * KV * hd,
+            "ints": 4 * B * n_spans + B * KV * n_kb * n_ck,
+            "chunks": {"dq": n_cq, "dkdv": n_ck},
+            "blocks": {"spans": B * _cdiv(n_spans * SPAN, 128),
+                       "rows": row_warps,
+                       "dq": B * KV * n_rb * n_cq,
+                       "dq_merge": row_warps,
+                       "dkdv": B * KV * n_kb * n_ck,
+                       "dkdv_reduce": _cdiv(B * S * KV * hd // 4, 128)}}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,8 +168,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         cap: Optional[float] = None,
                         q_ctx: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, ...]:
-    """Launch the backward kernel (one call: the dq kernel, then the dk/dv
-    kernel, on the current stream) on CUDA tensors: o is the forward's
+    """Launch the backward kernels (one call, on the current stream: at
+    bf16 the position summaries, the row records, the dq chunks and their
+    merge, the dk/dv chunks and their sum; at f32 a dq and a dk/dv kernel)
+    on CUDA tensors: o is the forward's
     output and dout its gradient, both (B, T, H, hd) in q's dtype.
     Returns (dq, dk, dv) in the dtypes of q, k, v.  Raises as
     ``flash_attention`` does."""
@@ -152,14 +207,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     L = build.lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    plan = bwd_plan(B, T, S, H, KV, hd, q.dtype)
+    work = torch.empty(plan["work"], dtype=torch.float32, device=q.device)
+    ints = torch.empty(plan["ints"], dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         rc = L.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), q_pos.data_ptr(), q_ctx.data_ptr(),
             k_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), B, T, S, H, KV, hd,
+            work.data_ptr(), ints.data_ptr(), B, T, S, H, KV, hd,
             int(causal), int(window),
             float(cap) if cap is not None else 0.0, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16),

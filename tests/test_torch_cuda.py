@@ -986,7 +986,9 @@ def _assert_grad_close(name, got, want):
     assert err <= lim, (name, err, lim)
 
 
-# (B, T, S, H, KV, hd, causal, window, cap, frame)
+# (B, T, S, H, KV, hd, causal, window, cap, frame); frame True: 6 slot
+# columns (keys -1, queries clamped); "dead": the first 9 keys -1, so the
+# first rows see no key; "perm": the keys' positions shuffled
 BWD_FLASH_CASES = [
     (2, 33, 47, 4, 2, 32, True, 0, None, False),
     (1, 70, 70, 8, 4, 256, True, 24, None, False),
@@ -996,16 +998,23 @@ BWD_FLASH_CASES = [
     (2, 9, 30, 4, 4, 144, True, 0, None, False),
     (2, 9, 30, 2, 2, 160, True, 0, None, False),
     (1, 5, 20, 4, 2, 64, True, 0, None, False),
+    # tile edges of the bf16 kernels (64-row and 32-key blocks, 32-row
+    # tiles, 16-row / 16-key summaries): T x G and S off every multiple
+    (1, 77, 77, 8, 4, 64, True, 0, None, False),
+    (2, 100, 100, 4, 2, 128, True, 5, None, False),   # window < a tile
+    (2, 40, 40, 4, 2, 64, True, 0, None, "dead"),
+    (1, 70, 70, 8, 2, 128, True, 0, None, True),       # G = 4, q_ctx
+    (1, 67, 90, 4, 2, 144, True, 0, 30.0, False),
+    (2, 45, 45, 2, 2, 80, True, 16, None, False),
+    (1, 48, 60, 4, 2, 256, True, 0, None, "perm"),
+    (2, 1, 33, 4, 2, 160, True, 0, None, False),
+    (1, 130, 97, 2, 1, 32, False, 0, None, "dead"),
+    (1, 1280, 1280, 8, 4, 256, True, 1024, None, False),  # gemma3-4b
 ]
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", BWD_FLASH_CASES,
-                         ids=[f"case{i}" for i in range(len(BWD_FLASH_CASES))])
-def test_flash_backward_kernel_matches_plain(cuda, case, dtype):
+def _bwd_flash_inputs(cuda, case, dt):
     B, T, S, H, KV, hd, causal, window, cap, frame = case
-    dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(hd + T)
     q, do = (torch.randn(B, T, H, hd, device=cuda, generator=g).to(dt)
              for _ in range(2))
@@ -1015,11 +1024,25 @@ def test_flash_backward_kernel_matches_plain(cuda, case, dtype):
                       dtype=torch.int32)[None].expand(B, T).contiguous()
     kp = torch.arange(S, device=cuda, dtype=torch.int32)[None].repeat(B, 1)
     qc = None
-    if frame:                      # 6 slot columns: keys -1, queries clamped
+    if frame is True:              # 6 slot columns: keys -1, queries clamped
         kp[:, -6:] = -1
         qc = qp.clone()
         qc[:, -6:] = S - 7
+    elif frame == "dead":
+        kp[:, :9] = -1
+    elif frame == "perm":
+        kp = kp[:, torch.randperm(S, device=cuda, generator=g)].contiguous()
     kw = dict(causal=causal, window=window, cap=cap, q_ctx=qc)
+    return q, k, v, do, qp, kp, kw
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_FLASH_CASES,
+                         ids=[f"case{i}" for i in range(len(BWD_FLASH_CASES))])
+def test_flash_backward_kernel_matches_plain(cuda, case, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v, do, qp, kp, kw = _bwd_flash_inputs(cuda, case, dt)
     o = FA.flash_attention(q, k, v, qp, kp, **kw)
     n0 = ops.LAUNCHES["flash_attention_bwd"]
     got = FA.flash_attention_bwd(q, k, v, o, do, qp, kp, **kw)
@@ -1028,6 +1051,21 @@ def test_flash_backward_kernel_matches_plain(cuda, case, dtype):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype == dt
         _assert_grad_close(name, a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_kernel_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    case = (2, 300, 300, 8, 4, 256, True, 100, None, False)
+    q, k, v, do, qp, kp, kw = _bwd_flash_inputs(cuda, case,
+                                                getattr(torch, dtype))
+    o = FA.flash_attention(q, k, v, qp, kp, **kw)
+    first = FA.flash_attention_bwd(q, k, v, o, do, qp, kp, **kw)
+    second = FA.flash_attention_bwd(q, k, v, o, do, qp, kp, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+        assert bool(torch.isfinite(a.float()).all()), name
 
 
 @pytest.mark.requires_cuda

@@ -183,6 +183,43 @@ def test_verify_split_plan_refuses_a_vocabulary_past_shared_memory():
         tva.split_plan(16 * tva.MAX_SLICE + 1, 8, 132)
 
 
+# (B, T, S, H, KV, hd, dtype, dq blocks, dk/dv blocks, (dq, dk/dv)
+# chunks): gemma3-4b's training frame (window and global share it: 160
+# walks of 80 key tiles of 16 and 160 of 80 row tiles of 32, each in 5
+# chunks), gemma2's softcap frame (256 walks of 16 key tiles, 2 chunks;
+# 256 of 32 row tiles, 4), hubert's, the f32 tiny pair's (the CUDA-core
+# kernels' 16-row and 16-key blocks, no chunks) and a one-token frame
+@pytest.mark.parametrize("B,T,S,H,KV,hd,dtype,dq,dkdv,chunks", [
+    (1, 1280, 1280, 8, 4, 256, torch.bfloat16, 800, 800, (5, 5)),
+    (1, 512, 512, 32, 16, 128, torch.bfloat16, 512, 1024, (2, 4)),
+    (2, 500, 500, 16, 16, 80, torch.bfloat16, 512, 1024, (2, 2)),
+    (16, 63, 63, 4, 2, 32, torch.float32, 256, 128, None),
+    (1, 1, 33, 4, 2, 160, torch.bfloat16, 2, 4, (1, 1))])
+def test_flash_bwd_plan(B, T, S, H, KV, hd, dtype, dq, dkdv, chunks):
+    plan = tfa.bwd_plan(B, T, S, H, KV, hd, dtype)
+    assert plan["blocks"]["dq"] == dq and plan["blocks"]["dkdv"] == dkdv
+    n_spans = -(-T * (H // KV) // 16) + -(-S // 16)
+    if chunks is None:
+        assert plan["chunks"] is None
+        assert plan["work"] == 4 * B * H * T and plan["ints"] == 4 * B * n_spans
+        return
+    assert (plan["chunks"]["dq"], plan["chunks"]["dkdv"]) == chunks
+    # one row record a warp; the summaries one per 16 threads of 128
+    assert plan["blocks"]["rows"] == plan["blocks"]["dq_merge"] == \
+        -(-B * H * T // 4)
+    assert plan["blocks"]["spans"] == B * -(-n_spans * 16 // 128)
+    assert plan["ints"] == 4 * B * n_spans + dkdv
+    if T == 1280:   # row records + dq chunks' (m, l) and sums + dk/dv sums
+        assert plan["work"] == 40960 + 51200 * (2 + 256) + 13107200
+
+
+@pytest.mark.parametrize("n_tiles,n_units,want", [
+    (80, 160, 5), (80, 2000, 1), (15, 10, 1), (16, 10, 2), (1000, 1, 8),
+    (0, 1, 1)])
+def test_flash_bwd_chunks(n_tiles, n_units, want):
+    assert tfa.bwd_chunks(n_tiles, n_units) == want
+
+
 LOG2E = np.float32(1.4426950408889634)
 
 
