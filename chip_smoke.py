@@ -106,7 +106,8 @@ Phases (any failure raises, so the script exits non-zero):
                pair, greedy, temperature 1 (epsilon 0.3 and 0, shadowed
                as in phase 3) and under a preempting pool that swaps; each
                drive's streams must equal the same serve on the CPU and
-               the card's own paged serve; the jamba-shaped hybrid, whose
+               the card's own paged serve (SpecBranch's from phase 3,
+               whose drives are the same serves); the jamba-shaped hybrid, whose
                preempted rows recompute their prefix; the full-width
                LLaMA-68M/7B batched SpecBranch 8 x LATE_NEW greedy,
                teacher-forced as in phase 4, what a fork's row copy costs,
@@ -194,7 +195,11 @@ Phases (any failure raises, so the script exits non-zero):
                the tiny pair's training frame, gemma3-4b's 1280-token
                frame with window 1024 and global, a softcap, hubert's
                bidirectional hd 80, the draft-head loss frame with
-               invisible slot keys; the scan at falcon-mamba-7b's width)
+               invisible slot keys; the scan from the forward's chunk
+               checkpoints at falcon-mamba-7b's training frame, at T =
+               250, T = 20 and B = 2 of its width and a tiny f32 frame,
+               two launches bit-identical, the chunk mode's hc equal to
+               the states mode's hs at the boundaries)
                against their plain backwards, with SDPA's forward and
                backward as flash's library figure and SDPA's backward
                alone beside it, the bound's work over the kernel's time
@@ -218,12 +223,14 @@ Phases (any failure raises, so the script exits non-zero):
                wall time and peak memory; gemma3-4b's second step under
                the CUDA profiler (the device's busy share of its wall
                time, the top kernels by device time, the flash
-               backward's share).
+               backward's share), and falcon-mamba-7b's (the scan
+               kernels' share).
 The full-width 7B pair's drives take FULL_NEW (16) new tokens a request
 in phases 4, 6 and 10 and LATE_NEW (8) in phases 11-14, gemma3-4b's
-G3_NEW (32), internvl2-2b's VLM_NEW (16) and the reduced families'
-ARCH_N_NEW (8): each was cut (from 32, 32, 48, 32 and 12) to make room
-for phase 16 in the time limit on a slow host.
+G3_NEW (32: its context yardstick needs rows past the window of 1024),
+internvl2-2b's VLM_NEW (16) and the reduced families' ARCH_N_NEW (8):
+each was cut (from 32, 32, 48, 32 and 12) to make room for the later
+phases in the time limit on a slow host.
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -239,14 +246,22 @@ the attention tile loops phase by phase from variants built with
 -DREPRO_ATTN_STOP (1: K/V loads only, 2: loads and logits, 0: whole
 kernel) beside the timing floor, and the batched
 verify's rounds (-DREPRO_VERIFY_STOP) and cluster barrier cost;
-``--scan`` times phase 2's plain-scan cases (states and carry modes)
-alone; ``--flash-bwd`` times phase 2's flash backward cases alone, the
+``--scan`` times phase 2's plain-scan cases (states and carry modes,
+the training forward's states and chunk modes, and the falcon serve's
+ring entry) alone;
+``--scan-bwd`` times phase 2's scan backward cases alone, the training
+forward's states and chunk modes and, for this checkout's port, the
+backward at falcon's frame phase by phase (-DREPRO_SCAN_BWD_STOP
+variants) and at the other chunk lengths of 16, 32 and 64 steps
+(-DREPRO_SCAN_CHUNK);
+``--flash-bwd`` times phase 2's flash backward cases alone, the
 backward's kernels at gemma3-4b's window frame (profiler) and, for this
 checkout's port, that frame phase by phase (-DREPRO_BWD_STOP variants)
 and at B=2; ``--profile`` runs phases 4 and 6's profiled serves, the
 batched LLaMA serve at temperature 1 (verify device time) and phase 8's
 falcon serve (scan and h-ring device time) only.  With ``--src DIR``
-(``--profile``, ``--scan``, ``--flash-bwd``, ``--train``) the script
+(``--profile``, ``--scan``, ``--scan-bwd``, ``--flash-bwd``,
+``--train``) the script
 imports the port from DIR (another checkout's src, e.g. the parent
 commit unpacked under build/) to compare two commits in one call.
 """
@@ -266,7 +281,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # ``--src DIR`` imports the port from another checkout's src (a parent
 # commit unpacked beside this one) for ``--profile``, ``--scan``,
-# ``--flash-bwd`` or ``--train``; default: this one's
+# ``--scan-bwd``, ``--flash-bwd`` or ``--train``; default: this one's
 SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv
        else os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.abspath(SRC))
@@ -371,7 +386,7 @@ HUBERT_FRAMES = (2, 500)
 HUBERT_CASE = "hubert-xl hd80 B=2 T=S=500 bidir"
 # new tokens a request of the full-width 7B drives of phases 4, 6 and 10
 # (FULL_NEW) and of phases 11-14 (LATE_NEW), both cut from 32 so that
-# phase 16 fits the script's time limit on a slow host
+# the later phases fit the script's time limit on a slow host
 FULL_NEW = 16
 LATE_NEW = 8
 # phase 16: the backward kernels' representative phase-2 cases (gemma3-4b's
@@ -786,9 +801,10 @@ def check_flash_frame(rng, label, B, T, S, H, KV, hd, L, dtype, nreal):
                 splits=splits)
 
 
-def check_ssm(rng, label, B, T, E, N, xdtype, states):
+def check_ssm(rng, label, B, T, E, N, xdtype, states, chunks=False):
     """The selective-scan kernel against ``ssm_scan_ref`` on inputs shaped
-    like a Mamba layer's: dt = softplus(normal), A = -exp(0.2 normal)."""
+    like a Mamba layer's: dt = softplus(normal), A = -exp(0.2 normal);
+    ``chunks``: the chunk mode (hc at the library's K in place of hs)."""
     def f(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)
                                 ).cuda()
@@ -798,11 +814,13 @@ def check_ssm(rng, label, B, T, E, N, xdtype, states):
     A = -torch.exp(f(E, N) * 0.2)
     D = torch.ones(E, device="cuda")
     args = (x, dt, Bm, Cm, A, D, h0)
-    got = SS.ssm_scan(*args, return_states=states)
-    want = ref.ssm_scan_ref(*args, return_states=states)
+    kw = dict(chunks=True) if chunks else dict(return_states=states)
+    refkw = dict(chunk=SS.scan_chunk()) if chunks else kw
+    got = SS.ssm_scan(*args, **kw)
+    want = ref.ssm_scan_ref(*args, **refkw)
     torch.cuda.synchronize()
     err = 0.0
-    for name, g, w in zip(("y", "hT", "hs"), got, want):
+    for name, g, w in zip(("y", "hT", "hc" if chunks else "hs"), got, want):
         d = (g - w).abs()
         if not bool((d <= SSM_ATOL + SSM_RTOL * w.abs()).all()):
             raise AssertionError(f"ssm_scan {label}: {name} differs beyond "
@@ -813,8 +831,8 @@ def check_ssm(rng, label, B, T, E, N, xdtype, states):
               + Cm.numel() + A.numel() + D.numel() + h0.numel()) * 4
               + sum(g.numel() for g in got) * 4)
     bms, by = bound(nbytes, 7 * B * T * E * N, torch.float32)
-    ms = time_ms(lambda: SS.ssm_scan(*args, return_states=states))
-    plain = time_ms(lambda: ref.ssm_scan_ref(*args, return_states=states))
+    ms = time_ms(lambda: SS.ssm_scan(*args, **kw))
+    plain = time_ms(lambda: ref.ssm_scan_ref(*args, **refkw))
     # no single PyTorch call computes a selective scan: library_ms null
     return dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain,
                 library_ms=None, bound_ms=bms, bound_by=by)
@@ -837,20 +855,54 @@ def carry_cases(rng) -> list:
                       bf16, False)]
 
 
+def train_fwd_chunks(rng) -> dict:
+    """The chunk mode at falcon-mamba-7b's training frame, as
+    ``SsmScanFn`` launches it on the main path (phase 16)."""
+    return check_ssm(rng, "falcon-7b train fwd chunks", 1, 256, 8192, 16,
+                     torch.bfloat16, False, chunks=True)
+
+
+def train_fwd_cases(rng) -> list:
+    """The training forward at falcon-mamba-7b's frame: the states mode
+    (what ``SsmScanFn`` launched before chunk checkpoints) and, where the
+    port has it, the chunk mode it launches now."""
+    rows = [check_ssm(rng, "falcon-7b train fwd states", 1, 256, 8192, 16,
+                      torch.bfloat16, True)]
+    if hasattr(SS, "scan_chunk"):
+        rows.append(train_fwd_chunks(rng))
+    return rows
+
+
 def phase_scan() -> None:
-    """``--scan``: phase 2's plain-scan cases, both modes, alone (with
-    ``--src``, of another checkout's kernel)."""
+    """``--scan``: phase 2's plain-scan cases, every mode, alone (with
+    ``--src``, of another checkout's kernel): states, carry, the training
+    forward's states and chunk modes, and the falcon serve's ring
+    entry."""
     rng = np.random.default_rng(0)
     bf16 = torch.bfloat16
     rows = [check_ssm(rng, "falcon-7b decode B=8 T=8", 8, 8, 8192, 16, bf16,
                       True),
             check_ssm(rng, "falcon-7b cache-less B=8 T=48", 8, 48, 8192, 16,
-                      bf16, False)] + carry_cases(rng)
+                      bf16, False)] + carry_cases(rng) + train_fwd_cases(rng)
+    rows += falcon_ring_cases(rng)
     timing_floor()
     for r in rows:
         log(f"  {r['case']:32s} err={r['max_abs_err']:.2e} "
             f"ms={r['ms']:.4f} bound={r['bound_ms']:.4f} "
             f"plain={r['plain_ms']:.4f}")
+
+
+def falcon_ring_cases(rng) -> list:
+    """The ring entry at the falcon-mamba-7b serve's two target shapes (8
+    lanes of T = 16, its most frequent, and of T = 8, over 8 ring rows of
+    depth FALCON_RING; two fresh lanes, two wrapping past slot Rg - 1,
+    one pad lane)."""
+    lanes = dict(p0=[0, 37, FALCON_RING - 2, 0, 12, 55, 90, 3],
+                 rows=[5, 0, 7, 2, -1, 1, 6, 3])
+    return [check_ssm_ring(rng, FALCON_RING_CASE, 8, 16, 8192, 16,
+                           FALCON_RING, 8, torch.bfloat16, **lanes),
+            check_ssm_ring(rng, "falcon-7b serve B=8 T=8 Rg=92", 8, 8, 8192,
+                           16, FALCON_RING, 8, torch.bfloat16, **lanes)]
 
 
 def ring_written(B, T, Rg, n_rows, p0, rows) -> torch.Tensor:
@@ -1310,9 +1362,13 @@ def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
 
 def check_ssm_bwd(rng, label, B, T, E, N, xdtype):
     """The scan backward kernel against ``ssm_scan_bwd_ref`` from the
-    forward's states, on inputs shaped like a Mamba layer's (as
-    ``check_ssm``), with and without a gradient on hT; bound: the bytes
-    of its inputs (hs above all) and outputs."""
+    forward kernel's chunk checkpoints (an older checkout's port, under
+    ``--src``: from its states mode's hs), on inputs shaped like a Mamba
+    layer's (as ``check_ssm``), with and without a gradient on hT; two
+    launches give the same bits, and the chunk mode's hc is the states
+    mode's hs at the chunk boundaries.  Bound: the bytes the design must
+    move (x, dt, dy, B, C, A, D and the saved states in, the gradients
+    out), and beside it the same with the every-state hs saved."""
     def f(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)
                                 ).cuda()
@@ -1321,26 +1377,135 @@ def check_ssm_bwd(rng, label, B, T, E, N, xdtype):
     Bm, Cm, h0 = f(B, T, N), f(B, T, N), f(B, E, N)
     A = -torch.exp(f(E, N) * 0.2)
     D = torch.ones(E, device="cuda")
-    _y, _hT, hs = SS.ssm_scan(x, dt, Bm, Cm, A, D, h0, return_states=True)
+    ins = (x, dt, Bm, Cm, A, D, h0)
+    chunked = hasattr(SS, "scan_chunk")
+    _y, _hT, hs = SS.ssm_scan(*ins, return_states=True)
+    if chunked:
+        K = SS.scan_chunk()
+        _y, _hT, saved = SS.ssm_scan(*ins, chunks=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(saved[:, 0], h0) and all(
+                torch.equal(saved[:, k], hs[:, k * K - 1])
+                for k in range(1, saved.shape[1]))):
+            raise AssertionError(f"ssm_scan chunks {label}: hc is not hs at "
+                                 "the chunk boundaries")
+        refkw = dict(chunk=K)
+        C = 128 // (N // 4)
+        blocks = -(-E // C) * -(-T // K) * B
+    else:
+        saved, refkw, blocks = hs, {}, None
+    hs_bytes, h0_bytes = hs.numel() * 4, h0.numel() * 4
+    del hs
     dy, dhT = f(B, T, E), f(B, E, N)
-    args = (x, dt, Bm, Cm, A, D, h0, hs, dy)
+    args = ins + (saved, dy)
     share, err = 0.0, 0.0
     for dh in (None, dhT):
         got = SS.ssm_scan_bwd(*args, dh)
-        want = ref.ssm_scan_bwd_ref(*args, dh)
+        want = ref.ssm_scan_bwd_ref(*args, dh, **refkw)
+        again = SS.ssm_scan_bwd(*args, dh)
         torch.cuda.synchronize()
         share = max(share, check_grads(f"ssm_scan_bwd {label}", got, want))
         err = max([err] + [(g.float() - w.float()).abs().max().item()
                            for g, w in zip(got, want)])
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ssm_scan_bwd {label}: two launches "
+                                 "differ")
     outs = SS.ssm_scan_bwd(*args, None)
-    nbytes = sum(t.numel() * t.element_size() for t in args + outs)
-    bms, by = bound(nbytes, 20 * B * T * E * N, torch.float32)
+    io = sum(t.numel() * t.element_size() for t in ins[:6] + (dy,) + outs)
+    work = 20 * B * T * E * N
+    saved_bytes = saved.numel() * 4 + (0 if chunked else h0_bytes)
+    bms, by = bound(io + saved_bytes, work, torch.float32)
+    hs_bms = bound(io + hs_bytes + h0_bytes, work, torch.float32)[0]
     ms = time_ms(lambda: SS.ssm_scan_bwd(*args, None))
-    plain = time_ms(lambda: ref.ssm_scan_bwd_ref(*args, None), iters=5,
-                    warmup=1)
+    plain = time_ms(lambda: ref.ssm_scan_bwd_ref(*args, None, **refkw),
+                    iters=5, warmup=1)
     # no single PyTorch call computes a selective scan's backward
     return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
-                plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by)
+                plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
+                hs_bound_ms=hs_bms, saved_mb=saved_bytes / 1e6,
+                hs_mb=hs_bytes / 1e6, blocks=blocks)
+
+
+def scan_bwd_cases(rng) -> list:
+    """Phase 2's scan backward cases: falcon-mamba-7b's training frame, a
+    tiny f32 one, T = 250 (not a multiple of the chunk), T = 20 (shorter
+    than one) and B = 2, at falcon's width but the tiny one."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [check_ssm_bwd(rng, SCAN_BWD_CASE, 1, 256, 8192, 16, bf),
+            check_ssm_bwd(rng, "tiny f32 B=16 T=64 E=128", 16, 64, 128, 16,
+                          f32),
+            check_ssm_bwd(rng, "falcon-7b B=1 T=250 E=8192", 1, 250, 8192,
+                          16, bf),
+            check_ssm_bwd(rng, "falcon-7b B=1 T=20 E=8192", 1, 20, 8192, 16,
+                          bf),
+            check_ssm_bwd(rng, "falcon-7b B=2 T=256 E=8192", 2, 256, 8192,
+                          16, bf)]
+
+
+def log_scan_bwd_rows(rows) -> None:
+    """The scan backward cases' extra columns: the bound had the every-state
+    hs been saved, the saved states' MB against hs's, the main stage's
+    blocks."""
+    for r in rows:
+        log(f"  {r['case']:32s} ms={r['ms']:.4f} bound={r['bound_ms']:.4f} "
+            f"hs_bound={r['hs_bound_ms']:.4f}; saved {r['saved_mb']:.2f} MB "
+            f"(hs {r['hs_mb']:.2f} MB); blocks {r['blocks']}; err "
+            f"{r['err_share']:.3f} of its bound")
+
+
+def phase_scan_bwd() -> None:
+    """``--scan-bwd``: phase 2's scan backward cases alone (with ``--src``,
+    of another checkout's kernel), the training forward's states and chunk
+    modes, and (this checkout's port) ``probe_scan_bwd``."""
+    rng = np.random.default_rng(0)
+    rows = scan_bwd_cases(rng)
+    fwd = train_fwd_cases(rng)
+    timing_floor()
+    log_scan_bwd_rows(rows)
+    for r in fwd:
+        log(f"  {r['case']:32s} ms={r['ms']:.4f} bound={r['bound_ms']:.4f}")
+    if hasattr(SS, "scan_chunk"):
+        probe_scan_bwd()
+
+
+def probe_scan_bwd() -> None:
+    """The backward at falcon's training frame phase by phase, from
+    variants built with -DREPRO_SCAN_BWD_STOP (1: the carry stage only;
+    2: the main stage's staging copies only; 3: all but the reduction),
+    and whole with the other chunk lengths of 16, 32 and 64 steps
+    (-DREPRO_SCAN_CHUNK), beside this build's whole call."""
+    import ctypes
+    rng = np.random.default_rng(1)
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).cuda()
+    B, T, E, N = 1, 256, 8192, 16
+    ins = (f(B, T, E).to(torch.bfloat16), F.softplus(f(B, T, E)),
+           f(B, T, N), f(B, T, N), -torch.exp(f(E, N) * 0.2),
+           torch.ones(E, device="cuda"), f(B, E, N))
+    dy = f(B, T, E)
+
+    def call():
+        hc = SS.ssm_scan(*ins, chunks=True)[2]
+        return lambda: SS.ssm_scan_bwd(*ins, hc, dy)
+    K = SS.scan_chunk()
+    out = {f"whole (K={K})": time_ms(call())}
+    saved = build._lib
+    try:
+        for defines, what in (
+                (("-DREPRO_SCAN_BWD_STOP=1",), "carry stage only"),
+                (("-DREPRO_SCAN_BWD_STOP=2",), "main-stage staging only"),
+                (("-DREPRO_SCAN_BWD_STOP=3",), "without the reduction"),
+                *(((f"-DREPRO_SCAN_CHUNK={k}",), f"whole (K={k})")
+                  for k in (16, 32, 64) if k != K)):
+            build._lib = build.bind(ctypes.CDLL(str(build.build(
+                ("ssm_scan.cu", "ssm_scan_bwd.cu"), defines))))
+            out[what] = time_ms(call())
+    finally:
+        build._lib = saved
+    for k, v in out.items():
+        log(f"  scan-bwd probe {SCAN_BWD_CASE}: {k:24s} ms={v:.4f}")
 
 
 def draft_frame(Lp: int, K: int, A: int):
@@ -1443,14 +1608,10 @@ def probe_flash_bwd() -> None:
 
 
 def phase_kernels_bwd(rng) -> dict:
-    """Phase 2's backward cases: ``flash_bwd_cases``, then the scan
-    backward at falcon-mamba-7b's width and a tiny f32 one."""
-    bf, f32 = torch.bfloat16, torch.float32
+    """Phase 2's backward cases: ``flash_bwd_cases``, then
+    ``scan_bwd_cases``."""
     fl = flash_bwd_cases(rng)
-    ss = [check_ssm_bwd(rng, SCAN_BWD_CASE, 1, 256, 8192, 16, bf),
-          check_ssm_bwd(rng, "tiny f32 B=16 T=64 E=128", 16, 64, 128, 16,
-                        f32)]
-    return {"flash_attention_bwd": fl, "ssm_scan_bwd": ss}
+    return {"flash_attention_bwd": fl, "ssm_scan_bwd": scan_bwd_cases(rng)}
 
 
 def phase_kernel_api(cases, totals) -> dict:
@@ -1579,21 +1740,16 @@ def phase_kernels() -> dict:
     # slot Rg - 1, one pad lane) and a lapping prefill; the verify with
     # every row full, with a V its split does not divide, and at gemma3-4b's
     # vocabulary (16 blocks per row, the non-portable cluster)
-    lanes = dict(p0=[0, 37, FALCON_RING - 2, 0, 12, 55, 90, 3],
-                 rows=[5, 0, 7, 2, -1, 1, 6, 3])
-    rr = [check_ssm_ring(rng, FALCON_RING_CASE, 8, 16, 8192, 16,
-                         FALCON_RING, 8, bf16, **lanes),
-          check_ssm_ring(rng, "falcon-7b serve B=8 T=8 Rg=92", 8, 8, 8192,
-                         16, FALCON_RING, 8, bf16, **lanes),
-          check_ssm_ring(rng, "lapping prefill B=4 T=130 E=1024 Rg=92", 4,
-                         130, 1024, 16, 92, 6, bf16, p0=[0, 0, 7, 0],
-                         rows=[4, 1, 0, -1])]
+    rr = falcon_ring_cases(rng) + [
+        check_ssm_ring(rng, "lapping prefill B=4 T=130 E=1024 Rg=92", 4,
+                       130, 1024, 16, 92, 6, bf16, p0=[0, 0, 7, 0],
+                       rows=[4, 1, 0, -1])]
     ver.append(check_verify(rng, "llama V=32000 B=8 R=16 full", 8, 16,
                             32000, lens_to=16))
     ver.append(check_verify(rng, "V=30011 B=8 R=16", 8, 16, 30011))
     ver.append(check_verify(rng, "gemma3-4b V=262144 B=4 R=6", 4, 6,
                             262144))
-    ss += carry_cases(rng)
+    ss += carry_cases(rng) + [train_fwd_chunks(rng)]
     # the dense backend's flash shapes (phase 11's 7B serve: the target's
     # 8 rows verifying a bucket-8 chunk and prefilling a 16-wide rung on a
     # fresh 512-slot view, the 68M draft's 56 rows ticking) and the swap
@@ -1694,6 +1850,7 @@ def phase_kernels() -> dict:
             + (f" live_rows={r['live_rows']}" if "live_rows" in r else "")
             + (f" glue={r['glue_ms']:.4f}" if "glue_ms" in r else ""))
     log_bwd_rows(bwd["flash_attention_bwd"])
+    log_scan_bwd_rows(bwd["ssm_scan_bwd"])
     return {"paged_attention": att, "verify_accept_batched": ver,
             "paged_gather": gat, "flash_attention": fl, "ssm_scan": ss,
             "ssm_scan_ring": rr, "branch_decode_attention": br,
@@ -1798,25 +1955,39 @@ def drive(pair, ecfg, prompts, n_new, dev, attn_backend="paged", **kw):
     return res, rep, counts, wall, eng
 
 
+# the tiny committed pair's batched drives of phases 3 and 11: (name,
+# temperature, epsilon, serve options); pools that preempt (SpS splits
+# its pages 1:1 between the decoders, SpecBranch 1:7, so SpS needs a
+# smaller total)
+TINY_N_NEW = 48
+TINY_POOL = {"specbranch": 200, "sps": 120}
+
+
+def tiny_drives(engine: str) -> tuple:
+    return (("greedy", 0.0, EPS, {}), ("temp1", 1.0, EPS, {}),
+            ("temp1-chains", 1.0, 0.0, {}),
+            ("preempt", 0.0, EPS, dict(page_size=4,
+                                       pool_pages=TINY_POOL[engine])))
+
+
 def phase_tiny(dev, totals) -> dict:
+    """Phase 3; ``out["served"]`` keeps each SpecBranch drive's results,
+    the paged serves phase 11 holds its dense ones against."""
     from repro_torch.training.pairs import get_pair
     pair = get_pair("misaligned", device=dev,
                     cache_dir=os.path.join(ROOT, ".cache", "pairs"))
     prompts = SV.make_prompts(4)
-    n_new = 48
+    n_new = TINY_N_NEW
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
     greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
-    out = {}
-    for name, temp, eps, kw in (("greedy", 0.0, EPS, {}),
-                                ("temp1", 1.0, EPS, {}),
-                                ("temp1-chains", 1.0, 0.0, {}),
-                                ("preempt", 0.0, EPS, dict(page_size=4,
-                                                           pool_pages=200))):
+    out = {"served": {}}
+    for name, temp, eps, kw in tiny_drives("specbranch"):
         ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
                             epsilon=eps, max_len=max_len)
         with VerifyShadow() as sh:
             res, rep, counts, wall, _ = drive(pair, ecfg, prompts, n_new,
                                               dev, **kw)
+        out["served"][name] = res
         for k, v in counts.items():
             totals[k] += v
         log(f"  tiny {name}: rounds={rep['rounds']} "
@@ -2835,10 +3006,12 @@ def first_diff(a, b) -> dict:
                     == len(b[i].tokens) else 0) for i in a}
 
 
-def phase_dense_tiny(dev, totals) -> dict:
+def phase_dense_tiny(dev, totals, paged_served=None) -> dict:
     """Batched SpecBranch and SpS on the dense backend, tiny committed
     pair: every drive's streams must equal the same serve on the CPU
-    (dense) and the card's own paged serve (the reference's oracle);
+    (dense) and the card's own paged serve (the reference's oracle; for
+    SpecBranch phase 3's drives, ``paged_served`` by name, where given:
+    the same serves);
     greedy streams the target's greedy decode; temperature-1 verdicts are
     shadowed as in phase 3; the SpecBranch preempting pool must swap and
     read the swap back through the gather kernel.  Then the jamba-shaped
@@ -2849,17 +3022,12 @@ def phase_dense_tiny(dev, totals) -> dict:
                     cache_dir=os.path.join(ROOT, ".cache", "pairs"))
     cpu = cpu_pair()
     prompts = SV.make_prompts(4)
-    n_new = 48
+    n_new = TINY_N_NEW
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
     greedy = M.greedy_reference(pair[2], pair[3], prompts, n_new)
     out = {}
-    # pools that preempt (SpS splits its pages 1:1 between the decoders,
-    # SpecBranch 1:7, so SpS needs a smaller total)
-    for engine, pool in (("specbranch", 200), ("sps", 120)):
-        for name, temp, eps, kw in (
-                ("greedy", 0.0, EPS, {}), ("temp1", 1.0, EPS, {}),
-                ("temp1-chains", 1.0, 0.0, {}),
-                ("preempt", 0.0, EPS, dict(page_size=4, pool_pages=pool))):
+    for engine in ("specbranch", "sps"):
+        for name, temp, eps, kw in tiny_drives(engine):
             label = f"dense tiny {engine} {name}"
             ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
                                 epsilon=eps, max_len=max_len)
@@ -2871,8 +3039,12 @@ def phase_dense_tiny(dev, totals) -> dict:
             del eng
             for k, v in counts.items():
                 totals[k] += v
-            paged = SV.serve(pair, ecfg, prompts, n_new, device=dev,
-                             attn_backend="paged", engine=engine, **kw)[0]
+            paged = (paged_served or {}).get(name) if (
+                engine == "specbranch") else None
+            if paged is None:
+                paged = SV.serve(pair, ecfg, prompts, n_new, device=dev,
+                                 attn_backend="paged", engine=engine,
+                                 **kw)[0]
             on_cpu = SV.serve(cpu, ecfg, prompts, n_new, device="cpu",
                               attn_backend="dense", engine=engine, **kw)[0]
             d_paged, d_cpu = first_diff(res, paged), first_diff(res, on_cpu)
@@ -4589,7 +4761,12 @@ def train_full(label, cfg, dev, totals, batch, seq, micro, steps,
             prof["p"].__exit__(None, None, None)
             evs, busy, by_name = device_events(prof["p"])
             bwd = [e.duration_ns() for e in evs if "flash_bwd" in e.name()]
+            scan = [e.duration_ns() for e in evs if "ssm_" in e.name()]
+            scan_bwd = [e.duration_ns() for e in evs
+                        if "ssm_bwd" in e.name()]
             prof["stats"] = dict(
+                scan_ms=sum(scan) / 1e6, scan_bwd_ms=sum(scan_bwd) / 1e6,
+                scan_kernels=len(scan),
                 wall_s=wall, busy_share=busy / 1e9 / wall,
                 device_s=sum(by_name.values()) / 1e9,
                 top=[(n, t / 1e6) for n, t in sorted(
@@ -4628,8 +4805,11 @@ def train_full(label, cfg, dev, totals, batch, seq, micro, steps,
             f"{st['device_s']:.3f} s; flash backward kernels "
             f"{st['flash_bwd_ms']:.1f} ms in {st['flash_bwd_kernels']} "
             f"kernel events over {st['flash_bwd_calls']} calls (a late "
-            "profiler session of one process may lose events); top "
-            "kernels (ms):")
+            "profiler session of one process may lose events); the scan's "
+            f"kernels {st['scan_ms']:.1f} ms "
+            f"({st['scan_ms'] / 1e3 / max(st['device_s'], 1e-9):.3f} of "
+            f"device time; backward {st['scan_bwd_ms']:.1f} ms) in "
+            f"{st['scan_kernels']} kernel events; top kernels (ms):")
         for n, t in st["top"]:
             log(f"    {t:9.2f}  {n}")
     return dict(loss=rep["loss"], step_s=rep["seconds"], peak_gb=peak,
@@ -4658,7 +4838,7 @@ def phase_train_falcon(dev, totals) -> dict:
     """(d) falcon-mamba-7b at full width with its depth cut to 16 of 64
     layers (four bf16 copies of its ~7B parameters, ~56 GB, would leave
     no room for activations): 2 steps of 2 x 257 tokens in 2
-    micro-batches."""
+    micro-batches, the second profiled (the scan kernels' share)."""
     from repro_torch.configs import get_config
     cfg = get_config("falcon-mamba-7b")
     if (cfg.num_layers, cfg.d_model) != (64, 4096):
@@ -4666,7 +4846,8 @@ def phase_train_falcon(dev, totals) -> dict:
     cfg = cfg.replace(num_layers=FALCON_TRAIN["layers"])
     res = train_full("falcon-mamba-7b/16", cfg, dev, totals,
                      FALCON_TRAIN["batch"], FALCON_TRAIN["seq"],
-                     FALCON_TRAIN["micro"], FALCON_TRAIN["steps"])
+                     FALCON_TRAIN["micro"], FALCON_TRAIN["steps"],
+                     profile=True)
     if res["launches"]["ssm_scan_bwd"] == 0:
         raise AssertionError("falcon-mamba-7b: the scan backward did not run")
     return res
@@ -4676,7 +4857,8 @@ def log_ptxas(ptx: str) -> None:
     """Registers and spills of every kernel the build compiled, from
     ``nvcc -Xptxas -v``; the decode loop's variants (decode, and flash's
     wide block) by addressing struct, dtype, head dim and ring stages,
-    the scan's by N, x dtype and entry (carry, states, ring), the
+    the scan's by N, x dtype and entry (carry, states, ring, chunks), the
+    scan backward's by kernel, N and x dtype, the
     verify's by entry and logit dtype, the flash backward's by kernel,
     head dim and dtype."""
     name, spill = "?", ""
@@ -4693,7 +4875,8 @@ def log_ptxas(ptx: str) -> None:
                           r"Li(\d)E", name)
             if m:
                 dt = "bf16" if "bfloat" in m.group(2) else "f32"
-                mode = ("carry", "states", "ring")[int(m.group(3))]
+                mode = ("carry", "states", "ring", "chunks")[
+                    int(m.group(3))]
                 name = f"ssm_scan N={m.group(1)} x {dt} {mode}"
             m = re.search(r"(flash_bwd_(?:dq_mma|dkdv_mma|dq_merge|dkdv_reduce"
                           r"|rows|dq|dkdv|spans)"
@@ -4702,6 +4885,13 @@ def log_ptxas(ptx: str) -> None:
                 name = (m.group(1) + (f" hd={m.group(2)}" if m.group(2)
                                       else "")
                         + (" f32" if m.group(3) else " bf16"))
+            m = re.search(r"(ssm_bwd_(?:local|join|main|reduce)_kernel)"
+                          r"(?:ILi(\d+)E(13__nv_bfloat16|f)?)?", name)
+            if m:
+                name = (m.group(1) + (f" N={m.group(2)}" if m.group(2)
+                                      else "")
+                        + ({"f": " x f32", None: ""}.get(m.group(3),
+                                                          " x bf16")))
             m = re.search(r"verify_accept_(batched_)?kernel(I13__nv_bfloat16"
                           r"|If)?E", name)
             if m:
@@ -4741,6 +4931,10 @@ def main() -> int:
         log(f"[flash-bwd] phase 2's flash backward cases, port from {SRC}")
         phase_flash_bwd()
         return 3                # no smoke result
+    if "--scan-bwd" in sys.argv[1:]:
+        log(f"[scan-bwd] phase 2's scan backward cases, port from {SRC}")
+        phase_scan_bwd()
+        return 3                # no smoke result
     if "--probe" in sys.argv[1:]:
         log("[probe] attention tile loop phase by phase")
         phase_probe()
@@ -4767,7 +4961,7 @@ def main() -> int:
         phase_train(dev, totals)
         return 3                # phases 1-2 and 16 only: no smoke result
     log_phase("[3] tiny committed pair, f32")
-    phase_tiny(dev, totals)
+    tiny = phase_tiny(dev, totals)
     log_phase("[4] full-width LLaMA-68M/7B pair, bf16, random weights")
     pair = SV.load_pair("paper-llama", dev)
     without = {"batched": phase_full(dev, totals, pair)}
@@ -4794,7 +4988,7 @@ def main() -> int:
     log_phase("[11] dense backend: tiny committed and jamba-shaped pairs "
               "(f32), full-width LLaMA-68M/7B (bf16)")
     free_device_memory()
-    phase_dense_tiny(dev, totals)
+    phase_dense_tiny(dev, totals, tiny["served"])
     phase_dense_full(dev, totals, pair, without["batched"]["profile"])
     log_phase("[12] trace recorder: full-width LLaMA-68M/7B batched "
               "SpecBranch, untraced and traced under the CUDA profiler "

@@ -1,4 +1,4 @@
-// Mamba-1 selective scan for Hopper (sm_90a), two entry points over one
+// Mamba-1 selective scan for Hopper (sm_90a), three entry points over one
 // kernel body.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssm_scan.py::ssm_scan
@@ -10,6 +10,16 @@
 // - repro_ssm_scan: h0 (B, E, N) in; y (B, T, E), hT (B, E, N) and, when
 //   asked for, hs (B, T, E, N) out (the post-step carry at every
 //   position).  The carry and cache-less Mamba paths call it.
+// - repro_ssm_scan_chunks: as repro_ssm_scan, but in place of hs it writes
+//   only the state that enters each chunk of K = kScanChunk steps (fixed
+//   at compile time in ssm_scan_step.cuh), hc (B, ceil(T/K), E, N) with
+//   hc[:, k] = h_{kK-1} (hc[:, 0] = h0): the checkpoints the
+//   backward kernel (ssm_scan_bwd.cu) recomputes each chunk's states from,
+//   as the reference's training path (layers.mamba's chunked lax.scan
+//   under jax.checkpoint) saves only the chunk boundaries.  At
+//   falcon-mamba-7b's training frame (T = 256, E = 8192, N = 16) and the
+//   backward's K = 16 that is 8.4 MB in place of hs's 134 MB.  The
+//   checkpoints are written between runs of min(K, 32) steps.
 // - repro_ssm_scan_ring: the serving layer's checkpoint ring
 //   h_ring (rows, Rg, E, N), addressed in place.  Lane b starts from
 //   h_ring[row_b, p0_b % Rg], or from zeros where p0_b == 0 or row_b < 0
@@ -41,16 +51,32 @@
 // row (grid (ceil(E / channels), B)) and stages a chunk of kTc timesteps
 // of x, dt, B and C in shared memory with coalesced loads, all issued
 // before one barrier, so the recurrence reads no device memory but its A
-// and h0 row at the start.  N is a template parameter over {4, 8, 16};
-// expf (not __expf) keeps the plain version's rounding within 2e-5.
+// and h0 row at the start.  N is a template parameter over {4, 8, 16}.
+// The step itself (ssm_step in ssm_scan_step.cuh; expf, not __expf, keeps
+// the plain version's rounding within 2e-5) is shared with the backward
+// kernel, which recomputes its states with the same arithmetic.  The step
+// loop goes in runs of S steps (kTc, or K in the chunk mode), a whole
+// run unrolled in full and a partial one by 8, in every mode: at the
+// latency-bound training frame (B = 1, T = 256, two blocks an SM) the
+// chunk mode takes 0.057 ms, against 0.075 with no unrolling, 0.062
+// unrolled by 8 with K a run-time argument and 0.070 with it fixed at
+// compile time.  Against the loop not unrolled: the cache-less carry
+// (B = 8, T = 48) and the falcon serve's ring at T = 16 gain 4-5%, the
+// engines' carry shapes and the states mode hold within noise, and the
+// ring at T = 8 (a partial run) loses 2.4%, 0.0209-0.0210 ms against
+// 0.0204-0.0205 (PERF.md row 7).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "ssm_scan_step.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTc = 32;         // timesteps of x / dt / B / C per chunk
+static_assert(kScanChunk % kTc == 0 || kTc % kScanChunk == 0,
+              "a checkpoint falls between two staged runs of steps");
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float load_x(const float* p, size_t i) {
@@ -61,7 +87,7 @@ __device__ __forceinline__ float load_x(const __nv_bfloat16* p, size_t i) {
 }
 
 // where the initial state comes from and where the states go
-enum Mode { kCarry = 0, kStates = 1, kRing = 2 };
+enum Mode { kCarry = 0, kStates = 1, kRing = 2, kChunks = 3 };
 
 struct Ring {
   float* h;            // (rows, Rg, E, N)
@@ -114,6 +140,14 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
           ring.h + ((size_t)row * ring.Rg + slot) * E * N + ch);
     d = Dv[e];
   }
+  // kChunks: hs is hc (B, nC, E, N), written between runs of S steps
+  // (S = K or kTc, whichever is shorter; the other a multiple of it), so
+  // the step loop is the carry mode's own
+  constexpr int K = kScanChunk;
+  constexpr int S = MODE == kChunks && K < kTc ? K : kTc;
+  const int nC = MODE == kChunks ? (T + K - 1) / K : 0;
+  if (MODE == kChunks && live && T > 0)
+    *reinterpret_cast<float4*>(hs + (size_t)b * nC * E * N + ch) = h;
 
   const size_t bt0 = (size_t)b * T;           // (b, t) row index base
   for (int t0 = 0; t0 < T; t0 += kTc) {
@@ -133,31 +167,43 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
     __syncthreads();
     // every lane runs every step (dead channels on zeros): the group
     // reduction below shuffles over the full warp
-    for (int j = 0; j < tc; ++j) {
-      const float xv = sx[j * C + c];
-      const float dv = sdt[j * C + c];
-      const float u = dv * xv;
-      const float4 bj = *reinterpret_cast<const float4*>(sB + j * N + 4 * g);
-      const float4 cj = *reinterpret_cast<const float4*>(sC + j * N + 4 * g);
-      h.x = expf(dv * a.x) * h.x + u * bj.x;
-      h.y = expf(dv * a.y) * h.y + u * bj.y;
-      h.z = expf(dv * a.z) * h.z + u * bj.z;
-      h.w = expf(dv * a.w) * h.w + u * bj.w;
-      float acc = h.x * cj.x + h.y * cj.y + h.z * cj.z + h.w * cj.w;
+    for (int j0 = 0; j0 < tc; j0 += S) {
+      const int j1 = min(j0 + S, tc);
+      auto step = [&](int j) {
+        const float xv = sx[j * C + c];
+        const float dv = sdt[j * C + c];
+        const float4 bj =
+            *reinterpret_cast<const float4*>(sB + j * N + 4 * g);
+        const float4 cj =
+            *reinterpret_cast<const float4*>(sC + j * N + 4 * g);
+        ssm_step(h, a, dv, xv, bj);
+        float acc = h.x * cj.x + h.y * cj.y + h.z * cj.z + h.w * cj.w;
 #pragma unroll
-      for (int off = 1; off < G; off <<= 1)
-        acc += __shfl_xor_sync(kFull, acc, off);
-      const int t = t0 + j;
-      const size_t xe = (bt0 + t) * E + e;
-      if (live && g == 0) y[xe] = acc + d * xv;
-      if (MODE == kStates && live)
-        *reinterpret_cast<float4*>(hs + xe * N + 4 * g) = h;
-      if (MODE == kRing) {
-        slot = slot + 1 == ring.Rg ? 0 : slot + 1;   // (p0 + t + 1) % Rg
-        if (live && store && t >= first_write)
-          *reinterpret_cast<float4*>(
-              ring.h + ((size_t)row * ring.Rg + slot) * E * N + ch) = h;
+        for (int off = 1; off < G; off <<= 1)
+          acc += __shfl_xor_sync(kFull, acc, off);
+        const int t = t0 + j;
+        const size_t xe = (bt0 + t) * E + e;
+        if (live && g == 0) y[xe] = acc + d * xv;
+        if (MODE == kStates && live)
+          *reinterpret_cast<float4*>(hs + xe * N + 4 * g) = h;
+        if (MODE == kRing) {
+          slot = slot + 1 == ring.Rg ? 0 : slot + 1;   // (p0 + t + 1) % Rg
+          if (live && store && t >= first_write)
+            *reinterpret_cast<float4*>(
+                ring.h + ((size_t)row * ring.Rg + slot) * E * N + ch) = h;
+        }
+      };
+      if (j1 - j0 == S) {      // a whole run: unrolled in full
+#pragma unroll
+        for (int j = 0; j < S; ++j) step(j0 + j);
+      } else {
+#pragma unroll 8
+        for (int j = j0; j < j1; ++j) step(j);
       }
+      const int tn = t0 + j1;          // steps run so far
+      if (MODE == kChunks && live && tn % K == 0 && tn < T)
+        *reinterpret_cast<float4*>(hs + ((size_t)b * nC + tn / K) * E * N +
+                                   ch) = h;
     }
   }
   if (MODE != kRing && live)
@@ -181,6 +227,10 @@ int launch(int mode, const void* x, const float* dt, const float* Bm,
       ssm_scan_kernel<N, XT, kStates><<<grid, kThreads, 0, s>>>(
           xp, dt, Bm, Cm, A, D, h0, y, hT, hs, ring, T, E);
       return 0;
+    case kChunks:
+      ssm_scan_kernel<N, XT, kChunks><<<grid, kThreads, 0, s>>>(
+          xp, dt, Bm, Cm, A, D, h0, y, hT, hs, ring, T, E);
+      return 0;
     default:
       ssm_scan_kernel<N, XT, kRing><<<grid, kThreads, 0, s>>>(
           xp, dt, Bm, Cm, A, D, h0, y, hT, hs, ring, T, E);
@@ -192,7 +242,8 @@ template <typename XT>
 int dispatch_n(int N, int mode, const void* x, const float* dt,
                const float* Bm, const float* Cm, const float* A,
                const float* D, const float* h0, float* y, float* hT,
-               float* hs, Ring ring, int B, int T, int E, cudaStream_t s) {
+               float* hs, Ring ring, int B, int T, int E,
+               cudaStream_t s) {
   switch (N) {
     case 4:
       return launch<4, XT>(mode, x, dt, Bm, Cm, A, D, h0, y, hT, hs, ring,
@@ -238,6 +289,24 @@ extern "C" int repro_ssm_scan(const void* x, const float* dt, const float* Bm,
              E, stream);
 }
 
+// The chunk length K of the chunk-checkpoint entry (kScanChunk): hc has
+// ceil(T / K) chunks, and the backward kernel recomputes each from it.
+extern "C" int repro_ssm_scan_chunk() { return kScanChunk; }
+
+// The chunk-checkpoint entry: as repro_ssm_scan, with hc (B, ceil(T/K),
+// E, N) f32 in place of hs, K = repro_ssm_scan_chunk(): hc[:, k] is the
+// state entering step kK (hc[:, 0] = h0).  Returns cudaGetLastError(),
+// or -1 for an N it does not take.
+extern "C" int repro_ssm_scan_chunks(const void* x, const float* dt,
+                                     const float* Bm, const float* Cm,
+                                     const float* A, const float* D,
+                                     const float* h0, float* y, float* hT,
+                                     float* hc, int B, int T, int E, int N,
+                                     int x_bf16, void* stream) {
+  return run(N, kChunks, x_bf16, x, dt, Bm, Cm, A, D, h0, y, hT, hc,
+             Ring{nullptr, nullptr, 0, nullptr, 1}, B, T, E, stream);
+}
+
 // The ring entry: x, dt, Bm, Cm, A, D as above; h_ring (rows, Rg, E, N)
 // f32, read and written in place; p0 start positions (>= 0) at
 // p0[b * p0_stride], int32; rows (B,) int32 ring rows (< 0: a pad lane),
@@ -251,6 +320,5 @@ extern "C" int repro_ssm_scan_ring(const void* x, const float* dt,
                                    int Rg, int B, int T, int E, int N,
                                    int x_bf16, void* stream) {
   return run(N, kRing, x_bf16, x, dt, Bm, Cm, A, D, nullptr, y, nullptr,
-             nullptr, Ring{h_ring, p0, p0_stride, rows, Rg}, B, T, E,
-             stream);
+             nullptr, Ring{h_ring, p0, p0_stride, rows, Rg}, B, T, E, stream);
 }

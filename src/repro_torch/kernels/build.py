@@ -28,7 +28,7 @@ from typing import Dict, Optional
 SOURCES = ("paged_attention.cu", "verify_accept.cu", "paged_gather.cu",
            "flash_attention.cu", "ssm_scan.cu", "branch_attention.cu",
            "flash_attention_bwd.cu", "ssm_scan_bwd.cu")
-HEADERS = ("decode_attention.cuh",)  # hashed with the sources
+HEADERS = ("decode_attention.cuh", "ssm_scan_step.cuh")  # hashed too
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -131,11 +131,13 @@ def _signatures() -> Dict[str, tuple]:
         "repro_flash_attention": ([P] * 7 + [I] * 11 + [F, F, I, P], I),
         "repro_ssm_scan": ([P] * 10 + [I] * 5 + [P], I),
         "repro_ssm_scan_ring": ([P] * 10 + [I] * 7 + [P], I),
+        "repro_ssm_scan_chunks": ([P] * 10 + [I] * 5 + [P], I),
+        "repro_ssm_scan_chunk": ([], I),
         "repro_branch_attention": ([P] * 9 + [I] * 9 + [F, F, I, P], I),
         "repro_verify_accept": ([P] * 9 + [I] * 4 + [P], I),
         "repro_flash_attention_bwd": ([P] * 13 + [I] * 8 + [F, F, I, P], I),
-        "repro_ssm_scan_bwd": ([P] * 20 + [I] * 5 + [P], I),
-        "repro_ssm_scan_bwd_blocks": ([I, I], I),
+        "repro_ssm_scan_bwd": ([P] * 17 + [I] * 5 + [P], I),
+        "repro_ssm_scan_bwd_scratch": ([I] * 4, ctypes.c_longlong),
     }
 
 

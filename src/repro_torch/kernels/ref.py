@@ -20,7 +20,8 @@ broadcast prefix concatenated with each branch's suffix) and
 ``flash_attention_bwd_ref`` and ``ssm_scan_bwd_ref`` are the explicit
 backwards of the flash and scan kernels, written out step by step (the
 reference has no backward kernel: it differentiates ``attend`` and the
-scan with ``jax.value_and_grad``); the card holds the two backward
+chunked scan with ``jax.value_and_grad``; the scan's, like the
+reference's, starts from chunk checkpoints); the card holds the two backward
 kernels against them, and the CPU tests hold them against
 ``torch.autograd.grad`` of the plain forwards and ``jax.vjp`` of the
 reference's.
@@ -224,13 +225,18 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                  Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-                 h0: torch.Tensor, *, return_states: bool = False
-                 ) -> Tuple[torch.Tensor, ...]:
+                 h0: torch.Tensor, *, return_states: bool = False,
+                 chunk: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """Sequential selective scan, h_t = exp(dt_t A) h_{t-1} + (dt_t x_t)
     B_t and y_t = <h_t, C_t> + D x_t, in float32.  x, dt (B, T, E); Bm,
     Cm (B, T, N); A (E, N); D (E,); h0 (B, E, N).  Returns (y (B, T, E),
     hT (B, E, N)); with ``return_states`` also hs (B, T, E, N), the
-    post-step carry after every position."""
+    post-step carry after every position; with ``chunk=K`` instead the
+    chunk checkpoints hc (B, ceil(T/K), E, N), the state entering each
+    chunk of K steps: hc[:, 0] = h0, hc[:, k] = hs[:, kK - 1]."""
+    if return_states and chunk:
+        raise ValueError("ssm_scan_ref: return_states and chunk exclude "
+                         "each other")
     xf = x.float()
     dtf = dt.float()
     decay = torch.exp(dtf[..., None] * A.float())              # (B,T,E,N)
@@ -245,17 +251,25 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     y = torch.einsum("bten,btn->bte", hs_t, Cm.float()) + D.float() * xf
     if return_states:
         return y, h, hs_t
+    if chunk:
+        T = x.shape[1]
+        n_chunks = -(-T // chunk)                # 0 when T == 0
+        hc = torch.cat([h0.float()[:, None], hs_t[:, chunk - 1:T - 1:chunk]],
+                       dim=1)[:, :n_chunks]
+        return y, h, hc
     return y, h
 
 
 def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                      Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-                     h0: torch.Tensor, hs: torch.Tensor, dy: torch.Tensor,
-                     dhT: Optional[torch.Tensor] = None
+                     h0: torch.Tensor, hc: torch.Tensor, dy: torch.Tensor,
+                     dhT: Optional[torch.Tensor] = None, *, chunk: int
                      ) -> Tuple[torch.Tensor, ...]:
-    """The backward of ``ssm_scan_ref``'s (y, hT), written out as the
-    reverse recurrence over the forward's states hs (B, T, E, N): with
-    a_t = exp(dt_t A) and g_t the total gradient reaching h_t
+    """The backward of ``ssm_scan_ref``'s (y, hT) from its chunk
+    checkpoints hc (B, ceil(T/chunk), E, N) (``ssm_scan_ref(...,
+    chunk=chunk)``): each chunk's states hs are recomputed with the plain
+    forward from its checkpoint, then the reverse recurrence runs over
+    them: with a_t = exp(dt_t A) and g_t the total gradient reaching h_t
     (g_{T-1} = dhT + dy_{T-1} C_{T-1}, g_t = a_{t+1} g_{t+1} + dy_t C_t),
 
         dx_t = dy_t D + dt_t <g_t, B_t>,
@@ -265,6 +279,12 @@ def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         dh0 = a_0 g_0.
 
     Returns (dx in x's dtype, ddt, dBm, dCm, dA, dD, dh0) in float32."""
+    hs = [ssm_scan_ref(x[:, t0:t0 + chunk], dt[:, t0:t0 + chunk],
+                       Bm[:, t0:t0 + chunk], Cm[:, t0:t0 + chunk], A, D,
+                       hc[:, k], return_states=True)[2]
+          for k, t0 in enumerate(range(0, x.shape[1], chunk))]
+    hs = (torch.cat(hs, dim=1) if hs else
+          hc.new_zeros((x.shape[0], 0) + tuple(hc.shape[2:])))
     xf, dtf = x.float(), dt.float()
     Bf, Cf, Af = Bm.float(), Cm.float(), A.float()
     dyf = dy.float()

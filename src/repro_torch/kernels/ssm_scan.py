@@ -6,16 +6,21 @@ Mamba-1 recurrence h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t, y_t =
 x (B, T, E) float32 or bfloat16; dt (B, T, E), Bm and Cm (B, T, N), A
 (E, N) and D (E,) float32.  ``ssm_scan`` takes h0 (B, E, N) and returns
 (y (B, T, E), hT (B, E, N)) in float32 and, with ``return_states``, hs
-(B, T, E, N): the post-step carry at every position.  ``ssm_scan_ring``
-reads its initial state from, and writes its checkpoints into, a
-serving checkpoint ring h_ring (rows, Rg, E, N) in place, and returns y
-only.
+(B, T, E, N): the post-step carry at every position; with ``chunks``
+(the chunk mode) hc (B, ceil(T/K), E, N) instead: the state entering
+each chunk of K = ``scan_chunk()`` steps (hc[:, 0] = h0), K fixed when
+the kernels are built.  ``ssm_scan_ring`` reads its
+initial state from, and writes its checkpoints into, a serving
+checkpoint ring h_ring (rows, Rg, E, N) in place, and returns y only.
 
-``ssm_scan_bwd`` launches the backward kernel (``csrc/ssm_scan_bwd.cu``,
-the reverse recurrence over the forward's states) and ``SsmScanFn`` joins
-the carry mode to it for autograd: its forward launches the states mode
-(one launch) and saves hs (B, T, E, N) float32 for its backward.  The
-ring entry serves only and has no backward.
+``ssm_scan_bwd`` launches the backward kernel (``csrc/ssm_scan_bwd.cu``:
+each chunk's states recomputed from hc, the chunks walked backward in
+parallel from carries joined across them) and ``SsmScanFn`` joins the
+carry mode to it for autograd: its forward launches the chunk mode (one
+launch) and saves hc,
+never a (B, T, E, N) tensor, as the reference's training path saves
+only its chunk boundaries.  The ring entry serves only and has no
+backward.
 """
 from __future__ import annotations
 
@@ -54,38 +59,56 @@ def _check_scan(fn: str, x, dt, Bm, Cm, A, D, extra) -> None:
             raise ValueError(f"{fn}: {name} is on {t.device}")
 
 
+def scan_chunk() -> int:
+    """The chunk length K of the loaded library's chunk checkpoints (a
+    compile-time constant of the forward and backward kernels): hc has
+    ceil(T / K) chunks."""
+    return build.lib().repro_ssm_scan_chunk()
+
+
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-             h0: torch.Tensor, *, return_states: bool = False
-             ) -> Tuple[torch.Tensor, ...]:
-    """Launch the kernel on CUDA tensors.  Raises ``ValueError`` for an N
-    outside {4, 8, 16}, a dtype or shape it does not take, a
-    non-contiguous tensor or a tensor off the card (checked in that
-    order); ``RuntimeError`` on a launch error."""
+             h0: torch.Tensor, *, return_states: bool = False,
+             chunks: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Launch the kernel on CUDA tensors: (y, hT), plus hs with
+    ``return_states`` or hc with ``chunks`` (not both).  Raises
+    ``ValueError`` for an N outside {4, 8, 16}, a dtype or shape it does
+    not take, a non-contiguous tensor or a tensor off the card (checked in
+    that order); ``RuntimeError`` on a launch error."""
     if x.dim() != 3:
         raise ValueError(f"ssm_scan: x must be (B, T, E), got "
                          f"{tuple(x.shape)}")
+    if return_states and chunks:
+        raise ValueError("ssm_scan: return_states and chunks exclude each "
+                         "other")
     B, T, E = x.shape
     N = A.shape[-1]
     _check_scan("ssm_scan", x, dt, Bm, Cm, A, D, {"h0": (h0, (B, E, N))})
     dev = x.device
     y = torch.empty((B, T, E), dtype=torch.float32, device=dev)
     hT = torch.empty((B, E, N), dtype=torch.float32, device=dev)
-    hs = (torch.empty((B, T, E, N), dtype=torch.float32, device=dev)
-          if return_states else None)
+    states = None
+    if return_states:
+        states = torch.empty((B, T, E, N), dtype=torch.float32, device=dev)
+    elif chunks:
+        states = torch.empty((B, -(-T // scan_chunk()), E, N),
+                             dtype=torch.float32, device=dev)
+    out = (y, hT) if states is None else (y, hT, states)
     if B == 0 or E == 0:
-        return (y, hT, hs) if return_states else (y, hT)
+        return out
     L = build.lib()
-    with torch.cuda.device(dev):
-        rc = L.repro_ssm_scan(
-            x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+    args = (x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             A.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            hT.data_ptr(), hs.data_ptr() if hs is not None else None,
-            B, T, E, N, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            hT.data_ptr(), states.data_ptr() if states is not None else None,
+            B, T, E, N)
+    bf16 = int(x.dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = (L.repro_ssm_scan_chunks if chunks else L.repro_ssm_scan)(
+            *args, bf16, stream)
     build.check(rc, "ssm_scan")
     build.LAUNCHES["ssm_scan"] += 1
-    return (y, hT, hs) if return_states else (y, hT)
+    return out
 
 
 def ssm_scan_ring(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
@@ -141,12 +164,14 @@ def ssm_scan_ring(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
 
 def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                  Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-                 h0: torch.Tensor, hs: torch.Tensor, dy: torch.Tensor,
+                 h0: torch.Tensor, hc: torch.Tensor, dy: torch.Tensor,
                  dhT: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, ...]:
-    """Launch the backward kernel (one call: the reverse scan, then the
-    kernel that sums its block and row partials) on CUDA tensors: hs (B,
-    T, E, N) the forward's states, dy (B, T, E) and dhT (B, E, N) or None,
+    """Launch the backward kernel (one call, up to four kernels in order:
+    the chunks' local adjoints, their join into carries, the chunks'
+    recompute and reverse walk, the fixed-order sum of their partials) on
+    CUDA tensors: hc (B, ceil(T/K), E, N) the forward's chunk checkpoints
+    at K = ``scan_chunk()``, dy (B, T, E) and dhT (B, E, N) or None,
     float32.  Returns (dx in x's dtype, ddt, dBm, dCm, dA, dD, dh0) in
     float32.  Raises as ``ssm_scan`` does."""
     if x.dim() != 3:
@@ -154,11 +179,14 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                          f"{tuple(x.shape)}")
     B, T, E = x.shape
     N = A.shape[-1]
-    extra = {"h0": (h0, (B, E, N)), "hs": (hs, (B, T, E, N)),
-             "dy": (dy, (B, T, E))}
+    extra = {"h0": (h0, (B, E, N)), "dy": (dy, (B, T, E))}
     if dhT is not None:
         extra["dhT"] = (dhT, (B, E, N))
     _check_scan("ssm_scan_bwd", x, dt, Bm, Cm, A, D, extra)
+    # hc's shape names the library's K: checked once the rest is on the card
+    nC = -(-T // scan_chunk()) if T > 0 else 0
+    _check_scan("ssm_scan_bwd", x, dt, Bm, Cm, A, D,
+                {"hc": (hc, (B, nC, E, N))})
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     if B == 0 or E == 0 or T == 0:
@@ -167,7 +195,6 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                 torch.zeros_like(A), torch.zeros_like(D),
                 torch.zeros_like(h0) if dhT is None else dhT.clone())
     L = build.lib()
-    nblk = L.repro_ssm_scan_bwd_blocks(E, N)
     dx = torch.empty_like(x)
     ddt = torch.empty((B, T, E), **f32)
     dBm = torch.empty((B, T, N), **f32)
@@ -175,18 +202,15 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     dA = torch.empty((E, N), **f32)
     dD = torch.empty((E,), **f32)
     dh0 = torch.empty((B, E, N), **f32)
-    part_bc = torch.empty((B, T, nblk, 2 * N), **f32)
-    part_a = torch.empty((B, E, N), **f32)
-    part_d = torch.empty((B, E), **f32)
+    scratch = torch.empty((L.repro_ssm_scan_bwd_scratch(B, T, E, N),), **f32)
     with torch.cuda.device(dev):
         rc = L.repro_ssm_scan_bwd(
             x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            A.data_ptr(), D.data_ptr(), h0.data_ptr(), hs.data_ptr(),
-            dy.data_ptr(), dhT.data_ptr() if dhT is not None else None,
+            A.data_ptr(), D.data_ptr(), hc.data_ptr(), dy.data_ptr(),
+            dhT.data_ptr() if dhT is not None else None,
             dx.data_ptr(), ddt.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
-            dA.data_ptr(), dD.data_ptr(), dh0.data_ptr(), part_bc.data_ptr(),
-            part_a.data_ptr(), part_d.data_ptr(), B, T, E, N,
-            int(x.dtype == torch.bfloat16),
+            dA.data_ptr(), dD.data_ptr(), dh0.data_ptr(), scratch.data_ptr(),
+            B, T, E, N, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "ssm_scan_bwd")
     build.LAUNCHES["ssm_scan_bwd"] += 1
@@ -196,21 +220,22 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
 class SsmScanFn(torch.autograd.Function):
     """``ssm_scan`` (carry mode) with its backward kernel for autograd.
     ``apply(x, dt, Bm, Cm, A, D, h0)`` returns (y, hT); gradients flow to
-    all seven inputs.  The forward runs the kernel's states mode and saves
-    hs (B, T, E, N) float32 for the backward (under activation
-    checkpointing, one layer's at a time)."""
+    all seven inputs.  The forward runs the kernel's chunk mode and saves
+    the chunk checkpoints hc (B, ceil(T/K), E, N) float32 at K =
+    ``scan_chunk()`` (1/K of the every-state hs), from which the backward
+    recomputes each chunk's states."""
 
     @staticmethod
     def forward(ctx, x, dt, Bm, Cm, A, D, h0):
-        y, hT, hs = ssm_scan(x, dt, Bm, Cm, A, D, h0, return_states=True)
-        ctx.save_for_backward(x, dt, Bm, Cm, A, D, h0, hs)
+        y, hT, hc = ssm_scan(x, dt, Bm, Cm, A, D, h0, chunks=True)
+        ctx.save_for_backward(x, dt, Bm, Cm, A, D, h0, hc)
         ctx.set_materialize_grads(False)
         return y, hT
 
     @staticmethod
     def backward(ctx, dy, dhT):
-        x, dt, Bm, Cm, A, D, h0, hs = ctx.saved_tensors
+        x, dt, Bm, Cm, A, D, h0, hc = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        return ssm_scan_bwd(x, dt, Bm, Cm, A, D, h0, hs, dy.contiguous(),
+        return ssm_scan_bwd(x, dt, Bm, Cm, A, D, h0, hc, dy.contiguous(),
                             None if dhT is None else dhT.contiguous())

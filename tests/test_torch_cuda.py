@@ -1068,11 +1068,7 @@ def test_flash_backward_kernel_is_deterministic(cuda, dtype):
         assert bool(torch.isfinite(a.float()).all()), name
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,T,E,N", [(2, 37, 96, 16), (1, 20, 40, 8),
-                                     (2, 33, 130, 4), (1, 64, 8192, 16)])
-def test_ssm_scan_backward_kernel_matches_plain(cuda, B, T, E, N, dtype):
+def _scan_bwd_inputs(cuda, B, T, E, N, dtype):
     g = torch.Generator(device=cuda).manual_seed(E + N)
     x = torch.randn(B, T, E, device=cuda, generator=g).to(getattr(torch,
                                                                   dtype))
@@ -1082,16 +1078,53 @@ def test_ssm_scan_backward_kernel_matches_plain(cuda, B, T, E, N, dtype):
     A = -torch.rand(E, N, device=cuda, generator=g) * 2
     D = torch.randn(E, device=cuda, generator=g)
     h0 = torch.randn(B, E, N, device=cuda, generator=g)
-    _y, _hT, hs = SS.ssm_scan(x, dt, Bm, Cm, A, D, h0, return_states=True)
     dy = torch.randn(B, T, E, device=cuda, generator=g)
     dhT = torch.randn(B, E, N, device=cuda, generator=g)
+    return (x, dt, Bm, Cm, A, D, h0), dy, dhT
+
+
+# T a multiple of the chunk, not one (37, 33, 250), shorter than it (7),
+# an E that leaves a partial channel block (130), B = 2, falcon's width
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,E,N", [(2, 37, 96, 16), (1, 20, 40, 8),
+                                     (2, 33, 130, 4), (1, 64, 8192, 16),
+                                     (2, 7, 96, 16), (1, 250, 512, 16)])
+def test_ssm_scan_backward_kernel_matches_plain(cuda, B, T, E, N, dtype):
+    """The backward kernel from the forward kernel's chunk checkpoints
+    against the plain backward from the same checkpoints."""
+    ins, dy, dhT = _scan_bwd_inputs(cuda, B, T, E, N, dtype)
+    K = SS.scan_chunk()
+    _y, _hT, hc = SS.ssm_scan(*ins, chunks=True)
     for dh in (None, dhT):
-        got = SS.ssm_scan_bwd(x, dt, Bm, Cm, A, D, h0, hs, dy, dh)
-        want = ref.ssm_scan_bwd_ref(x, dt, Bm, Cm, A, D, h0, hs, dy, dh)
+        got = SS.ssm_scan_bwd(*ins, hc, dy, dh)
+        want = ref.ssm_scan_bwd_ref(*ins, hc, dy, dh, chunk=K)
         for name, a, b in zip(("dx", "ddt", "dBm", "dCm", "dA", "dD",
                                "dh0"), got, want):
             assert a.dtype == b.dtype and a.shape == b.shape, name
             _assert_grad_close(name, a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_chunk_mode_and_backward_bits(cuda, dtype):
+    """The forward's chunk mode writes the states mode's hs at the chunk
+    boundaries (h0 first) and the states mode's y and hT, bit for bit; two
+    launches of the backward give the same bits (no atomics)."""
+    ins, dy, dhT = _scan_bwd_inputs(cuda, 2, 250, 520, 16, dtype)
+    K = SS.scan_chunk()
+    y, hT, hs = SS.ssm_scan(*ins, return_states=True)
+    yc, hTc, hc = SS.ssm_scan(*ins, chunks=True)
+    assert hc.shape == (2, -(-250 // K), 520, 16)
+    assert torch.equal(yc, y) and torch.equal(hTc, hT)
+    assert torch.equal(hc[:, 0], ins[6])
+    for k in range(1, hc.shape[1]):
+        assert torch.equal(hc[:, k], hs[:, k * K - 1]), k
+    first = SS.ssm_scan_bwd(*ins, hc, dy, dhT)
+    second = SS.ssm_scan_bwd(*ins, hc, dy, dhT)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a.float()).all())
 
 
 @pytest.mark.requires_cuda

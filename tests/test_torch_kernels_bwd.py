@@ -9,13 +9,17 @@ CPU, against
   the function its TPU flash kernel computes, and
   ``repro.kernels.ref.ssm_scan_ref``),
 
-on the same numpy inputs, float32: rtol 1e-4, atol 1e-5.  The attention
+on the same numpy inputs, float32: rtol 1e-4, atol 1e-5; the scan's
+plain backward starts from the plain forward's chunk checkpoints at
+several chunk lengths, as the kernel does from the forward's.  The attention
 cases cover the forward kernel's whole contract: GQA, causal and
 bidirectional, a window with a softcap, and the parallel-draft frame
 (slot queries clamped below their positions, slot keys at -1).  The CPU
 routes of ``kernels.ops`` differentiate through the plain versions, and
 the forward-only routes serve tensors that need no gradient.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,9 +98,9 @@ def test_flash_attention_bwd_ref(case):
         _close(b.numpy(), j)
 
 
-@pytest.mark.parametrize("with_dhT", [False, True])
-@pytest.mark.parametrize("N", [4, 16])
-def test_ssm_scan_bwd_ref(N, with_dhT):
+def _scan_inputs(N, with_dhT):
+    """The scan's inputs (x, dt, Bm, Cm, A, D, h0), dy and dhT at B=2,
+    T=13, E=6, shaped like a Mamba layer's (dt in [0, 0.5), A < 0)."""
     B, T, E = 2, 13, 6
     rng = np.random.default_rng(N)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
@@ -105,21 +109,60 @@ def test_ssm_scan_bwd_ref(N, with_dhT):
     A = -np.exp(f(E, N) * 0.5).astype(np.float32)
     dy = f(B, T, E)
     dhT = f(B, E, N) if with_dhT else np.zeros((B, E, N), np.float32)
-    ins = (x, dt, Bm, Cm, A, D, h0)
+    return (x, dt, Bm, Cm, A, D, h0), dy, dhT
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_vjp(N, with_dhT):
+    """``jax.vjp`` of the reference's ``ssm_scan_ref`` on
+    ``_scan_inputs``: ((y, hT), grads), once per (N, with_dhT)."""
+    ins, dy, dhT = _scan_inputs(N, with_dhT)
     (jy, jh), vjp = jax.vjp(lambda *a: JR.ssm_scan_ref(*a),
                             *map(jnp.asarray, ins))
-    jgrads = vjp((jnp.asarray(dy), jnp.asarray(dhT)))
+    return (jy, jh), vjp((jnp.asarray(dy), jnp.asarray(dhT)))
+
+
+# chunk lengths at T = 13: one that divides T (1), two that do not (4, 5)
+# and one longer than T (16)
+SCAN_CHUNKS = [1, 4, 5, 16]
+
+
+@pytest.mark.parametrize("chunk", SCAN_CHUNKS)
+@pytest.mark.parametrize("with_dhT", [False, True])
+@pytest.mark.parametrize("N", [4, 16])
+def test_ssm_scan_bwd_ref(N, with_dhT, chunk):
+    """The plain backward from the chunk checkpoints ``hc`` against
+    autograd of the plain forward and the reference's vjp."""
+    ins, dy, dhT = _scan_inputs(N, with_dhT)
+    (jy, jh), jgrads = _scan_vjp(N, with_dhT)
     tins = [_t(a).requires_grad_(True) for a in ins]
-    y, hT, hs = ref.ssm_scan_ref(*tins, return_states=True)
+    y, hT, hc = ref.ssm_scan_ref(*tins, chunk=chunk)
+    assert hc.shape[1] == -(-ins[0].shape[1] // chunk)
     agrads = torch.autograd.grad((y, hT), tins, (_t(dy), _t(dhT)))
-    bgrads = ref.ssm_scan_bwd_ref(*map(_t, ins), hs.detach(), _t(dy),
-                                  _t(dhT) if with_dhT else None)
+    bgrads = ref.ssm_scan_bwd_ref(*map(_t, ins), hc.detach(), _t(dy),
+                                  _t(dhT) if with_dhT else None, chunk=chunk)
     _close(y.detach().numpy(), jy)
     _close(hT.detach().numpy(), jh)
     assert len(bgrads) == len(ins)
     for b, a, j in zip(bgrads, agrads, jgrads):
         _close(b.numpy(), a.numpy())
         _close(b.numpy(), j)
+
+
+@pytest.mark.parametrize("chunk", SCAN_CHUNKS)
+def test_ssm_scan_ref_chunk_checkpoints_are_the_boundary_states(chunk):
+    """``ssm_scan_ref(chunk=K)``'s hc is h0 then the states hs of
+    ``return_states`` after steps K-1, 2K-1, ..., bit for bit, beside the
+    same y and hT."""
+    ins = [_t(a) for a in _scan_inputs(16, False)[0]]
+    y, hT, hs = ref.ssm_scan_ref(*ins, return_states=True)
+    yc, hTc, hc = ref.ssm_scan_ref(*ins, chunk=chunk)
+    T = hs.shape[1]
+    assert hc.shape == (hs.shape[0], -(-T // chunk)) + tuple(hs.shape[2:])
+    assert torch.equal(hc[:, 0], ins[6])
+    for k in range(1, hc.shape[1]):
+        assert torch.equal(hc[:, k], hs[:, k * chunk - 1])
+    assert torch.equal(yc, y) and torch.equal(hTc, hT)
 
 
 def test_cpu_routes_differentiate_through_the_plain_versions():
