@@ -105,9 +105,11 @@ Phases (any failure raises, so the script exits non-zero):
                copies): batched SpecBranch and SpS on the tiny committed
                pair, greedy, temperature 1 (epsilon 0.3 and 0, shadowed
                as in phase 3) and under a preempting pool that swaps; each
-               drive's streams must equal the same serve on the CPU and
-               the card's own paged serve (SpecBranch's from phase 3,
-               whose drives are the same serves); the jamba-shaped hybrid, whose
+               drive's streams must equal the card's own paged serve
+               (SpecBranch's from phase 3, whose drives are the same
+               serves, held against the CPU there; phase 11's own CPU
+               serves were cut to make room for phase 17); the
+               jamba-shaped hybrid, whose
                preempted rows recompute their prefix; the full-width
                LLaMA-68M/7B batched SpecBranch 8 x LATE_NEW greedy,
                teacher-forced as in phase 4, what a fork's row copy costs,
@@ -225,6 +227,30 @@ Phases (any failure raises, so the script exits non-zero):
                time, the top kernels by device time, the flash
                backward's share), and falcon-mamba-7b's (the scan
                kernels' share).
+ 17. mesh    — mesh-sharded serving (``--mesh``, DESIGN.md §7.10): the
+               ranks run as fresh processes sharing cuda:0 over gloo
+               (NCCL takes no two ranks on one GPU), so the phase checks
+               correctness only; its times say nothing of NVLink or of
+               tensor-parallel speed.  (a) Which collectives and dtypes
+               gloo takes on CUDA tensors in this PyTorch (the forward's
+               all_reduce and all_gather in float32 and bfloat16, and
+               broadcast, must).  (b) The tiny committed pair: at 1x1 both
+               engines x both backends at temperature 1 must equal the
+               card's unmeshed serve bit for bit and issue no collective;
+               at 1x2 and 2x2 greedy, both engines x both backends, every
+               rank's streams must equal the card's unmeshed serve and the
+               target verify forward's collective census the CPU's (gloo
+               processes, the same jobs); at 1x2 also batched SpecBranch
+               at temperature 1 (epsilon 0; the verify kernel per rank,
+               the ranks agreeing), under a preempting pool (the gather
+               kernel per rank) and the jamba-shaped pair (the ring scan
+               per rank).  (c) LLaMA-68M/7B at 1x2, each rank holding
+               half of every model's heads and MLP: batched SpecBranch,
+               paged, 8 x FULL_NEW greedy, teacher-forced against the
+               single-device forward as in phase 4; each rank's peak
+               memory beside phase 4's, wall tokens/s (two ranks
+               time-sharing one card).  Every rank's launches join the
+               kernel table's; a failed or hung rank fails the run.
 The full-width 7B pair's drives take FULL_NEW (16) new tokens a request
 in phases 4, 6 and 10 and LATE_NEW (8) in phases 11-14, gemma3-4b's
 G3_NEW (32: its context yardstick needs rows past the window of 1024),
@@ -241,7 +267,8 @@ Exits non-zero without a result when no CUDA device is visible.
 
 Modes that give no smoke result (exit 3): ``--kernels`` stops after
 phase 2; ``--prefix`` runs phases 1-2 and 14 only; ``--arch`` phases
-1-2 and 15 only; ``--train`` phases 1-2 and 16 only; ``--probe`` times
+1-2 and 15 only; ``--train`` phases 1-2 and 16 only; ``--mesh``
+phases 1-2 and 17 only; ``--probe`` times
 the attention tile loops phase by phase from variants built with
 -DREPRO_ATTN_STOP (1: K/V loads only, 2: loads and logits, 0: whole
 kernel) beside the timing floor, and the batched
@@ -267,6 +294,7 @@ commit unpacked under build/) to compare two commits in one call.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import gc
 import json
 import math
@@ -277,6 +305,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # ``--src DIR`` imports the port from another checkout's src (a parent
@@ -302,6 +331,7 @@ from repro_torch.kernels import paged as PG  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import ssm_scan as SS  # noqa: E402
 from repro_torch.kernels import verify_accept as VA  # noqa: E402
+from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.runtime import engines as TE  # noqa: E402
@@ -401,6 +431,12 @@ SCAN_BWD_CASE = "falcon-7b train B=1 T=256 E=8192"
 G3_TRAIN = dict(batch=2, seq=1281, micro=2, steps=3)
 FALCON_TRAIN = dict(batch=2, seq=257, micro=2, steps=2, layers=16)
 TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4
+# phase 17: new tokens a request of the mesh's tiny drives, and each
+# spawn's own time limit (a hung rank fails the run there)
+MESH_TINY_NEW = 16
+MESH_JOIN_S = 420.0
+MESH_FULL_PAIR = "paper-llama"      # phase 17c's pair (LLaMA-68M/7B)
+MESH_PREEMPT_POOL = 60      # SpS, 4 x 16 tokens, pages of 4: preempts
 
 
 def log(*a) -> None:
@@ -1642,6 +1678,9 @@ def phase_kernels() -> dict:
     for T in (1, 2, 4, 8, 16):
         att.append(check_attention(rng, f"llama-7b B=8 T={T}", 8, T, 32, 32,
                                    128, 16, bf))
+    # one rank's head shard of the 7B at tp = 2 (phase 17's mesh serve)
+    att.append(check_attention(rng, "llama-7b tp2 shard B=8 T=8", 8, 8, 16,
+                               16, 128, 16, bf))
     for T in (1, 16):
         att.append(check_attention(rng, f"llama-68m B=56 T={T}", 56, T, 12,
                                    12, 64, 16, bf, n_idle=40))
@@ -2440,9 +2479,11 @@ def phase_full(dev, totals, pair) -> dict:
                             ("temp1-chains", 1.0, 0.0)):
         ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp,
                             epsilon=eps, max_len=max_len)
+        torch.cuda.reset_peak_memory_stats()
         with VerifyShadow() as sh:
             res, rep, counts, wall, _ = drive(pair, ecfg, prompts, n_new,
                                               dev)
+        peak = torch.cuda.max_memory_allocated() / 1e9
         for k, v in counts.items():
             totals[k] += v
         toks = sum(len(r.tokens) for r in res.values())
@@ -2452,7 +2493,8 @@ def phase_full(dev, totals, pair) -> dict:
                                   for r in res.values()]))
         log(f"  full {name}: {toks / wall:.1f} tok/s wall, "
             f"rounds={rep['rounds']}, mean accepted={mean_acc:.2f}, "
-            f"greedy agreement={agree}/{toks}, launches={counts}")
+            f"greedy agreement={agree}/{toks}, peak allocated "
+            f"{peak:.2f} GB, launches={counts}")
         if counts["paged_attention"] == 0:
             raise AssertionError(f"full {name}: paged_attention not run")
         if temp > 0 and counts["verify_accept_batched"] == 0:
@@ -2460,7 +2502,7 @@ def phase_full(dev, totals, pair) -> dict:
         out[name] = dict(tokens_per_s=toks / wall, wall_s=wall,
                          rounds=rep["rounds"], mean_accepted=mean_acc,
                          greedy_agreement=agree, tokens=toks,
-                         launches=counts)
+                         launches=counts, peak_gb=peak)
         if temp == 0.0:
             out["teacher_forced"] = teacher_forced(pair[2], pair[3], prompts,
                                                    res, n_new, greedy=greedy)
@@ -3008,10 +3050,10 @@ def first_diff(a, b) -> dict:
 
 def phase_dense_tiny(dev, totals, paged_served=None) -> dict:
     """Batched SpecBranch and SpS on the dense backend, tiny committed
-    pair: every drive's streams must equal the same serve on the CPU
-    (dense) and the card's own paged serve (the reference's oracle; for
-    SpecBranch phase 3's drives, ``paged_served`` by name, where given:
-    the same serves);
+    pair: every drive's streams must equal the card's own paged serve
+    (the reference's oracle; for SpecBranch phase 3's drives,
+    ``paged_served`` by name, where given: the same serves, themselves
+    held against the CPU in phase 3);
     greedy streams the target's greedy decode; temperature-1 verdicts are
     shadowed as in phase 3; the SpecBranch preempting pool must swap and
     read the swap back through the gather kernel.  Then the jamba-shaped
@@ -3020,7 +3062,6 @@ def phase_dense_tiny(dev, totals, paged_served=None) -> dict:
     from repro_torch.training.pairs import get_pair
     pair = get_pair("misaligned", device=dev,
                     cache_dir=os.path.join(ROOT, ".cache", "pairs"))
-    cpu = cpu_pair()
     prompts = SV.make_prompts(4)
     n_new = TINY_N_NEW
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
@@ -3045,19 +3086,14 @@ def phase_dense_tiny(dev, totals, paged_served=None) -> dict:
                 paged = SV.serve(pair, ecfg, prompts, n_new, device=dev,
                                  attn_backend="paged", engine=engine,
                                  **kw)[0]
-            on_cpu = SV.serve(cpu, ecfg, prompts, n_new, device="cpu",
-                              attn_backend="dense", engine=engine, **kw)[0]
-            d_paged, d_cpu = first_diff(res, paged), first_diff(res, on_cpu)
+            d_paged = first_diff(res, paged)
             log(f"  {label}: rounds={rep['rounds']} "
                 f"preemptions={rep['preemptions']} wall={wall:.2f}s "
                 f"launches={counts}; first difference from the card's "
-                f"paged serve {d_paged}, from the CPU dense serve {d_cpu}")
+                f"paged serve {d_paged}")
             if any(v is not None for v in d_paged.values()):
                 raise AssertionError(f"{label}: streams differ from the "
                                      "paged serve")
-            if any(v is not None for v in d_cpu.values()):
-                raise AssertionError(f"{label}: streams differ from the "
-                                     "same serve on the CPU")
             if temp == 0.0:
                 bad = [i for i in range(len(prompts))
                        if res[i].tokens != greedy[i]]
@@ -4853,6 +4889,232 @@ def phase_train_falcon(dev, totals) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: mesh-sharded serving
+# ---------------------------------------------------------------------------
+
+def mesh_spawn(dims, jobs, devices=None, target="serve:serve_jobs"):
+    """``target`` (a rank target of ``repro_torch.launch``, by default
+    ``serve.serve_jobs``) with ``jobs`` on every rank of a ``dims`` mesh,
+    each rank a fresh process; on the card the ranks share cuda:0 over
+    gloo (NCCL takes no two ranks on one GPU).  A failed or silent rank
+    raises."""
+    n = dims[0] * dims[1]
+    return MESH.spawn(*dims, "repro_torch.launch." + target, jobs,
+                      backend="gloo", devices=devices or ["cuda:0"] * n,
+                      timeout_s=MESH_JOIN_S, threads=2)
+
+
+def mesh_jobs(pair, prompts, temp, census=True, names=None):
+    """Both engines x both backends on ``pair``, 4 x MESH_TINY_NEW."""
+    max_len = SV.auto_max_len(prompts, MESH_TINY_NEW, 4, 10.0)
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, max_len=max_len)
+    return [dict(name=f"{e}-{b}", pair=pair, prompts=prompts,
+                 new_tokens=MESH_TINY_NEW, engine=e, attn_backend=b,
+                 ecfg=ecfg, max_batch=4, census=census)
+            for e in ("sps", "specbranch") for b in ("dense", "paged")
+            if names is None or f"{e}-{b}" in names]
+
+
+def mesh_card_serve(job, dev, memo) -> dict:
+    """The same job unmeshed on the card: its streams by rid (``memo``
+    keeps each distinct job's, so the meshes that share a job share its
+    serve)."""
+    key = (id(job["pair"][0]), job["engine"], job["attn_backend"],
+           repr(job["ecfg"]), job.get("pool_pages"), len(job["prompts"]),
+           job["new_tokens"])
+    if key in memo:
+        return memo[key]
+    dpair = tuple(tree_to(x, dev) if isinstance(x, dict) else x
+                  for x in job["pair"])
+    res = SV.serve(dpair, job["ecfg"], job["prompts"], job["new_tokens"],
+                   device=dev, max_batch=job["max_batch"],
+                   page_size=job.get("page_size", 16),
+                   pool_pages=job.get("pool_pages"),
+                   engine=job["engine"],
+                   attn_backend=job["attn_backend"])[0]
+    memo[key] = {rid: list(r.tokens) for rid, r in res.items()}
+    return memo[key]
+
+
+def mesh_check(label, ranks, want, totals, kernels) -> None:
+    """Every rank's streams equal ``want`` (by rid); the kernels named
+    launched on every rank; the ranks' launches join the totals."""
+    for i, r in enumerate(ranks):
+        if r["tokens"] != want:
+            bad = [k for k in want if r["tokens"].get(k) != want[k]]
+            raise AssertionError(f"{label}: rank {i} requests {bad} differ")
+        if r["pages_in_use"]:
+            raise AssertionError(f"{label}: rank {i} leaks pages")
+        for k in kernels:
+            if r["launches"][k] == 0:
+                raise AssertionError(f"{label}: rank {i} launched no {k}")
+        for k, v in r["launches"].items():
+            totals[k] += v
+
+
+def phase_mesh(dev, totals, phase4=None) -> dict:
+    """Phase 17: mesh-sharded serving (see the module docstring)."""
+    from repro_torch.training.pairs import get_pair
+    log_phase("[17] mesh: ranks in fresh processes sharing cuda:0 over "
+              "gloo (correctness only: their times say nothing of NVLink "
+              "or of tensor-parallel speed)")
+    free_device_memory()
+    t0 = time.time()
+    out = {}
+    cpu = get_pair("misaligned", device="cpu",
+                   cache_dir=os.path.join(ROOT, ".cache", "pairs"))
+    prompts = SV.make_prompts(4)
+    by = {}
+    # (a) the collective probe, (b) the tiny pair at 1x1, 1x2, 2x2 and the
+    # jamba-shaped pair at 1x2, (c) LLaMA-68M/7B at 1x2: one spawn a mesh
+    jamba = SV.load_pair("jamba-shaped", "cpu")
+    jmax = SV.auto_max_len(prompts, MESH_TINY_NEW, 4, 10.0)
+    extra12 = [
+        dict(name="specbranch-paged temp1", pair=cpu, prompts=prompts,
+             new_tokens=MESH_TINY_NEW, engine="specbranch",
+             attn_backend="paged", max_batch=4,
+             ecfg=EngineConfig(gamma=4, c=10.0, temperature=1.0,
+                               epsilon=0.0, max_len=jmax)),
+        dict(name="sps-paged preempt", pair=cpu, prompts=prompts,
+             new_tokens=MESH_TINY_NEW, engine="sps", attn_backend="paged",
+             max_batch=4, page_size=4, pool_pages=MESH_PREEMPT_POOL,
+             ecfg=EngineConfig(gamma=4, c=10.0, max_len=jmax)),
+        dict(name="jamba", pair=jamba, prompts=prompts[:2],
+             new_tokens=MESH_TINY_NEW, engine="specbranch",
+             attn_backend="paged", max_batch=2,
+             ecfg=EngineConfig(gamma=4, c=10.0, max_len=jmax))]
+    full_prompts = SV.make_prompts(8)
+    full = dict(name="llama-7b", pair_kind=MESH_FULL_PAIR,
+                prompts=full_prompts, new_tokens=FULL_NEW,
+                engine="specbranch", attn_backend="paged", max_batch=8,
+                ecfg=EngineConfig(gamma=4, c=10.0, max_len=SV.auto_max_len(
+                    full_prompts, FULL_NEW, 4, 10.0)))
+    plan = {(1, 1): mesh_jobs(cpu, prompts, 1.0),
+            (1, 2): mesh_jobs(cpu, prompts, 0.0) + extra12,
+            (2, 2): mesh_jobs(cpu, prompts, 0.0)}
+    # the meshes' spawns (the 7B drive and the probe 1x2 spawns of their
+    # own) and the CPU's census (the same jobs in gloo CPU processes) run
+    # at once: eleven ranks share the card
+    cpu_jobs = mesh_jobs(cpu, prompts, 0.0)
+    spawns = {dims: (mesh_spawn, dims, jobs) for dims, jobs in plan.items()}
+    spawns[("7B", 1, 2)] = (mesh_spawn, (1, 2), [full])
+    spawns[("probe", 1, 2)] = (mesh_spawn, (1, 2), None, None,
+                               "mesh:probe_collectives")
+    for dims in ((1, 2), (2, 2)):
+        spawns[("cpu",) + dims] = (
+            mesh_spawn, dims, cpu_jobs, ["cpu"] * (dims[0] * dims[1]),
+            "serve:census_jobs")
+
+    def timed(fn, *a):
+        t1 = time.time()
+        return fn(*a), time.time() - t1
+    with concurrent.futures.ThreadPoolExecutor(len(spawns)) as pool:
+        futs = {k: pool.submit(timed, *v) for k, v in spawns.items()}
+        done = {k: f.result() for k, f in futs.items()}
+    cpu_census = {}
+    for key, (ranks, secs) in done.items():
+        what = {"cpu": "CPU census spawn", "7B": "7B spawn",
+                "probe": "probe spawn"}.get(key[0], "spawn")
+        log(f"  {key[-2]}x{key[-1]} {what}: {len(ranks)} ranks, "
+            f"{secs:.1f}s (concurrent)")
+        if key[0] == "probe":
+            probe = ranks[0]
+            continue
+        if key[0] == "cpu":
+            cpu_census[key[1:]] = {r["name"]: r["census"] for r in ranks[0]}
+            continue
+        if key[0] == "7B":
+            full_ranks = [rank[0] for rank in ranks]
+            continue
+        by[key] = {}
+        for rank in ranks:
+            for r in rank:
+                by[key].setdefault(r["name"], []).append(r)
+    log(f"  (a) gloo on CUDA tensors, torch {torch.__version__}: "
+        + ", ".join(f"{k} {v}" for k, v in probe.items()))
+    out["probe"] = probe
+    for k in ("all_reduce float32", "all_gather float32",
+              "broadcast float32", "all_reduce bfloat16",
+              "all_gather bfloat16"):
+        if probe[k] != "ok":
+            raise AssertionError(f"gloo on CUDA: {k}: {probe[k]}")
+    kern = {"dense": ["flash_attention"], "paged": ["paged_attention"]}
+    memo = {}
+    for dims, jobs in plan.items():
+        for job in jobs:
+            name = job["name"]
+            ranks = by[dims][name]
+            label = f"mesh {dims[0]}x{dims[1]} {name}"
+            # temperature 1 on a larger mesh is greedy-lossless only: its
+            # ranks must agree (debug_check compares them every round)
+            want = (ranks[0]["tokens"] if name == "specbranch-paged temp1"
+                    else mesh_card_serve(job, dev, memo))
+            ks = list(kern[job["attn_backend"]])
+            if job["ecfg"].temperature > 0:
+                ks.append("verify_accept_batched")
+            if name.endswith("preempt"):
+                ks.append("paged_gather")
+            if name == "jamba":
+                ks.append("ssm_scan_ring")
+            mesh_check(label, ranks, want, totals, ks)
+            r = ranks[0]
+            line = (f"  {label}: rounds={r['rounds']} "
+                    f"wall={r['wall']:.2f}s collectives={r['collectives']}")
+            if "census" in r:
+                line += f" forward census={r['census']}"
+                if dims != (1, 1) and \
+                        r["census"] != cpu_census[dims][name]:
+                    raise AssertionError(f"{label}: census {r['census']} "
+                                         "!= the CPU's "
+                                         f"{cpu_census[dims][name]}")
+                if dims == (1, 1) and (r["census"]["forward"]
+                                       or r["collectives"]):
+                    raise AssertionError(f"{label}: a 1x1 mesh issued "
+                                         "collectives")
+            log(line + f" launches={r['launches']}")
+            out[label] = dict(rounds=r["rounds"], wall_s=r["wall"],
+                              collectives=r["collectives"],
+                              census=r.get("census"),
+                              launches=[x["launches"] for x in ranks])
+    # (c) LLaMA-68M/7B at 1x2, teacher-forced against the single-device
+    # forward on one card
+    ranks = full_ranks
+    r0 = ranks[0]
+    for i, r in enumerate(ranks):
+        if r["tokens"] != r0["tokens"]:
+            raise AssertionError(f"mesh 1x2 llama-7b: rank {i} differs")
+        for k in ("paged_attention",):
+            if r["launches"][k] == 0:
+                raise AssertionError(f"mesh 1x2 llama-7b: rank {i} "
+                                     f"launched no {k}")
+        for k, v in r["launches"].items():
+            totals[k] += v
+    free_device_memory()
+    pair = SV.load_pair(MESH_FULL_PAIR, dev)
+    res = {rid: types.SimpleNamespace(tokens=t)
+           for rid, t in r0["tokens"].items()}
+    tf = teacher_forced(pair[2], pair[3], full_prompts, res, FULL_NEW)
+    del pair
+    free_device_memory()
+    peaks = [r["peak_bytes"] / 1e9 for r in ranks]
+    p4 = (phase4 or {}).get("greedy", {}).get("peak_gb")
+    tps = r0["total_tokens"] / max(r0["wall"], 1e-9)
+    log(f"  (c) mesh 1x2 llama-7b SpecBranch paged greedy 8 x {FULL_NEW}: "
+        f"{tps:.1f} tok/s wall (two ranks time-sharing one card through "
+        f"gloo: not a tensor-parallel speed), rounds={r0['rounds']}, "
+        f"collectives={r0['collectives']}; peak allocated per rank "
+        f"{', '.join(f'{x:.2f}' for x in peaks)} GB beside phase 4's "
+        f"{p4 if p4 is None else round(p4, 2)} GB on one card; "
+        f"launches={r0['launches']}")
+    out["llama-7b 1x2"] = dict(tokens_per_s=tps, wall_s=r0["wall"],
+                               rounds=r0["rounds"], peak_gb=peaks,
+                               phase4_peak_gb=p4, teacher_forced=tf,
+                               collectives=r0["collectives"])
+    log(f"  phase 17: {time.time() - t0:.1f}s")
+    return out
+
+
 def log_ptxas(ptx: str) -> None:
     """Registers and spills of every kernel the build compiled, from
     ``nvcc -Xptxas -v``; the decode loop's variants (decode, and flash's
@@ -4960,6 +5222,9 @@ def main() -> int:
     if "--train" in sys.argv[1:]:
         phase_train(dev, totals)
         return 3                # phases 1-2 and 16 only: no smoke result
+    if "--mesh" in sys.argv[1:]:
+        phase_mesh(dev, totals)
+        return 3                # phases 1-2 and 17 only: no smoke result
     log_phase("[3] tiny committed pair, f32")
     tiny = phase_tiny(dev, totals)
     log_phase("[4] full-width LLaMA-68M/7B pair, bf16, random weights")
@@ -5005,6 +5270,7 @@ def main() -> int:
     del pair
     phase_arch(dev, totals)
     phase_train(dev, totals)
+    phase_mesh(dev, totals, without["batched"])
     for k, v in totals.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched on the "

@@ -28,8 +28,15 @@ exit naming training when they are missing; seeded random heads for
 shares published prompt-prefix pages across requests
 (``serving.prefix_cache``) and adds the reference's ``prefix cache:``
 line and report block; it exits, as in the reference, in sequential mode
-and with ``--attn-backend dense``.  ``--mesh`` exits with a message
-naming the later slice.
+and with ``--attn-backend dense``.  ``--mesh DP,TP`` (batched mode)
+serves on a DP x TP serving mesh (DESIGN.md §7.10): validated before the
+pair loads, as in the reference, then one process per rank
+(``launch.mesh.spawn``) — NCCL with one card per rank for ``--device
+cuda``, gloo processes for ``--device cpu`` — each loading the pair and
+serving its shard of it, and rank 0 printing the report (and writing
+``--json`` / ``--trace`` / ``--metrics-out``).  ``--mesh 1,1`` is the
+unmeshed serve.  ``serve_jobs`` is the rank target that tests and
+``chip_smoke.py`` spawn to serve on a mesh.
 ``--pair`` takes the reference's pairs — the committed Zipf-Markov
 ``misaligned`` / ``aligned`` pairs and the tiny random-init SSM-bearing
 ``falcon-shaped`` / ``jamba-shaped`` pairs (their mamba state rides the
@@ -58,6 +65,8 @@ Usage:
       --attn-backend dense --trace trace.json --metrics-out m.json
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --prefix-cache on
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --mode batched --mesh 1,2
 
 H-RAD has no flag, as in the reference: it is reached through the
 engines' ``hrad_params`` (``serve(..., hrad_params=...)`` here).
@@ -65,16 +74,22 @@ engines' ``hrad_params`` (``serve(..., hrad_params=...)`` here).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import sys
 import time
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.paper_pairs import PAPER_PAIRS
 from repro_torch.data.synthetic import ZipfMarkov
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import model as M
 from repro_torch.obs import (NULL_RECORDER, TraceRecorder, profiler_session,
                              write_metrics, write_trace)
@@ -89,6 +104,8 @@ from repro_torch.runtime.specbranch import SpecBranchEngine
 from repro_torch.serving import (BatchedSpecBranchEngine, BatchedSpSEngine,
                                  ContinuousBatchScheduler, ServeRequest)
 from repro_torch.serving import device_loop as DL
+from repro_torch.sharding.hlo_analysis import collective_counts
+from repro_torch.training.optim import tree_map
 from repro_torch.training.pairs import (HYBRID_KINDS, VOCAB,
                                         draft_heads_for, get_pair,
                                         hybrid_pair)
@@ -181,20 +198,22 @@ def serve(pair, ecfg: EngineConfig, prompts, new_tokens: int, *,
           arrival_interval: float = 0.0, engine: str = "specbranch",
           hrad_params=None, attn_backend: str = "paged",
           draft_heads=None, prefix_cache: bool = False, arrivals=None,
-          rec=NULL_RECORDER):
+          rec=NULL_RECORDER, mesh=None, debug_check: bool = False):
     """Build the batched ``engine`` (a name in ``BATCHED_ENGINES``; with
     an H-RAD MLP for SpecBranch, draft heads for parallel drafting, the
     prefix cache when ``prefix_cache``) on ``attn_backend`` with the
     recorder ``rec`` and its scheduler, and serve ``prompts``, request i
     arriving at ``arrivals[i]`` on the modeled clock (default ``i *
-    arrival_interval``).  Returns (results by rid, scheduler report,
-    engine, wall seconds)."""
+    arrival_interval``); on this rank's shard of ``mesh`` when given, and
+    with the engine's per-round invariant checks when ``debug_check``.
+    Returns (results by rid, scheduler report, engine, wall seconds)."""
     dp, dcfg, tp, tcfg = pair
     eng = BATCHED_ENGINES[engine](
         dp, dcfg, tp, tcfg, ecfg, max_batch=max_batch,
         page_size=page_size, pool_pages=pool_pages, swap_pages=swap_pages,
         hrad_params=hrad_params, attn_backend=attn_backend,
-        draft_heads=draft_heads, prefix_cache=prefix_cache, device=device)
+        draft_heads=draft_heads, prefix_cache=prefix_cache, device=device,
+        mesh=mesh, debug_check=debug_check)
     eng.set_recorder(rec)        # before the scheduler picks up eng.rec
     sched = ContinuousBatchScheduler(eng)
     if arrivals is None:
@@ -278,15 +297,129 @@ def _device_name(device) -> str:
             else "cpu")
 
 
-def _unsupported(args) -> Optional[str]:
-    if args.mesh is not None:
-        return ("--mesh is not in this slice of the PyTorch port; see "
-                "ROADMAP.md queue A, or run the reference: python -m "
-                "repro.launch.serve")
-    return None
+# ---------------------------------------------------------------------------
+# serving on a mesh
+# ---------------------------------------------------------------------------
+
+def forward_census(eng, mesh) -> Dict[str, Dict[str, int]]:
+    """The collectives one target verify forward issues (a fresh engine's
+    decoder stepping 4 tokens on every row, as the reference's census
+    lowers it) and those one ``copy_page`` issues, by ``kind@n``."""
+    dec = eng.tgt_dec
+    mesh.census.reset()
+    dec.step(np.zeros((dec.n_rows, 4), np.int32),
+             np.zeros(dec.n_rows, np.int64))
+    fwd = collective_counts(mesh.census)
+    mesh.census.reset()
+    if dec.state.paged is not None:
+        dec.copy_page(0, 1)
+    page = collective_counts(mesh.census)
+    mesh.census.reset()
+    return {"forward": fwd, "copy_page": page}
 
 
-def main(argv=None) -> None:
+def _job_pair(job: Dict[str, Any], device):
+    """A job's pair as full host trees: ``pair`` as given, or the weights
+    of ``pair_kind`` drawn on ``device`` (the draws an unmeshed serve
+    there makes) and moved to the host, so that the device holds only
+    the shards the engine cuts from them."""
+    if "pair" in job:
+        return job["pair"]
+    dp, dcfg, tp, tcfg = load_pair(job["pair_kind"], device)
+    return (tree_map(torch.Tensor.cpu, dp), dcfg,
+            tree_map(torch.Tensor.cpu, tp), tcfg)
+
+
+def _job_engine_kw(job: Dict[str, Any]) -> Dict[str, Any]:
+    return dict(engine=job.get("engine", "specbranch"),
+                max_batch=job.get("max_batch", 8),
+                page_size=job.get("page_size", 16),
+                pool_pages=job.get("pool_pages"),
+                attn_backend=job.get("attn_backend", "paged"))
+
+
+def _job_census(mesh, job: Dict[str, Any], pair) -> Dict[str, Any]:
+    kw = _job_engine_kw(job)
+    eng = BATCHED_ENGINES[kw.pop("engine")](*pair, job["ecfg"], mesh=mesh,
+                                            **kw)
+    return forward_census(eng, mesh)
+
+
+def _serve_job(mesh, job: Dict[str, Any]) -> Dict[str, Any]:
+    dev = mesh.device
+    pair = _job_pair(job, dev)
+    out: Dict[str, Any] = {"name": job.get("name")}
+    if job.get("census"):
+        out["census"] = _job_census(mesh, job, pair)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    mesh.census.reset()
+    results, rep, eng, wall = serve(
+        pair, job["ecfg"], job["prompts"], job["new_tokens"], device=dev,
+        swap_pages=job.get("swap_pages", 256),
+        hrad_params=job.get("hrad_params"), mesh=mesh, debug_check=True,
+        **_job_engine_kw(job))
+    eng.pool.check()
+    out.update(
+        tokens={rid: [int(t) for t in r.tokens]
+                for rid, r in results.items()},
+        pages_in_use=eng.pool.pages_in_use,
+        pool=eng.pool.stats.as_dict(),
+        rounds=rep["rounds"], wall=wall,
+        total_tokens=rep["total_tokens"],
+        launches=dict(ops.LAUNCHES),
+        collectives=collective_counts(mesh.census),
+        peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else 0))
+    return out
+
+
+def serve_jobs(mesh, jobs: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Rank target (``launch.mesh.spawn``): ``serve`` each job on this
+    rank's shard of ``mesh``, with ``debug_check`` on.  A job names the
+    pair (``pair``, a (draft params, draft cfg, target params, target
+    cfg) tuple of full CPU tensors, or ``pair_kind`` for ``load_pair``),
+    ``ecfg``, ``prompts``, ``new_tokens`` and ``serve``'s knobs
+    (``engine``, ``attn_backend``, ``max_batch``, ``page_size``,
+    ``pool_pages``, ``swap_pages``, ``hrad_params``); with ``census`` a
+    fresh engine first takes ``forward_census``.  Returns per job: the
+    streams by rid, pool pages in use and stats, rounds, wall seconds,
+    kernel launches and collectives of the serve, and its peak device
+    memory from the engine's build on (CUDA)."""
+    return [_serve_job(mesh, job) for job in jobs]
+
+
+def census_jobs(mesh, jobs: Sequence[Dict[str, Any]]
+                ) -> List[Dict[str, Any]]:
+    """Rank target: ``forward_census`` of a fresh engine for each of
+    ``serve_jobs``' jobs, without serving them."""
+    return [{"name": job.get("name"),
+             "census": _job_census(mesh, job, _job_pair(job, mesh.device))}
+            for job in jobs]
+
+
+def _mesh_devices(device: str, n: int):
+    """Backend and per-rank devices of an ``n``-rank CLI mesh: NCCL with
+    one card per rank for CUDA, gloo processes for the CPU."""
+    if torch.device(device).type == "cuda":
+        return "nccl", [f"cuda:{i}" for i in range(n)]
+    return "gloo", ["cpu"] * n
+
+
+def _cli_rank(mesh, argv: List[str]) -> Dict[str, Any]:
+    """Rank target of ``--mesh``: the whole CLI run on this rank's shard;
+    rank 0 prints and writes, the others run silent."""
+    args = _parse(argv)
+    if mesh.rank == 0:
+        return _run(args, mesh)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        return _run(args, mesh)
+
+
+def _parse(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine", default="specbranch", choices=list(ENGINES))
     ap.add_argument("--mode", default=None,
@@ -314,7 +447,13 @@ def main(argv=None) -> None:
     ap.add_argument("--attn-backend", default="paged",
                     choices=["dense", "paged"])
     ap.add_argument("--prefix-cache", default="off", choices=["off", "on"])
-    ap.add_argument("--mesh", default=None, metavar="DP,TP")
+    ap.add_argument("--mesh", default=None, metavar="DP,TP",
+                    help="serving mesh (batched mode): DP-way data "
+                    "parallelism over dense cache rows x TP-way tensor "
+                    "parallelism over attention heads / MLP hidden, one "
+                    "process per rank (NCCL, one card each, with --device "
+                    "cuda; gloo with --device cpu).  TP must divide both "
+                    "models' head counts.  1,1: the unmeshed serve")
     ap.add_argument("--arrival-interval", type=float, default=0.0)
     ap.add_argument("--max-len", type=int, default=0)
     ap.add_argument("--json", default=None)
@@ -357,14 +496,63 @@ def main(argv=None) -> None:
                 "there are no page runs to share zero-copy.  Use "
                 "--attn-backend paged (the default), or drop "
                 "--prefix-cache to keep the dense equivalence oracle.")
-    msg = _unsupported(args)
-    if msg:
-        raise SystemExit(msg)
+    if args.mesh is not None:
+        if args.mode != "batched":
+            raise SystemExit("--mesh requires --mode batched")
+        try:
+            # fail fast (syntax + device count) BEFORE the pair loads; the
+            # head checks run once the model configs are known
+            args.mesh_dims = MESH.parse_mesh_arg(args.mesh)
+            MESH.validate_serving_mesh(*args.mesh_dims, device=args.device)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    return args
+
+
+def main(argv=None) -> None:
+    args = _parse(argv)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e))
+    dims = getattr(args, "mesh_dims", (1, 1))
+    if dims == (1, 1):
+        _run(args)
+        return
+    dp, tp = dims
+    cfgs = _pair_configs(args.pair)
+    try:
+        MESH.validate_serving_mesh(dp, tp, configs=cfgs, device=device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    backend, devices = _mesh_devices(args.device, dp * tp)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # CPU ranks share the host's cores (each with them all, the ranks'
+    # intra-op threads oversubscribe the host many times over)
+    threads = (max(1, (os.cpu_count() or 1) // (dp * tp))
+               if backend == "gloo" else 0)
+    MESH.spawn(dp, tp, "repro_torch.launch.serve:_cli_rank", argv,
+               backend=backend, devices=devices, timeout_s=3600.0,
+               threads=threads)
 
+
+def _pair_configs(kind: str):
+    """(draft cfg, target cfg) of ``--pair kind`` without its weights."""
+    if kind == "paper-llama":
+        dcfg, tcfg, _c = PAPER_PAIRS["llama"]
+        return dcfg, tcfg
+    if kind in FULL_WIDTH:
+        return get_config(kind).draft(), get_config(kind)
+    pair = load_pair(kind, "cpu")
+    return pair[1], pair[3]
+
+
+def _run(args, mesh=None) -> dict:
+    """Serve as ``args`` say (on this rank's shard of ``mesh``, when
+    given; only rank 0 writes files) and return the report."""
+    device = mesh.device if mesh is not None \
+        else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
     prompts = make_prompts(args.requests)
     max_len = args.max_len or auto_max_len(prompts, args.new_tokens,
                                            args.gamma, args.c)
@@ -382,9 +570,12 @@ def main(argv=None) -> None:
             if args.mode == "sequential":
                 rep = run_sequential(args, ecfg, prompts, pair, device, rec)
             else:
-                rep = run_batched(args, ecfg, prompts, pair, device, rec)
+                rep = run_batched(args, ecfg, prompts, pair, device, rec,
+                                  mesh=mesh)
     finally:
         DL.set_trace_annotations(False)
+    if not lead:
+        return rep
     if args.profile_dir:
         print(f"profiler trace written to {args.profile_dir}")
     if args.trace:
@@ -398,20 +589,25 @@ def main(argv=None) -> None:
         with open(args.json, "w") as f:
             json.dump(rep, f, indent=2, default=float)
         print(f"report written to {args.json}")
+    return rep
 
 
 def run_batched(args, ecfg: EngineConfig, prompts, pair, device,
-                rec=NULL_RECORDER) -> dict:
+                rec=NULL_RECORDER, mesh=None) -> dict:
     results, rep, eng, wall = serve(
         pair, ecfg, prompts, args.new_tokens, device=device,
         max_batch=args.max_batch, page_size=args.page_size,
         pool_pages=args.pool_pages, swap_pages=args.swap_pages,
         arrival_interval=args.arrival_interval, engine=args.engine,
         attn_backend=args.attn_backend, rec=rec,
-        prefix_cache=args.prefix_cache == "on",
+        prefix_cache=args.prefix_cache == "on", mesh=mesh,
         draft_heads=load_draft_heads(args.pair, ecfg, pair, device))
     rep["device"] = _device_name(device)
-    print(f"\n== batched {args.engine} on {args.pair} pair ({rep['device']}): "
+    where = rep["device"]
+    if mesh is not None:
+        where += (f", mesh {mesh.shape['data']}x{mesh.shape['model']} "
+                  f"({mesh.backend})")
+    print(f"\n== batched {args.engine} on {args.pair} pair ({where}): "
           f"{len(results)} requests, max_batch={args.max_batch}, "
           f"{wall:.1f}s wall ==")
     for rid in sorted(results):

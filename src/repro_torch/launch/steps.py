@@ -2,8 +2,9 @@
 ``repro.launch.steps.make_train_step``), on one device.
 
 The reference's module also holds the mesh-sharded serve steps, their
-``input_specs`` and the distributed forward knobs; those belong to
-multi-GPU serving (ROADMAP.md queue A item 5) and are not here.
+``input_specs`` and the distributed forward knobs; those belong to the
+production programs of the mesh's dry run (ROADMAP.md queue A item 5b)
+and are not here.  The serving mesh itself is ``launch.mesh``.
 """
 from __future__ import annotations
 

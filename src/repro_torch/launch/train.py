@@ -6,7 +6,7 @@ Zipf-Markov batches, with the gradient-accumulated remat train step
 (``launch.steps``) and AdamW (lr 1e-3, cosine over ``--steps``), on one
 device: ``--device cuda`` (the default; raises without a GPU) or
 ``--device cpu``.  ``--production-mesh`` (the reference's 16 x 16 FSDP x
-TP mesh) is multi-GPU work and exits naming ROADMAP.md queue A item 5.
+TP mesh) is multi-GPU work and exits naming ROADMAP.md queue A item 5b.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -76,9 +76,9 @@ def main(argv=None) -> None:
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        raise SystemExit("--production-mesh: the sharded mesh is multi-GPU "
-                         "work, not in this slice (ROADMAP.md queue A "
-                         "item 5)")
+        raise SystemExit("--production-mesh: the FSDP training mesh is "
+                         "not in this slice (ROADMAP.md queue A item 5b; "
+                         "the serving mesh is launch.serve --mesh)")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

@@ -12,6 +12,16 @@ plain PyTorch, as the reference's is plain jnp, and returns its Switch
 load-balance loss beside its output.  Without a cache every path is
 differentiable: on the card the flash and scan kernels carry their own
 backward kernels (``kernels.ops``).
+
+Tensor parallelism (DESIGN.md §7.10): every block reads its head, hidden
+and channel counts from its weights' shapes, so it runs unchanged on a
+rank's shard (``sharding.rules.tp_shard_params``: H/tp query heads and
+their KV heads, F/tp MLP or expert hidden, E/tp Mamba channels).  ``tp``
+(a ``launch.mesh.MeshAxis``, None without tensor parallelism) sums the
+partial products of a row-split weight: one all-reduce after ``wo``, one
+after ``wd`` (dense or MoE), and in ``mamba`` one after ``x_db`` (its
+(R+2N) outputs contract over E) and one after ``out_proj``.  A weight the
+rules left whole (its dimension not divisible) issues no collective.
 """
 from __future__ import annotations
 
@@ -24,6 +34,11 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
+
+
+def _psum(x: torch.Tensor, tp, split: bool) -> torch.Tensor:
+    """Sum a row-split product's partials over the "model" axis."""
+    return tp.all_reduce(x) if tp is not None and split else x
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -90,7 +105,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               window: int = 0, kv_chunk: int = 2048,
               cache_mode: str = "append",
               paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              pdraft: Optional[Params] = None) -> torch.Tensor:
+              pdraft: Optional[Params] = None, tp=None) -> torch.Tensor:
     """One attention block (pre-norm, residual outside).
 
     Dense ring cache ``{"k": (B, Sc, KV, hd), "v": ..., "pos": (B, Sc)
@@ -125,7 +140,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     shows every query only keys ``< lens``.
     """
     B, T, _D = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    # this rank's heads (all of them without tensor parallelism)
+    hd = cfg.hd
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    split = H != cfg.num_heads
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = (h @ p["wq"]).reshape(B, T, H, hd)
     k = (h @ p["wk"]).reshape(B, T, KV, hd)
@@ -147,7 +165,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         out = _attend_ring(q, k, v, positions, cache, cfg, window=window,
                            kv_chunk=kv_chunk, cache_mode=cache_mode,
                            store_pos=store_pos, q_ctx=q_ctx)
-        return out.reshape(B, T, H * hd) @ p["wo"]
+        return _psum(out.reshape(B, T, H * hd) @ p["wo"], tp, split)
     if cache is not None:
         if paged is None:
             raise ValueError("a paged cache needs the (table, lens) view")
@@ -166,12 +184,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         out = ops.paged_attention(q.contiguous(), kp, vp, table, lens,
                                   positions[:, 0].contiguous(),
                                   window=window, cap=cfg.attn_softcap)
-        return out.reshape(B, T, H * hd) @ p["wo"]
+        return _psum(out.reshape(B, T, H * hd) @ p["wo"], tp, split)
 
     out = attend(q, k, v, positions, store_pos, causal=cfg.causal,
                  window=window, cap=cfg.attn_softcap, kv_chunk=kv_chunk,
                  q_ctx=q_ctx)
-    return out.reshape(B, T, H * hd) @ p["wo"]
+    return _psum(out.reshape(B, T, H * hd) @ p["wo"], tp, split)
 
 
 def _attend_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -238,9 +256,11 @@ def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
             "v_pages": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
 
 
-def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, tp=None
+        ) -> torch.Tensor:
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    return (silu(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
+    return _psum((silu(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"], tp,
+                 p["wd"].shape[-2] != cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +273,7 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(4, min(c, n_tokens))
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE.  Returns (out (B, T, D), the Switch load-balance
     loss E * sum_e frac_tokens_e * frac_probs_e, float32 scalar), as the
@@ -301,6 +321,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     frac_tokens = counts.float() / max(n * K, 1)
     frac_probs = probs.mean(dim=0)
     aux = E * (frac_tokens * frac_probs).sum()
+    y = _psum(y, tp, p["wd"].shape[-2] != cfg.expert_ff)
     return y.reshape(B, T, D), aux
 
 
@@ -348,7 +369,8 @@ def _causal_conv(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
           cache: Optional[Params] = None,
           positions: Optional[torch.Tensor] = None,
-          ring_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+          ring_rows: Optional[torch.Tensor] = None, tp=None
+          ) -> torch.Tensor:
     """Mamba-1 mixer.  x (B, T, D) -> (B, T, D).
 
     With a ring cache (``init_mamba_cache`` with ring > 0) ``positions``
@@ -364,7 +386,9 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     (``ops.ssm_scan_ring``); the conv tails are scattered here.  A carry cache (ring == 0) is read and
     updated in place; without a cache the scan starts from zeros."""
     B, T, _D = x.shape
-    E, N, R = cfg.d_inner, cfg.ssm_state, cfg.dtr
+    # this rank's channels (all of them without tensor parallelism)
+    E, N, R = p["out_proj"].shape[-2], cfg.ssm_state, cfg.dtr
+    split = E != cfg.d_inner
     Cv = cfg.ssm_conv
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     xp, z = (h @ p["in_proj"]).split(E, dim=-1)               # (B,T,E) each
@@ -390,7 +414,7 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     xc, new_conv = _causal_conv(xp, p["conv_w"], p["conv_b"], prev)
     xc = silu(xc)
 
-    dbc = xc @ p["x_db"]
+    dbc = _psum(xc @ p["x_db"], tp, split)
     dt_raw = dbc[..., :R]
     Bmat = dbc[..., R:R + N].float().contiguous()                 # (B,T,N)
     Cmat = dbc[..., R + N:].float().contiguous()
@@ -409,7 +433,7 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         y, hT = ops.ssm_scan(xc.contiguous(), delta, Bmat, Cmat, A, Dv,
                              h0.contiguous())
-    out = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
+    out = _psum((y.to(x.dtype) * silu(z)) @ p["out_proj"], tp, split)
 
     if ring:
         # the conv tails of the trailing min(T, Rg) steps (a longer span

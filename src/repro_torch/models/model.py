@@ -10,6 +10,17 @@ each period body and each remainder layer, as the reference's
 caches from ``init_cache``, paged ones from ``init_paged_cache``) keep
 the same leading stack axis and are updated IN PLACE by the forward,
 where the reference returns a new cache.
+
+Tensor parallelism (``tp``, a ``launch.mesh.MeshAxis`` over a rank's
+"model" group, DESIGN.md §7.10): the rank's params are its shard
+(``sharding.rules.tp_shard_params``) and each layer sums its partial
+products itself (``models.layers``).  The embedding is split by
+vocabulary: each rank looks up the ids in its block (zeros elsewhere) and
+one all-reduce joins them.  The logits come from the rank's vocabulary
+columns (``lm_head``, or the tied ``embed.T``) and one all-gather brings
+them to the full vocabulary before the final softcap, so every rank
+samples, verifies and commits the same tokens.  An L-layer dense forward
+issues 2L + 1 all-reduces and one all-gather; ``tp=None`` issues none.
 """
 from __future__ import annotations
 
@@ -221,7 +232,7 @@ def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
                 positions: torch.Tensor, cache: Optional[Params],
                 paged, kv_chunk: int, cache_mode: str,
                 ring_rows: Optional[torch.Tensor],
-                pdraft: Optional[Params] = None
+                pdraft: Optional[Params] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer; returns (x, its MoE load-balance loss, None without
     MoE)."""
@@ -231,7 +242,7 @@ def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
         x = x + L.attention(p["mixer"], x, cfg, positions=positions,
                             cache=cache, window=_slot_window(cfg, mixer),
                             kv_chunk=kv_chunk, cache_mode=cache_mode,
-                            paged=paged, pdraft=pdraft)
+                            paged=paged, pdraft=pdraft, tp=tp)
     else:
         if pdraft is not None:
             raise ValueError(
@@ -239,13 +250,37 @@ def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
                 "mamba slot's scan would thread recurrent state through "
                 "the draft slots (DESIGN.md §7.12)")
         x = x + L.mamba(p["mixer"], x, cfg, cache=cache,
-                        positions=positions, ring_rows=ring_rows)
+                        positions=positions, ring_rows=ring_rows, tp=tp)
     if ffn_kind == "dense":
-        x = x + L.ffn(p["ffn"], x, cfg)
+        x = x + L.ffn(p["ffn"], x, cfg, tp=tp)
     elif ffn_kind == "moe":
-        y, aux = L.moe_ffn(p["ffn"], x, cfg)
+        y, aux = L.moe_ffn(p["ffn"], x, cfg, tp=tp)
         x = x + y
     return x, aux
+
+
+def token_rows(table: torch.Tensor, tokens: torch.Tensor, vocab: int,
+               tp=None) -> torch.Tensor:
+    """Rows of the embedding ``table`` for ``tokens``.  Under tensor
+    parallelism with a vocabulary-split ``table`` the rank looks up the
+    ids of its block, zeros elsewhere, and one all-reduce joins the
+    blocks (exactly: every sum has one nonzero term)."""
+    ids = tokens.long()
+    Vl = table.shape[0]
+    if tp is None or Vl == vocab:
+        return table[ids]
+    local = ids - tp.index * Vl
+    mine = (local >= 0) & (local < Vl)
+    e = table[local.clamp(0, Vl - 1)]
+    return tp.all_reduce(torch.where(mine[..., None], e,
+                                     torch.zeros_like(e)))
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+           tp) -> torch.Tensor:
+    """Scaled token embeddings (``token_rows`` x sqrt(d_model))."""
+    return token_rows(table, tokens, cfg.vocab_size, tp) \
+        * math.sqrt(cfg.d_model)
 
 
 def forward(params: Params, cfg: ModelConfig,
@@ -262,7 +297,7 @@ def forward(params: Params, cfg: ModelConfig,
             cache_mode: str = "append",
             ring_rows: Optional[torch.Tensor] = None,
             pdraft: Optional[Params] = None,
-            remat: bool = False
+            remat: bool = False, tp=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the model.
 
@@ -294,6 +329,9 @@ def forward(params: Params, cfg: ModelConfig,
     features into head logits.  Attention-only models (a mamba slot
     raises).
 
+    ``tp`` runs the rank's shard of a tensor-parallel forward (see the
+    module docstring); the logits are full-vocabulary on every rank.
+
     ``remat`` (training) recomputes each period body and each remainder
     layer in the backward instead of keeping its activations
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
@@ -311,7 +349,7 @@ def forward(params: Params, cfg: ModelConfig,
                                dtype=cfg.tdtype))
     pd_attn = None
     if tokens is not None:
-        emb = params["embed"][tokens.long()] * math.sqrt(cfg.d_model)
+        emb = _embed(params["embed"], tokens, cfg, tp)
         if pdraft is not None:
             K = pdraft["embed"].shape[0]
             se = (pdraft["embed"][pdraft["sidx"].long().clamp(0, K - 1)]
@@ -345,7 +383,8 @@ def forward(params: Params, cfg: ModelConfig,
     if remat and cache is not None:
         raise ValueError("remat is for cache-less (training) forwards")
     kw = dict(positions=positions, paged=paged, kv_chunk=kv_chunk,
-              cache_mode=cache_mode, ring_rows=ring_rows, pdraft=pd_attn)
+              cache_mode=cache_mode, ring_rows=ring_rows, pdraft=pd_attn,
+              tp=tp)
 
     def add(total, al):
         return al if total is None else total if al is None else total + al
@@ -384,7 +423,10 @@ def forward(params: Params, cfg: ModelConfig,
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = L.softcap((x @ head).float(), cfg.final_softcap)
+    z = x @ head
+    if tp is not None and z.shape[-1] != cfg.vocab_size:
+        z = tp.all_gather(z, dim=-1)         # the rank's vocabulary columns
+    logits = L.softcap(z.float(), cfg.final_softcap)
     aux: Dict[str, Any] = {"moe_aux": moe_aux}
     if feature_mode is not None:
         aux["features"] = torch.stack(feats)

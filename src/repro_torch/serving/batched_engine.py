@@ -77,12 +77,25 @@ admission headroom and are evicted LRU before a live request is
 preempted.  Off (the default) no cache object exists and every path is
 the cache-less one.
 
-Not in this slice (raises ``NotImplementedError``): mesh serving.
+Mesh serving (``mesh=``, a ``launch.mesh.ServingMesh``, DESIGN.md
+§7.10): one process per mesh position runs this same host loop.  Each
+decoder slices its rank's block of the full parameter tree
+(``sharding.rules.tp_shard_params``) and allocates its cache shard
+(``DecodeState``); the forward runs tensor-parallel over the rank's
+"model" group and returns full-vocabulary logits, so every rank samples,
+verifies and commits the same tokens.  On the dense backend with rows
+over "data" each rank forwards its own rows and the logits (and H-RAD
+features) are gathered over "data" (``device_loop.replicated``); the
+paged backend keeps every row on every rank, so a dp-only paged forward
+issues no collective.  A 1x1 mesh is the unmeshed engine bit for bit; a
+larger one is greedy-lossless.  With ``debug_check`` every round's
+committed tokens are compared across the ranks.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import zlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -103,6 +116,7 @@ from repro_torch.serving.decode_state import DecodeState
 from repro_torch.serving.kv_pool import (PagedKVPool, PagedStore,
                                          PoolExhausted, PoolGroup)
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.sharding import rules
 
 
 def _count_fetch(owner, arr: torch.Tensor) -> np.ndarray:
@@ -139,18 +153,26 @@ class BatchedDecoder:
     def __init__(self, params, cfg: ModelConfig, *, n_rows: int,
                  max_len: int, paged: Optional[PagedKVPool], device,
                  ssm_ring: int = 0, prefill_lanes: int = 0,
-                 prefill_quantum: int = 8, feature_points: int = 0):
+                 prefill_quantum: int = 8, feature_points: int = 0,
+                 mesh=None):
         self.cfg = cfg
         self.feature_points = feature_points
         self.n_rows, self.max_len = n_rows, max_len
         self.device = device
+        # on a mesh: the rank's block of every weight, and the "model"
+        # axis the forward sums its partial products over (None at tp 1)
+        self.mesh = mesh
+        self.tp = None if mesh is None else mesh.tp
+        if mesh is not None:
+            params = rules.tp_shard_params(params, cfg, mesh, mesh.coords,
+                                           device)
         self.params = params
         # checkpoint-ring depth of the mamba slots: bounds how far ahead
         # of a row's logical length writes may land and how far back a
         # rollback may reach
         self.state = DecodeState(cfg, n_rows=n_rows, max_len=max_len,
                                  paged=paged, device=device,
-                                 ssm_ring=ssm_ring)
+                                 ssm_ring=ssm_ring, mesh=mesh)
         self.prefill_lanes = prefill_lanes or DL.bucket(n_rows)
         self.prefill_quantum = prefill_quantum
         # forwards, their real tokens and prefill shapes, as the
@@ -209,9 +231,20 @@ class BatchedDecoder:
         dense, a fresh ``len(rows)``-lane view scattered into the listed
         rows afterwards.  None: every row of the cache, in place.  With
         ``pdraft`` (a parallel-draft frame) the features returned are the
-        last point's at every position, (n_rows, T, D)."""
+        last point's at every position, (n_rows, T, D).  With the dense
+        rows split over "data" a full-cache forward runs the rank's rows
+        and gathers the logits and features of every row."""
         dev = self.device
         cache, paged, ring_rows = self.cache, None, None
+        tokens = torch.as_tensor(tokens).to(device=dev, dtype=torch.int64)
+        data = self.state.data if rows is None else None
+        if data is not None:
+            mine = slice(self.state.row_lo,
+                         self.state.row_lo + self.state.n_local)
+            tokens, positions = tokens[mine], positions[mine]
+            if pdraft is not None:
+                pdraft = {k: v if k == "embed" else v[mine]
+                          for k, v in pdraft.items()}
         if self.state.paged is not None:
             tab, lens = self.state.table_view(rows)
             paged = (torch.from_numpy(tab).to(dev),
@@ -225,18 +258,19 @@ class BatchedDecoder:
         mode = None if not capture else (
             "all" if feature_index is None else "at")
         logits, aux = M.forward(
-            self.params, self.cfg,
-            torch.as_tensor(tokens).to(device=dev, dtype=torch.int64),
+            self.params, self.cfg, tokens,
             cache=cache, positions=positions, paged=paged,
             ring_rows=ring_rows, feature_mode=mode, feature_points=points,
             feature_index=(None if feature_index is None
                            else torch.from_numpy(feature_index).to(dev)),
-            pdraft=pdraft)
+            pdraft=pdraft, tp=self.tp)
         if cache is not self.cache:
             self.state.prefill_merge(cache, [r for r in rows if r >= 0])
+        logits = DL.replicated(logits, data, 0)
         if pdraft is not None:
-            return logits, aux["features"][-1]
-        return logits, aux["features"] if capture else None
+            return logits, DL.replicated(aux["features"][-1], data, 0)
+        return logits, (DL.replicated(aux["features"], data, 1) if capture
+                        else None)
 
     def step(self, tokens, pos
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -460,7 +494,7 @@ class BatchedEngineBase:
                  prefix_cache: bool = False,
                  debug_check: bool = False,
                  mesh=None,
-                 device="cuda"):
+                 device=None):
         if attn_backend not in ("dense", "paged"):
             raise ValueError(f"unknown attn_backend {attn_backend!r}")
         check_decodes(target_cfg)       # NoDecodeError for encoder-only
@@ -471,9 +505,11 @@ class BatchedEngineBase:
                 "rows have no page runs to share — drop prefix_cache or "
                 "switch to the paged backend")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is ported in a later slice (ROADMAP.md queue "
-                "A)")
+            # the rank's device comes with the mesh
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device={device!r} but the mesh binds "
+                                 f"{mesh.device}")
+            device = mesh.device
         if ecfg.draft_mode not in ("sequential", "parallel"):
             raise ValueError(f"unknown draft_mode {ecfg.draft_mode!r}")
         if ecfg.draft_mode == "parallel":
@@ -491,7 +527,8 @@ class BatchedEngineBase:
                 raise ValueError(
                     f"draft_heads has {have} positions; "
                     f"need >= max(gamma, gamma_branch) = {need}")
-        self.device = resolve_device(device)
+        self.device = resolve_device("cuda" if device is None else device)
+        self.mesh = mesh
         # single-pass parallel drafting: the draft heads on the device, the
         # head stack in float32 once (the head product runs in f32, as the
         # reference's does, and a per-round conversion of a full-width
@@ -574,7 +611,7 @@ class BatchedEngineBase:
                                       device=self.device, ssm_ring=ssm_ring,
                                       prefill_lanes=lanes,
                                       prefill_quantum=self._pq,
-                                      feature_points=hrad_points)
+                                      feature_points=hrad_points, mesh=mesh)
         self.dft_dec = BatchedDecoder(draft_params, draft_cfg,
                                       n_rows=max_batch
                                       * self.draft_rows_per_seq,
@@ -583,7 +620,12 @@ class BatchedEngineBase:
                                       else None,
                                       device=self.device, ssm_ring=ssm_ring,
                                       prefill_lanes=lanes,
-                                      prefill_quantum=self._pq)
+                                      prefill_quantum=self._pq, mesh=mesh)
+        if mesh is not None:
+            # the rank keeps its shards only, not the full trees it was
+            # given (the H-RAD embedding and the draft's final norm read
+            # them)
+            self.tp, self.dp = self.tgt_dec.params, self.dft_dec.params
         if paged:
             # accounting COW (pool) -> physical COW, each in its own buffer
             self.pools["t"].cow_listeners.append(self.tgt_dec.copy_page)
@@ -657,8 +699,11 @@ class BatchedEngineBase:
 
     # ------------------------------------------------------------ H-RAD
     def _embed_of(self, token: int) -> torch.Tensor:
-        return H.token_embedding(
-            self.tp, torch.tensor([token], device=self.device))
+        t = torch.tensor([token], device=self.device)
+        if self.mesh is None:
+            return H.token_embedding(self.tp, t)
+        return M.token_rows(self.tp["embed"], t, self.tcfg.vocab_size,
+                            self.tgt_dec.tp).float()
 
     def _hrad_signal(self, seq: _Seq, token: int) -> int:
         """s_t from the H-RAD MLP on the request's newest features and the
@@ -1177,7 +1222,21 @@ class BatchedEngineBase:
         self.clock += self.cost.round_cost(rnd)
         if self.debug_check:
             self.pool.check()
+            if self.mesh is not None:
+                self._check_ranks()
         return self.clock
+
+    def _check_ranks(self) -> None:
+        """Every rank of the mesh must have committed the same tokens:
+        one all-reduce of a 23-bit hash of the active streams."""
+        h = 0
+        for s in sorted(self.active, key=lambda s: s.rid):
+            h = zlib.crc32(np.asarray([s.rid, len(s.out)] + s.out,
+                                      np.int64).tobytes(), h)
+        if not self.mesh.agree(h & 0x7FFFFF):
+            raise RuntimeError(
+                f"mesh rank {self.mesh.rank} disagrees with its peers on "
+                f"the committed tokens after round {len(self.timeline)}")
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,19 @@ source row's rings.  A preempted paged hybrid row's rings survive as ONE
 snapshot at its packed length; a dense hybrid row is not swappable and
 recomputes its prefix at re-admission, as in the reference (the dense
 backend is the oracle the paged swap is held against).
+
+On a serving mesh (``mesh``, a ``launch.mesh.ServingMesh``, DESIGN.md
+§7.10) the cache is allocated at the rank's shard of the layout
+``sharding.rules.tp_cache_specs`` gives it: KV heads and the rings' E
+over "model", and on the dense backend the rows over "data" when dp
+divides them.  Paged page buffers keep the page axis whole, so a page id
+names a family of per-rank shards: the pool, the page tables, fork, COW
+and rollback are unchanged, and ``copy_page`` issues no collective.  With
+rows over "data" each rank holds a contiguous block of rows; a row
+operation runs on the row's owner, and what another rank needs from it
+(a fork into a row it owns, a swap pack, a ring snapshot) crosses in one
+broadcast over the "data" group.  Every rank keeps the whole host state
+(write heads, free rows).
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_pool import PagedKVPool
+from repro_torch.sharding import rules
 
 __all__ = ["DecodeState", "DenseAttnState", "PagedAttnState",
            "SSMRingState"]
@@ -209,8 +223,10 @@ class DecodeState:
     the checkpoint of the new length, attention masks stale slots)."""
 
     def __init__(self, cfg: ModelConfig, *, n_rows: int, max_len: int,
-                 paged: Optional[PagedKVPool], device, ssm_ring: int = 0):
+                 paged: Optional[PagedKVPool], device, ssm_ring: int = 0,
+                 mesh=None):
         self.cfg, self.n_rows, self.max_len = cfg, n_rows, max_len
+        self.mesh, self.device = mesh, device
         self.ssm_ring = max(0, ssm_ring)
         has_ssm = any(m == "mamba" for m, _ in cfg.pattern)
         if has_ssm and self.ssm_ring <= 0:
@@ -220,17 +236,28 @@ class DecodeState:
         self.ssm: Optional[SSMRingState] = (SSMRingState(self.ssm_ring)
                                             if has_ssm else None)
         self.paged: Optional[PagedAttnState] = None
+        # the rows this rank holds: all of them unless the dense
+        # backend's rows split over "data"
+        self.data = None
+        self.row_lo, self.n_local = 0, n_rows
         if paged is not None:
             self.paged = PagedAttnState(paged, max_len)
-            self.cache = M.init_paged_cache(
-                cfg, paged.num_pages, paged.page_size, device,
-                n_rows=n_rows if has_ssm else 0, ssm_ring=self.ssm_ring)
+            self.cache = self._alloc(lambda dev: M.init_paged_cache(
+                cfg, paged.num_pages, paged.page_size, dev,
+                n_rows=n_rows if has_ssm else 0, ssm_ring=self.ssm_ring),
+                batch_axis="")
             self.attn: Any = self.paged
         else:
             # the ring depth doubles as sliding-window slack (init_cache)
-            self.cache = M.init_cache(cfg, n_rows, max_len, device,
-                                      ssm_ring=self.ssm_ring)
+            self.cache = self._alloc(lambda dev: M.init_cache(
+                cfg, n_rows, max_len, dev, ssm_ring=self.ssm_ring),
+                batch_axis="data")
             self.attn = DenseAttnState(max_len)
+            if mesh is not None and rules._fit(mesh, n_rows, "data") \
+                    and mesh.shape["data"] > 1:
+                self.data = mesh.axis("data")
+                self.n_local = n_rows // self.data.size
+                self.row_lo = self.data.index * self.n_local
         self.free_rows = list(range(n_rows - 1, -1, -1))
         # per-row write head: idle rows of a batched call park here, so
         # their pad writes land where the row's next real write lands
@@ -258,6 +285,46 @@ class DecodeState:
         self._row_slots = [c for c in M.iter_slots(self.cache)
                            if not PagedAttnState.owns(c)]
 
+    def _alloc(self, build, batch_axis: str):
+        """The cache ``build(self.device)`` makes, or on a mesh the rank's
+        shard of it, allocated at shard size with ``init_cache``'s fills
+        (-1 positions, zeros elsewhere)."""
+        if self.mesh is None:
+            return build(self.device)
+        meta = build("meta")
+        specs = rules.tp_cache_specs(self.mesh, self.cfg, meta,
+                                     batch_axis=batch_axis)
+
+        def slot(c, sp):
+            return {k: torch.full(
+                rules.shard_shape(a.shape, sp[k], self.mesh),
+                0 if a.dtype.is_floating_point else -1, dtype=a.dtype,
+                device=self.device) for k, a in c.items()}
+        return {part: [slot(c, sp) for c, sp in zip(meta[part],
+                                                    specs[part])]
+                for part in ("blocks", "rem")}
+
+    # ------------------------------------------------ rows over "data"
+    def owns(self, row: int) -> bool:
+        """Whether this rank holds ``row`` (always, unless the rows split
+        over "data")."""
+        return self.row_lo <= row < self.row_lo + self.n_local
+
+    def _owner(self, row: int) -> int:
+        return row // self.n_local
+
+    def _share(self, row: int, make, numel: int) -> torch.Tensor:
+        """``make()`` (a float32 vector of ``numel``) computed on the
+        owner of ``row`` and broadcast over "data" to every rank."""
+        if self.data is None:
+            return make()
+        if self.owns(row):
+            buf = make()
+        else:
+            buf = torch.empty(numel, dtype=torch.float32,
+                              device=self.device)
+        return self.data.broadcast(buf, self._owner(row))
+
     def _attn_slots(self) -> List[dict]:
         return [c for c in M.iter_slots(self.cache) if self.attn.owns(c)]
 
@@ -273,14 +340,34 @@ class DecodeState:
         """COW fork of one row: every row-axis leaf (dense K/V and
         positions, rings) copies its row; paged attention moves zero bytes
         (the caller forks the pool stream and binds ``dst``)."""
-        for c in self._row_slots:
-            for a in c.values():
-                a[:, dst] = a[:, src]
         self.row_pos[dst] = self.row_pos[src]
+        if self.data is None or self._owner(src) == self._owner(dst):
+            if self.owns(src):
+                s, d = src - self.row_lo, dst - self.row_lo
+                for c in self._row_slots:
+                    for a in c.values():
+                        a[:, d] = a[:, s]
+            return
+        # the rows live on two "data" ranks: the source row crosses once
+        leaves = [a for c in self._row_slots for a in c.values()]
+        sizes = [a[:, 0].numel() for a in leaves]
+        s = src - self.row_lo
+        buf = self._share(src, lambda: torch.cat(
+            [a[:, s].reshape(-1).float() for a in leaves]), sum(sizes))
+        if self.owns(dst):
+            d = dst - self.row_lo
+            for a, part in zip(leaves, buf.split(sizes)):
+                a[:, d] = part.reshape(a[:, d].shape).to(a.dtype)
 
     def snapshot_flat(self, row: int, step: int) -> torch.Tensor:
         assert self.ssm is not None, "snapshot needs a checkpoint-ring cache"
-        return self.ssm.snapshot_flat(self.cache, row, step)
+        if self.data is None:
+            return self.ssm.snapshot_flat(self.cache, row, step)
+        numel = sum(c["h_ring"][:, 0, 0].numel()
+                    + c["conv_ring"][:, 0, 0].numel()
+                    for c in self.ssm.slots(self.cache))
+        return self._share(row, lambda: self.ssm.snapshot_flat(
+            self.cache, row - self.row_lo, step), numel)
 
     def snapshot_split(self, buf: np.ndarray
                        ) -> List[Dict[str, torch.Tensor]]:
@@ -290,7 +377,8 @@ class DecodeState:
     def restore(self, row: int, step: int,
                 snap: List[Dict[str, torch.Tensor]]) -> None:
         assert self.ssm is not None, "restore needs a checkpoint-ring cache"
-        self.ssm.restore(self.cache, row, step, snap)
+        if self.owns(row):
+            self.ssm.restore(self.cache, row - self.row_lo, step, snap)
 
     def bind(self, row: int, key: Any) -> None:
         if self.paged is not None:
@@ -325,12 +413,22 @@ class DecodeState:
     def prefill_merge(self, sub, rows: Sequence[int]) -> None:
         """Scatter lane i of a prefill view into row ``rows[i]`` of the
         cache (in place); lanes past ``len(rows)`` are pad lanes and are
-        dropped."""
-        idx = torch.as_tensor(list(rows), dtype=torch.int64)
+        dropped, and so are lanes whose row another "data" rank holds."""
+        if self.data is None:
+            idx, sel = torch.as_tensor(list(rows), dtype=torch.int64), None
+        else:
+            lanes = [i for i, r in enumerate(rows) if self.owns(r)]
+            if not lanes:
+                return
+            idx = torch.as_tensor([rows[i] - self.row_lo for i in lanes],
+                                  dtype=torch.int64)
+            sel = torch.as_tensor(lanes, dtype=torch.int64)
         n = len(idx)
         for c, s in zip(M.iter_slots(self.cache), M.iter_slots(sub)):
             for k, a in c.items():
-                a[:, idx.to(a.device)] = s[k][:, :n].to(a.dtype)
+                src = (s[k][:, :n] if sel is None
+                       else s[k][:, sel.to(a.device)])
+                a[:, idx.to(a.device)] = src.to(a.dtype)
 
     # --------------------------------------------------------------- swap
     @torch.no_grad()
@@ -341,8 +439,10 @@ class DecodeState:
         (the partial tail page trimmed to ``length``)."""
         assert self.swappable
         if self.paged is None:
-            return torch.cat(self.attn.pack_parts(self.cache, row, length),
-                             dim=1)
+            return self._share(row, lambda: torch.cat(
+                self.attn.pack_parts(self.cache, row - self.row_lo, length),
+                dim=1).reshape(-1), length * self.swap_dim
+            ).reshape(length, self.swap_dim)
         key = self.paged.row_key[row]
         parts = []
         for c in self._paged_slots():
@@ -364,9 +464,11 @@ class DecodeState:
         stays masked by the row's pool length."""
         assert self.swappable
         if self.paged is None:
-            off = 0
-            for c in self._attn_slots():
-                off = self.attn.unpack_slot(c, row, rows, off)
+            if self.owns(row):
+                off = 0
+                for c in self._attn_slots():
+                    off = self.attn.unpack_slot(c, row - self.row_lo, rows,
+                                                off)
             self.row_pos[row] = rows.shape[0]
             return
         key = self.paged.row_key[row]

@@ -18,6 +18,12 @@ coordinates) may be numpy arrays; they move to the logits' device here.
 ``set_trace_annotations(True)`` (``launch.serve --profile-dir``) turned
 them on: a ``torch.profiler.record_function`` range, and an NVTX range as
 well when the engine runs on the card.
+
+On a serving mesh (DESIGN.md §7.10) every function here runs unchanged on
+every rank: the tensor-parallel forward already returns full-vocabulary
+logits, so the packets are replicated by construction, as the reference's
+``_replicated`` pins them.  ``replicated`` is the one step that is left:
+the dense backend's rows split over "data" come back to every rank.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.runtime import sampling as S
 
-__all__ = ["bucket", "prefill_bucket", "prefill_rungs", "kernel_route",
+__all__ = ["replicated", "bucket", "prefill_bucket", "prefill_rungs",
+           "kernel_route",
            "tick_sample", "draft_chunk", "masked_token_column",
            "compose_verify_tokens",
            "sps_verify", "draw_cands", "branch_verify",
@@ -55,6 +62,14 @@ def annotate(name: str, device="cpu"):
     if torch.device(device).type == "cuda":
         stack.enter_context(torch.cuda.nvtx.range(name))
     return stack
+
+
+def replicated(x: torch.Tensor, data, dim: int) -> torch.Tensor:
+    """``x`` of every "data" rank's rows, concatenated along ``dim`` (the
+    row axis), on every rank: one all-gather over the ``data`` axis
+    (``launch.mesh.MeshAxis``); ``x`` itself when the rows are not split
+    (``data`` None)."""
+    return x if data is None else data.all_gather(x, dim)
 
 
 def bucket(n: int) -> int:

@@ -248,9 +248,11 @@ def test_serve_cli_prefix_cache(tmp_path, capsys):
     with pytest.raises(SystemExit, match="incompatible with --attn-backend"):
         SV.main(["--device", "cpu", "--prefix-cache", "on",
                  "--attn-backend", "dense"])
-    # mesh serving is still a later slice
-    with pytest.raises(SystemExit, match="queue A"):
-        SV.main(["--device", "cpu", "--mesh", "1,1"])
+    # mesh serving is ported (tests/test_torch_sharded_serving.py): as in
+    # the reference, --mesh needs batched mode
+    with pytest.raises(SystemExit, match="requires --mode batched"):
+        SV.main(["--device", "cpu", "--mesh", "1,1", "--mode",
+                 "sequential"])
 
 
 def test_serve_shared_prompts_hit_through_serve():

@@ -6,6 +6,7 @@ swap store, the options of later slices, the device rule and the serve
 CLI.  (Greedy and preemption are in ``test_torch_serving.py``: each file
 runs its own reference serves, so the two run on two workers.)"""
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -133,10 +134,12 @@ def test_paged_store_roundtrip_matches_reference():
 
 def test_later_slice_options_raise(pair):
     _, tpair, _ = pair
-    for kw in (dict(prefix_cache=True, attn_backend="paged",
-                    mesh=object()),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
+    # mesh serving is ported (tests/test_torch_sharded_serving.py): the
+    # rank's device comes with its mesh, and another device is refused
+    other = types.SimpleNamespace(device=torch.device("meta"))
+    for kw in (dict(prefix_cache=True, attn_backend="paged", mesh=other),
+               dict(mesh=other)):
+        with pytest.raises(ValueError, match="the mesh binds"):
             BatchedSpecBranchEngine(*tpair, EngineConfig(max_len=128),
                                     device="cpu", **kw)
     # the prefix cache is ported (tests/test_torch_prefix_cache*.py): on
@@ -175,10 +178,17 @@ def test_serve_cli_on_cpu_and_unsupported_flags(tmp_path, capsys,
     assert "batched specbranch on misaligned pair (cpu)" in text
     rep = __import__("json").loads(out.read_text())
     assert rep["total_tokens"] == 12 and rep["device"] == "cpu"
-    # --prefix-cache on is ported (tests/test_torch_prefix_cache_
-    # admission.py); mesh serving is not
-    with pytest.raises(SystemExit, match="not in this slice"):
-        SV.main(["--device", "cpu", "--mesh", "1,1"])
+    # --prefix-cache on and --mesh are ported (tests/test_torch_prefix_
+    # cache_admission.py, tests/test_torch_sharded_serving.py): --mesh
+    # 1,1 is the unmeshed serve, and as in the reference --mesh needs
+    # batched mode
+    SV.main(["--device", "cpu", "--requests", "2", "--new-tokens", "6",
+             "--max-batch", "2", "--mesh", "1,1"])
+    assert "batched specbranch on misaligned pair (cpu)" in \
+        capsys.readouterr().out
+    with pytest.raises(SystemExit, match="requires --mode batched"):
+        SV.main(["--device", "cpu", "--mode", "sequential", "--mesh",
+                 "1,1"])
     # --spec-predictor and --draft-mode parallel are ported
     # (tests/test_torch_parallel_draft.py): without the trained heads'
     # cache file, parallel drafting trains them into the port's own cache
