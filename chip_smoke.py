@@ -239,18 +239,35 @@ Phases (any failure raises, so the script exits non-zero):
                card's unmeshed serve bit for bit and issue no collective;
                at 1x2 and 2x2 greedy, both engines x both backends, every
                rank's streams must equal the card's unmeshed serve and the
-               target verify forward's collective census the CPU's (gloo
-               processes, the same jobs); at 1x2 also batched SpecBranch
+               target verify forward's collective census the layout's
+               (``expected_forward_census``; the CPU tests pin it for the
+               reference test's pair); at 1x2 also batched SpecBranch
                at temperature 1 (epsilon 0; the verify kernel per rank,
                the ranks agreeing), under a preempting pool (the gather
                kernel per rank) and the jamba-shaped pair (the ring scan
                per rank).  (c) LLaMA-68M/7B at 1x2, each rank holding
                half of every model's heads and MLP: batched SpecBranch,
-               paged, 8 x FULL_NEW greedy, teacher-forced against the
+               paged, MESH_FULL_ROWS x FULL_NEW greedy (4 since PR 26, 8
+               before), teacher-forced against the
                single-device forward as in phase 4; each rank's peak
                memory beside phase 4's, wall tokens/s (two ranks
-               time-sharing one card).  Every rank's launches join the
-               kernel table's; a failed or hung rank fails the run.
+               time-sharing one card).  (d) Since PR 26: a tiny random
+               pair with 6 query and 2 KV heads at 1x3 (SpecBranch, both
+               backends, greedy): each rank holds the KV heads its query
+               heads read, the middle rank pads its queries to whole
+               groups; every rank's streams must equal the card's
+               unmeshed serve.  (e) The FSDP x TP training mesh at 2x2:
+               gemma3-4b at full width (d 2560, 8 heads / 4 KV, hd 256,
+               vocabulary 262144) cut to its first 6 layers (5 local, 1
+               global), 2 steps of 4 x 257 tokens in 2 micro-batches;
+               every rank's losses, global gradient norms and parameter
+               blocks must equal the same steps in one process on the
+               card within the bf16 tolerance of MESH_TRAIN_*; each rank's peak memory beside
+               the single process's, its flash forward and backward
+               launches, and the census bytes of a step beside
+               ``launch.steps.step_costs``' formula (which must equal the
+               census).  Every rank's launches join the kernel table's; a
+               failed or hung rank fails the run.
 The full-width 7B pair's drives take FULL_NEW (16) new tokens a request
 in phases 4, 6 and 10 and LATE_NEW (8) in phases 11-14, gemma3-4b's
 G3_NEW (32: its context yardstick needs rows past the window of 1024),
@@ -433,10 +450,32 @@ FALCON_TRAIN = dict(batch=2, seq=257, micro=2, steps=2, layers=16)
 TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4
 # phase 17: new tokens a request of the mesh's tiny drives, and each
 # spawn's own time limit (a hung rank fails the run there)
-MESH_TINY_NEW = 16
+MESH_TINY_NEW = 12          # 16 before PR 26's phase 17d/e
 MESH_JOIN_S = 420.0
 MESH_FULL_PAIR = "paper-llama"      # phase 17c's pair (LLaMA-68M/7B)
-MESH_PREEMPT_POOL = 60      # SpS, 4 x 16 tokens, pages of 4: preempts
+MESH_FULL_ROWS = 4          # its requests (8 before PR 26's phase 17e)
+MESH_PREEMPT_POOL = 60      # SpS, 4 x 12 tokens, pages of 4: preempts
+# phase 17 (since PR 26): the 1x3 drive's pair (6 query / 2 KV heads, hd
+# 16: each rank holds the KV heads its query heads read, the middle
+# rank's queries padded to whole groups) and the 2x2 FSDP x TP training
+# drive: gemma3-4b at full width cut to its first 6 layers (5 local + 1
+# global), 2 steps of 4 x 257 tokens in 2 micro-batches, held against the
+# same steps in one process on the card in bf16: losses within
+# MESH_TRAIN_LOSS_ATOL, each step's global gradient norm within
+# MESH_TRAIN_GNORM_RTOL (AdamW's update hides a gradient's scale, the
+# norm does not), each leaf's update (after less before) at a cosine of
+# at least MESH_TRAIN_COS with the single process's (bf16 gradients
+# summed in other orders: the embedding's, the lowest, read 0.991-0.992
+# on the card in PR 26's call 2; a wrong gradient reads near 0), and
+# every parameter
+# within 2.1 x the steps' summed learning rates (AdamW moves a weight by
+# at most about lr a step) plus MESH_TRAIN_ULPS bf16 spacings (2^-7
+# relative) of its leaf's largest magnitude
+MESH_TRAIN = dict(layers=6, batch=4, seq=257, micro=2, steps=2)
+MESH_TRAIN_LOSS_ATOL = 0.02
+MESH_TRAIN_GNORM_RTOL = 0.02
+MESH_TRAIN_COS = 0.95
+MESH_TRAIN_ULPS = 2
 
 
 def log(*a) -> None:
@@ -4953,6 +4992,164 @@ def mesh_check(label, ranks, want, totals, kernels) -> None:
             totals[k] += v
 
 
+def mesh_pair62():
+    """Phase 17d's tiny random pair: 6 query heads reading 2 KV heads
+    (groups of 3), hd 16, target 2 layers, draft 1, f32, CPU trees."""
+    from repro_torch.models.config import ModelConfig, dense_pattern
+    base = dict(family="dense", pattern=dense_pattern(0), vocab_size=256,
+                dtype="float32", num_heads=6, num_kv_heads=2, d_model=96,
+                d_ff=384)
+    tcfg = ModelConfig(name="mesh62-target", num_layers=2, **base)
+    dcfg = ModelConfig(name="mesh62-draft", num_layers=1, **base)
+    return (M.init_params(dcfg, 1, "cpu"), dcfg,
+            M.init_params(tcfg, 0, "cpu"), tcfg)
+
+
+def mesh_train_config():
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-4b")
+    if (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+            cfg.vocab_size) != (2560, 8, 4, 256, 262144):
+        raise AssertionError(f"gemma3-4b config changed: {cfg}")
+    cfg = cfg.replace(num_layers=MESH_TRAIN["layers"])
+    if [m for m, _ in cfg.pattern] != ["local"] * 5 + ["attn"]:
+        raise AssertionError(f"gemma3-4b's first 6 layers: {cfg.pattern}")
+    return cfg
+
+
+def mesh_train_reference(dev, totals) -> dict:
+    """Phase 17e's steps in one process on the card; the result is saved
+    (CPU, under build/) for the ranks to hold their blocks against."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.training import optim
+    cfg = mesh_train_config()
+    rng = np.random.default_rng(17)
+    batches = [rng.integers(0, cfg.vocab_size,
+                            (MESH_TRAIN["batch"], MESH_TRAIN["seq"]))
+               for _ in range(MESH_TRAIN["steps"])]
+    ocfg = optim.AdamWConfig(lr=1e-3, total_steps=MESH_TRAIN["steps"])
+    free_device_memory()
+    params = M.init_params(cfg, 0, dev)
+    opt_state = optim.init(params)
+    step = ST.make_train_step(cfg, MESH_TRAIN["micro"], ocfg)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    losses, secs = [], []
+    for b in batches:
+        t0 = time.time()
+        params, opt_state, loss = step(params, opt_state,
+                                       torch.from_numpy(b).to(dev))
+        losses.append(float(loss))
+        secs.append(time.time() - t0)
+    launches = dict(ops.LAUNCHES)
+    add_counts(totals, launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    gnorms = [float(g) for g in step.gnorms]
+    path = os.path.join(ROOT, "build", "phase17", "train_ref.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(optim.tree_map(lambda t: t.cpu(), params), path)
+    del params, opt_state
+    free_device_memory()
+    return dict(cfg=cfg, batches=batches, ocfg=ocfg, losses=losses,
+                gnorms=gnorms, seconds=secs, peak_bytes=peak,
+                launches=launches, path=path)
+
+
+def mesh_train_check(ref, ranks, totals) -> dict:
+    """Phase 17e: every rank's losses, global norms and parameter blocks
+    against the single process's; peaks, flash launches and the census
+    beside the formula.  Everything is printed before it is judged."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.sharding import hlo_analysis as HA
+    from repro_torch.training import optim
+    cfg = ref["cfg"]
+    m = MESH.ShapeMesh({"data": 2, "model": 2})
+    B, T = MESH_TRAIN["batch"], MESH_TRAIN["seq"] - 1
+    # AdamW moves a weight by at most about lr a step whatever its
+    # gradient, so two runs can drift apart by up to 2 lr a step where a
+    # tiny gradient takes the other sign in another summation order
+    lrs = sum(optim.schedule(ref["ocfg"], i)
+              for i in range(MESH_TRAIN["steps"]))
+
+    def bound(scale):
+        return 2.1 * lrs + MESH_TRAIN_ULPS * 2.0 ** -7 * scale
+    out = {"losses_single": ref["losses"], "gnorms_single": ref["gnorms"],
+           "ranks": []}
+    bad = []
+    for r, res in enumerate(ranks):
+        coords = {"data": r // 2, "model": r % 2}
+        dl = max(abs(a - b) for a, b in zip(res["losses"], ref["losses"]))
+        dg = max(abs(a - b) / b for a, b in zip(res["gnorms"],
+                                                ref["gnorms"]))
+        low = min(res["errors"].items(), key=lambda kv: kv[1][2])
+        over = [p for p, (err, scale, _) in res["errors"].items()
+                if err > bound(scale)]
+        cost = ST.step_costs(cfg, "train", B, T, m, coords,
+                             n_micro=MESH_TRAIN["micro"])
+        want = ST.events_by_key(cost["events"])
+        census_ok = all(c == want for c in res["census"])
+        got_b = HA.bytes_by_kind((k.rpartition("@")[0],
+                                  int(k.rpartition("@")[2]), b)
+                                 for k, (_, b) in res["census"][0].items())
+        want_b = HA.bytes_by_kind(cost["events"])
+        add_counts(totals, res["launches"])
+        row = dict(rank=r, losses=res["losses"], loss_gap=dl,
+                   gnorms=res["gnorms"], gnorm_rel_gap=dg,
+                   lowest_update_cos=(low[0], low[1][2]),
+                   over_bound=over, peak_gb=res["peak_bytes"] / 1e9,
+                   seconds=res["seconds"],
+                   flash_fwd=res["launches"]["flash_attention"],
+                   flash_bwd=res["launches"]["flash_attention_bwd"],
+                   census_bytes=got_b["total"], census_ok=census_ok,
+                   formula_bytes=want_b["total"])
+        out["ranks"].append(row)
+        log(f"  (e) rank {r}: losses {res['losses']} (single "
+            f"{ref['losses']}, gap {dl:.2e}); global norms "
+            f"{[round(x, 4) for x in res['gnorms']]} (single "
+            f"{[round(x, 4) for x in ref['gnorms']]}, relative gap "
+            f"{dg:.2e}); lowest update cosine {low[1][2]:.5f} ({low[0]}); "
+            f"leaves over the bound {over}; peak {row['peak_gb']:.2f} GB "
+            f"(single process {ref['peak_bytes'] / 1e9:.2f} GB); flash "
+            f"fwd / bwd launches {row['flash_fwd']} / {row['flash_bwd']} "
+            f"(single process {ref['launches']['flash_attention']} / "
+            f"{ref['launches']['flash_attention_bwd']}); census of a step "
+            f"{got_b['total'] / 1e9:.4f} GB moved "
+            f"({ {k: round(v / 1e6, 3) for k, v in got_b.items() if v} } "
+            f"MB), formula {want_b['total'] / 1e9:.4f} GB, equal "
+            f"{census_ok}; step seconds "
+            f"{[round(x, 2) for x in res['seconds']]} (single process "
+            f"{[round(x, 2) for x in ref['seconds']]})")
+        if dl > MESH_TRAIN_LOSS_ATOL or dg > MESH_TRAIN_GNORM_RTOL \
+                or low[1][2] < MESH_TRAIN_COS or over or not census_ok:
+            bad.append(r)
+        for k in ("flash_attention", "flash_attention_bwd"):
+            if res["launches"][k] == 0:
+                bad.append(f"rank {r} launched no {k}")
+    if bad:
+        raise AssertionError(f"mesh 2x2 train: ranks {bad} outside the "
+                             "bf16 tolerance (see the lines above)")
+    return out
+
+
+def expected_forward_census(tcfg, backend, dims) -> dict:
+    """The collectives one target verify forward of a dense-MLP target
+    issues on a ``dims`` mesh, by ``kind@n`` (``models.model``: one
+    all-reduce after wo and one after wd a layer, one for a
+    vocabulary-split embedding, one all-gather of vocabulary-split logits;
+    the dense backend at dp > 1 gathers the rows' logits over "data")."""
+    dp, tp = dims
+    out = {}
+    if tp > 1:
+        split_v = int(tcfg.vocab_size % tp == 0)
+        out[f"all-reduce@{tp}"] = 2 * tcfg.num_layers + split_v
+        if split_v:
+            out[f"all-gather@{tp}"] = 1
+    if backend == "dense" and dp > 1:
+        out[f"all-gather@{dp}"] = out.get(f"all-gather@{dp}", 0) + 1
+    return out
+
+
 def phase_mesh(dev, totals, phase4=None) -> dict:
     """Phase 17: mesh-sharded serving (see the module docstring)."""
     from repro_torch.training.pairs import get_pair
@@ -4984,27 +5181,39 @@ def phase_mesh(dev, totals, phase4=None) -> dict:
              new_tokens=MESH_TINY_NEW, engine="specbranch",
              attn_backend="paged", max_batch=2,
              ecfg=EngineConfig(gamma=4, c=10.0, max_len=jmax))]
-    full_prompts = SV.make_prompts(8)
+    full_prompts = SV.make_prompts(MESH_FULL_ROWS)
     full = dict(name="llama-7b", pair_kind=MESH_FULL_PAIR,
                 prompts=full_prompts, new_tokens=FULL_NEW,
                 engine="specbranch", attn_backend="paged", max_batch=8,
                 ecfg=EngineConfig(gamma=4, c=10.0, max_len=SV.auto_max_len(
                     full_prompts, FULL_NEW, 4, 10.0)))
+    pair62 = mesh_pair62()              # vocabulary 256 > the prompts' 199
     plan = {(1, 1): mesh_jobs(cpu, prompts, 1.0),
             (1, 2): mesh_jobs(cpu, prompts, 0.0) + extra12,
-            (2, 2): mesh_jobs(cpu, prompts, 0.0)}
+            (2, 2): mesh_jobs(cpu, prompts, 0.0),
+            (1, 3): mesh_jobs(pair62, prompts, 0.0, census=False,
+                              names={"specbranch-dense",
+                                     "specbranch-paged"})}
+    # (e) the training mesh's single-process reference, before the ranks
+    t1 = time.time()
+    train_ref = mesh_train_reference(dev, totals)
+    log(f"  (e) gemma3-4b/{MESH_TRAIN['layers']} single process on the "
+        f"card: losses {train_ref['losses']}, peak "
+        f"{train_ref['peak_bytes'] / 1e9:.2f} GB, step seconds "
+        f"{[round(x, 2) for x in train_ref['seconds']]} "
+        f"({time.time() - t1:.1f}s with the save)")
+    train_job = dict(name="gemma3-4b/6 2x2", cfg=train_ref["cfg"],
+                     n_micro=MESH_TRAIN["micro"], seed=0,
+                     batches=train_ref["batches"], ocfg=train_ref["ocfg"],
+                     compare_to=train_ref["path"])
     # the meshes' spawns (the 7B drive and the probe 1x2 spawns of their
-    # own) and the CPU's census (the same jobs in gloo CPU processes) run
-    # at once: eleven ranks share the card
-    cpu_jobs = mesh_jobs(cpu, prompts, 0.0)
+    # own) run at once
     spawns = {dims: (mesh_spawn, dims, jobs) for dims, jobs in plan.items()}
     spawns[("7B", 1, 2)] = (mesh_spawn, (1, 2), [full])
     spawns[("probe", 1, 2)] = (mesh_spawn, (1, 2), None, None,
                                "mesh:probe_collectives")
-    for dims in ((1, 2), (2, 2)):
-        spawns[("cpu",) + dims] = (
-            mesh_spawn, dims, cpu_jobs, ["cpu"] * (dims[0] * dims[1]),
-            "serve:census_jobs")
+    spawns[("train", 2, 2)] = (mesh_spawn, (2, 2), [train_job], None,
+                               "train:train_jobs")
 
     def timed(fn, *a):
         t1 = time.time()
@@ -5012,20 +5221,20 @@ def phase_mesh(dev, totals, phase4=None) -> dict:
     with concurrent.futures.ThreadPoolExecutor(len(spawns)) as pool:
         futs = {k: pool.submit(timed, *v) for k, v in spawns.items()}
         done = {k: f.result() for k, f in futs.items()}
-    cpu_census = {}
     for key, (ranks, secs) in done.items():
-        what = {"cpu": "CPU census spawn", "7B": "7B spawn",
-                "probe": "probe spawn"}.get(key[0], "spawn")
+        what = {"7B": "7B spawn",
+                "probe": "probe spawn",
+                "train": "training spawn"}.get(key[0], "spawn")
         log(f"  {key[-2]}x{key[-1]} {what}: {len(ranks)} ranks, "
             f"{secs:.1f}s (concurrent)")
         if key[0] == "probe":
             probe = ranks[0]
             continue
-        if key[0] == "cpu":
-            cpu_census[key[1:]] = {r["name"]: r["census"] for r in ranks[0]}
-            continue
         if key[0] == "7B":
             full_ranks = [rank[0] for rank in ranks]
+            continue
+        if key[0] == "train":
+            train_ranks = [rank[0] for rank in ranks]
             continue
         by[key] = {}
         for rank in ranks:
@@ -5036,7 +5245,8 @@ def phase_mesh(dev, totals, phase4=None) -> dict:
     out["probe"] = probe
     for k in ("all_reduce float32", "all_gather float32",
               "broadcast float32", "all_reduce bfloat16",
-              "all_gather bfloat16"):
+              "all_gather bfloat16", "reduce_scatter bfloat16",
+              "reduce_scatter float32"):
         if probe[k] != "ok":
             raise AssertionError(f"gloo on CUDA: {k}: {probe[k]}")
     kern = {"dense": ["flash_attention"], "paged": ["paged_attention"]}
@@ -5063,11 +5273,11 @@ def phase_mesh(dev, totals, phase4=None) -> dict:
                     f"wall={r['wall']:.2f}s collectives={r['collectives']}")
             if "census" in r:
                 line += f" forward census={r['census']}"
-                if dims != (1, 1) and \
-                        r["census"] != cpu_census[dims][name]:
+                want_c = expected_forward_census(job["pair"][3],
+                                                 job["attn_backend"], dims)
+                if r["census"]["forward"] != want_c:
                     raise AssertionError(f"{label}: census {r['census']} "
-                                         "!= the CPU's "
-                                         f"{cpu_census[dims][name]}")
+                                         f"!= {want_c}")
                 if dims == (1, 1) and (r["census"]["forward"]
                                        or r["collectives"]):
                     raise AssertionError(f"{label}: a 1x1 mesh issued "
@@ -5100,7 +5310,8 @@ def phase_mesh(dev, totals, phase4=None) -> dict:
     peaks = [r["peak_bytes"] / 1e9 for r in ranks]
     p4 = (phase4 or {}).get("greedy", {}).get("peak_gb")
     tps = r0["total_tokens"] / max(r0["wall"], 1e-9)
-    log(f"  (c) mesh 1x2 llama-7b SpecBranch paged greedy 8 x {FULL_NEW}: "
+    log(f"  (c) mesh 1x2 llama-7b SpecBranch paged greedy {MESH_FULL_ROWS} "
+        f"x {FULL_NEW}: "
         f"{tps:.1f} tok/s wall (two ranks time-sharing one card through "
         f"gloo: not a tensor-parallel speed), rounds={r0['rounds']}, "
         f"collectives={r0['collectives']}; peak allocated per rank "
@@ -5111,6 +5322,9 @@ def phase_mesh(dev, totals, phase4=None) -> dict:
                                rounds=r0["rounds"], peak_gb=peaks,
                                phase4_peak_gb=p4, teacher_forced=tf,
                                collectives=r0["collectives"])
+    # (e) the FSDP x TP training mesh at 2x2
+    out["train 2x2"] = mesh_train_check(train_ref, train_ranks, totals)
+    os.remove(train_ref["path"])
     log(f"  phase 17: {time.time() - t0:.1f}s")
     return out
 

@@ -1,7 +1,8 @@
-"""Serving meshes (port of ``repro.launch.mesh``, DESIGN.md §7.10) as
-``torch.distributed`` process groups.
+"""Meshes (port of ``repro.launch.mesh``, DESIGN.md §7.10): the serving
+and training meshes as ``torch.distributed`` process groups, and the
+shape-only production meshes of the dry run.
 
-A ``(dp, tp)`` serving mesh is ``dp * tp`` processes, one per mesh
+A ``(dp, tp)`` mesh is ``dp * tp`` processes, one per mesh
 position ``(d, t)``, rank ``d * tp + t``.  Every rank runs the same host
 loop (pool accounting, scheduler, PRNG keys) over its shard of the weights
 and caches; the tensor-parallel forward issues its collectives over the
@@ -17,9 +18,21 @@ method (CUDA cannot fork), runs a named function of this package in each
 and returns their results; a failed rank, or one silent past the
 timeout, fails the caller.
 
-The reference's ``make_production_mesh`` / ``make_host_mesh`` and its
-hardware constants belong to the training mesh's dry run and are not
-ported here.
+Under autograd (the training mesh, ``launch.steps``) the axes' collectives
+carry gradients: ``all_reduce`` sums a row-split product's partials and
+passes the gradient through unchanged, ``copy_in`` (the identity) sums
+the gradient of a replicated input that enters a split product, and
+``fsdp_gather`` gathers a weight's FSDP blocks and reduce-scatters its
+gradient back.  Every collective, forward or backward, is counted in the
+``Census`` with its bytes.
+
+``make_production_mesh`` / ``make_host_mesh`` are shape-only meshes
+(``ShapeMesh``: a ``.shape`` dict, which the rules take): the dry run
+(``launch.dryrun``) lays out and costs programs on them and allocates
+nothing.  The hardware constants below are the H100's, each with its
+source; the roofline's collective term takes the slowest link a group
+spans (NVLink within an 8-GPU node, the node's InfiniBand across
+nodes).
 """
 from __future__ import annotations
 
@@ -63,16 +76,17 @@ def parse_mesh_arg(arg: str):
 
 def validate_serving_mesh(dp: int, tp: int, *, configs=(),
                           n_devices: int = 0, device="cuda") -> None:
-    """Reject serving meshes that cannot shard losslessly.
+    """Reject meshes that cannot shard losslessly.
 
     ``configs``: ModelConfigs that will run under the mesh (target AND
-    draft) — ``tp`` must divide each one's attention-head count, and
-    either divide its KV-head count or be a multiple of it (whole KV
-    heads per rank).  ``n_devices`` must cover dp*tp; it defaults to
-    ``torch.cuda.device_count()`` for a CUDA ``device``, while CPU ranks
-    are processes and take no device count.  Raises ValueError with an
-    actionable message; dp is never checked against the batch — an odd
-    batch degrades to replication, it doesn't break."""
+    draft) — ``tp`` must divide each one's attention-head count, as the
+    reference requires; each rank then holds the whole KV heads its query
+    heads read (``sharding.rules`` exception (a)).  ``n_devices`` must
+    cover dp*tp; it defaults to ``torch.cuda.device_count()`` for a CUDA
+    ``device``, while CPU ranks are processes and take no device count.
+    Raises ValueError with an actionable message; dp is never checked
+    against the batch — an odd batch degrades to replication, it doesn't
+    break."""
     check = n_devices > 0
     if not check and torch.device(device).type == "cuda":
         n_devices, check = torch.cuda.device_count(), True
@@ -88,11 +102,74 @@ def validate_serving_mesh(dp: int, tp: int, *, configs=(),
                 f"--mesh {dp},{tp}: tp={tp} does not divide "
                 f"{cfg.name!r}'s {heads} attention heads; pick tp in "
                 f"{[t for t in range(1, heads + 1) if heads % t == 0]}")
-        kv = getattr(cfg, "num_kv_heads", 0)
-        if kv and kv % tp and tp % kv:
-            raise ValueError(
-                f"--mesh {dp},{tp}: tp={tp} neither divides nor is a "
-                f"multiple of {cfg.name!r}'s {kv} KV heads")
+
+
+# ---------------------------------------------------------------------------
+# shape-only production meshes and the H100's constants
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeMesh:
+    """A mesh of axis sizes only (no devices, no processes)."""
+    shape: Dict[str, int]
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """16x16 single-pod (256 GPUs) or 2x16x16 two-pod (512 GPUs) mesh,
+    axes ("data", "model") / ("pod", "data", "model"), shape only."""
+    if multi_pod:
+        return ShapeMesh({"pod": 2, "data": 16, "model": 16})
+    return ShapeMesh({"data": 16, "model": 16})
+
+
+def make_host_mesh() -> ShapeMesh:
+    """The 1x1 mesh of one device, shape only."""
+    return ShapeMesh({"data": 1, "model": 1})
+
+
+# NVIDIA H100 SXM5 80GB (the card of this repo's chip runs): the H100
+# datasheet's dense BF16 tensor-core peak and HBM3 bandwidth
+PEAK_FLOPS_BF16 = 989e12     # FLOP/s per GPU
+HBM_BW = 3.35e12             # bytes/s per GPU
+# NVLink 4 (18 links) inside an 8-GPU HGX node: 900 GB/s per GPU in both
+# directions, 450 GB/s in one (the datasheet's NVLink figure)
+NVLINK_BW = 450e9            # bytes/s per GPU, one direction
+# across nodes: one 400 Gb/s NDR InfiniBand adapter per GPU (the HGX
+# H100 reference design), 50 GB/s in one direction
+IB_BW = 50e9                 # bytes/s per GPU, one direction
+GPUS_PER_NODE = 8
+
+
+def group_link_bw(mesh, axis) -> float:
+    """The slowest link a collective over ``axis`` (a name, a tuple of
+    names, or "world" for every axis) crosses: ranks are laid out
+    row-major over the mesh's axes (the last fastest), 8 to a node, so a
+    group whose members' ranks span more than one node goes over
+    InfiniBand.  (At 16x16 a 16-wide "model" group spans two nodes.)"""
+    names = list(mesh.shape)
+    axes = names if axis == "world" else (
+        list(axis) if isinstance(axis, tuple) else [axis])
+    span, stride = 1, 1
+    for a in reversed(names):
+        if a in axes:
+            span += stride * (mesh.shape[a] - 1)
+        stride *= mesh.shape[a]
+    return NVLINK_BW if span <= GPUS_PER_NODE else IB_BW
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 @dataclasses.dataclass
@@ -109,40 +186,126 @@ class MeshAxis:
     group: Any
     census: Census
 
+    def _all_reduce(self, x: torch.Tensor, op=None) -> torch.Tensor:
+        self.census.record("all-reduce", self.size, _nbytes(x))
+        dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=self.group)
+        return x
+
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of ``x`` over the axis (a new contiguous tensor when ``x``
-        is not contiguous, else ``x`` reduced in place)."""
+        """Sum of ``x`` over the axis: a row-split product's partial sums
+        (under autograd a new tensor, the gradient passed through
+        unchanged; else ``x`` reduced in place, or a new contiguous
+        tensor when ``x`` is not contiguous)."""
         if self.size == 1:
             return x
+        if _needs_grad(x):
+            return _AllReduce.apply(x, self)
+        return self._all_reduce(x.contiguous())
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise max of ``x`` over the axis (a new tensor; no
+        gradient)."""
+        if self.size == 1:
+            return x
+        return self._all_reduce(x.detach().clone().contiguous(),
+                                dist.ReduceOp.MAX)
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself, whose gradient is summed over the axis: a
+        replicated input entering a split product (each rank's gradient
+        is the part its block contributes)."""
+        if self.size == 1 or not _needs_grad(x):
+            return x
+        return _CopyIn.apply(x, self)
+
+    def _all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         x = x.contiguous()
-        self.census.record("all-reduce", self.size)
-        dist.all_reduce(x, group=self.group)
-        return x
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        self.census.record("all-gather", self.size, self.size * _nbytes(x))
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=dim)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The axis's blocks of ``x`` concatenated along ``dim``, in index
-        order."""
+        order (no gradient)."""
         if self.size == 1:
             return x
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        self.census.record("all-gather", self.size)
-        dist.all_gather(parts, x, group=self.group)
-        return torch.cat(parts, dim=dim)
+        return self._all_gather(x.detach(), dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's block along ``dim`` of the sum of ``x`` over the
+        axis (a new tensor)."""
+        if self.size == 1:
+            return x
+        parts = [p.contiguous() for p in x.chunk(self.size, dim=dim)]
+        out = torch.empty_like(parts[0])
+        self.census.record("reduce-scatter", self.size, _nbytes(x))
+        dist.reduce_scatter(out, parts, group=self.group)
+        return out
+
+    def fsdp_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """A weight's FSDP blocks gathered along ``dim``; under autograd
+        its gradient is reduce-scattered back into the rank's block (each
+        rank's gradient comes from its own rows of the batch)."""
+        if self.size == 1:
+            return x
+        if _needs_grad(x):
+            return _FsdpGather.apply(x, self, dim)
+        return self._all_gather(x, dim)
 
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
         """``x`` of the rank at index ``src`` on every rank of the axis
         (``x`` is overwritten in place elsewhere)."""
         if self.size == 1:
             return x
-        self.census.record("broadcast", self.size)
+        self.census.record("broadcast", self.size, _nbytes(x))
         dist.broadcast(x, src=self.ranks[src], group=self.group)
         return x
 
 
+class _AllReduce(torch.autograd.Function):
+    """Forward: the sum over the axis; backward: the identity (every rank
+    backpropagates the same loss through the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis._all_reduce(x.detach().clone().contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Forward: the identity; backward: the sum over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._all_reduce(g.clone().contiguous()), None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """Forward: all-gather along ``dim``; backward: reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis._all_gather(x.detach(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.reduce_scatter(g, ctx.dim), None, None
+
+
 @dataclasses.dataclass
 class ServingMesh:
-    """A ``(dp, tp)`` serving mesh as one rank sees it."""
+    """A ``(dp, tp)`` mesh as one rank sees it (the serving engines, the
+    production steps and the training step run on it)."""
     shape: Dict[str, int]
     coords: Dict[str, int]
     rank: int
@@ -162,6 +325,15 @@ class ServingMesh:
         ax = self.axes["model"]
         return ax if ax.size > 1 else None
 
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of ``x`` over every rank of the mesh, in place (no
+        gradient)."""
+        if self.world == 1:
+            return x
+        self.census.record("all-reduce", self.world, _nbytes(x))
+        dist.all_reduce(x)
+        return x
+
     def agree(self, value: int) -> bool:
         """Whether every rank passed the same ``value`` (an integer below
         2^23, exact in float32): one all-reduce of (v, -v) with MAX over
@@ -170,7 +342,7 @@ class ServingMesh:
             return True
         t = torch.tensor([float(value), -float(value)], dtype=torch.float32,
                          device=self.device)
-        self.census.record("all-reduce", self.world)
+        self.census.record("all-reduce", self.world, _nbytes(t))
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return bool(t[0].item() == -t[1].item())
 
@@ -212,8 +384,9 @@ def make_serving_mesh(dp: int, tp: int, *, backend: str,
 
 def probe_collectives(mesh: ServingMesh, _payload=None) -> Dict[str, str]:
     """Rank target: which collectives the mesh's backend takes on tensors
-    of the mesh's device, by dtype — all_reduce, all_gather and broadcast
-    over the whole mesh in float32, bfloat16 and int32.  Returns "ok",
+    of the mesh's device, by dtype — all_reduce, all_gather, broadcast
+    and reduce_scatter over the whole mesh in float32, bfloat16 and
+    int32.  Returns "ok",
     "wrong" (it ran but gave another value) or the error's first line,
     by ``"collective dtype"``."""
     out: Dict[str, str] = {}
@@ -230,9 +403,14 @@ def probe_collectives(mesh: ServingMesh, _payload=None) -> Dict[str, str]:
                 parts = [torch.empty_like(x) for _ in range(n)]
                 dist.all_gather(parts, x)
                 return [p[0].item() for p in parts] == list(range(1, n + 1))
+            if kind == "reduce_scatter":
+                out1 = torch.empty((4,), dtype=dt, device=mesh.device)
+                dist.reduce_scatter(out1, [x.clone() for _ in range(n)])
+                return out1.tolist() == [n * (n + 1) // 2] * 4
             dist.broadcast(x, src=n - 1)
             return x.tolist() == [n] * 4
-        for kind in ("all_reduce", "all_gather", "broadcast"):
+        for kind in ("all_reduce", "all_gather", "broadcast",
+                     "reduce_scatter"):
             try:
                 out[f"{kind} {name}"] = "ok" if run(kind) else "wrong"
             except Exception as e:          # the probe's answer, not a bug

@@ -304,18 +304,20 @@ def _device_name(device) -> str:
 def forward_census(eng, mesh) -> Dict[str, Dict[str, int]]:
     """The collectives one target verify forward issues (a fresh engine's
     decoder stepping 4 tokens on every row, as the reference's census
-    lowers it) and those one ``copy_page`` issues, by ``kind@n``."""
+    lowers it) and those one ``copy_page`` issues, by ``kind@n``; with
+    the forward's recorded bytes by ``kind@n`` (``forward_bytes``)."""
     dec = eng.tgt_dec
     mesh.census.reset()
     dec.step(np.zeros((dec.n_rows, 4), np.int32),
              np.zeros(dec.n_rows, np.int64))
     fwd = collective_counts(mesh.census)
+    fwd_bytes = mesh.census.raw_bytes()
     mesh.census.reset()
     if dec.state.paged is not None:
         dec.copy_page(0, 1)
     page = collective_counts(mesh.census)
     mesh.census.reset()
-    return {"forward": fwd, "copy_page": page}
+    return {"forward": fwd, "copy_page": page, "forward_bytes": fwd_bytes}
 
 
 def _job_pair(job: Dict[str, Any], device):
@@ -390,15 +392,6 @@ def serve_jobs(mesh, jobs: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
     kernel launches and collectives of the serve, and its peak device
     memory from the engine's build on (CUDA)."""
     return [_serve_job(mesh, job) for job in jobs]
-
-
-def census_jobs(mesh, jobs: Sequence[Dict[str, Any]]
-                ) -> List[Dict[str, Any]]:
-    """Rank target: ``forward_census`` of a fresh engine for each of
-    ``serve_jobs``' jobs, without serving them."""
-    return [{"name": job.get("name"),
-             "census": _job_census(mesh, job, _job_pair(job, mesh.device))}
-            for job in jobs]
 
 
 def _mesh_devices(device: str, n: int):

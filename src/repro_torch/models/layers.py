@@ -22,6 +22,14 @@ partial products of a row-split weight: one all-reduce after ``wo``, one
 after ``wd`` (dense or MoE), and in ``mamba`` one after ``x_db`` (its
 (R+2N) outputs contract over E) and one after ``out_proj``.  A weight the
 rules left whole (its dimension not divisible) issues no collective.
+Under autograd each replicated input of a split product passes through
+``tp.copy_in`` (the identity, whose gradient is summed over "model"):
+the normed input of attention, the MLP, the experts and Mamba's
+``in_proj``, the MoE gates, and Mamba's summed ``x_db`` outputs.  A rank
+whose query heads start inside a KV group pads them to whole groups
+(``sharding.rules`` exception (a)).  ``moe_ffn`` with ``dp`` (the "data"
+axis over which a batch's rows are split) takes its capacity, its
+token ranks and its load-balance fractions over the whole batch.
 """
 from __future__ import annotations
 
@@ -39,6 +47,28 @@ Params = Dict[str, Any]
 def _psum(x: torch.Tensor, tp, split: bool) -> torch.Tensor:
     """Sum a row-split product's partials over the "model" axis."""
     return tp.all_reduce(x) if tp is not None and split else x
+
+
+def _tp_in(x: torch.Tensor, tp, split: bool) -> torch.Tensor:
+    """A replicated input entering a split product: its gradient is
+    summed over the "model" axis."""
+    return tp.copy_in(x) if tp is not None and split else x
+
+
+def query_pad(cfg: ModelConfig, H: int, KV: int, tp) -> Tuple[int, int]:
+    """(offset, width) of the rank's H query heads inside the whole
+    groups of its KV heads, or (0, H) when they need no padding: H
+    local query heads read KV local heads through the kernels' mapping
+    (query head h -> KV head h // (width / KV)) only when they fill whole
+    groups or share one KV head (``sharding.rules`` exception (a)).  The
+    rank's block is the (index // r)-th of H heads, r = the ranks that
+    hold each block (exception (d); 1 when tp divides the heads)."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    if tp is None or KV <= 1 or KV * G == H:
+        return 0, H
+    r = tp.size // math.gcd(cfg.num_heads, tp.size)
+    q0 = (tp.index // r) * H
+    return q0 - (q0 // G) * G, KV * G
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -105,7 +135,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               window: int = 0, kv_chunk: int = 2048,
               cache_mode: str = "append",
               paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              pdraft: Optional[Params] = None, tp=None) -> torch.Tensor:
+              pdraft: Optional[Params] = None, tp=None,
+              seq=None) -> torch.Tensor:
     """One attention block (pre-norm, residual outside).
 
     Dense ring cache ``{"k": (B, Sc, KV, hd), "v": ..., "pos": (B, Sc)
@@ -138,13 +169,18 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     position).  The paged path needs neither: slot positions lie at or
     beyond ``lens``, so their writes go to the trash page and the kernel
     shows every query only keys ``< lens``.
+
+    ``seq`` (a ``launch.mesh.MeshAxis``) splits a dense ring cache's slot
+    axis over its ranks (the long-context step, batch 1): the layer
+    gathers the ring's blocks before it attends, attends and writes over
+    the whole ring, and keeps its own block.
     """
     B, T, _D = x.shape
     # this rank's heads (all of them without tensor parallelism)
     hd = cfg.hd
     H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     split = H != cfg.num_heads
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = _tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp, split)
     q = (h @ p["wq"]).reshape(B, T, H, hd)
     k = (h @ p["wk"]).reshape(B, T, KV, hd)
     v = (h @ p["wv"]).reshape(B, T, KV, hd)
@@ -154,6 +190,18 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     sin, cos = rope_sin_cos(positions, hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
+    q_off, q_width = query_pad(cfg, H, KV, tp)
+    if q_width != H:                        # zero heads to whole groups
+        q = torch.cat([q.new_zeros(B, T, q_off, hd), q,
+                       q.new_zeros(B, T, q_width - q_off - H, hd)], dim=2)
+
+    def out_proj(o):
+        o = o[:, :, q_off:q_off + H] if q_width != H else o
+        o = o.reshape(B, T, H * hd)
+        rows = p["wo"].shape[-2]
+        if rows != H * hd:                   # exception (d): an hd slice
+            o = o[..., (tp.index % (H * hd // rows)) * rows:][..., :rows]
+        return _psum(o @ p["wo"], tp, split)
 
     store_pos, q_ctx = positions, None
     if pdraft is not None:
@@ -162,10 +210,17 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q_ctx = pdraft["ctx"]
 
     if cache is not None and "k" in cache:
-        out = _attend_ring(q, k, v, positions, cache, cfg, window=window,
+        ring = cache
+        if seq is not None and seq.size > 1:
+            ring = {n: seq.all_gather(cache[n], 1) for n in ("k", "v", "pos")}
+        out = _attend_ring(q, k, v, positions, ring, cfg, window=window,
                            kv_chunk=kv_chunk, cache_mode=cache_mode,
                            store_pos=store_pos, q_ctx=q_ctx)
-        return _psum(out.reshape(B, T, H * hd) @ p["wo"], tp, split)
+        if ring is not cache:                # keep the rank's block
+            for n in ("k", "v", "pos"):
+                sl = cache[n].shape[1]
+                cache[n].copy_(ring[n].narrow(1, seq.index * sl, sl))
+        return out_proj(out)
     if cache is not None:
         if paged is None:
             raise ValueError("a paged cache needs the (table, lens) view")
@@ -184,12 +239,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         out = ops.paged_attention(q.contiguous(), kp, vp, table, lens,
                                   positions[:, 0].contiguous(),
                                   window=window, cap=cfg.attn_softcap)
-        return _psum(out.reshape(B, T, H * hd) @ p["wo"], tp, split)
+        return out_proj(out)
 
     out = attend(q, k, v, positions, store_pos, causal=cfg.causal,
                  window=window, cap=cfg.attn_softcap, kv_chunk=kv_chunk,
                  q_ctx=q_ctx)
-    return _psum(out.reshape(B, T, H * hd) @ p["wo"], tp, split)
+    return out_proj(out)
 
 
 def _attend_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -258,9 +313,9 @@ def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, tp=None
         ) -> torch.Tensor:
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    return _psum((silu(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"], tp,
-                 p["wd"].shape[-2] != cfg.d_ff)
+    split = p["wd"].shape[-2] != cfg.d_ff
+    h = _tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp, split)
+    return _psum((silu(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"], tp, split)
 
 
 # ---------------------------------------------------------------------------
@@ -273,21 +328,32 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(4, min(c, n_tokens))
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, tp=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, tp=None,
+            dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE.  Returns (out (B, T, D), the Switch load-balance
     loss E * sum_e frac_tokens_e * frac_probs_e, float32 scalar), as the
     reference does.  Each (token, choice) gets its rank within its expert
     by a stable sort, tokens past the capacity C are dropped, and the
     expert products run over the (E, C, D) dispatch buffer.
     ``torch.topk`` may order exactly tied probabilities differently from
-    ``jax.lax.top_k``."""
+    ``jax.lax.top_k``.
+
+    ``dp`` (a ``launch.mesh.MeshAxis``): the batch's rows are split over
+    its ranks in index order, each rank holding as many tokens.  C then
+    comes from the whole batch's token count, a rank's ranks within an
+    expert start after the earlier ranks' tokens of that expert (one
+    all-gather of the per-expert counts), and the load-balance fractions
+    are the whole batch's (one all-reduce of the probabilities' sums);
+    each rank's buffer holds its own tokens at their global slots."""
     B, T, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
+    split = p["wd"].shape[-2] != cfg.expert_ff
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     flat = h.reshape(B * T, D)
     n = B * T
-    C = moe_capacity(cfg, n)
+    dps = 1 if dp is None else dp.size
+    n_glob = n * dps
+    C = moe_capacity(cfg, n_glob)
     dev = x.device
 
     probs = torch.softmax(flat.float() @ p["router"], dim=-1)   # (n, E)
@@ -298,13 +364,17 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, tp=None
     order = torch.argsort(e_flat, stable=True)
     counts = torch.bincount(e_flat, minlength=E)
     starts = torch.cumsum(counts, 0) - counts                    # exclusive
+    if dps > 1:                     # the earlier data ranks' tokens first
+        every = dp.all_gather(counts[None], 0)                   # (dp, E)
+        starts = starts - every[:dp.index].sum(0)
+        counts = every.sum(0)
     pos_sorted = torch.arange(n * K, device=dev) - starts[e_flat[order]]
     pos = torch.empty_like(pos_sorted)
     pos[order] = pos_sorted
     keep = pos < C
     safe_pos = torch.where(keep, pos, torch.full_like(pos, C - 1))
 
-    src = flat.repeat_interleave(K, dim=0)
+    src = _tp_in(flat, tp, split).repeat_interleave(K, dim=0)
     buf = torch.zeros((E, C, D), dtype=flat.dtype, device=dev)
     buf.index_put_((e_flat, safe_pos),
                    torch.where(keep[:, None], src, torch.zeros_like(src)),
@@ -314,14 +384,15 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, tp=None
     out_buf = torch.einsum("ecf,efd->ecd", silu(hg) * hu, p["wd"])
 
     gathered = out_buf[e_flat, safe_pos]                         # (n*K, D)
-    w = (gate.reshape(n * K) * keep).to(flat.dtype)
+    w = _tp_in((gate.reshape(n * K) * keep).to(flat.dtype), tp, split)
     y = (gathered * w[:, None]).reshape(n, K, D).sum(dim=1)
 
     # load-balance auxiliary loss (Switch-style)
-    frac_tokens = counts.float() / max(n * K, 1)
-    frac_probs = probs.mean(dim=0)
+    frac_tokens = counts.float() / max(n_glob * K, 1)
+    frac_probs = (probs.mean(dim=0) if dps == 1
+                  else dp.all_reduce(probs.sum(dim=0)) / n_glob)
     aux = E * (frac_tokens * frac_probs).sum()
-    y = _psum(y, tp, p["wd"].shape[-2] != cfg.expert_ff)
+    y = _psum(y, tp, split)
     return y.reshape(B, T, D), aux
 
 
@@ -390,7 +461,7 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     E, N, R = p["out_proj"].shape[-2], cfg.ssm_state, cfg.dtr
     split = E != cfg.d_inner
     Cv = cfg.ssm_conv
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = _tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp, split)
     xp, z = (h @ p["in_proj"]).split(E, dim=-1)               # (B,T,E) each
 
     ring = cache is not None and "h_ring" in cache
@@ -414,7 +485,7 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     xc, new_conv = _causal_conv(xp, p["conv_w"], p["conv_b"], prev)
     xc = silu(xc)
 
-    dbc = _psum(xc @ p["x_db"], tp, split)
+    dbc = _tp_in(_psum(xc @ p["x_db"], tp, split), tp, split)
     dt_raw = dbc[..., :R]
     Bmat = dbc[..., R:R + N].float().contiguous()                 # (B,T,N)
     Cmat = dbc[..., R + N:].float().contiguous()

@@ -21,6 +21,14 @@ columns (``lm_head``, or the tied ``embed.T``) and one all-gather brings
 them to the full vocabulary before the final softcap, so every rank
 samples, verifies and commits the same tokens.  An L-layer dense forward
 issues 2L + 1 all-reduces and one all-gather; ``tp=None`` issues none.
+
+The production programs (``launch.steps``) add three hooks: ``gather``
+turns each layer's FSDP blocks into its TP shard just before the layer
+runs (inside the layer's remat, so the backward gathers again),
+``logits_split`` keeps the rank's vocabulary columns (the training loss
+is vocabulary-parallel), and ``dp`` / ``seq`` are the "data" axis over
+which the rows (MoE statistics) or a ring cache's slots are split.
+``init_params(..., device="meta")`` gives the shapes and dtypes alone.
 """
 from __future__ import annotations
 
@@ -63,15 +71,22 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
     by 1/sqrt(fan_in), zero norm scales, Mamba's A_log = log(1..N), Dskip
     = 1 and dt bias -4.6), drawn on ``device``.  The draws are not the
     reference's: runs that compare the two frameworks carry the
-    reference's weights over with ``training.checkpoint.from_numpy_params``."""
+    reference's weights over with ``training.checkpoint.from_numpy_params``.
+    On the meta device nothing is drawn or allocated: the tree holds the
+    shapes and dtypes alone."""
     check_supported(cfg)
     dev = torch.device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     D, H, KV, hd, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
                        cfg.d_ff)
 
     def normal(name, shape, fan_in):
+        if gen is None:
+            return torch.empty(shape, device=dev,
+                               dtype=param_dtype(name, cfg))
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=param_dtype(name, cfg)) \
             .mul_(1.0 / math.sqrt(fan_in))
@@ -232,8 +247,8 @@ def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
                 positions: torch.Tensor, cache: Optional[Params],
                 paged, kv_chunk: int, cache_mode: str,
                 ring_rows: Optional[torch.Tensor],
-                pdraft: Optional[Params] = None, tp=None
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                pdraft: Optional[Params] = None, tp=None, dp=None,
+                seq=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer; returns (x, its MoE load-balance loss, None without
     MoE)."""
     mixer, ffn_kind = slot
@@ -242,7 +257,7 @@ def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
         x = x + L.attention(p["mixer"], x, cfg, positions=positions,
                             cache=cache, window=_slot_window(cfg, mixer),
                             kv_chunk=kv_chunk, cache_mode=cache_mode,
-                            paged=paged, pdraft=pdraft, tp=tp)
+                            paged=paged, pdraft=pdraft, tp=tp, seq=seq)
     else:
         if pdraft is not None:
             raise ValueError(
@@ -254,7 +269,7 @@ def _apply_slot(p: Params, x: torch.Tensor, cfg: ModelConfig, slot, *,
     if ffn_kind == "dense":
         x = x + L.ffn(p["ffn"], x, cfg, tp=tp)
     elif ffn_kind == "moe":
-        y, aux = L.moe_ffn(p["ffn"], x, cfg, tp=tp)
+        y, aux = L.moe_ffn(p["ffn"], x, cfg, tp=tp, dp=dp)
         x = x + y
     return x, aux
 
@@ -297,7 +312,8 @@ def forward(params: Params, cfg: ModelConfig,
             cache_mode: str = "append",
             ring_rows: Optional[torch.Tensor] = None,
             pdraft: Optional[Params] = None,
-            remat: bool = False, tp=None
+            remat: bool = False, tp=None, dp=None, seq=None,
+            gather=None, logits_split: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the model.
 
@@ -330,7 +346,15 @@ def forward(params: Params, cfg: ModelConfig,
     raises).
 
     ``tp`` runs the rank's shard of a tensor-parallel forward (see the
-    module docstring); the logits are full-vocabulary on every rank.
+    module docstring); the logits are full-vocabulary on every rank, or
+    with ``logits_split`` the rank's vocabulary columns.  ``dp`` (rows
+    split over "data": MoE capacity and statistics over the whole batch)
+    and ``seq`` (a dense ring cache's slots split over "data") are
+    ``launch.mesh.MeshAxis`` objects.  ``gather(where, layer_params)``,
+    when given, returns the weights a layer computes with from the
+    rank's stored blocks of them: ``where`` is ``("top",)`` for the
+    embedding, final norm and head, ``("blocks", s)`` or ``("rem", r)``
+    for a layer.
 
     ``remat`` (training) recomputes each period body and each remainder
     layer in the backward instead of keeping its activations
@@ -343,6 +367,10 @@ def forward(params: Params, cfg: ModelConfig,
     check_supported(cfg)
     if tokens is None and embeds is None:
         raise ValueError("forward needs tokens, embeds or both")
+    if gather is not None:
+        params = dict(params, **gather(("top",), {
+            k: params[k] for k in ("embed", "final_norm", "lm_head")
+            if k in params}))
     parts = []
     if embeds is not None:
         parts.append(embeds.to(device=params["embed"].device,
@@ -384,7 +412,10 @@ def forward(params: Params, cfg: ModelConfig,
         raise ValueError("remat is for cache-less (training) forwards")
     kw = dict(positions=positions, paged=paged, kv_chunk=kv_chunk,
               cache_mode=cache_mode, ring_rows=ring_rows, pdraft=pd_attn,
-              tp=tp)
+              tp=tp, dp=dp, seq=seq)
+
+    def layer(where, p):
+        return p if gather is None else gather(where, p)
 
     def add(total, al):
         return al if total is None else total if al is None else total + al
@@ -393,15 +424,16 @@ def forward(params: Params, cfg: ModelConfig,
         aux = None
         for s, slot in enumerate(cfg.pattern):
             c = None if cache is None else _index(cache["blocks"][s], i)
-            x, al = _apply_slot(_index(params["blocks"][s], i), x, cfg,
-                                slot, cache=c, **kw)
+            x, al = _apply_slot(layer(("blocks", s),
+                                      _index(params["blocks"][s], i)), x,
+                                cfg, slot, cache=c, **kw)
             aux = add(aux, al)
         return x, aux
 
     def remainder(x, r):
         c = None if cache is None else _index(cache["rem"][r], 0)
-        return _apply_slot(_index(params["rem"][r], 0), x, cfg,
-                           cfg.pattern[r], cache=c, **kw)
+        return _apply_slot(layer(("rem", r), _index(params["rem"][r], 0)),
+                           x, cfg, cfg.pattern[r], cache=c, **kw)
 
     moe_aux = None
     for i in range(cfg.n_periods):
@@ -423,8 +455,11 @@ def forward(params: Params, cfg: ModelConfig,
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
+    split_v = tp is not None and head.shape[-1] != cfg.vocab_size
+    if split_v and logits_split:
+        x = tp.copy_in(x)
     z = x @ head
-    if tp is not None and z.shape[-1] != cfg.vocab_size:
+    if split_v and not logits_split:
         z = tp.all_gather(z, dim=-1)         # the rank's vocabulary columns
     logits = L.softcap(z.float(), cfg.final_softcap)
     aux: Dict[str, Any] = {"moe_aux": moe_aux}

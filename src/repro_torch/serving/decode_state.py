@@ -297,7 +297,8 @@ class DecodeState:
 
         def slot(c, sp):
             return {k: torch.full(
-                rules.shard_shape(a.shape, sp[k], self.mesh),
+                rules.shard_shape(a.shape, sp[k], self.mesh,
+                                  self.mesh.coords),
                 0 if a.dtype.is_floating_point else -1, dtype=a.dtype,
                 device=self.device) for k, a in c.items()}
         return {part: [slot(c, sp) for c, sp in zip(meta[part],

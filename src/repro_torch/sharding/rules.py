@@ -19,30 +19,61 @@ sizes.  The port's trees carry a size-1 stack axis on the remainder
 layers (``models.model``), so ``rem`` leaves are walked as stacked, like
 ``blocks`` leaves.
 
-The rules are the single source of truth for the serving layout.  The
-tensor-parallel forward (``models.layers``) needs two exceptions, both
-applied in ``_tp_override`` and nowhere else:
+The rules are the single source of truth for both layouts of the port.
+The serving layout (``tp_params_specs``, ``tp_cache_specs``: TP over
+"model", replicated over "data") and the production programs' layout
+(``fsdp_params_specs``: FSDP over the FSDP axes, TP over "model"; the
+training mesh and ``launch.steps``' steps) differ from the rules only by
+four exceptions, applied in ``_tp_override`` and nowhere else:
 
   (a) KV heads that "model" does not divide: the rule shards their head
       dim, which attention cannot use (a split head needs an all-reduce of
-      the scores).  Each rank instead holds the whole KV heads its query
-      heads read: when the KV count divides the axis, one head each, that
-      head replicated over ``tp / KV`` consecutive ranks (every rank when
-      KV = 1), written ``Split("model", KV)``;
+      the scores).  Each rank instead holds the whole KV heads its block
+      of query heads reads: the rank at index t along "model" (size tp)
+      holds query heads [q0, q0 + H/tp), q0 = t * H/tp, and KV heads
+      [q0 // G, (q0 + H/tp - 1) // G], G = H / KV, written
+      ``HeadRange("model", H, KV)``.  Those blocks overlap, and their
+      sizes can differ from rank to rank: one KV head per rank when tp is
+      a multiple of KV (replicated over tp / KV ranks), one or two at
+      grok-1-314b's tp = 12, three or four at granite-moe-3b-a800m's tp
+      = 3.  Where a rank's query block starts inside a group (q0 % G !=
+      0) and it holds more than one KV head, attention pads its queries
+      with zero heads to whole groups of G, so the kernels keep their
+      mapping (query head h reads KV head h // G) and the pad heads'
+      outputs are dropped (``layers.attention``).  The cost: a rank holds
+      up to two KV heads more than H / (tp G) (its K/V weights and cache),
+      and a padded rank attends n_kv G query rows for its H / tp (at
+      grok-1-314b's tp = 12: 12 rows for 4 on the ranks that straddle a
+      group; at granite-moe-3b-a800m's tp = 3: 9 or 12 for 8);
   (b) MoE experts: the rule puts "model" on D.  The port splits each
       expert's hidden F, as for the dense MLP, so the partial sums meet
-      in one all-reduce.
+      in one all-reduce;
+  (c) MoE experts under FSDP: the rule puts "data" on F, which (b) gave
+      to "model".  "data" (with "pod", the FSDP axes) moves to D, when it
+      divides D; the expert dim stays whole;
+  (d) "model" wider than the query heads divide (gemma3-4b's 8 and
+      granite-moe-3b-a800m's 24 heads at the production meshes' 16; the
+      serving mesh refuses such a tp, as the reference does): the rule
+      splits wq's columns inside heads.  The query heads instead split
+      into gcd(H, tp) blocks, each whole on tp / gcd(H, tp) consecutive
+      ranks (``HeadRange("model", H, H)`` on wq, (a) on the KV heads),
+      which all attend over the block; wo keeps the rule's rows, an hd
+      slice of the block's heads, so each rank multiplies its slice and
+      the one all-reduce after wo sums each product once.  The cost: the
+      block's attention runs tp / gcd(H, tp) times over.
 
 ``rank_block`` slices a rank's block of a full tensor from a spec and the
 rank's mesh coordinates (the counterpart of ``named`` + ``device_put``);
-``shard_shape`` gives the block's shape, so a cache is allocated at its
-shard size directly.
+``shard_shape`` gives the block's shape (it needs the coordinates where a
+``HeadRange`` makes the blocks differ), so a cache is allocated at its
+shard size directly; ``block_weights`` says how many ranks hold each
+element of a block (the training step's global norm counts each once).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -61,13 +92,28 @@ class P(tuple):
 
 
 @dataclasses.dataclass(frozen=True)
-class Split:
-    """A dimension cut into ``blocks`` equal blocks over ``axis``, where
-    ``blocks`` divides the axis size: the rank at index i along the axis
-    takes block ``i * blocks // size``, so each block is replicated over
-    ``size / blocks`` consecutive ranks (exception (a))."""
+class HeadRange:
+    """A dimension of ``kv_heads`` equal units (a KV head, or a head's hd
+    columns) of which the rank at index t along ``axis`` holds the heads
+    its query heads read (exceptions (a) and (d)): blocks that overlap and
+    whose sizes can differ.  With n the axis size and H = ``q_heads``,
+    the query heads split into g = gcd(H, n) blocks, each held by n / g
+    consecutive ranks (all of them when n divides H): rank t holds query
+    block t // (n / g).  ``HeadRange(axis, H, H)`` is a rank's query
+    heads themselves."""
     axis: str
-    blocks: int
+    q_heads: int
+    kv_heads: int
+
+    def heads(self, index: int, size: int) -> Tuple[int, int]:
+        """[lo, hi) of the heads of the rank at ``index``."""
+        if self.q_heads % self.kv_heads:
+            raise ValueError(f"{self}: the KV heads must divide the "
+                             f"{self.q_heads} query heads")
+        blocks = math.gcd(self.q_heads, size)
+        g, hl = self.q_heads // self.kv_heads, self.q_heads // blocks
+        q0 = (index // (size // blocks)) * hl
+        return q0 // g, (q0 + hl - 1) // g + 1
 
 
 def _axis_size(mesh, name) -> int:
@@ -279,32 +325,35 @@ def serving_cache_specs(mesh, cfg: ModelConfig, cache_shape: Any, *,
 
 
 # ---------------------------------------------------------------------------
-# the tensor-parallel serving layout: the rules plus exceptions (a) and (b)
+# the port's layouts: the rules plus exceptions (a), (b) and (c)
 # ---------------------------------------------------------------------------
 
 def kv_split(mesh, cfg: ModelConfig):
     """How the TP forward lays out ``cfg``'s KV heads over "model": the
-    axis name when it divides them, ``Split("model", KV)`` when KV divides
-    the axis (exception (a)), None on a mesh with no "model" split.
-    Raises ValueError when neither divides the other: a rank's query
-    heads would then read a ragged set of KV heads."""
-    tp, kv = _axis_size(mesh, "model"), cfg.num_kv_heads
+    axis name when it divides them, else ``HeadRange`` (exceptions (a)
+    and (d)), None on a mesh with no "model" split.  Raises ValueError
+    when the KV heads do not divide the query heads."""
+    tp, kv, h = _axis_size(mesh, "model"), cfg.num_kv_heads, cfg.num_heads
     if tp == 1:
         return None
+    if h % kv:
+        raise ValueError(f"{cfg.name!r}'s {kv} KV heads do not divide its "
+                         f"{h} query heads")
     if kv % tp == 0:
         return "model"
-    if tp % kv == 0:
-        return Split("model", kv)
-    raise ValueError(
-        f"tp={tp} and {cfg.name!r}'s {kv} KV heads: one must divide the "
-        f"other for whole-head attention shards")
+    return HeadRange("model", h, kv)
 
 
-def _tp_override(mesh, cfg: ModelConfig, name: str, shape, spec: P) -> P:
-    """Exceptions (a) and (b) to the rules, for the port's tensor-parallel
-    forward: ``spec`` is the rule's spec of leaf ``name`` of ``shape``
-    (both without a params stack axis).  Every other leaf keeps the
-    rule's spec."""
+def _tp_override(mesh, cfg: ModelConfig, name: str, shape, spec: P,
+                 fsdp: bool = False) -> P:
+    """Exceptions (a), (b), (d) and, with ``fsdp``, (c) to the rules, for the
+    port's tensor-parallel forward: ``spec`` is the rule's spec of leaf
+    ``name`` of ``shape`` (both without a params stack axis).  Every other
+    leaf keeps the rule's spec."""
+    # (d) more ranks than query heads along "model": whole query heads
+    # per rank, each block replicated over tp / gcd(H, tp) ranks
+    if name == "wq" and cfg.num_heads % _axis_size(mesh, "model"):
+        return P(spec[0], HeadRange("model", cfg.num_heads, cfg.num_heads))
     # (a) KV heads "model" does not divide: whole heads per rank (the rule
     # splits their head dim, which attention cannot use)
     if name in ("wk", "wv", "k", "v", "k_pages", "v_pages") \
@@ -314,39 +363,60 @@ def _tp_override(mesh, cfg: ModelConfig, name: str, shape, spec: P) -> P:
             return P(spec[0], kv)
         return P(*spec[:-2], kv, None)       # (..., KV, hd)
     # (b) MoE experts split on their hidden F, like the dense MLP (the
-    # rule puts "model" on D and "data" on F)
+    # rule puts "model" on D and "data" on F); (c) under FSDP "data"
+    # moves to D
     if name in ("wg", "wu", "wd") and len(shape) == 3:
         f = 2 if name in ("wg", "wu") else 1
         out = [None, None, None]
         out[f] = _fit(mesh, shape[f], "model")
+        if fsdp:
+            out[3 - f] = _fit(mesh, shape[3 - f], fsdp_axes(mesh), "data")
         return P(*out)
     return spec
+
+
+def _layout(mesh, cfg: ModelConfig, params_shape: Any, fsdp: bool) -> Any:
+    def leaf(path, shape):
+        lead = 1 if _stacked(path) else 0
+        spec = _leaf_spec(mesh, path, shape[lead:], tp_only=not fsdp)
+        spec = _tp_override(mesh, cfg, path[-1], shape[lead:], spec,
+                            fsdp=fsdp)
+        return P(*([None] * lead), *spec)
+
+    return _walk(params_shape, (), leaf)
 
 
 def tp_params_specs(mesh, cfg: ModelConfig, params_shape: Any) -> Any:
     """The serving layout of a params tree: ``params_specs(tp_only=True)``
     (replicated over "data"; heads, MLP hidden, E and vocab over
-    "model") with exceptions (a) and (b) applied."""
+    "model") with exceptions (a), (b) and (d) applied."""
+    return _layout(mesh, cfg, params_shape, fsdp=False)
 
-    def leaf(path, shape):
-        lead = 1 if _stacked(path) else 0
-        spec = _leaf_spec(mesh, path, shape[lead:], tp_only=True)
-        spec = _tp_override(mesh, cfg, path[-1], shape[lead:], spec)
-        return P(*([None] * lead), *spec)
 
-    return _walk(params_shape, (), leaf)
+def fsdp_params_specs(mesh, cfg: ModelConfig, params_shape: Any) -> Any:
+    """The layout of the production programs and the training mesh:
+    ``params_specs`` (FSDP over the FSDP axes, TP over "model") with
+    exceptions (a)-(d) applied.  Where the rule puts no FSDP
+    axis on a leaf (norms, the router, Mamba's small leaves, a dim the
+    axis does not divide), the leaf is replicated over "data"."""
+    return _layout(mesh, cfg, params_shape, fsdp=True)
 
 
 def tp_cache_specs(mesh, cfg: ModelConfig, cache_shape: Any, *,
                    batch_axis: str = "") -> Any:
     """The serving layout of a ``DecodeState`` cache tree:
     ``serving_cache_specs`` with exception (a) applied."""
-    specs = serving_cache_specs(mesh, cfg, cache_shape,
-                                batch_axis=batch_axis)
+    return override_cache_specs(
+        mesh, cfg, cache_shape,
+        serving_cache_specs(mesh, cfg, cache_shape, batch_axis=batch_axis))
 
+
+def override_cache_specs(mesh, cfg: ModelConfig, cache_shape: Any,
+                         specs: Any) -> Any:
+    """A cache spec tree (``cache_specs`` or ``serving_cache_specs``)
+    with exception (a) applied."""
     def leaf(path, shape):
-        spec = _get(specs, path)
-        return _tp_override(mesh, cfg, path[-1], shape, spec)
+        return _tp_override(mesh, cfg, path[-1], shape, _get(specs, path))
 
     return _walk(cache_shape, (), leaf)
 
@@ -361,31 +431,41 @@ def _get(tree, path):
 # a rank's block
 # ---------------------------------------------------------------------------
 
-def _entry_block(mesh, coords: Dict[str, int], entry, dim: int
-                 ) -> Tuple[int, int]:
-    """(block index, block count) of one spec entry at ``coords``."""
+def _entry_span(mesh, coords, entry, dim: int) -> Tuple[int, int]:
+    """[start, stop) of the block of one spec entry along a dimension of
+    size ``dim`` at ``coords`` (axis name -> index; None: the shape only,
+    which a ``HeadRange`` entry refuses)."""
     if entry is None:
-        return 0, 1
-    if isinstance(entry, Split):
-        n = _axis_size(mesh, entry.axis)
-        if n % entry.blocks:
-            raise ValueError(f"{entry} does not divide axis size {n}")
-        return coords.get(entry.axis, 0) * entry.blocks // n, entry.blocks
+        return 0, dim
+    if isinstance(entry, HeadRange):
+        if coords is None:
+            raise ValueError(f"{entry}: blocks differ by rank; pass the "
+                             "rank's coordinates")
+        if dim % entry.kv_heads:
+            raise ValueError(f"{entry} does not divide {dim}")
+        unit = dim // entry.kv_heads
+        lo, hi = entry.heads(coords.get(entry.axis, 0),
+                             _axis_size(mesh, entry.axis))
+        return lo * unit, hi * unit
     axes = entry if isinstance(entry, tuple) else (entry,)
+    n = _axis_size(mesh, axes)
+    if dim % n:
+        raise ValueError(f"{entry} (size {n}) does not divide {dim}")
     idx = 0
     for a in axes:                     # row-major over the listed axes
-        idx = idx * _axis_size(mesh, a) + coords.get(a, 0)
-    return idx, _axis_size(mesh, axes)
+        idx = idx * _axis_size(mesh, a) + (coords or {}).get(a, 0)
+    return idx * (dim // n), (idx + 1) * (dim // n)
 
 
-def shard_shape(shape, spec: P, mesh) -> Tuple[int, ...]:
-    """The shape of one rank's block of a ``shape`` tensor under ``spec``."""
+def shard_shape(shape, spec: P, mesh, coords: Optional[Dict[str, int]]
+                = None) -> Tuple[int, ...]:
+    """The shape of one rank's block of a ``shape`` tensor under ``spec``;
+    ``coords`` (the rank's) are needed where a ``HeadRange`` entry makes
+    the blocks differ by rank."""
     out = list(shape)
     for i, entry in enumerate(spec):
-        _, n = _entry_block(mesh, {}, entry, shape[i])
-        if shape[i] % n:
-            raise ValueError(f"{spec} does not divide {tuple(shape)}")
-        out[i] = shape[i] // n
+        a, b = _entry_span(mesh, coords, entry, shape[i])
+        out[i] = b - a
     return tuple(out)
 
 
@@ -396,23 +476,45 @@ def rank_block(full: torch.Tensor, spec: P, mesh,
     splits nothing."""
     out = full
     for i, entry in enumerate(spec):
-        idx, n = _entry_block(mesh, coords, entry, full.shape[i])
-        if n == 1:
-            continue
-        if full.shape[i] % n:
-            raise ValueError(f"{spec} does not divide {tuple(full.shape)}")
-        size = full.shape[i] // n
-        out = out.narrow(i, idx * size, size)
+        a, b = _entry_span(mesh, coords, entry, full.shape[i])
+        if b - a != full.shape[i]:
+            out = out.narrow(i, a, b - a)
     return out if out is full else out.contiguous()
 
 
-def tp_shard_params(params: Any, cfg: ModelConfig, mesh,
-                    coords: Dict[str, int], device) -> Any:
-    """The rank's blocks of a full params tree under ``tp_params_specs``,
-    on ``device``.  ``in_proj``'s columns are ``[x | z]`` (the forward
-    splits them at E): its "model" split applies to each half, so every
-    rank holds its E/tp columns of x and of z."""
-    specs = tp_params_specs(mesh, cfg, params)
+def holders(spec: P, shape, mesh, coords: Dict[str, int]):
+    """How many ranks of the mesh hold each element of the block of the
+    rank at ``coords``: an int, or for a ``HeadRange`` block a float32
+    tensor that broadcasts along its dimension (each KV head counted by
+    the ranks whose range reaches it)."""
+    named = set()
+    count, rng = 1, None
+    for i, entry in enumerate(spec):
+        if isinstance(entry, HeadRange):
+            n = _axis_size(mesh, entry.axis)
+            spans = [entry.heads(t, n) for t in range(n)]
+            lo, hi = entry.heads(coords.get(entry.axis, 0), n)
+            per = torch.tensor([sum(a <= j < b for a, b in spans)
+                                for j in range(lo, hi)],
+                               dtype=torch.float32)
+            unit = shape[i] // entry.kv_heads
+            per = per.repeat_interleave(unit)
+            rng = per.reshape((-1,) + (1,) * (len(shape) - i - 1))
+            named.add(entry.axis)
+        elif entry is not None:
+            named.update(entry if isinstance(entry, tuple) else (entry,))
+    for a, n in mesh.shape.items():
+        if a not in named:
+            count *= n
+    return count if rng is None else rng * count
+
+
+def shard_tree(params: Any, specs: Any, mesh, coords: Dict[str, int],
+               device) -> Any:
+    """The rank's blocks of a full params tree under ``specs``, on
+    ``device``.  ``in_proj``'s columns are ``[x | z]`` (the forward splits
+    them at E): its "model" split applies to each half, so every rank
+    holds its E/tp columns of x and of z."""
 
     def leaf_fn(path, t, spec):
         if path[-1] == "in_proj" and spec[-1] is not None:
@@ -425,3 +527,11 @@ def tp_shard_params(params: Any, cfg: ModelConfig, mesh,
 
     return _walk(params, (), lambda path, _shape: leaf_fn(
         path, _get(params, path), _get(specs, path)))
+
+
+def tp_shard_params(params: Any, cfg: ModelConfig, mesh,
+                    coords: Dict[str, int], device) -> Any:
+    """The rank's blocks of a full params tree under ``tp_params_specs``,
+    on ``device`` (see ``shard_tree``)."""
+    return shard_tree(params, tp_params_specs(mesh, cfg, params), mesh,
+                      coords, device)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -127,12 +127,15 @@ def global_norm(grads: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params: Any, grads: Any, state: OptState
-          ) -> Tuple[Any, OptState]:
+def apply(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
+          gnorm: Optional[torch.Tensor] = None) -> Tuple[Any, OptState]:
     """One AdamW step (clip, moments, bias correction, decoupled decay).
     Updates ``params``, ``state.m`` and ``state.v`` in place and returns
-    (params, the new OptState)."""
-    gnorm = global_norm(grads)
+    (params, the new OptState).  ``gnorm``, when given, is the global
+    norm to clip by (a sharded step's, reduced over its mesh); else the
+    norm of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1

@@ -57,7 +57,8 @@ NEED = ["repro_torch.kernels.flash_attention", "repro_torch.runtime.runner",
         "repro_torch.training.checkpoint", "repro_torch.runtime.hrad_data",
         "repro_torch.launch.steps", "repro_torch.launch.train",
         "repro_torch.data.synthetic", "repro_torch.sharding.rules",
-        "repro_torch.sharding.hlo_analysis", "repro_torch.launch.mesh"]
+        "repro_torch.sharding.hlo_analysis", "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

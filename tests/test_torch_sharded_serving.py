@@ -12,7 +12,12 @@ carried across to the port:
     equals the reference's single-device greedy oracle, on every rank;
   * the COLLECTIVE CONTRACT is pinned: the collectives one target verify
     forward issues, per backend and mesh, and zero for ``copy_page`` and
-    for a paged forward with dp only.
+    for a paged forward with dp only;
+  * a tp that divides the query heads but neither divides the KV heads
+    nor is a multiple of them serves: a 6-head / 2-KV pair at 1x3, each
+    rank holding the KV heads its query heads read (one or two; the
+    middle rank's queries padded to whole groups), greedy-equal to the
+    oracle on every rank, on both backends.
 
 The port's ranks are processes (gloo on the CPU), so its multi-rank
 cases run here, where the reference's skip without simulated devices.
@@ -22,6 +27,8 @@ the ranks' results.  Also here: the sharded pool's COW and rollback
 invariants, a dense preemption + swap and H-RAD at 2x2, the
 jamba-shaped hybrid pair and a reduced MoE config at 1x2 against the
 port's unmeshed greedy serve, and the CLI's ``--mesh 1,2``."""
+import concurrent.futures
+
 import jax
 import numpy as np
 import pytest
@@ -50,10 +57,10 @@ BACKENDS = ("dense", "paged")
 JOIN_S = 240.0          # each spawn's own limit: a hung rank fails here
 
 
-def _cfg(name, layers, d, heads):
+def _cfg(name, layers, d, heads, kv=0):
     return JModelConfig(name=name, family="dense", num_layers=layers,
                         d_model=d, num_heads=heads,
-                        num_kv_heads=max(1, heads // 2), d_ff=4 * d,
+                        num_kv_heads=kv or max(1, heads // 2), d_ff=4 * d,
                         vocab_size=VOCAB, pattern=dense_pattern(0),
                         dtype="float32")
 
@@ -70,6 +77,22 @@ def pair():
     tp = JM.init_params(jax.random.PRNGKey(0), tcfg)
     dp = JM.init_params(jax.random.PRNGKey(1), dcfg)
     rng = np.random.default_rng(3)
+    prompts = [list(map(int, rng.integers(0, VOCAB, size=6)))
+               for _ in range(N_REQ)]
+    refs = [greedy_reference(tp, tcfg, p, N_NEW, max_len=128)
+            for p in prompts]
+    return port_pair((dp, dcfg, tp, tcfg)), prompts, refs
+
+
+@pytest.fixture(scope="module")
+def pair62():
+    """A pair whose 6 query heads read 2 KV heads (groups of 3), the
+    draft's too; random weights; the oracle's streams."""
+    tcfg = _cfg("shard62-t", 2, 96, 6, kv=2)
+    dcfg = _cfg("shard62-d", 1, 48, 6, kv=2)
+    tp = JM.init_params(jax.random.PRNGKey(4), tcfg)
+    dp = JM.init_params(jax.random.PRNGKey(5), dcfg)
+    rng = np.random.default_rng(6)
     prompts = [list(map(int, rng.integers(0, VOCAB, size=6)))
                for _ in range(N_REQ)]
     refs = [greedy_reference(tp, tcfg, p, N_NEW, max_len=128)
@@ -98,8 +121,7 @@ def _small(n=3, vocab=199):
     return [list(map(int, rng.integers(0, vocab, size=7))) for _ in range(n)]
 
 
-def _spawn(tmp_path_factory, dims, jobs):
-    path = tmp_path_factory.mktemp(f"mesh{dims[0]}x{dims[1]}") / "store"
+def _spawn(path, dims, jobs):
     return MESH.spawn(*dims, "repro_torch.launch.serve:serve_jobs", jobs,
                       backend="gloo", devices=["cpu"] * (dims[0] * dims[1]),
                       init_method=f"file://{path}", timeout_s=JOIN_S)
@@ -114,55 +136,75 @@ def _by_name(ranks):
     return out
 
 
-@pytest.fixture(scope="module")
-def mesh11(pair, tmp_path_factory):
+def _plans(pair, pair62):
+    """Each mesh shape's jobs."""
     jpair, prompts, _ = pair
-    jobs = [_job(f"{e}-{b}", jpair, prompts, e, b, temp=1.0, census=True)
+    base = [_job(f"{e}-{b}", jpair, prompts, e, b, census=True)
             for e in ENGINES for b in BACKENDS]
-    return _by_name(_spawn(tmp_path_factory, (1, 1), jobs))
-
-
-@pytest.fixture(scope="module")
-def mesh12(pair, tmp_path_factory):
-    jpair, prompts, _ = pair
-    small = _small()
-    jobs = [_job(f"{e}-{b}", jpair, prompts, e, b, census=True)
-            for e in ENGINES for b in BACKENDS]
-    jobs.append(_job("jamba", hybrid_pair("jamba-shaped", device="cpu"),
-                     small, "specbranch", "paged", max_batch=2))
-    jobs.append(_job("moe", _moe_pair(), _small(vocab=512), "specbranch",
-                     "paged", max_batch=2))
-    return _by_name(_spawn(tmp_path_factory, (1, 2), jobs))
-
-
-@pytest.fixture(scope="module")
-def mesh21(pair, tmp_path_factory):
-    jpair, prompts, _ = pair
-    jobs = [_job(f"{e}-{b}", jpair, prompts, e, b, census=True)
-            for e in ENGINES for b in BACKENDS]
-    return _by_name(_spawn(tmp_path_factory, (2, 1), jobs))
-
-
-@pytest.fixture(scope="module")
-def mesh22(pair, tmp_path_factory):
-    jpair, prompts, _ = pair
-    jobs = [_job(f"{e}-{b}", jpair, prompts, e, b, census=True)
-            for e in ENGINES for b in BACKENDS]
-    jobs.append(_job("cow", jpair, prompts, "specbranch", "paged",
-                     page_size=2))
-    # rows over "data" under preemption: swap packs cross in a broadcast
-    jobs.append(_job("swap", jpair, prompts, "sps", "dense",
-                     pool_pages=20, swap_pages=64))
-    # H-RAD: its features come back over "data", its token embedding
-    # joins the vocabulary blocks over "model"
+    jobs11 = [_job(f"{e}-{b}", jpair, prompts, e, b, temp=1.0, census=True)
+              for e in ENGINES for b in BACKENDS]
+    jobs12 = base + [
+        _job("jamba", hybrid_pair("jamba-shaped", device="cpu"), _small(),
+             "specbranch", "paged", max_batch=2),
+        _job("moe", _moe_pair(), _small(vocab=512), "specbranch", "paged",
+             max_batch=2)]
+    # 2x2: COW under pages of 2; rows over "data" under preemption (swap
+    # packs cross in a broadcast); H-RAD (its features come back over
+    # "data", its token embedding joins the vocabulary blocks over
+    # "model")
     hrad = H.init_mlp((EngineConfig().hrad_k_layers + 1)
                       * jpair[3].d_model,
                       generator=torch.Generator().manual_seed(0),
                       device="cpu")
-    for b in BACKENDS:
-        jobs.append(_job(f"hrad-{b}", jpair, prompts, "specbranch", b,
-                         hrad_params=hrad))
-    return _by_name(_spawn(tmp_path_factory, (2, 2), jobs))
+    jobs22 = base + [
+        _job("cow", jpair, prompts, "specbranch", "paged", page_size=2),
+        _job("swap", jpair, prompts, "sps", "dense", pool_pages=20,
+             swap_pages=64)] + [
+        _job(f"hrad-{b}", jpair, prompts, "specbranch", b, hrad_params=hrad)
+        for b in BACKENDS]
+    jpair62, prompts62, _ = pair62
+    jobs13 = [_job(f"specbranch-{b}", jpair62, prompts62, "specbranch", b)
+              for b in BACKENDS]
+    return {(1, 1): jobs11, (1, 2): jobs12, (2, 1): base, (2, 2): jobs22,
+            (1, 3): jobs13}
+
+
+@pytest.fixture(scope="module")
+def spawned(pair, pair62, tmp_path_factory):
+    """Each mesh shape spawned once for the module, all at once, each
+    spawn with its own join timeout."""
+    plans = _plans(pair, pair62)
+    paths = {d: tmp_path_factory.mktemp(f"mesh{d[0]}x{d[1]}") / "store"
+             for d in plans}
+    with concurrent.futures.ThreadPoolExecutor(len(plans)) as ex:
+        futs = {d: ex.submit(_spawn, paths[d], d, jobs)
+                for d, jobs in plans.items()}
+        return {d: _by_name(f.result()) for d, f in futs.items()}
+
+
+@pytest.fixture(scope="module")
+def mesh11(spawned):
+    return spawned[(1, 1)]
+
+
+@pytest.fixture(scope="module")
+def mesh12(spawned):
+    return spawned[(1, 2)]
+
+
+@pytest.fixture(scope="module")
+def mesh21(spawned):
+    return spawned[(2, 1)]
+
+
+@pytest.fixture(scope="module")
+def mesh22(spawned):
+    return spawned[(2, 2)]
+
+
+@pytest.fixture(scope="module")
+def mesh13(spawned):
+    return spawned[(1, 3)]
 
 
 def _unmeshed(pair, prompts, engine, backend, temp=0.0, **kw):
@@ -190,7 +232,8 @@ def test_mesh1_bitwise_vs_unmeshed(pair, mesh11, engine, backend):
     (got,) = mesh11[f"{engine}-{backend}"]
     assert got["tokens"] == base
     assert got["pages_in_use"] == 0
-    assert got["census"] == {"forward": {}, "copy_page": {}}
+    assert got["census"] == {"forward": {}, "copy_page": {},
+                             "forward_bytes": {}}
     assert got["collectives"] == {}
 
 
@@ -210,6 +253,22 @@ def test_meshN_greedy_equals_oracle(pair, request, dims, engine, backend):
     for r in ranks:                 # every rank committed the same stream
         for i, ref in enumerate(refs):
             assert r["tokens"][i] == ref, (r["name"], i)
+        assert r["pages_in_use"] == 0
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_mesh13_kv_head_ranges_greedy_equals_oracle(pair62, mesh13,
+                                                    backend):
+    """tp = 3 over 6 query heads and 2 KV heads: rank 0 holds KV head 0,
+    rank 1 both (its query heads 2 and 3 straddle the groups, padded to
+    6 rows), rank 2 KV head 1; every rank commits the oracle's
+    streams."""
+    _, _, refs = pair62
+    ranks = mesh13[f"specbranch-{backend}"]
+    assert len(ranks) == 3
+    for r in ranks:
+        for i, ref in enumerate(refs):
+            assert r["tokens"][i] == ref, (backend, i)
         assert r["pages_in_use"] == 0
 
 
@@ -271,13 +330,30 @@ _FWD_CENSUS = {
 }
 
 
+# the bytes they record (operands; an all-gather's result): 16 tokens x
+# d 64 x f32 a layer's all-reduce and the embedding's, 16 x vocabulary
+# 64 x f32 the logits' all-gather over "model"; at dp 2 the dense
+# backend's ranks forward 8 tokens each, whose logits then cross "data"
+_FWD_BYTES = {
+    ("dense", "1x2"): {"all-reduce@2": 20480, "all-gather@2": 4096},
+    ("paged", "1x2"): {"all-reduce@2": 20480, "all-gather@2": 4096},
+    ("dense", "2x2"): {"all-reduce@2": 10240, "all-gather@2": 6144},
+    ("paged", "2x2"): {"all-reduce@2": 20480, "all-gather@2": 4096},
+    ("dense", "2x1"): {"all-gather@2": 4096},
+    ("paged", "2x1"): {},
+}
+
+
 @pytest.mark.parametrize("backend,dims", sorted(_FWD_CENSUS))
 def test_collective_census_pinned(request, backend, dims):
     """The partitioning contract: the exact collective set of the target
-    verify forward per mesh.  A change here means the layout changed."""
+    verify forward per mesh, and the bytes it records.  A change here
+    means the layout changed."""
     for eng in ENGINES:
         for r in request.getfixturevalue(MESHES[dims])[f"{eng}-{backend}"]:
             assert r["census"]["forward"] == _FWD_CENSUS[(backend, dims)]
+            assert r["census"]["forward_bytes"] == \
+                _FWD_BYTES[(backend, dims)]
 
 
 @pytest.mark.parametrize("dims", ["1x2", "2x1", "2x2"])

@@ -158,7 +158,7 @@ def test_tp_overrides_kv_heads_and_moe():
         num_kv_heads=1)
     p = TM.init_params(cfg, 0, "cpu")
     spec = R.tp_params_specs(m, cfg, p)["blocks"][0]
-    assert spec["mixer"]["wk"] == (None, None, R.Split("model", 1))
+    assert spec["mixer"]["wk"] == (None, None, R.HeadRange("model", 4, 1))
     assert spec["mixer"]["wq"] == (None, None, "model")
     assert spec["ffn"]["wg"] == (None, None, None, "model")
     assert spec["ffn"]["wd"] == (None, None, "model", None)
@@ -169,7 +169,7 @@ def test_tp_overrides_kv_heads_and_moe():
     assert rule["ffn"]["wg"] == (None, None, "model", "data")
     cache = TM.init_paged_cache(cfg, 8, 4, "meta")
     kp = R.tp_cache_specs(m, cfg, cache)["blocks"][0]["k_pages"]
-    assert kp == (None, None, None, R.Split("model", 1), None)
+    assert kp == (None, None, None, R.HeadRange("model", 4, 1), None)
     with pytest.raises(ValueError, match="KV heads"):
         R.kv_split(FakeMesh({"model": 4}), cfg.replace(num_kv_heads=6))
 
@@ -181,9 +181,12 @@ def test_rank_block_and_shard_shape():
     assert R.shard_shape(x.shape, spec, m) == (4, 3)
     blk = R.rank_block(x, spec, m, {"data": 1, "model": 2})
     assert torch.equal(blk, x[4:8, 6:9])
-    # a Split block replicated over tp / blocks consecutive ranks
-    s = R.P(None, R.Split("model", 2))
-    assert R.shard_shape(x.shape, s, m) == (8, 6)
+    # whole KV heads (2 of them here, 6 columns each) replicated over tp /
+    # KV consecutive ranks: 8 query heads, 2 per rank, 4 per KV head
+    s = R.P(None, R.HeadRange("model", 8, 2))
+    assert R.shard_shape(x.shape, s, m, {"model": 1}) == (8, 6)
+    with pytest.raises(ValueError, match="coordinates"):
+        R.shard_shape(x.shape, s, m)
     assert torch.equal(R.rank_block(x, s, m, {"model": 1}), x[:, :6])
     assert torch.equal(R.rank_block(x, s, m, {"model": 2}), x[:, 6:])
     assert R.rank_block(x, R.P(None, None), m, {"model": 3}) is x
@@ -236,15 +239,24 @@ def test_validate_serving_mesh_devices():
 
 
 def test_validate_serving_mesh_heads():
+    """Only a tp that does not divide the query heads is refused, as in
+    the reference: a tp that neither divides the KV heads nor is a
+    multiple of them takes whole KV-head ranges (exception (a))."""
     cfg = port_config("gemma3-4b")                  # 8 heads, 4 KV
     MESH.validate_serving_mesh(1, 2, configs=(cfg,), n_devices=8)
     MESH.validate_serving_mesh(1, 8, configs=(cfg,), n_devices=8)
     with pytest.raises(ValueError, match=r"pick tp in \[1, 2, 4, 8\]"):
         MESH.validate_serving_mesh(1, 3, configs=(cfg,), n_devices=8)
-    with pytest.raises(ValueError, match="KV heads"):
-        MESH.validate_serving_mesh(
-            1, 4, configs=(cfg.replace(num_kv_heads=6, num_heads=12),),
-            n_devices=8)
+    MESH.validate_serving_mesh(
+        1, 4, configs=(cfg.replace(num_kv_heads=6, num_heads=12),),
+        n_devices=8)
+    for arch in ("grok-1-314b", "granite-moe-3b-a800m"):
+        for tp in (3, 6, 12):
+            MESH.validate_serving_mesh(1, tp, configs=(port_config(arch),),
+                                       device="cpu")
+        with pytest.raises(ValueError, match="does not divide"):
+            MESH.validate_serving_mesh(1, 5, configs=(port_config(arch),),
+                                       device="cpu")
 
 
 def test_serve_cli_rejects_oversized_mesh():
@@ -290,3 +302,112 @@ def test_axis_of_one_issues_nothing():
     assert ax.all_gather(x, 0) is x
     assert ax.broadcast(x, 0) is x
     assert HA.collective_counts(c) == {}
+
+
+# ---------------------------------------------------------------------------
+# KV-head ranges (exception (a)) and the FSDP layout (exceptions (c), (d))
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,sizes", [
+    ("grok-1-314b", {3: {3, 4}, 6: {2}, 12: {1, 2}}),
+    ("granite-moe-3b-a800m", {3: {3, 4}, 6: {2}, 12: {1, 2}})])
+def test_kv_head_ranges_for_every_tp(arch, sizes):
+    """Each rank holds exactly the KV heads its query block reads (one
+    or two at grok's tp = 12, three or four at granite's tp = 3); the
+    ranges cover every KV head; shard shapes follow the rank."""
+    cfg = port_config(arch)
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    G = H // KV
+    for tp, want in sizes.items():
+        m = FakeMesh({"data": 1, "model": tp})
+        kv = R.kv_split(m, cfg)
+        assert isinstance(kv, R.HeadRange)
+        seen, got = set(), set()
+        for t in range(tp):
+            lo, hi = kv.heads(t, tp)
+            q = range(t * H // tp, (t + 1) * H // tp)
+            assert {h // G for h in q} == set(range(lo, hi))
+            seen.update(range(lo, hi))
+            got.add(hi - lo)
+            c = {"model": t}
+            spec = R._tp_override(m, cfg, "wk", (cfg.d_model, KV * cfg.hd),
+                                  R.P(None, "model"))
+            assert R.shard_shape((cfg.d_model, KV * cfg.hd), spec, m, c) \
+                == (cfg.d_model, (hi - lo) * cfg.hd)
+        assert seen == set(range(KV)) and got == want
+
+
+def _tiles(cfg, mesh_shape):
+    """Every leaf's blocks over all ranks: each element held by as many
+    ranks as ``holders`` says (sum over ranks of 1 / holders is 1)."""
+    m = FakeMesh(mesh_shape)
+    from repro_torch.models import model as TM
+    from repro_torch.training import optim as TO
+    params = TM.init_params(cfg, 0, "meta")
+    specs = R.fsdp_params_specs(m, cfg, params)
+    names = list(m.shape)
+    coords_all = [dict(zip(names, idx)) for idx in
+                  __import__("itertools").product(
+                      *(range(m.shape[a]) for a in names))]
+    for leaf, sp in zip(TO.tree_leaves(params), _spec_leaves(specs)):
+        shape = tuple(leaf.shape)
+        ids = torch.arange(leaf.numel(), dtype=torch.float64).reshape(shape)
+        total = torch.zeros(leaf.numel(), dtype=torch.float64)
+        for c in coords_all:
+            blk = R.shard_tree({"x": ids}, {"x": sp}, m, c, "cpu")["x"]
+            w = R.holders(sp, shape, m, c)
+            w = (torch.ones_like(blk) / w).to(torch.float64)
+            total.index_add_(0, blk.reshape(-1).long(), w.reshape(-1))
+        assert torch.allclose(total, torch.ones_like(total)), (sp, shape)
+    return specs
+
+
+def _spec_leaves(specs):
+    from repro_torch.launch.steps import spec_leaves
+    return spec_leaves(specs)
+
+
+@pytest.mark.parametrize("arch,mesh", [
+    ("granite-moe-3b-a800m", {"data": 2, "model": 2}),
+    ("falcon-mamba-7b", {"data": 2, "model": 2}),
+    ("jamba-1.5-large-398b", {"data": 2, "model": 4}),
+    ("gemma3-4b", {"data": 1, "model": 3})])
+def test_fsdp_layout_tiles_every_leaf(arch, mesh):
+    """The training layout's blocks tile each leaf: FSDP over "data", TP
+    over "model", replicated where the layout says (a leaf without
+    "data" on every data rank; KV heads on the ranks whose queries read
+    them).  MoE experts keep "model" on F and put "data" on D
+    (exception (c))."""
+    cfg = port_config(arch).reduced().replace(name=arch)
+    if arch == "gemma3-4b":                 # 6 heads / 2 KV over tp = 3
+        cfg = cfg.replace(num_heads=6, num_kv_heads=2, head_dim=16,
+                          d_model=96)
+    specs = _tiles(cfg, mesh)
+    if cfg.num_experts:
+        ffn = specs["blocks"][0]["ffn"]
+        assert ffn["wg"] == (None, None, "data", "model")
+        assert ffn["wd"] == (None, None, "model", "data")
+        assert ffn["router"] == (None, None, None)
+
+
+def test_more_ranks_than_query_heads():
+    """Exception (d): gemma3-4b's 8 query heads over the production
+    mesh's 16 "model" ranks: whole heads on two ranks each (wq), one KV
+    head each (wk), wo's rule rows (an hd slice) per rank."""
+    cfg = port_config("gemma3-4b")
+    m = FakeMesh({"data": 16, "model": 16})
+    spec = R.fsdp_params_specs(m, cfg, TM_meta(cfg))["blocks"][0]["mixer"]
+    assert spec["wq"] == (None, "data", R.HeadRange("model", 8, 8))
+    assert spec["wk"] == (None, "data", R.HeadRange("model", 8, 4))
+    assert spec["wo"] == (None, "model", "data")
+    rng = R.HeadRange("model", 8, 8)
+    assert [rng.heads(t, 16) for t in (0, 1, 2, 15)] == [
+        (0, 1), (0, 1), (1, 2), (7, 8)]
+    # the serving mesh refuses such a tp, as the reference does
+    with pytest.raises(ValueError, match="does not divide"):
+        MESH.validate_serving_mesh(1, 16, configs=(cfg,), device="cpu")
+
+
+def TM_meta(cfg):
+    from repro_torch.models import model as TM
+    return TM.init_params(cfg, 0, "meta")

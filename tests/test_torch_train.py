@@ -294,5 +294,5 @@ def test_train_cli_on_the_cpu(capsys):
               "2"])
     out = capsys.readouterr().out
     assert "training qwen3-8b-reduced" in out and "done." in out
-    with pytest.raises(SystemExit, match="queue A item 5"):
+    with pytest.raises(SystemExit, match="needs 256 GPUs"):
         TLT.main(["--device", "cpu", "--production-mesh"])
