@@ -177,13 +177,25 @@ Phases (any failure raises, so the script exits non-zero):
                tokens (past the window of 1024), greedy teacher-forced as
                in phase 4, the serve's own target logits (prefill and
                every later target forward) within TF_MARGIN of the
-               cache-less forward's, and at temperature 1 shadowed as in
-               phase 3; the dense backend's greedy streams must equal the
-               paged ones; how far two context faults move the logits
-               (the comparison's yardstick); sequential SpecBranch
-               1 x 32; tokens/s, rounds, M, peak memory, a profiled
-               serve.  internvl2-2b at full width with
-               its draft(): 256 stub patch embeddings then 32 tokens,
+               cache-less forward's, and at temperature 1 (G3_T1_NEW new
+               tokens) shadowed as in phase 3; the dense backend's greedy
+               streams must equal the paged ones; how far two context
+               faults move the logits (the comparison's yardstick);
+               sequential SpecBranch 1 x 32; tokens/s, rounds, M, peak
+               memory.  granite-moe-3b-a800m at full width (40 experts
+               top-8 on 32 layers) with its draft() (3 heads of hd 85: the
+               decode loop's ragged path): 8 requests of 256-token
+               prompts x 16 new tokens, batched SpecBranch greedy on
+               paged and on dense (streams equal) and sequential 1 x 16,
+               teacher-forced on drop-free copies of both configs
+               (capacity_factor = num_experts / top-k: a batched verify
+               and the cache-less forward then route a token alike), the
+               paged and flash kernels launched at hd 85 (by head dim);
+               one profiled paged serve at the configs' own capacity
+               1.25: the share of (token, choice) pairs dropped, and the
+               draft's attention in the device time.  internvl2-2b at
+               full width with its draft(): 256 stub patch embeddings
+               then 32 tokens,
                sequential AR, SpS and SpecBranch, 2 x VLM_NEW greedy,
                teacher-forced over embeddings + prompt + stream.
                hubert-xlarge at full width: one cache-less bidirectional
@@ -192,7 +204,12 @@ Phases (any failure raises, so the script exits non-zero):
                case.  Phase 2 holds the decode loop's draft() head dims
                144 and 160 (paged, flash, branch decode; bf16 and f32)
                and gemma3-4b's 8 x 1000 prefill rung (paged and flash,
-               the target's local and global layers and the draft's).
+               the target's local and global layers and the draft's);
+               and the ragged path (``ragged_cases``) at
+               granite-moe's draft shapes (hd 85, bf16 and f32: paged,
+               flash on a ring and cache-less, branch decode, the
+               backward) and hd 200, beside the same shapes at hd 64
+               and 128.
  16. train   — training.  Phase 2 holds the two backward kernels (flash:
                the tiny pair's training frame, gemma3-4b's 1280-token
                frame with window 1024 and global, a softcap, hubert's
@@ -268,12 +285,14 @@ Phases (any failure raises, so the script exits non-zero):
                ``launch.steps.step_costs``' formula (which must equal the
                census).  Every rank's launches join the kernel table's; a
                failed or hung rank fails the run.
-The full-width 7B pair's drives take FULL_NEW (16) new tokens a request
-in phases 4, 6 and 10 and LATE_NEW (8) in phases 11-14, gemma3-4b's
-G3_NEW (32: its context yardstick needs rows past the window of 1024),
-internvl2-2b's VLM_NEW (16) and the reduced families' ARCH_N_NEW (8):
-each was cut (from 32, 32, 48, 32 and 12) to make room for the later
-phases in the time limit on a slow host.
+The full-width 7B pair's drives take FULL_NEW (8) new tokens a request
+in phases 4, 6, 10 and 17c and LATE_NEW (8) in phases 11-14, gemma3-4b's
+G3_NEW (32: its context yardstick needs rows past the window of 1024;
+its temperature-1 serve G3_T1_NEW, 16), internvl2-2b's VLM_NEW (16) and
+the reduced families' ARCH_N_NEW (8): each was cut (from 32, 32, 48,
+32 and 12; FULL_NEW from 16 and G3_T1_NEW from G3_NEW when granite's
+drive came) to make room for the later phases in the time limit on a
+slow host.
 Each main-path drive zeroes the kernel launch counters right before it
 and reads them right after; launches made to compare a kernel with its
 plain version are not counted.  The second-to-last lines are the kernel
@@ -285,7 +304,9 @@ Exits non-zero without a result when no CUDA device is visible.
 Modes that give no smoke result (exit 3): ``--kernels`` stops after
 phase 2; ``--prefix`` runs phases 1-2 and 14 only; ``--arch`` phases
 1-2 and 15 only; ``--train`` phases 1-2 and 16 only; ``--mesh``
-phases 1-2 and 17 only; ``--probe`` times
+phases 1-2 and 17 only; ``--attn`` times phase 2's aligned
+attention cases (paged, flash, branch decode) alone: run with ``--src``
+beside a run without, the aligned path's A/B; ``--probe`` times
 the attention tile loops phase by phase from variants built with
 -DREPRO_ATTN_STOP (1: K/V loads only, 2: loads and logits, 0: whole
 kernel) beside the timing floor, and the batched
@@ -305,7 +326,7 @@ and at B=2; ``--profile`` runs phases 4 and 6's profiled serves, the
 batched LLaMA serve at temperature 1 (verify device time) and phase 8's
 falcon serve (scan and h-ring device time) only.  With ``--src DIR``
 (``--profile``, ``--scan``, ``--scan-bwd``, ``--flash-bwd``,
-``--train``) the script
+``--train``, ``--attn``) the script
 imports the port from DIR (another checkout's src, e.g. the parent
 commit unpacked under build/) to compare two commits in one call.
 """
@@ -327,7 +348,8 @@ import types
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # ``--src DIR`` imports the port from another checkout's src (a parent
 # commit unpacked beside this one) for ``--profile``, ``--scan``,
-# ``--scan-bwd``, ``--flash-bwd`` or ``--train``; default: this one's
+# ``--scan-bwd``, ``--flash-bwd``, ``--train`` or ``--attn``; default:
+# this one's
 SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv
        else os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.abspath(SRC))
@@ -428,13 +450,20 @@ PC_ATTN_CASE = "llama-7b suffix B=8 T=32 q0=512"
 # window of 1024), internvl2-2b's stub patches and prompt, hubert's frames
 ARCH_N_NEW = 8
 G3_PROMPT, G3_NEW = 1000, 32
+# gemma3-4b's temperature-1 serve: the verify shadow at V = 262144 needs
+# no row past the window (the greedy serves reach them)
+G3_T1_NEW = 16
+# granite-moe-3b-a800m's prompts and new tokens (its draft's hd 85: the
+# decode loop's ragged path)
+GRANITE_PROMPT, GRANITE_NEW = 256, 16
 VLM_PATCHES, VLM_PROMPT, VLM_NEW = 256, 32, 16
 HUBERT_FRAMES = (2, 500)
 HUBERT_CASE = "hubert-xl hd80 B=2 T=S=500 bidir"
-# new tokens a request of the full-width 7B drives of phases 4, 6 and 10
-# (FULL_NEW) and of phases 11-14 (LATE_NEW), both cut from 32 so that
-# the later phases fit the script's time limit on a slow host
-FULL_NEW = 16
+# new tokens a request of the full-width 7B drives of phases 4, 6, 10 and
+# 17c (FULL_NEW) and of phases 11-14 (LATE_NEW), both cut from 32 (FULL_NEW
+# to 16, then to 8 when phase 15's granite drive came) so that the later
+# phases fit the script's time limit on a slow host
+FULL_NEW = 8
 LATE_NEW = 8
 # phase 16: the backward kernels' representative phase-2 cases (gemma3-4b's
 # local layers at the training frame of phase 16c, falcon-mamba-7b's
@@ -501,12 +530,17 @@ def nvidia_smi() -> str:
 
 
 _FLUSH = None
+# time_ms: calls slower than this (s, host clock, warm) are timed fewer
+# times -- the plain scans' Python loops, 9-98 ms a call, took ~8 s of
+# phase 2 at 21 iterations
+SLOW_CALL_S, SLOW_ITERS = 0.005, 5
 
 
 def time_ms(fn, iters: int = 21, warmup: int = 3,
             flush: str = "dirty") -> float:
     """Median device time of one call, from CUDA events recorded right
-    before and after it.  A spin kernel holds the card while the host
+    before and after it; a call whose warm-up takes over SLOW_CALL_S each
+    (a plain version's Python loop) is timed SLOW_ITERS times.  A spin kernel holds the card while the host
     enqueues every call, so the calls then run back to back and the events
     time device work, not host launch overhead.  The 50 MB L2 is flushed
     (a bitwise_not pass over 64 MB, outside the events) before every call,
@@ -517,9 +551,13 @@ def time_ms(fn, iters: int = 21, warmup: int = 3,
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if (time.time() - t0) / warmup > SLOW_CALL_S:
+        iters = min(iters, SLOW_ITERS)
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda._sleep(100_000_000)          # ~50 ms of device spin
@@ -1405,7 +1443,9 @@ def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
                                                 **kw))
     plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, qp,
                                                         kp, **kw))
-    blocks = (FA.bwd_plan(B, T, S, H, KV, hd, dtype)["blocks"]
+    width = (DA.head_dim_path("bwd", hd, q, k, v)[0]
+             if hasattr(DA, "head_dim_path") else hd)
+    blocks = (FA.bwd_plan(B, T, S, H, KV, width, dtype)["blocks"]
               if hasattr(FA, "bwd_plan") else None)
     # one profiler session a process: a later one may lose events
     split = (bwd_kernel_times(lambda: FA.flash_attention_bwd(
@@ -1710,8 +1750,66 @@ def phase_kernel_api(cases, totals) -> dict:
     return counts
 
 
-def phase_kernels() -> dict:
-    rng = np.random.default_rng(0)
+def ragged_cases(rng) -> dict:
+    """Phase 2's cases on the decode loop's ragged path, by kernel: at
+    granite-moe-3b-a800m's draft() shapes (3 heads of hd 85, rows of 170
+    bytes in bf16, 340 in f32; width 96), bf16 and f32 -- paged at B=8,
+    T=4 over a 1040-key table, flash on a ring of those shapes and
+    cache-less over phase 15's 256-token prompts (the wide block), branch
+    decode k=6 over a 504-key prefix, the backward at the training frame
+    B=1, T=S=256 -- and hd 200 (width 256) at one shape each in bf16;
+    beside them the paged and flash shapes at the aligned hd 64 and 128
+    (bf16)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    att, fl, br, bw = [], [], [], []
+    for dt in (bf, f32):
+        tag = f"granite draft hd85 {'bf16' if dt is bf else 'f32'}"
+        att.append(check_attention(rng, f"{tag} B=8 T=4", 8, 4, 3, 3, 85,
+                                   16, dt, max_len=1040, min_len=1000,
+                                   n_max=65))
+        fl.append(check_flash(rng, f"{tag} ring B=8 T=4 S=1040", 8, 4,
+                              1040, 3, 3, 85, 1030, dt))
+        fl.append(check_flash(rng, f"{tag} cache-less B=8 T=S=256", 8, 256,
+                              256, 3, 3, 85, 256, dt))
+        br.append(check_branch(rng, f"{tag} k=6 Sp=504 Ss=8", 6, 1, 504, 8,
+                               3, 3, 85, dt))
+        bw.append(check_flash_bwd(rng, f"{tag} train B=1 T=S=256", 1, 256,
+                                  256, 3, 3, 85, dt))
+    att.append(check_attention(rng, "hd200 bf16 B=8 T=4", 8, 4, 4, 2, 200,
+                               16, bf, max_len=1040, min_len=1000, n_max=65))
+    fl.append(check_flash(rng, "hd200 bf16 ring B=8 T=4 S=1040", 8, 4, 1040,
+                          4, 2, 200, 1030, bf))
+    br.append(check_branch(rng, "hd200 bf16 k=6 Sp=504 Ss=8", 6, 1, 504, 8,
+                           4, 2, 200, bf))
+    bw.append(check_flash_bwd(rng, "hd200 bf16 train B=1 T=S=256", 1, 256,
+                              256, 4, 2, 200, bf))
+    for hd in (64, 128):
+        att.append(check_attention(rng, f"granite draft at hd{hd} bf16 B=8 "
+                                   "T=4", 8, 4, 3, 3, hd, 16, bf,
+                                   max_len=1040, min_len=1000, n_max=65))
+        fl.append(check_flash(rng, f"granite draft at hd{hd} bf16 ring B=8 "
+                              "T=4 S=1040", 8, 4, 1040, 3, 3, hd, 1030, bf))
+    return {"paged_attention": att, "flash_attention": fl,
+            "branch_decode_attention": br, "flash_attention_bwd": bw}
+
+
+def phase_attn() -> None:
+    """``--attn``: phase 2's aligned attention cases alone
+    (``attention_cases``), of this or (``--src``) another checkout's port,
+    one line a case: the aligned path's A/B."""
+    att, fl, br = attention_cases(np.random.default_rng(0))
+    timing_floor()
+    for r in att + fl + br:
+        log(f"  attn-ab {r['case']:44s} ms={r['ms']:.4f} "
+            f"bound={r['bound_ms']:.4f}")
+
+
+def attention_cases(rng) -> tuple:
+    """Phase 2's paged, flash and branch-decode cases on the decode
+    loop's aligned path (the head dims of ``DA.HEAD_DIMS`` over 16-byte
+    aligned rows): (paged, flash, branch) rows.  ``--attn`` runs them
+    alone, of this or (``--src``) another checkout's port: the aligned
+    path's A/B."""
     bf, f32 = torch.bfloat16, torch.float32
     att = []
     for T in (1, 2, 4, 8, 16):
@@ -1731,11 +1829,6 @@ def phase_kernels() -> dict:
     for T in (1, 16):
         att.append(check_attention(rng, f"zm-draft B=56 T={T}", 56, T, 2, 1,
                                    16, 16, f32, n_idle=40))
-    ver = [check_verify(rng, "llama V=32000 B=8 R=16", 8, 16, 32000),
-           check_verify(rng, "zm V=199 B=8 R=16", 8, 16, 199)]
-    gat = [check_gather(rng, "zm swap ps=4 dim=512", 64, 4, 512, 13, 50),
-           check_gather(rng, "llama-7b swap ps=16 dim=262144", 8, 16,
-                        262144, 5, 70)]
     fl = [check_flash(rng, "llama-7b B=1 T=1 S=512", 1, 1, 512, 32, 32, 128,
                       48, bf),
           check_flash(rng, "llama-7b B=1 T=5 S=512", 1, 5, 512, 32, 32, 128,
@@ -1762,26 +1855,12 @@ def phase_kernels() -> dict:
                       16, 128, 4608, bf, window=4096, cap=50.0),
           check_flash(rng, "gemma2 window B=1 T=16 f32", 1, 16, 4608, 32, 16,
                       128, 4608, f32, window=4096, cap=50.0)]
-    bf16 = torch.bfloat16
-    ss = [check_ssm(rng, "falcon-7b decode B=8 T=8", 8, 8, 8192, 16, bf16,
-                    True),
-          check_ssm(rng, "falcon-7b prefill B=8 T=16", 8, 16, 8192, 16,
-                    bf16, True),
-          check_ssm(rng, "falcon draft tick B=56 T=1", 56, 1, 1024, 16,
-                    bf16, True),
-          check_ssm(rng, "falcon-7b cache-less B=8 T=48", 8, 48, 8192, 16,
-                    bf16, False),
-          check_ssm(rng, "tiny f32 B=3 T=8 E=128", 3, 8, 128, 16, f32,
-                    True),
-          check_ssm(rng, "odd length B=1 T=130 E=32 N=8", 1, 130, 32, 8,
-                    f32, True)]
     br = [check_branch(rng, "llama-7b k=6 Sp=504 Ss=8", 6, 1, 504, 8, 32,
                        32, 128, bf),
           check_branch(rng, "tiny f32 k=3 Tq=3 Sp=29 Ss=5", 3, 3, 29, 5, 4,
                        2, 32, f32, dead=2),
           check_branch(rng, "llama-7b cap k=6 Sp=504 Ss=8", 6, 1, 504, 8,
                        32, 32, 128, bf, cap=50.0)]
-    sv = [check_single_verify(rng, "llama V=32000 R=9", 9, 32000, f32)]
     # cases after the earlier slices' (their inputs stay the same draws):
     # page tables as wide as a serve's, a long row at B = 1 and a long
     # shared prefix, which split the key axis
@@ -1812,33 +1891,15 @@ def phase_kernels() -> dict:
                            8, 4, 256, bf))
     br.append(check_branch(rng, "hd80 H=16 k=6 Sp=504 Ss=8", 6, 1, 504, 8,
                            16, 16, 80, bf))
-    # the scan's ring entry at the falcon-mamba-7b serve's two target
-    # shapes (8 lanes of T = 16, its most frequent, and of T = 8, over 8
-    # ring rows of depth FALCON_RING; two fresh lanes, two wrapping past
-    # slot Rg - 1, one pad lane) and a lapping prefill; the verify with
-    # every row full, with a V its split does not divide, and at gemma3-4b's
-    # vocabulary (16 blocks per row, the non-portable cluster)
-    rr = falcon_ring_cases(rng) + [
-        check_ssm_ring(rng, "lapping prefill B=4 T=130 E=1024 Rg=92", 4,
-                       130, 1024, 16, 92, 6, bf16, p0=[0, 0, 7, 0],
-                       rows=[4, 1, 0, -1])]
-    ver.append(check_verify(rng, "llama V=32000 B=8 R=16 full", 8, 16,
-                            32000, lens_to=16))
-    ver.append(check_verify(rng, "V=30011 B=8 R=16", 8, 16, 30011))
-    ver.append(check_verify(rng, "gemma3-4b V=262144 B=4 R=6", 4, 6,
-                            262144))
-    ss += carry_cases(rng) + [train_fwd_chunks(rng)]
     # the dense backend's flash shapes (phase 11's 7B serve: the target's
     # 8 rows verifying a bucket-8 chunk and prefilling a 16-wide rung on a
-    # fresh 512-slot view, the 68M draft's 56 rows ticking) and the swap
-    # readback at the 7B target's full width (4 pages of 16, 60 rows)
+    # fresh 512-slot view, the 68M draft's 56 rows ticking)
     fl.append(check_flash(rng, "llama-7b dense B=8 T=8 S=512", 8, 8, 512,
                           32, 32, 128, 40, bf, stale=4))
     fl.append(check_flash(rng, "llama-7b dense prefill B=8 T=16 S=512", 8,
                           16, 512, 32, 32, 128, 16, bf))
     fl.append(check_flash(rng, "llama-68m dense B=56 T=1 S=512", 56, 1,
                           512, 12, 12, 64, 41, bf))
-    gat.append(check_gather(rng, GATHER_FULL_CASE, 8, 16, 262144, 4, 60))
     # the parallel-draft frames (phase 13): the 68M draft's B=8 rows (SpS)
     # and 56 rows, 40 idle (SpecBranch), T = 16 (pending + slots on the
     # bucket ladder), S = 512; the tiny draft's f32 frame
@@ -1859,18 +1920,12 @@ def phase_kernels() -> dict:
     # the 512-token cached run whose 32 pages every row's table shares,
     # one pad lane; tables of the serve's 1024-token width) and the tiny
     # pair's f32 frame (8 cached tokens, a 2-token suffix on the 8 rung,
-    # page size 4); the ring scan's suffix entry at falcon's width from a
-    # restored slot at p0 = 256 (3 hit lanes and a pad lane, rungs 16
-    # and 32)
+    # page size 4)
     att.append(check_attention(rng, PC_ATTN_CASE, 8, 32, 32, 32, 128, 16,
                                bf, n_idle=1, n_max=64, prefix=(512, 31)))
     att.append(check_attention(rng, "zm-target suffix B=4 T=8 q0=8 ps=4", 4,
                                8, 4, 2, 32, 4, f32, n_idle=1,
                                prefix=(8, 2)))
-    for T in (16, 32):
-        rr.append(check_ssm_ring(rng, f"falcon-7b suffix B=4 T={T} p0=256",
-                                 4, T, 8192, 16, FALCON_RING, 4, bf16,
-                                 p0=[256, 256, 256, 0], rows=[1, 2, 3, -1]))
     # the draft() head dims (phase 15): gemma3-4b's draft (2 heads of 160)
     # and gemma2-27b's (4 heads of 144), bf16 and f32 -- paged at B=8,
     # T=4, window 1024 over a 1040-key table, flash on a ring of those
@@ -1911,7 +1966,62 @@ def phase_kernels() -> dict:
                               1000, S, H, KV, hd, 1000, bf, window=w))
     fl.append(check_flash(rng, "gemma3-4b global prefill B=1 T=1000 S=2048",
                           1, 1000, 2048, 8, 4, 256, 1000, bf))
+    return att, fl, br
+
+def phase_kernels() -> dict:
+    rng = np.random.default_rng(0)
+    bf, f32 = torch.bfloat16, torch.float32
+    att, fl, br = attention_cases(rng)
+    rag = ragged_cases(rng)
+    att += rag["paged_attention"]
+    fl += rag["flash_attention"]
+    br += rag["branch_decode_attention"]
+    ver = [check_verify(rng, "llama V=32000 B=8 R=16", 8, 16, 32000),
+           check_verify(rng, "zm V=199 B=8 R=16", 8, 16, 199)]
+    gat = [check_gather(rng, "zm swap ps=4 dim=512", 64, 4, 512, 13, 50),
+           check_gather(rng, "llama-7b swap ps=16 dim=262144", 8, 16,
+                        262144, 5, 70)]
+    bf16 = torch.bfloat16
+    ss = [check_ssm(rng, "falcon-7b decode B=8 T=8", 8, 8, 8192, 16, bf16,
+                    True),
+          check_ssm(rng, "falcon-7b prefill B=8 T=16", 8, 16, 8192, 16,
+                    bf16, True),
+          check_ssm(rng, "falcon draft tick B=56 T=1", 56, 1, 1024, 16,
+                    bf16, True),
+          check_ssm(rng, "falcon-7b cache-less B=8 T=48", 8, 48, 8192, 16,
+                    bf16, False),
+          check_ssm(rng, "tiny f32 B=3 T=8 E=128", 3, 8, 128, 16, f32,
+                    True),
+          check_ssm(rng, "odd length B=1 T=130 E=32 N=8", 1, 130, 32, 8,
+                    f32, True)]
+    sv = [check_single_verify(rng, "llama V=32000 R=9", 9, 32000, f32)]
+    # the scan's ring entry at the falcon-mamba-7b serve's two target
+    # shapes (8 lanes of T = 16, its most frequent, and of T = 8, over 8
+    # ring rows of depth FALCON_RING; two fresh lanes, two wrapping past
+    # slot Rg - 1, one pad lane) and a lapping prefill; the verify with
+    # every row full, with a V its split does not divide, and at gemma3-4b's
+    # vocabulary (16 blocks per row, the non-portable cluster)
+    rr = falcon_ring_cases(rng) + [
+        check_ssm_ring(rng, "lapping prefill B=4 T=130 E=1024 Rg=92", 4,
+                       130, 1024, 16, 92, 6, bf16, p0=[0, 0, 7, 0],
+                       rows=[4, 1, 0, -1])]
+    ver.append(check_verify(rng, "llama V=32000 B=8 R=16 full", 8, 16,
+                            32000, lens_to=16))
+    ver.append(check_verify(rng, "V=30011 B=8 R=16", 8, 16, 30011))
+    ver.append(check_verify(rng, "gemma3-4b V=262144 B=4 R=6", 4, 6,
+                            262144))
+    ss += carry_cases(rng) + [train_fwd_chunks(rng)]
+    # the swap readback at the 7B target's full width (4 pages of 16, 60
+    # rows) and the ring scan's suffix entry (phase 14) at falcon's width
+    # from a restored slot at p0 = 256 (3 hit lanes and a pad lane, rungs
+    # 16 and 32)
+    gat.append(check_gather(rng, GATHER_FULL_CASE, 8, 16, 262144, 4, 60))
+    for T in (16, 32):
+        rr.append(check_ssm_ring(rng, f"falcon-7b suffix B=4 T={T} p0=256",
+                                 4, T, 8192, 16, FALCON_RING, 4, bf16,
+                                 p0=[256, 256, 256, 0], rows=[1, 2, 3, -1]))
     bwd = phase_kernels_bwd(rng)
+    bwd["flash_attention_bwd"] += rag["flash_attention_bwd"]
     timing_floor()
     for r in (att + ver + gat + fl + ss + rr + br + sv
               + bwd["flash_attention_bwd"] + bwd["ssm_scan_bwd"]):
@@ -2318,8 +2428,11 @@ def busy_profile(run) -> dict:
     scan = [e.duration_ns() for e in evs if "ssm_scan_kernel" in e.name()]
     verify = [e.duration_ns() for e in evs
               if "verify_accept_batched_kernel" in e.name()]
+    # the decode loop's ragged path (its instances end in ", true>")
+    ragged = [e.duration_ns() for e in evs if "Keys, true>" in e.name()]
     return dict(wall_s=wall, busy_share=busy / 1e9 / wall,
                 device_s=sum(by_name.values()) / 1e9,
+                ragged_ms=sum(ragged) / 1e6, ragged_launches=len(ragged),
                 top=[(n, t / 1e9) for n, t in top],
                 paged_ms=sum(paged) / 1e6, paged_launches=len(paged),
                 flash_ms=sum(flash) / 1e6, flash_launches=len(flash),
@@ -4298,11 +4411,12 @@ def family_draft(tcfg):
 def phase_arch(dev, totals) -> dict:
     t15 = time.time()
     log_phase("[15] architecture coverage: the ten reduced configs (f32), "
-              "gemma3-4b, internvl2-2b and hubert-xlarge at full width "
-              "(bf16)")
+              "gemma3-4b, granite-moe-3b-a800m, internvl2-2b and "
+              "hubert-xlarge at full width (bf16)")
     out = {}
     for name, part in (("reduced", phase_arch_reduced),
                        ("gemma3-4b", phase_arch_gemma3),
+                       ("granite-moe-3b-a800m", phase_arch_granite),
                        ("internvl2-2b", phase_arch_vlm),
                        ("hubert-xlarge", phase_arch_hubert)):
         free_device_memory()
@@ -4387,13 +4501,13 @@ def phase_arch_gemma3(dev, totals) -> dict:
     the local layers' window (1024).
     Batched SpecBranch on the paged backend greedy (teacher-forced, with
     the serve's own target logits held against the cache-less forward's)
-    and at temperature 1 with epsilon 0 (shadowed: the batched verify at
-    V = 262144), the same greedy serve on the dense backend (its streams
-    must be the paged serve's), sequential SpecBranch 1 x 32 greedy
-    (teacher-forced); tokens/s, rounds, M, peak memory; how far the
-    target's logits move when its context changes (the yardstick of the
-    logit comparison); one profiled serve's busy share and device time by
-    kernel."""
+    and at temperature 1 with epsilon 0, G3_T1_NEW new tokens (shadowed:
+    the batched verify at V = 262144), the same greedy serve on the dense
+    backend (its streams must be the paged serve's), sequential
+    SpecBranch 1 x 32 greedy (teacher-forced); tokens/s, rounds, M, peak
+    memory; how far the target's logits move when its context changes
+    (the yardstick of the logit comparison).  (Its profiled serve went
+    for time when granite's drive came: PERF.md keeps its busy shares.)"""
     from repro_torch.configs import gemma3_4b
     base = torch.cuda.memory_allocated()
     pair = SV.load_pair("gemma3-4b", dev)
@@ -4410,17 +4524,17 @@ def phase_arch_gemma3(dev, totals) -> dict:
     max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
     out = {"weights_gb": (wt + wd) / 1e9}
     served = {}
-    for name, temp, eps, backend in (
-            ("paged greedy", 0.0, EPS, "paged"),
-            ("paged temp1-chains", 1.0, 0.0, "paged"),
-            ("dense greedy", 0.0, EPS, "dense")):
+    for name, temp, eps, backend, n in (
+            ("paged greedy", 0.0, EPS, "paged", n_new),
+            ("paged temp1-chains", 1.0, 0.0, "paged", G3_T1_NEW),
+            ("dense greedy", 0.0, EPS, "dense", n_new)):
         ecfg = EngineConfig(gamma=4, c=10.0, temperature=temp, epsilon=eps,
                             max_len=max_len)
         free_device_memory()
         torch.cuda.reset_peak_memory_stats()
         with VerifyShadow() as sh, ServedLogits(prompts, tcfg) as sl:
-            res, rep, counts, wall, eng = drive(pair, ecfg, prompts, n_new,
-                                                dev, attn_backend=backend)
+            res, rep, counts, wall, eng = drive(pair, ecfg, prompts, n, dev,
+                                                attn_backend=backend)
         peak = torch.cuda.max_memory_allocated()
         del eng
         for k, v in counts.items():
@@ -4471,16 +4585,199 @@ def phase_arch_gemma3(dev, totals) -> dict:
         tokens_per_s=32 / wall, wall_s=wall, rounds=rounds,
         mean_accepted=res[0].stats.mean_accepted, launches=counts,
         teacher_forced=teacher_forced(pair[2], tcfg, prompts[:1], res, 32))
+    return out
+
+
+class HeadDimLaunches:
+    """While active, counts the paged and flash wrappers' calls (one
+    launch each) by head dim."""
+
+    def __enter__(self):
+        from collections import Counter
+        self.counts = Counter()
+        self._orig = (PA.paged_attention, FA.flash_attention)
+
+        def spy(name, fn):
+            def call(q, *a, **kw):
+                if q.numel():
+                    self.counts[(name, q.shape[-1])] += 1
+                return fn(q, *a, **kw)
+            return call
+        PA.paged_attention = spy("paged_attention", self._orig[0])
+        FA.flash_attention = spy("flash_attention", self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        PA.paged_attention, FA.flash_attention = self._orig
+        return False
+
+    def by_hd(self) -> dict:
+        return {f"{n} hd{hd}": c for (n, hd), c in sorted(self.counts.items())}
+
+
+class MoeDrops:
+    """While active, counts the (token, choice) pairs every MoE forward
+    routes and those past their expert's capacity, which ``moe_ffn``
+    drops: the same router, top-k and capacity recomputed beside the
+    layer (device sums; read once at the end)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.L, self._orig = L, L.moe_ffn
+        self.pairs = 0
+        self.dropped = None
+
+        def spy(p, x, cfg, tp=None, dp=None):
+            with torch.no_grad():
+                n = x.shape[0] * x.shape[1]
+                h = L.rms_norm(x, p["ln"], cfg.norm_eps).reshape(n, -1)
+                probs = torch.softmax(h.float() @ p["router"], dim=-1)
+                eidx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)[1]
+                per = torch.bincount(eidx.reshape(-1),
+                                     minlength=cfg.num_experts)
+                over = (per - L.moe_capacity(cfg, n)).clamp_min(0).sum()
+                self.dropped = over if self.dropped is None \
+                    else self.dropped + over
+                self.pairs += n * cfg.num_experts_per_tok
+            return self._orig(p, x, cfg, tp=tp, dp=dp)
+        L.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_ffn = self._orig
+        return False
+
+    def share(self) -> float:
+        return (0.0 if self.dropped is None
+                else int(self.dropped) / max(self.pairs, 1))
+
+
+def drop_free(cfg):
+    """``cfg`` with the capacity that drops no (token, choice) pair,
+    num_experts / num_experts_per_tok, as ``reduced()`` sets it: a token's
+    routing then does not depend on the batch it is served in."""
+    return cfg.replace(capacity_factor=cfg.num_experts
+                       / cfg.num_experts_per_tok)
+
+
+def phase_arch_granite(dev, totals) -> dict:
+    """granite-moe-3b-a800m at full width (32 layers, d 1536, 40 experts
+    top-8 on every layer) with its draft() (2 layers, d 256, 3 heads of hd
+    85: the decode loop's ragged path), bf16, random weights (target seed
+    0, draft seed 1): 8 requests of GRANITE_PROMPT-token prompts and
+    GRANITE_NEW new tokens.  The greedy gate runs on drop-free copies of
+    both configs (``drop_free``): at the configs' capacity factor 1.25 a
+    batched verify and the cache-less forward may route one token
+    differently.  Batched SpecBranch on the paged backend, greedy,
+    teacher-forced; the same serve on the dense backend, whose streams
+    must equal the paged ones; sequential SpecBranch 1 x GRANITE_NEW,
+    teacher-forced.  The paged and flash kernels must launch at hd 85
+    (launches by head dim).  Then one paged serve at capacity 1.25 under
+    the CUDA profiler (8 x 8): in-vocabulary tokens, the share of (token,
+    choice) pairs dropped, the busy share and the draft's attention
+    (the ragged path's kernels) in the device time.  tokens/s, rounds,
+    M, peak memory and weight bytes."""
+    from repro_torch.configs import granite_moe_3b_a800m
+    base = torch.cuda.memory_allocated()
+    pair = SV.load_pair("granite-moe-3b-a800m", dev)
+    dcfg, tcfg = pair[1], pair[3]
+    if tcfg != granite_moe_3b_a800m.CONFIG or (
+            dcfg.num_layers, dcfg.d_model, dcfg.num_heads,
+            dcfg.hd) != (2, 256, 3, 85):
+        raise AssertionError("granite-moe-3b-a800m or its draft is not at "
+                             "full width")
+    wt, wd = tree_bytes(pair[2]), tree_bytes(pair[0])
+    log(f"  weights: target {wt / 1e9:.3f} GB ({tcfg.param_count()} "
+        f"params), draft {wd / 1e9:.3f} GB ({dcfg.param_count()}); "
+        f"{(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB allocated")
+    free = (pair[0], drop_free(dcfg), pair[2], drop_free(tcfg))
+    log(f"  greedy gate on drop-free copies: capacity_factor "
+        f"{free[3].capacity_factor} (target), {free[1].capacity_factor} "
+        f"(draft); the configs' own {tcfg.capacity_factor}")
+    prompts = SV.make_prompts(8, length=GRANITE_PROMPT)
+    n_new = GRANITE_NEW
+    max_len = SV.auto_max_len(prompts, n_new, 4, 10.0)
+    out = {"weights_gb": (wt + wd) / 1e9}
+    served = {}
+    for name, backend in (("paged greedy", "paged"),
+                          ("dense greedy", "dense")):
+        ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        with HeadDimLaunches() as hl:
+            res, rep, counts, wall, eng = drive(free, ecfg, prompts, n_new,
+                                                dev, attn_backend=backend)
+        peak = torch.cuda.max_memory_allocated()
+        del eng
+        for k, v in counts.items():
+            totals[k] += v
+        toks = sum(len(r.tokens) for r in res.values())
+        mean_acc = float(np.mean([r.stats.mean_accepted
+                                  for r in res.values()]))
+        log(f"  granite {name}: {toks / wall:.1f} tok/s wall, "
+            f"rounds={rep['rounds']}, mean accepted={mean_acc:.2f}, peak "
+            f"allocated {peak / 1e9:.2f} GB, launches={counts}, by head "
+            f"dim {hl.by_hd()}")
+        kern = "paged_attention" if backend == "paged" else "flash_attention"
+        if hl.counts[(kern, 85)] == 0:
+            raise AssertionError(f"granite {name}: {kern} not run at hd 85")
+        out[name] = dict(tokens_per_s=toks / wall, wall_s=wall,
+                         rounds=rep["rounds"], mean_accepted=mean_acc,
+                         tokens=toks, peak_gb=peak / 1e9, launches=counts,
+                         by_hd=hl.by_hd(),
+                         teacher_forced=teacher_forced(free[2], free[3],
+                                                       prompts, res, n_new))
+        served[name] = res
+    first = first_diff(served["paged greedy"], served["dense greedy"])
+    n_eq = sum(j is None for j in first.values())
+    log(f"  granite dense vs paged greedy: {n_eq}/{len(first)} streams "
+        f"equal; first divergence {first}")
+    if n_eq != len(first):
+        raise AssertionError("granite: dense and paged greedy streams "
+                             "differ")
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
+    with HeadDimLaunches() as hl:
+        res, counts, wall = seq_drive(free, ecfg, "specbranch", prompts[:1],
+                                      n_new, totals)
+    rounds = len(res[0].timeline)
+    log(f"  granite sequential specbranch 1 x {n_new}: {n_new / wall:.1f} "
+        f"tok/s wall, rounds={rounds}, mean accepted="
+        f"{res[0].stats.mean_accepted:.2f}, by head dim {hl.by_hd()}")
+    if hl.counts[("flash_attention", 85)] == 0:
+        raise AssertionError("granite sequential: flash not run at hd 85")
+    out["seq specbranch"] = dict(
+        tokens_per_s=n_new / wall, wall_s=wall, rounds=rounds,
+        mean_accepted=res[0].stats.mean_accepted, launches=counts,
+        teacher_forced=teacher_forced(free[2], free[3], prompts[:1], res,
+                                      n_new))
+    # the configs' own capacity: one profiled paged serve, 8 x 8
     free_device_memory()
-    prof = busy_profile(lambda: SV.serve(pair, ecfg, prompts, 8,
-                                         device=dev))
-    log(f"  gemma3-4b profile (paged greedy, 8 x 8 new tokens): card busy "
+    ecfg = EngineConfig(gamma=4, c=10.0, temperature=0.0, max_len=max_len)
+    box = {}
+
+    def run():
+        box["res"] = SV.serve(pair, ecfg, prompts, 8, device=dev,
+                              attn_backend="paged")[0]
+    with MoeDrops() as md:
+        prof = busy_profile(run)
+    bad = [t for r in box["res"].values() for t in r.tokens
+           if not 0 <= t < tcfg.vocab_size]
+    if bad or any(len(r.tokens) != 8 for r in box["res"].values()):
+        raise AssertionError(f"granite at capacity 1.25: tokens {bad}")
+    rag = prof["ragged_ms"]
+    log(f"  granite at capacity {tcfg.capacity_factor} (8 x 8, paged, "
+        f"profiled): {md.pairs} (token, choice) pairs routed, "
+        f"{md.share():.4f} of them dropped; card busy "
         f"{prof['busy_share']:.3f} of {prof['wall_s']:.2f}s wall, device "
-        f"{prof['device_s'] * 1e3:.1f} ms; device time by kernel:")
+        f"{prof['device_s'] * 1e3:.1f} ms, the draft's attention (the "
+        f"ragged path's kernels) {rag:.2f} ms over "
+        f"{prof['ragged_launches']} launches = "
+        f"{rag / 1e3 / prof['device_s']:.4f} of it; device time by kernel:")
     for n, t in prof["top"]:
         log(f"    {t * 1e3:9.2f} ms  {n}")
     log_paged(prof)
-    out["profile"] = prof
+    out["capacity 1.25"] = dict(drop_share=md.share(), pairs=md.pairs,
+                                draft_attention_ms=rag, profile=prof)
     return out
 
 
@@ -5342,11 +5639,12 @@ def log_ptxas(ptx: str) -> None:
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
             m = re.search(r"(decode|wide)_attention_kernelI(\w+?)Li(\d+)E"
-                          r"Li(\d+)ENS_\d+(\w+?)Keys", name)
+                          r"Li(\d+)ENS_\d+(\w+?)Keys(?:ELb([01]))?", name)
             if m:
                 dt = "bf16" if "bfloat" in m.group(2) else "f32"
                 name = (f"{m.group(1)} {m.group(5)}Keys {dt} "
-                        f"hd={m.group(3)} stages={m.group(4)}")
+                        f"hd={m.group(3)} stages={m.group(4)}"
+                        + (" ragged" if m.group(6) == "1" else ""))
             m = re.search(r"ssm_scan_kernelILi(\d+)E(13__nv_bfloat16|f)"
                           r"Li(\d)E", name)
             if m:
@@ -5356,11 +5654,12 @@ def log_ptxas(ptx: str) -> None:
                 name = f"ssm_scan N={m.group(1)} x {dt} {mode}"
             m = re.search(r"(flash_bwd_(?:dq_mma|dkdv_mma|dq_merge|dkdv_reduce"
                           r"|rows|dq|dkdv|spans)"
-                          r"_kernel)(?:ILi(\d+)E(f?))?", name)
+                          r"_kernel)(?:ILi(\d+)E(f?)(?:Lb([01]))?)?", name)
             if m:
                 name = (m.group(1) + (f" hd={m.group(2)}" if m.group(2)
                                       else "")
-                        + (" f32" if m.group(3) else " bf16"))
+                        + (" f32" if m.group(3) else " bf16")
+                        + (" ragged" if m.group(4) == "1" else ""))
             m = re.search(r"(ssm_bwd_(?:local|join|main|reduce)_kernel)"
                           r"(?:ILi(\d+)E(13__nv_bfloat16|f)?)?", name)
             if m:
@@ -5394,6 +5693,10 @@ def main() -> int:
     build.lib()
     log_phase(f"[1] build: {build.BUILD_INFO.get('seconds', 0.0):.1f}s "
               f"({time.time() - t0:.1f}s with load); card: {smi}")
+    log("  nvcc per source (s from the build's start): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+            build.BUILD_INFO.get("per_source", {}).items(),
+            key=lambda kv: -kv[1])))
     log_ptxas(str(build.BUILD_INFO.get("ptxas", "")))
     if "--profile" in sys.argv[1:]:
         log(f"[profile] phase 4's profiled serve, port from {SRC}")
@@ -5410,6 +5713,10 @@ def main() -> int:
     if "--scan-bwd" in sys.argv[1:]:
         log(f"[scan-bwd] phase 2's scan backward cases, port from {SRC}")
         phase_scan_bwd()
+        return 3                # no smoke result
+    if "--attn" in sys.argv[1:]:
+        log(f"[attn] phase 2's aligned attention cases, port from {SRC}")
+        phase_attn()
         return 3                # no smoke result
     if "--probe" in sys.argv[1:]:
         log("[probe] attention tile loop phase by phase")

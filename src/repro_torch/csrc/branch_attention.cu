@@ -12,8 +12,8 @@
 // key at all writes zeros.
 //
 // One fused pass: the tile loop of decode_attention.cuh (shared with the
-// paged and flash kernels, head dims 16, 32, 64, 80, 128, 144, 160 and
-// 256), with this file's addressing.  A block holds the query rows of every branch
+// paged and flash kernels, head dims 1-256 on its aligned or ragged load
+// path), with this file's addressing.  A block holds the query rows of every branch
 // of its row tile (all k branches at the 7B width: k * G * Tq = 6 rows)
 // for one kv head, so each prefix tile is read once per kv head, not
 // once per branch.  Its key range is the prefix (pair (k, v)) followed by the
@@ -58,7 +58,9 @@ struct BranchKeys {
 }  // namespace
 
 // q (k,T,H,hd); prefix k/v (Sp,KV,hd); prefix_pos (Sp,); suffix k/v
-// (k,Ss,KV,hd); suffix_pos (k,Ss); q_pos (k,T); out (k,T,H,hd).  The key
+// (k,Ss,KV,hd); suffix_pos (k,Ss); q_pos (k,T); out (k,T,H,hd).  width
+// and ragged: the compiled width and load path
+// (kernels/decode_attention.py::head_dim_path).  The key
 // axis runs in n_split (<= 8) splits of split_len keys.  is_bf16 selects
 // bf16 storage, else f32.  cap <= 0 means no softcap.  Returns
 // cudaGetLastError().
@@ -66,12 +68,16 @@ extern "C" int repro_branch_attention(
     const void* q, const void* prefix_k, const void* prefix_v,
     const int* prefix_pos, const void* suffix_k, const void* suffix_v,
     const int* suffix_pos, const int* q_pos, void* out, int nb, int T,
-    int Sp, int Ss, int H, int KV, int hd, int n_split, int split_len,
+    int Sp, int Ss, int H, int KV, int hd, int width, int ragged,
+    int n_split, int split_len,
     float cap, float scale, int is_bf16, void* stream) {
   const BranchKeys keys{prefix_pos, suffix_pos, q_pos, T, Sp, Ss};
   const int G = H / KV;
   const DecodeArgs a{q, prefix_k, prefix_v, suffix_k, suffix_v, out,
                      nb * T, H, KV, G, (nb * T * G + kRows - 1) / kRows,
-                     n_split, split_len, /*window=*/0, cap, scale};
-  return decode_launch<false>(keys, a, 1, hd, is_bf16, stream);
+                     n_split, split_len, /*window=*/0, cap, scale, hd};
+  return ragged ? decode_launch<false, true>(keys, a, 1, width, is_bf16,
+                                            stream)
+                : decode_launch<false, false>(keys, a, 1, width, is_bf16,
+                                              stream);
 }

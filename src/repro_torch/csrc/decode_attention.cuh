@@ -29,13 +29,28 @@
 // wraps, a rollback leaves stale slots).  Logits are scaled by 1/sqrt(hd)
 // in f32 after the product, then get the optional tanh softcap; sums are
 // f32 and the output is q's dtype.  A query that sees no key writes zeros.
-// Head dims: 16, 32, 64, 80, 128, 144, 160 and 256 (every head dim of the
-// repo's configurations and of their draft() variants but granite-moe's
-// 85, which no 16-byte row holds); the host refuses any other.  At 144
-// (HD / 16 = 9 k-steps, 18 chunks of a bf16 row) nothing steps over k in
-// pairs: the logits' even/odd accumulators alternate per k-step, the PV
-// product and ldmatrix walk one 16-column step at a time, and the copy
-// loops need only an even chunk count per row (18, 20; 36, 40 at f32).
+// Head dims 1-256, on two load paths.  Aligned (kRag false): the compiled
+// width HD is the head dim, one of 16, 32, 64, 80, 128, 144, 160 and 256
+// (every head dim of the repo's configurations and of their draft()
+// variants but granite-moe's 85), and rows are whole 16-byte chunks from
+// 16-byte aligned starts.  At 144 (HD / 16 = 9 k-steps, 18 chunks of a
+// bf16 row) nothing steps over k in pairs: the logits' even/odd
+// accumulators alternate per k-step, the PV product and ldmatrix walk one
+// 16-column step at a time, and the copy loops need only an even chunk
+// count per row (18, 20; 36, 40 at f32).  Ragged (kRag true): any head
+// dim hd <= HD (a.hd, the rows' stride in device memory) at a compiled
+// width HD of 16, 32, 64, 96, 128, 160 or 256, or an aligned head dim
+// whose storage is not 16-byte aligned.  The tiles keep HD columns, those
+// past hd zero: zeroed once per block before the first copy, and never
+// left otherwise.  Tiles fill by 4-byte cp.async copies, still one tile
+// group ahead of the products: f32 an element a copy; bf16 a word a copy,
+// and a bf16 row of odd hd (or of a view at an odd element offset) that
+// starts 2 bytes past a word is copied from that word, so it lands one
+// column late ("led"), its last word cut at its end; once it has landed
+// the warp moves it left by one column in place and zeroes its columns
+// from hd on (ragged_row, ragged_shift).  q fills every column (zeros
+// past hd); stores write only columns < hd, element by element.  The
+// scale is the host's 1/sqrt(hd).
 //
 // What bounds it on the H100: memory, and at decode sizes the latency
 // of the first bytes.  A decode block has 1-16 query rows per kv head,
@@ -135,6 +150,7 @@ struct DecodeArgs {
   int n_split, split_len;  // n_split <= 8: one cluster per split set
   int window;
   float cap, scale;
+  int hd;           // the head dim: the rows' stride (<= the compiled width)
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -142,6 +158,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+// a 4-byte copy of n (0, 2 or 4) bytes from src, zero-filled after
+// them: the ragged path's words
+__device__ __forceinline__ void cp_async4n(void* dst, const void* src,
+                                           int n) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -197,6 +222,95 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// The ragged path's loader: one K row and one V row of hs (<= HD) values
+// into shared rows kd, vd, by one warp, 4-byte cp.async copies in the
+// caller's group (zeros when !ok), a word a lane.  f32: element c into
+// column c.  bf16: a row of odd hd (or of a view at an odd element
+// offset) may start on a 2-byte boundary, below cp.async's 4-byte
+// copies, so its words are copied from the boundary at or below its
+// start (then its element c lands in column c + 1: the row is "led", and
+// ragged_shift moves it once it has landed; the element before a led
+// row's start is read and dropped), the last word cut at the row's end
+// (zero-filled).  Columns past hs + 1, and the pad past the HD columns
+// by more than one word, are never written.  Returns the rows that are
+// led: bit 0 K, bit 1 V.
+template <typename scalar_t, int HD>
+__device__ __forceinline__ unsigned ragged_row(unsigned char* kd,
+                                               unsigned char* vd,
+                                               const scalar_t* ks,
+                                               const scalar_t* vs, bool ok,
+                                               int hs, int lane) {
+  if constexpr (sizeof(scalar_t) == 4) {
+    constexpr int NI = (HD + 31) / 32;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int d = lane + 32 * i;
+      if (d < hs) {
+        cp_async4n(kd + d * 4, ks + d, ok ? 4 : 0);
+        cp_async4n(vd + d * 4, vs + d, ok ? 4 : 0);
+      }
+    }
+    return 0u;
+  } else {
+    constexpr int NI = (HD / 2 + 1 + 31) / 32;  // HD / 2 words, one more led
+    const int lk = ok ? (int)((reinterpret_cast<uintptr_t>(ks) >> 1) & 1) : 0;
+    const int lv = ok ? (int)((reinterpret_cast<uintptr_t>(vs) >> 1) & 1) : 0;
+    const int bk = 2 * (lk + hs), bv = 2 * (lv + hs);  // bytes to copy
+    const char* gk = reinterpret_cast<const char*>(ks - lk);
+    const char* gv = reinterpret_cast<const char*>(vs - lv);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int b = 4 * (lane + 32 * i);
+      if (b < bk) cp_async4n(kd + b, gk + b, ok ? min(4, bk - b) : 0);
+      if (b < bv) cp_async4n(vd + b, gv + b, ok ? min(4, bv - b) : 0);
+    }
+    return (unsigned)(lk | (lv << 1));
+  }
+}
+
+// Moves a led bf16 row (ragged_row) left by one column in place, once its
+// copies have landed, by one warp, and zeroes its columns from hs on.
+// Word i takes the high half of word i + 1 (the word past the HD columns,
+// in the row's pad, when hs == HD).
+template <int HD>
+__device__ __forceinline__ void ragged_shift(unsigned char* row, int hs,
+                                             int lane) {
+  constexpr int NW = HD / 2, NK = (NW + 31) / 32;
+  unsigned* w = reinterpret_cast<unsigned*>(row);
+  unsigned out[NK];
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int i = lane + 32 * k;
+    unsigned v = 0u;
+    if (i < NW && 2 * i < hs) {
+      v = __funnelshift_r(w[i], 2 * i + 1 < hs ? w[i + 1] : 0u, 16);
+      if (2 * i + 1 >= hs) v &= 0xffffu;
+    }
+    out[k] = v;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int i = lane + 32 * k;
+    if (i < NW) w[i] = out[k];
+  }
+}
+
+// Zeros the 16-byte chunks from the one holding column hs to the row's
+// end (HD columns of ES bytes) in n shared rows of stride RS at p, one
+// chunk a thread of nthr; the ragged loader's copies follow a barrier.
+template <int HD, int ES, int RS>
+__device__ __forceinline__ void zero_tails(unsigned char* p, int n, int hs,
+                                           int tid, int nthr) {
+  constexpr int CPR = HD * ES / 16;
+  const int c0 = hs * ES / 16, per = CPR - c0;
+  for (int i = tid; i < n * per; i += nthr) {
+    const int r = i / per;
+    *reinterpret_cast<uint4*>(p + r * RS + (c0 + i - r * per) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
 // the Q fragments (mma A operand, m16 x k16 per k-step) of the 16 rows at
@@ -448,11 +562,12 @@ __device__ __forceinline__ void attend_tile(
 // weight 0), then each thread reads its 4 outputs' parts from every
 // split's shared memory (16-byte reads, all in flight together), so the
 // merge costs about two round trips, not one per row.  All leave together.
-template <int HD, typename scalar_t, typename OutOff>
+// kRag: only the columns below hs are stored, element by element.
+template <int HD, bool kRag, typename scalar_t, typename OutOff>
 __device__ __forceinline__ void cluster_merge(float* Bo, float2* Bml,
                                               float* Wz, int nrows,
                                               int n_split, scalar_t* out,
-                                              OutOff out_off) {
+                                              OutOff out_off, int hs) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int tid = threadIdx.x, rank = (int)cluster.block_rank();
@@ -498,24 +613,34 @@ __device__ __forceinline__ void cluster_merge(float* Bo, float2* Bml,
         acc.w = fmaf(c, part[z].w, acc.w);
       }
     }
-    scalar_t* o4 = out + out_off(r, d);
-    o4[0] = from_f<scalar_t>(acc.x);
-    o4[1] = from_f<scalar_t>(acc.y);
-    o4[2] = from_f<scalar_t>(acc.z);
-    o4[3] = from_f<scalar_t>(acc.w);
+    if constexpr (kRag) {
+      if (d >= hs) continue;
+      scalar_t* o4 = out + out_off(r, d);
+      const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (d + i < hs) o4[i] = from_f<scalar_t>(v[i]);
+    } else {
+      scalar_t* o4 = out + out_off(r, d);
+      o4[0] = from_f<scalar_t>(acc.x);
+      o4[1] = from_f<scalar_t>(acc.y);
+      o4[2] = from_f<scalar_t>(acc.z);
+      o4[3] = from_f<scalar_t>(acc.w);
+    }
   }
   cluster.sync();  // no block leaves while its shared memory is read
 }
 
-template <typename scalar_t, int HD, int STAGES, typename Keys>
+template <typename scalar_t, int HD, int STAGES, typename Keys, bool kRag>
 __global__ void __launch_bounds__(kDecThreads)
     decode_attention_kernel(const Keys keys, const DecodeArgs a) {
   using L = DecodeSmem<HD, (int)sizeof(scalar_t), STAGES>;
+  constexpr int ES = (int)sizeof(scalar_t);
   constexpr bool kMma = sizeof(scalar_t) == 2;
   constexpr bool kQRegs = kMma && HD <= 128;  // else Q is read per tile
   constexpr int RS = L::RS, CPR = L::CPR, NT = HD / 8;
   static_assert(HD % 16 == 0 && CPR % 2 == 0,
-                "head dim: 16, 32, 64, 80, 128, 144, 160 or 256");
+                "compiled width: 16, 32, 64, 80, 96, 128, 144, 160 or 256");
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* Qs = smem;
   unsigned char* ring = Qs + L::kQ;
@@ -533,6 +658,7 @@ __global__ void __launch_bounds__(kDecThreads)
   const int nrows = min(kRows, a.T * G - r0);
   const int tl0 = r0 / G, tl1 = (r0 + nrows - 1) / G;
   const size_t tok0 = (size_t)item * a.T;
+  const int hs = kRag ? a.hd : HD;  // the rows' stride in device memory
 
   // query rows: row r of the tile is token (r0 + r) / G, head (r0 + r) % G
   for (int r = tid; r < kRows; r += kDecThreads) {
@@ -542,17 +668,34 @@ __global__ void __launch_bounds__(kDecThreads)
     rqp[r] = t.qp;
     rown[r] = t.owner;
   }
-  for (int c = tid; c < kRows * CPR; c += kDecThreads) {
-    const int r = c / CPR, part = c - r * CPR;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows) {
-      const int rr = r0 + r;
-      const size_t off =
-          ((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * HD;
-      x = reinterpret_cast<const uint4*>(
-          static_cast<const scalar_t*>(a.q) + off)[part];
+  if constexpr (kRag) {
+    // every column of the q tile (zeros past hs), and the ring's columns
+    // past hs zeroed once (the barrier below orders them before the copies)
+    for (int e = tid; e < kRows * HD; e += kDecThreads) {
+      const int r = e / HD, d = e - r * HD;
+      scalar_t x = from_f<scalar_t>(0.f);
+      if (r < nrows && d < hs) {
+        const int rr = r0 + r;
+        x = static_cast<const scalar_t*>(a.q)
+            [((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * hs + d];
+      }
+      *reinterpret_cast<scalar_t*>(Qs + r * RS + d * ES) = x;
     }
-    *reinterpret_cast<uint4*>(Qs + r * RS + part * 16) = x;
+    zero_tails<HD, ES, RS>(ring, kWarps * STAGES * 2 * kKeys, hs, tid,
+                           kDecThreads);
+  } else {
+    for (int c = tid; c < kRows * CPR; c += kDecThreads) {
+      const int r = c / CPR, part = c - r * CPR;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows) {
+        const int rr = r0 + r;
+        const size_t off =
+            ((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * HD;
+        x = reinterpret_cast<const uint4*>(
+            static_cast<const scalar_t*>(a.q) + off)[part];
+      }
+      *reinterpret_cast<uint4*>(Qs + r * RS + part * 16) = x;
+    }
   }
   const auto blk = keys.block(item, tl0, tl1);
   // the split's keys: addresses are read up to the host-known bound, the
@@ -615,17 +758,35 @@ __global__ void __launch_bounds__(kDecThreads)
       // warp's copy covers whole rows (32 / CPR of them per step)
       unsigned char* kd = my_ring + stage * 2 * L::kTileBytes;
       unsigned char* vd = kd + L::kTileBytes;
-      constexpr int kVec = 16 / (int)sizeof(scalar_t);
+      if constexpr (kRag) {  // a key's row at a time, a word a lane
+        unsigned led = 0;  // bit key: K row led, bit 16 + key: V row
+#pragma unroll 2
+        for (int key = 0; key < kKeys; ++key) {
+          const int row = __shfl_sync(0xffffffffu, k.row, key);
+          const int buf = __shfl_sync(0xffffffffu, k.buf, key);
+          const bool kok = __shfl_sync(0xffffffffu, ok, key);
+          const size_t off = ((size_t)row * a.KV + kvh) * hs;
+          const unsigned l = ragged_row<scalar_t, HD>(
+              kd + key * RS, vd + key * RS, (buf ? k1 : k0) + off,
+              (buf ? v1 : v0) + off, kok, hs, lane);
+          led |= ((l & 1u) << key) | ((l >> 1) << (16 + key));
+        }
+        // kept in the last word of the stage's first K row's pad (a led
+        // copy overruns the HD columns by one word at most)
+        if (lane == 0) *reinterpret_cast<unsigned*>(kd + L::RB + 12) = led;
+      } else {
+        constexpr int kVec = 16 / (int)sizeof(scalar_t);
 #pragma unroll
-      for (int i = 0; i < CPR / 2; ++i) {
-        const int c = i * 32 + lane;
-        const int key = c / CPR, part = c - key * CPR;
-        const int row = __shfl_sync(0xffffffffu, k.row, key);
-        const int buf = __shfl_sync(0xffffffffu, k.buf, key);
-        const bool kok = __shfl_sync(0xffffffffu, ok, key);
-        const size_t off = ((size_t)row * a.KV + kvh) * HD + part * kVec;
-        cp_async16(kd + key * RS + part * 16, (buf ? k1 : k0) + off, kok);
-        cp_async16(vd + key * RS + part * 16, (buf ? v1 : v0) + off, kok);
+        for (int i = 0; i < CPR / 2; ++i) {
+          const int c = i * 32 + lane;
+          const int key = c / CPR, part = c - key * CPR;
+          const int row = __shfl_sync(0xffffffffu, k.row, key);
+          const int buf = __shfl_sync(0xffffffffu, k.buf, key);
+          const bool kok = __shfl_sync(0xffffffffu, ok, key);
+          const size_t off = ((size_t)row * a.KV + kvh) * HD + part * kVec;
+          cp_async16(kd + key * RS + part * 16, (buf ? k1 : k0) + off, kok);
+          cp_async16(vd + key * RS + part * 16, (buf ? v1 : v0) + off, kok);
+        }
       }
     }
     cp_async_commit();
@@ -670,6 +831,17 @@ __global__ void __launch_bounds__(kDecThreads)
     cp_async_wait<STAGES - 1>();
     __syncwarp();
     if (!((live_bits >> stage) & 1u)) continue;
+    if constexpr (kRag && kMma) {  // move the led bf16 rows into place
+      unsigned char* st = my_ring + stage * 2 * L::kTileBytes;
+      for (unsigned led = *reinterpret_cast<const unsigned*>(st + L::RB + 12);
+           led; led &= led - 1) {
+        const int b = __ffs(led) - 1;
+        ragged_shift<HD>(st + (b < 16 ? b * RS : L::kTileBytes +
+                                                     (b - 16) * RS),
+                         hs, lane);
+      }
+      __syncwarp();
+    }
     attend_tile<scalar_t, HD, RS, kQRegs>(
         w, qf, Qs, my_ring + stage * 2 * L::kTileBytes,
         my_ring + stage * 2 * L::kTileBytes + L::kTileBytes,
@@ -708,7 +880,7 @@ __global__ void __launch_bounds__(kDecThreads)
   scalar_t* out = static_cast<scalar_t*>(a.out);
   auto out_off = [&](int r, int d) -> size_t {
     const int rr = r0 + r;
-    return ((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * HD + d;
+    return ((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * hs + d;
   };
   // the block's (m, l, O): the output itself, or this split's part
   float* Bo = Ow + (size_t)kWarps * kRows * HD;  // (kRows, HD) unnormalised
@@ -726,14 +898,15 @@ __global__ void __launch_bounds__(kDecThreads)
       acc += Ow[((size_t)u * kRows + r) * HD + d] * c;
     }
     if (a.n_split == 1) {
-      out[out_off(r, d)] = from_f<scalar_t>(acc / fmaxf(l, 1e-20f));
+      if (!kRag || d < hs)
+        out[out_off(r, d)] = from_f<scalar_t>(acc / fmaxf(l, 1e-20f));
     } else {
       Bo[e] = acc;
       if (d == 0) Bml[r] = make_float2(M, l);
     }
   }
   if (a.n_split == 1) return;
-  cluster_merge<HD>(Bo, Bml, Ow, nrows, a.n_split, out, out_off);
+  cluster_merge<HD, kRag>(Bo, Bml, Ow, nrows, a.n_split, out, out_off, hs);
 }
 
 // The wide block, for rows that need more than a few 16-row tiles
@@ -749,15 +922,16 @@ __global__ void __launch_bounds__(kDecThreads)
 // landed copies (and the stage freed for the next copies) and one that
 // votes whether the next tile is live.  Each warp keeps its rows' online
 // softmax to the end; split-KV merges as the decode kernel does.
-template <typename scalar_t, int HD, int STAGES, typename Keys>
+template <typename scalar_t, int HD, int STAGES, typename Keys, bool kRag>
 __global__ void __launch_bounds__(kDecThreads)
     wide_attention_kernel(const Keys keys, const DecodeArgs a) {
   using L = WideSmem<HD, (int)sizeof(scalar_t), STAGES>;
+  constexpr int ES = (int)sizeof(scalar_t);
   constexpr bool kMma = sizeof(scalar_t) == 2;
   constexpr bool kQRegs = kMma && HD <= 128;  // else Q is read per tile
   constexpr int RS = L::RS, CPR = L::CPR, NT = HD / 8;
   static_assert(HD % 16 == 0 && (kWideKeys * CPR) % kDecThreads == 0,
-                "head dim: 16, 32, 64, 80, 128, 144, 160 or 256");
+                "compiled width: 16, 32, 64, 80, 96, 128, 144, 160 or 256");
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* Qs = smem;
   unsigned char* ring = Qs + L::kQ;
@@ -776,6 +950,7 @@ __global__ void __launch_bounds__(kDecThreads)
   const int nrows = min(kWideRows, a.T * G - r0);
   const int tl0 = r0 / G, tl1 = (r0 + nrows - 1) / G;
   const size_t tok0 = (size_t)item * a.T;
+  const int hs = kRag ? a.hd : HD;  // the rows' stride in device memory
 
   for (int r = tid; r < kWideRows; r += kDecThreads) {
     Tok t{-1, 0, -2};  // a pad row sees nothing
@@ -784,17 +959,32 @@ __global__ void __launch_bounds__(kDecThreads)
     rqp[r] = t.qp;
     rown[r] = t.owner;
   }
-  for (int c = tid; c < kWideRows * CPR; c += kDecThreads) {
-    const int r = c / CPR, part = c - r * CPR;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows) {
-      const int rr = r0 + r;
-      const size_t off =
-          ((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * HD;
-      x = reinterpret_cast<const uint4*>(
-          static_cast<const scalar_t*>(a.q) + off)[part];
+  if constexpr (kRag) {  // as the decode kernel's
+    for (int e = tid; e < kWideRows * HD; e += kDecThreads) {
+      const int r = e / HD, d = e - r * HD;
+      scalar_t x = from_f<scalar_t>(0.f);
+      if (r < nrows && d < hs) {
+        const int rr = r0 + r;
+        x = static_cast<const scalar_t*>(a.q)
+            [((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * hs + d];
+      }
+      *reinterpret_cast<scalar_t*>(Qs + r * RS + d * ES) = x;
     }
-    *reinterpret_cast<uint4*>(Qs + r * RS + part * 16) = x;
+    zero_tails<HD, ES, RS>(ring, STAGES * 2 * kWideKeys, hs, tid,
+                           kDecThreads);
+  } else {
+    for (int c = tid; c < kWideRows * CPR; c += kDecThreads) {
+      const int r = c / CPR, part = c - r * CPR;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows) {
+        const int rr = r0 + r;
+        const size_t off =
+            ((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * HD;
+        x = reinterpret_cast<const uint4*>(
+            static_cast<const scalar_t*>(a.q) + off)[part];
+      }
+      *reinterpret_cast<uint4*>(Qs + r * RS + part * 16) = x;
+    }
   }
   const auto blk = keys.block(item, tl0, tl1);
   const int s_beg = split * a.split_len;
@@ -859,16 +1049,28 @@ __global__ void __launch_bounds__(kDecThreads)
     if (live) {
       unsigned char* kd = ring + stage * 2 * L::kTileBytes;
       unsigned char* vd = kd + L::kTileBytes;
-      constexpr int kVec = 16 / (int)sizeof(scalar_t);
+      if constexpr (kRag) {  // warp w fills keys w, w + 4, ..., a word a lane
+#pragma unroll 2
+        for (int key = warp; key < kWideKeys; key += kWarps) {
+          const int2 ad = kaddr[stage * kWideKeys + key];
+          const bool ok = kmeta[stage * kWideKeys + key].x >= 0;
+          const size_t off = ((size_t)ad.x * a.KV + kvh) * hs;
+          ragged_row<scalar_t, HD>(kd + key * RS, vd + key * RS,
+                                   (ad.y ? k1 : k0) + off,
+                                   (ad.y ? v1 : v0) + off, ok, hs, lane);
+        }
+      } else {
+        constexpr int kVec = 16 / (int)sizeof(scalar_t);
 #pragma unroll
-      for (int i = 0; i < kWideKeys * CPR / kDecThreads; ++i) {
-        const int c = i * kDecThreads + tid;
-        const int key = c / CPR, part = c - key * CPR;
-        const int2 ad = kaddr[stage * kWideKeys + key];
-        const bool ok = kmeta[stage * kWideKeys + key].x >= 0;
-        const size_t off = ((size_t)ad.x * a.KV + kvh) * HD + part * kVec;
-        cp_async16(kd + key * RS + part * 16, (ad.y ? k1 : k0) + off, ok);
-        cp_async16(vd + key * RS + part * 16, (ad.y ? v1 : v0) + off, ok);
+        for (int i = 0; i < kWideKeys * CPR / kDecThreads; ++i) {
+          const int c = i * kDecThreads + tid;
+          const int key = c / CPR, part = c - key * CPR;
+          const int2 ad = kaddr[stage * kWideKeys + key];
+          const bool ok = kmeta[stage * kWideKeys + key].x >= 0;
+          const size_t off = ((size_t)ad.x * a.KV + kvh) * HD + part * kVec;
+          cp_async16(kd + key * RS + part * 16, (ad.y ? k1 : k0) + off, ok);
+          cp_async16(vd + key * RS + part * 16, (ad.y ? v1 : v0) + off, ok);
+        }
       }
     }
     cp_async_commit();
@@ -912,6 +1114,21 @@ __global__ void __launch_bounds__(kDecThreads)
       __syncthreads();
     }
     if (!((live_bits >> stage) & 1u)) continue;
+    if constexpr (kRag && kMma) {
+      // warp w moves its keys' led bf16 rows into place (ragged_row: a
+      // row is led when its start is 2 bytes past a word), then all wait
+      unsigned char* st = ring + stage * 2 * L::kTileBytes;
+      for (int key = warp; key < kWideKeys; key += kWarps) {
+        const int2 ad = kaddr[stage * kWideKeys + key];
+        if (kmeta[stage * kWideKeys + key].x < 0) continue;
+        const size_t off = ((size_t)ad.x * a.KV + kvh) * hs;
+        if ((reinterpret_cast<uintptr_t>((ad.y ? k1 : k0) + off) >> 1) & 1)
+          ragged_shift<HD>(st + key * RS, hs, lane);
+        if ((reinterpret_cast<uintptr_t>((ad.y ? v1 : v0) + off) >> 1) & 1)
+          ragged_shift<HD>(st + L::kTileBytes + key * RS, hs, lane);
+      }
+      __syncthreads();
+    }
     const unsigned char* Kt = ring + stage * 2 * L::kTileBytes;
     const int2* km = kmeta + stage * kWideKeys;
 #pragma unroll 1
@@ -931,7 +1148,7 @@ __global__ void __launch_bounds__(kDecThreads)
   scalar_t* out = static_cast<scalar_t*>(a.out);
   auto out_off = [&](int r, int d) -> size_t {
     const int rr = r0 + r;
-    return ((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * HD + d;
+    return ((tok0 + rr / G) * a.H + (size_t)kvh * G + rr % G) * hs + d;
   };
   const int row_a = wr0 + ra, row_b = wr0 + rb;
   if (a.n_split == 1) {
@@ -939,15 +1156,29 @@ __global__ void __launch_bounds__(kDecThreads)
     const float ib = 1.f / fmaxf(w.l_b, 1e-20f);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      if (row_a < nrows) {
-        scalar_t* oa = out + out_off(row_a, n * 8 + 2 * quad);
-        oa[0] = from_f<scalar_t>(w.o[n][0] * ia);
-        oa[1] = from_f<scalar_t>(w.o[n][1] * ia);
-      }
-      if (row_b < nrows) {
-        scalar_t* ob = out + out_off(row_b, n * 8 + 2 * quad);
-        ob[0] = from_f<scalar_t>(w.o[n][2] * ib);
-        ob[1] = from_f<scalar_t>(w.o[n][3] * ib);
+      if constexpr (kRag) {  // each of a pair's columns below hs
+        const int d = n * 8 + 2 * quad;
+        if (row_a < nrows && d < hs) {
+          scalar_t* oa = out + out_off(row_a, d);
+          oa[0] = from_f<scalar_t>(w.o[n][0] * ia);
+          if (d + 1 < hs) oa[1] = from_f<scalar_t>(w.o[n][1] * ia);
+        }
+        if (row_b < nrows && d < hs) {
+          scalar_t* ob = out + out_off(row_b, d);
+          ob[0] = from_f<scalar_t>(w.o[n][2] * ib);
+          if (d + 1 < hs) ob[1] = from_f<scalar_t>(w.o[n][3] * ib);
+        }
+      } else {
+        if (row_a < nrows) {
+          scalar_t* oa = out + out_off(row_a, n * 8 + 2 * quad);
+          oa[0] = from_f<scalar_t>(w.o[n][0] * ia);
+          oa[1] = from_f<scalar_t>(w.o[n][1] * ia);
+        }
+        if (row_b < nrows) {
+          scalar_t* ob = out + out_off(row_b, n * 8 + 2 * quad);
+          ob[0] = from_f<scalar_t>(w.o[n][2] * ib);
+          ob[1] = from_f<scalar_t>(w.o[n][3] * ib);
+        }
       }
     }
     return;
@@ -970,7 +1201,7 @@ __global__ void __launch_bounds__(kDecThreads)
     if (row_a < nrows) Bml[row_a] = make_float2(w.m_a, w.l_a);
     if (row_b < nrows) Bml[row_b] = make_float2(w.m_b, w.l_b);
   }
-  cluster_merge<HD>(Bo, Bml, Wz, nrows, a.n_split, out, out_off);
+  cluster_merge<HD, kRag>(Bo, Bml, Wz, nrows, a.n_split, out, out_off, hs);
 }
 
 // ring stages: 3 for rows of up to 256 bytes, 2 up to 512, else 1 (f32
@@ -983,14 +1214,16 @@ constexpr int decode_stages() {
   return rb <= 256 ? 3 : rb <= 512 ? 2 : 1;
 }
 
-template <bool kWide, typename scalar_t, int HD, typename Keys>
+template <bool kWide, typename scalar_t, int HD, bool kRag, typename Keys>
 int decode_launch_typed(const Keys& keys, const DecodeArgs& a, int n_items,
                         cudaStream_t stream) {
   constexpr int S = decode_stages<kWide, scalar_t, HD>();
   constexpr int ES = (int)sizeof(scalar_t);
   auto kern = [] {  // only the kernel asked for is instantiated
-    if constexpr (kWide) return wide_attention_kernel<scalar_t, HD, S, Keys>;
-    else return decode_attention_kernel<scalar_t, HD, S, Keys>;
+    if constexpr (kWide)
+      return wide_attention_kernel<scalar_t, HD, S, Keys, kRag>;
+    else
+      return decode_attention_kernel<scalar_t, HD, S, Keys, kRag>;
   }();
   constexpr int smem = kWide ? WideSmem<HD, ES, S>::kBytes
                              : DecodeSmem<HD, ES, S>::kBytes;
@@ -1023,31 +1256,49 @@ int decode_launch_typed(const Keys& keys, const DecodeArgs& a, int n_items,
 
 // Launches the decode kernel (kWide: the wide block; a.row_tiles counts
 // blocks of 16 or 64 rows to match) over n_items items on bf16 (is_bf16)
-// or f32 storage with head dim hd (16, 32, 64, 80, 128, 144, 160 or 256).
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for another head
-// dim.
-template <bool kWide, typename Keys>
-int decode_launch(const Keys& keys, const DecodeArgs& a, int n_items, int hd,
-                  int is_bf16, void* stream) {
+// or f32 storage at compiled width `width`: on the aligned path (kRag
+// false) the head dim a.hd itself, one of 16, 32, 64, 80, 128, 144, 160
+// and 256; on the ragged path one of 16, 32, 64, 96, 128, 160 and 256,
+// with 1 <= a.hd <= width (kernels/decode_attention.py::head_dim_path).
+// Only the path asked for is instantiated.  Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for another width or head dim.
+template <bool kWide, bool kRag, typename Keys>
+int decode_launch(const Keys& keys, const DecodeArgs& a, int n_items,
+                  int width, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kRag ? (a.hd < 1 || a.hd > width) : a.hd != width)
+    return (int)cudaErrorInvalidValue;
 #define REPRO_DECODE_CASE(HD_)                                              \
   case HD_:                                                                 \
-    return is_bf16                                                          \
-               ? decode_launch_typed<kWide, __nv_bfloat16, HD_>(keys, a,    \
-                                                                n_items, s) \
-               : decode_launch_typed<kWide, float, HD_>(keys, a, n_items,  \
-                                                        s);
-  switch (hd) {
-    REPRO_DECODE_CASE(16)
-    REPRO_DECODE_CASE(32)
-    REPRO_DECODE_CASE(64)
-    REPRO_DECODE_CASE(80)
-    REPRO_DECODE_CASE(128)
-    REPRO_DECODE_CASE(144)
-    REPRO_DECODE_CASE(160)
-    REPRO_DECODE_CASE(256)
-    default:
-      return (int)cudaErrorInvalidValue;
+    return is_bf16 ? decode_launch_typed<kWide, __nv_bfloat16, HD_, kRag>(  \
+                         keys, a, n_items, s)                               \
+                   : decode_launch_typed<kWide, float, HD_, kRag>(          \
+                         keys, a, n_items, s);
+  if constexpr (kRag) {
+    switch (width) {
+      REPRO_DECODE_CASE(16)
+      REPRO_DECODE_CASE(32)
+      REPRO_DECODE_CASE(64)
+      REPRO_DECODE_CASE(96)
+      REPRO_DECODE_CASE(128)
+      REPRO_DECODE_CASE(160)
+      REPRO_DECODE_CASE(256)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (width) {
+      REPRO_DECODE_CASE(16)
+      REPRO_DECODE_CASE(32)
+      REPRO_DECODE_CASE(64)
+      REPRO_DECODE_CASE(80)
+      REPRO_DECODE_CASE(128)
+      REPRO_DECODE_CASE(144)
+      REPRO_DECODE_CASE(160)
+      REPRO_DECODE_CASE(256)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
 #undef REPRO_DECODE_CASE
 }

@@ -54,23 +54,72 @@ struct DenseKeys {
   }
 };
 
-}  // namespace
-
-// q (B,T,H,hd); k/v (B,S,KV,hd); q_pos, q_ctx (B,T); k_pos (B,S); out
-// (B,T,H,hd).  wide selects blocks of 64 query rows (else 16).  The key
-// axis runs in n_split (<= 8) splits of split_len keys.  is_bf16 selects
-// bf16 storage, else f32.  causal 0 drops the horizon; cap <= 0 means no
-// softcap, window <= 0 no window.  Returns cudaGetLastError().
-extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, const int* q_pos,
-    const int* q_ctx, const int* k_pos, void* out, int B, int T, int S,
-    int H, int KV, int hd, int wide, int n_split, int split_len, int causal,
-    int window, float cap, float scale, int is_bf16, void* stream) {
+// one load path's launch (the C entries below)
+template <bool kRag>
+int flash_launch(const void* q, const void* k, const void* v,
+                 const int* q_pos, const int* q_ctx, const int* k_pos,
+                 void* out, int B, int T, int S, int H, int KV, int hd,
+                 int width, int wide, int n_split, int split_len, int causal,
+                 int window, float cap, float scale, int is_bf16,
+                 void* stream) {
   const DenseKeys keys{q_pos, q_ctx, k_pos, T, S, causal};
   const int G = H / KV, rows = wide ? kWideRows : kRows;
   const DecodeArgs a{q, k, v, k, v, out, T, H, KV, G,
                      (T * G + rows - 1) / rows, n_split, split_len,
-                     window, cap, scale};
-  return wide ? decode_launch<true>(keys, a, B, hd, is_bf16, stream)
-              : decode_launch<false>(keys, a, B, hd, is_bf16, stream);
+                     window, cap, scale, hd};
+  return wide ? decode_launch<true, kRag>(keys, a, B, width, is_bf16, stream)
+              : decode_launch<false, kRag>(keys, a, B, width, is_bf16,
+                                           stream);
 }
+
+}  // namespace
+
+// The ragged path's instances build as an object of their own
+// (flash_attention_ragged.cu includes this file with REPRO_RAGGED_PART
+// defined), so nvcc compiles them in parallel with the aligned ones; the
+// entry reaches them through a weak symbol (a build of this source alone,
+// as a probe's, refuses ragged calls).
+#ifdef REPRO_RAGGED_PART
+extern "C" int repro_flash_attention_ragged(
+    const void* q, const void* k, const void* v, const int* q_pos,
+    const int* q_ctx, const int* k_pos, void* out, int B, int T, int S,
+    int H, int KV, int hd, int width, int wide, int n_split, int split_len,
+    int causal, int window, float cap, float scale, int is_bf16,
+    void* stream) {
+  return flash_launch<true>(q, k, v, q_pos, q_ctx, k_pos, out, B, T, S, H,
+                            KV, hd, width, wide, n_split, split_len, causal,
+                            window, cap, scale, is_bf16, stream);
+}
+#else
+extern "C" __attribute__((weak)) int repro_flash_attention_ragged(
+    const void* q, const void* k, const void* v, const int* q_pos,
+    const int* q_ctx, const int* k_pos, void* out, int B, int T, int S,
+    int H, int KV, int hd, int width, int wide, int n_split, int split_len,
+    int causal, int window, float cap, float scale, int is_bf16,
+    void* stream);
+
+// q (B,T,H,hd); k/v (B,S,KV,hd); q_pos, q_ctx (B,T); k_pos (B,S); out
+// (B,T,H,hd).  width and ragged: the compiled width and load path
+// (kernels/decode_attention.py::head_dim_path).  wide selects blocks of
+// 64 query rows (else 16).  The key axis runs in n_split (<= 8) splits of
+// split_len keys.  is_bf16 selects bf16 storage, else f32.  causal 0
+// drops the horizon; cap <= 0 means no softcap, window <= 0 no window.
+// Returns cudaGetLastError().
+extern "C" int repro_flash_attention(
+    const void* q, const void* k, const void* v, const int* q_pos,
+    const int* q_ctx, const int* k_pos, void* out, int B, int T, int S,
+    int H, int KV, int hd, int width, int ragged, int wide, int n_split,
+    int split_len, int causal, int window, float cap, float scale,
+    int is_bf16, void* stream) {
+  if (ragged)
+    return repro_flash_attention_ragged
+               ? repro_flash_attention_ragged(
+                     q, k, v, q_pos, q_ctx, k_pos, out, B, T, S, H, KV, hd,
+                     width, wide, n_split, split_len, causal, window, cap,
+                     scale, is_bf16, stream)
+               : (int)cudaErrorInvalidValue;
+  return flash_launch<false>(q, k, v, q_pos, q_ctx, k_pos, out, B, T, S, H,
+                             KV, hd, width, wide, n_split, split_len, causal,
+                             window, cap, scale, is_bf16, stream);
+}
+#endif

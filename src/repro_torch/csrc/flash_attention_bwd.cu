@@ -24,8 +24,17 @@
 //   dk_s     = scale * sum_{t, g} ds_ts q_t      (summed over the G heads)
 //   dv_s     = sum_{t, g} p_ts dO_t
 // A query that sees no key has o = 0 in the forward kernel, so every
-// gradient through it is 0.  Head dims 16, 32, 64, 80, 128, 144, 160 and
-// 256; T and S of any length.
+// gradient through it is 0.  Head dims 1-256 and T and S of any length:
+// a head dim of 16, 32, 64, 80, 128, 144, 160 or 256 over 16-byte aligned
+// storage runs at its own width (the aligned path); any other, or storage
+// off a 16-byte boundary, runs at a compiled width HD of 16, 32, 64, 96,
+// 128, 160 or 256 above it with the head dim hd the rows' stride (the
+// ragged path, kRag; kernels/decode_attention.py::head_dim_path): the
+// bf16 tiles' columns past hd are zeroed once per block and never
+// written, rows load by decode_attention.cuh's ragged_row, the f32 kernels
+// read and write only columns below hd, and every store to dq, dk and dv
+// is an element's.  The scratch (the chunks' dq, dk, dv sums) has rows of
+// HD columns.
 //
 // What bounds it on the H100: operations, on the tensor cores.  Every
 // visible (row, key) pair costs hd-long products: q.k and dO.v in both
@@ -165,6 +174,7 @@ struct Args {
   float *lse, *delta;  // (B, H, T)
   int T, S, H, KV, G, causal, window;
   float cap, scale;
+  int hd;  // the head dim: the rows' stride (<= the compiled width)
 };
 
 __device__ __forceinline__ bool visible(const Args& a, int qp, int qc,
@@ -211,11 +221,12 @@ __device__ __forceinline__ size_t stat_off(const Args& a, int b, int kvh,
   return ((size_t)b * a.H + h) * a.T + t;
 }
 
-template <int HD, typename TT>
+template <int HD, typename TT, bool kRag>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const Args a) {
   constexpr int NI = (HD + 31) / 32;
   constexpr int KS = HD + 1;
+  const int hs = kRag ? a.hd : HD;  // the rows' stride in device memory
   extern __shared__ float smem[];
   float* sQ = smem;                   // [kRowBlock][HD]
   float* sO = sQ + kRowBlock * HD;    // dO [kRowBlock][HD]
@@ -236,8 +247,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < kRowBlock * HD; i += kThreads) {
     const int rr = i / HD, d = i - rr * HD;
     float qv = 0.f, dv = 0.f;
-    if (r0 + rr < nrows) {
-      const size_t idx = row_off(a, b, kvh, r0 + rr, HD) + d;
+    if (r0 + rr < nrows && (!kRag || d < hs)) {
+      const size_t idx = row_off(a, b, kvh, r0 + rr, hs) + d;
       qv = ld(q, idx);
       dv = ld(dout, idx);
     }
@@ -265,8 +276,8 @@ __global__ void __launch_bounds__(kThreads)
     const int rr = warp * kRowsPerWarp + i;
     float acc = 0.f;
     if (r0 + rr < nrows) {
-      const size_t base = row_off(a, b, kvh, r0 + rr, HD);
-      for (int d = lane; d < HD; d += 32) acc += sO[rr * HD + d] * ld(o, base + d);
+      const size_t base = row_off(a, b, kvh, r0 + rr, hs);
+      for (int d = lane; d < hs; d += 32) acc += sO[rr * HD + d] * ld(o, base + d);
     }
     delta[i] = warp_sum(acc);
   }
@@ -300,9 +311,10 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = threadIdx.x; i < kKeyTile * HD; i += kThreads) {
         const int j = i / HD, d = i - j * HD;
         const int s = s0 + j;
-        const size_t idx = (((size_t)b * a.S + s) * a.KV + kvh) * HD + d;
-        sK[j * KS + d] = s < a.S ? ld(k, idx) : 0.f;
-        if (pass == 1) sV[j * KS + d] = s < a.S ? ld(v, idx) : 0.f;
+        const size_t idx = (((size_t)b * a.S + s) * a.KV + kvh) * hs + d;
+        const bool in = s < a.S && (!kRag || d < hs);
+        sK[j * KS + d] = in ? ld(k, idx) : 0.f;
+        if (pass == 1) sV[j * KS + d] = in ? ld(v, idx) : 0.f;
       }
       __syncthreads();
       const int kp = sKp[lane];
@@ -356,11 +368,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = r0 + warp * kRowsPerWarp + i;
       if (r >= nrows) continue;
-      const size_t base = row_off(a, b, kvh, r, HD);
+      const size_t base = row_off(a, b, kvh, r, hs);
 #pragma unroll
       for (int n = 0; n < NI; ++n) {
         const int d = lane + 32 * n;
-        if (d < HD) st(dq, base + d, acc[i][n]);
+        if (d < hs) st(dq, base + d, acc[i][n]);
       }
       if (lane == 0) {
         a.lse[stat_off(a, b, kvh, r)] = lse[i];
@@ -370,11 +382,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int HD, typename TT>
+template <int HD, typename TT, bool kRag>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_kernel(const Args a) {
   constexpr int NI = (HD + 31) / 32;
   constexpr int RS = HD + 1;
+  const int hs = kRag ? a.hd : HD;  // the rows' stride in device memory
   extern __shared__ float smem[];
   float* sK = smem;                    // [kKeyBlock][HD]
   float* sV = sK + kKeyBlock * HD;     // [kKeyBlock][HD]
@@ -395,9 +408,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < kKeyBlock * HD; i += kThreads) {
     const int j = i / HD, d = i - j * HD;
     const int s = s0 + j;
-    const size_t idx = (((size_t)b * a.S + s) * a.KV + kvh) * HD + d;
-    sK[i] = s < a.S ? ld(k, idx) : 0.f;
-    sV[i] = s < a.S ? ld(v, idx) : 0.f;
+    const size_t idx = (((size_t)b * a.S + s) * a.KV + kvh) * hs + d;
+    const bool in = s < a.S && (!kRag || d < hs);
+    sK[i] = in ? ld(k, idx) : 0.f;
+    sV[i] = in ? ld(v, idx) : 0.f;
   }
   if (threadIdx.x < kKeyBlock) {
     const int s = s0 + threadIdx.x;
@@ -437,8 +451,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < kRowTile * HD; i += kThreads) {
       const int row = i / HD, d = i - row * HD;
       float qv = 0.f, ov = 0.f;
-      if (r0 + row < nrows) {
-        const size_t idx = row_off(a, b, kvh, r0 + row, HD) + d;
+      if (r0 + row < nrows && (!kRag || d < hs)) {
+        const size_t idx = row_off(a, b, kvh, r0 + row, hs) + d;
         qv = ld(q, idx);
         ov = ld(dout, idx);
       }
@@ -483,11 +497,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int kk = 0; kk < kKeysPerWarp; ++kk) {
     const int s = s0 + warp * kKeysPerWarp + kk;
     if (s >= a.S) continue;
-    const size_t base = (((size_t)b * a.S + s) * a.KV + kvh) * HD;
+    const size_t base = (((size_t)b * a.S + s) * a.KV + kvh) * hs;
 #pragma unroll
     for (int n = 0; n < NI; ++n) {
       const int d = lane + 32 * n;
-      if (d < HD) {
+      if (d < hs) {
         st(dkp, base + d, dk[kk][n]);
         st(dvp, base + d, dv[kk][n]);
       }
@@ -495,41 +509,54 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int HD, typename TT>
+template <int HD, typename TT, bool kRag>
 int launch(const Args& a, int B, cudaStream_t s) {
   const size_t smem_q =
       (2 * kRowBlock * HD + 2 * kKeyTile * (HD + 1)) * sizeof(float);
   const size_t smem_k =
       (2 * kKeyBlock * HD + 2 * kRowTile * (HD + 1)) * sizeof(float);
   int rc = (int)cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<HD, TT>,
+      flash_bwd_dq_kernel<HD, TT, kRag>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
   if (rc != 0) return rc;
   rc = (int)cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<HD, TT>,
+      flash_bwd_dkdv_kernel<HD, TT, kRag>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k);
   if (rc != 0) return rc;
   const dim3 gq((a.T * a.G + kRowBlock - 1) / kRowBlock, a.KV, B);
-  flash_bwd_dq_kernel<HD, TT><<<gq, kThreads, smem_q, s>>>(a);
+  flash_bwd_dq_kernel<HD, TT, kRag><<<gq, kThreads, smem_q, s>>>(a);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const dim3 gk((a.S + kKeyBlock - 1) / kKeyBlock, a.KV, B);
-  flash_bwd_dkdv_kernel<HD, TT><<<gk, kThreads, smem_k, s>>>(a);
+  flash_bwd_dkdv_kernel<HD, TT, kRag><<<gk, kThreads, smem_k, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename TT>
-int dispatch(const Args& a, int B, int hd, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<16, TT>(a, B, s);
-    case 32: return launch<32, TT>(a, B, s);
-    case 64: return launch<64, TT>(a, B, s);
-    case 80: return launch<80, TT>(a, B, s);
-    case 128: return launch<128, TT>(a, B, s);
-    case 144: return launch<144, TT>(a, B, s);
-    case 160: return launch<160, TT>(a, B, s);
-    case 256: return launch<256, TT>(a, B, s);
-    default: return -1;
+template <typename TT, bool kRag>
+int dispatch(const Args& a, int B, int width, cudaStream_t s) {
+  if constexpr (kRag) {
+    switch (width) {
+      case 16: return launch<16, TT, true>(a, B, s);
+      case 32: return launch<32, TT, true>(a, B, s);
+      case 64: return launch<64, TT, true>(a, B, s);
+      case 96: return launch<96, TT, true>(a, B, s);
+      case 128: return launch<128, TT, true>(a, B, s);
+      case 160: return launch<160, TT, true>(a, B, s);
+      case 256: return launch<256, TT, true>(a, B, s);
+      default: return -1;
+    }
+  } else {
+    switch (width) {
+      case 16: return launch<16, TT, false>(a, B, s);
+      case 32: return launch<32, TT, false>(a, B, s);
+      case 64: return launch<64, TT, false>(a, B, s);
+      case 80: return launch<80, TT, false>(a, B, s);
+      case 128: return launch<128, TT, false>(a, B, s);
+      case 144: return launch<144, TT, false>(a, B, s);
+      case 160: return launch<160, TT, false>(a, B, s);
+      case 256: return launch<256, TT, false>(a, B, s);
+      default: return -1;
+    }
   }
 }
 
@@ -577,15 +604,8 @@ struct Args {
   int n_rb, n_cq, cq;  // dq: row blocks; chunks of a walk, key tiles each
   int n_kb, n_ck, ck;  // dk/dv: key blocks; chunks, row tiles each
   float cap, inv_cap, scale;  // inv_cap: 1 / cap (0 without a softcap)
+  int hd;  // the head dim: the rows' stride (<= the compiled width)
 };
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
 
 __device__ __forceinline__ bool sees(const Args& a, int qp, int qc, int kp) {
   return kp >= 0 && (!a.causal || kp <= qc) &&
@@ -616,16 +636,32 @@ __device__ __forceinline__ size_t row_base(const Args& a, int b, int kvh,
 // computes the offset of the warp's i-th row (off(r): row r's element
 // offset, or -1 past the valid rows: zeros), and the copy loop takes it
 // by shuffle, so a row's address (a division by G for query rows) costs
-// one lane, not a warp instruction per row.
-template <int HD, int RS, typename Off>
+// one lane, not a warp instruction per row.  kRag: rows of hs (<= HD)
+// values at any 2-byte boundary, a row at a time per warp and a word a
+// lane (decode_attention.cuh's ragged_row; lane i computes the offset of
+// the warp's i-th row): a row whose start is 2 bytes past a word lands
+// one column late, and shift_rows2 moves it once it has landed.
+template <int HD, int RS, bool kRag, typename Off>
 __device__ __forceinline__ void copy_rows2(unsigned char* d0,
                                            unsigned char* d1,
                                            const __nv_bfloat16* s0,
                                            const __nv_bfloat16* s1,
                                            int n_rows, int warp, int lane,
-                                           Off off) {
-  constexpr int CPR = HD / 8, RPS = CPR >= 32 ? 1 : 32 / CPR;
+                                           int hs, Off off) {
   constexpr int NW = kThreads / 32;
+  if constexpr (kRag) {
+    const int ri = warp + lane * NW;
+    const long long mine = ri < n_rows ? off(ri) : -1;
+    for (int j = 0; warp + j * NW < n_rows; ++j) {
+      const long long o = __shfl_sync(kFull, mine, j);
+      const int r = warp + j * NW;
+      const size_t e = o >= 0 ? (size_t)o : 0;
+      ragged_row<__nv_bfloat16, HD>(d0 + r * RS, d1 + r * RS, s0 + e, s1 + e,
+                                    o >= 0, hs, lane);
+    }
+    return;
+  }
+  constexpr int CPR = HD / 8, RPS = CPR >= 32 ? 1 : 32 / CPR;
   const int ri = warp * RPS + (lane / RPS) * NW * RPS + lane % RPS;
   const long long mine = ri < n_rows ? off(ri) : -1;
   const int sub = lane / CPR, part = lane - sub * CPR;
@@ -640,6 +676,27 @@ __device__ __forceinline__ void copy_rows2(unsigned char* d0,
       cp_async16(d0 + r * RS + part * 16, s0 + e, ok);
       cp_async16(d1 + r * RS + part * 16, s1 + e, ok);
     }
+  }
+}
+
+// After copy_rows2<kRag>'s copies have landed (and a block barrier): each
+// warp moves the led rows (decode_attention.cuh's ragged_row: a bf16 row
+// starting 2 bytes past a word) of rows warp, warp + 4, ... into place;
+// off as copy_rows2's.  The caller then waits at a barrier.
+template <int HD, int RS, typename Off>
+__device__ __forceinline__ void shift_rows2(unsigned char* d0,
+                                            unsigned char* d1,
+                                            const __nv_bfloat16* s0,
+                                            const __nv_bfloat16* s1,
+                                            int n_rows, int warp, int lane,
+                                            int hs, Off off) {
+  for (int r = warp; r < n_rows; r += kThreads / 32) {
+    const long long o = off(r);
+    if (o < 0) continue;
+    if ((reinterpret_cast<uintptr_t>(s0 + o) >> 1) & 1)
+      ragged_shift<HD>(d0 + r * RS, hs, lane);
+    if ((reinterpret_cast<uintptr_t>(s1 + o) >> 1) & 1)
+      ragged_shift<HD>(d1 + r * RS, hs, lane);
   }
 }
 
@@ -778,10 +835,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // Per query row (one a warp): D = rowsum(dO * O) and the row's
 // positions, into the row records (lse2 comes from the dq merge).
-template <int HD>
+template <int HD, bool kRag>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_rows_kernel(const Args a) {
   constexpr int CPR = HD / 8;
+  const int hs = kRag ? a.hd : HD;  // the rows' stride in device memory
   const int lane = threadIdx.x & 31;
   const int nrows = a.T * a.G;
   const long long gid = (long long)blockIdx.x * (kThreads / 32) +
@@ -789,11 +847,17 @@ __global__ void __launch_bounds__(kThreads)
   if (gid >= (long long)a.B * a.KV * nrows) return;
   const int r = (int)(gid % nrows);
   const int kvh = (int)(gid / nrows % a.KV), b = (int)(gid / nrows / a.KV);
-  const size_t base = row_base(a, b, kvh, r) * HD;
+  const size_t base = row_base(a, b, kvh, r) * hs;
   float part = 0.f;
-  for (int c = lane; c < CPR; c += 32)
-    part += dot8(*reinterpret_cast<const uint4*>(a.o + base + c * 8),
-                 *reinterpret_cast<const uint4*>(a.dout + base + c * 8));
+  if constexpr (kRag) {
+    for (int d = lane; d < hs; d += 32)
+      part = fmaf(__bfloat162float(a.o[base + d]),
+                  __bfloat162float(a.dout[base + d]), part);
+  } else {
+    for (int c = lane; c < CPR; c += 32)
+      part += dot8(*reinterpret_cast<const uint4*>(a.o + base + c * 8),
+                   *reinterpret_cast<const uint4*>(a.dout + base + c * 8));
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     part += __shfl_xor_sync(kFull, part, off);
@@ -807,9 +871,10 @@ __global__ void __launch_bounds__(kThreads)
 // dq of a row (one a warp) from its chunks' (m, l) and unnormalised sums,
 // in chunk order: dq = sum_k 2^(m_k - M) acc_k / sum_k 2^(m_k - M) l_k;
 // lse2 = M + log2 of the denominator.  A row that sees no key: dq = 0.
-template <int HD>
+template <int HD, bool kRag>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_merge_kernel(const Args a) {
+  const int hs = kRag ? a.hd : HD;  // the rows' stride in device memory
   const int lane = threadIdx.x & 31;
   const int nrows = a.T * a.G, nrp = a.n_rb * kQRows;
   const long long gid = (long long)blockIdx.x * (kThreads / 32) +
@@ -838,8 +903,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   const float inv = L > 0.f ? 1.f / L : 0.f;
-  __nv_bfloat16* dq = a.dq + row_base(a, b, kvh, r) * HD;
-  for (int c = lane; c < HD / 4; c += 32) {
+  __nv_bfloat16* dq = a.dq + row_base(a, b, kvh, r) * hs;
+  for (int c = lane; c < (kRag ? (hs + 3) / 4 : HD / 4); c += 32) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int k = 0; k < kMaxChunks; ++k) {
@@ -852,22 +917,32 @@ __global__ void __launch_bounds__(kThreads)
         acc.w = fmaf(w[k], x.w, acc.w);
       }
     }
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dq + c * 4);
-    d[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
-    d[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+    if constexpr (kRag) {  // elements: a row starts on 2 bytes
+      const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (c * 4 + i < hs) dq[c * 4 + i] = __float2bfloat16(v[i] * inv);
+    } else {
+      __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dq + c * 4);
+      d[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+      d[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+    }
   }
   if (lane == 0) a.rows[gid].x = L > 0.f ? M + log2f(L) : 0.f;
 }
 
 // dk and dv (four columns a thread) from the chunks that saw a live tile,
-// summed in chunk order; no live chunk: 0.
-template <int HD>
+// summed in chunk order; no live chunk: 0.  The chunks' rows hold HD
+// columns; kRag stores the columns below hs, element by element.
+template <int HD, bool kRag>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_reduce_kernel(const Args a) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long n4 = (long long)a.B * a.S * a.KV * (HD / 4);
   if (i >= n4) return;
   const int c = (int)(i % (HD / 4));
+  const int hs = kRag ? a.hd : HD;  // the rows' stride in device memory
+  if (kRag && c * 4 >= hs) return;
   const long long bsk = i / (HD / 4);  // (b * S + s) * KV + kvh
   const int kvh = (int)(bsk % a.KV);
   const int s = (int)(bsk / a.KV % a.S), b = (int)(bsk / a.KV / a.S);
@@ -883,6 +958,18 @@ __global__ void __launch_bounds__(kThreads)
     const float4 y = reinterpret_cast<const float4*>(base + half)[c];
     dk.x += x.x; dk.y += x.y; dk.z += x.z; dk.w += x.w;
     dv.x += y.x; dv.y += y.y; dv.z += y.z; dv.w += y.w;
+  }
+  if constexpr (kRag) {
+    const float xk[4] = {dk.x, dk.y, dk.z, dk.w};
+    const float xv[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (c * 4 + e < hs) {
+        a.dk[bsk * hs + c * 4 + e] = __float2bfloat16(xk[e]);
+        a.dv[bsk * hs + c * 4 + e] = __float2bfloat16(xv[e]);
+      }
+    }
+    return;
   }
   __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(a.dk + bsk * HD + c * 4);
   __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(a.dv + bsk * HD + c * 4);
@@ -906,11 +993,12 @@ struct DqSmem {
 // pass: the online softmax of the forward, with dS~ = p~ (dP - D) z'
 // summed into acc as p~ is into O; the chunk's acc and (m, l) per row go
 // to the dq merge.
-template <int HD>
+template <int HD, bool kRag>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_mma_kernel(const Args a) {
   using L = DqSmem<HD>;
   constexpr int RS = L::RS, KT = L::KT, NKT = KT / 8, KS = HD / 16;
+  const int hs = kRag ? a.hd : HD;  // the rows' stride in device memory
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sQ = smem;
   unsigned char* sO = sQ + L::kQ;
@@ -948,18 +1036,19 @@ __global__ void __launch_bounds__(kThreads)
     if (j < n_kt) {
       unsigned char* st = ring + stage * L::kStage;
       const int s0 = j * KT;
-      copy_rows2<HD, RS>(st, st + L::kTile, a.k, a.v, KT, warp, lane,
-                         [&](int jj) -> long long {
-                           return s0 + jj < a.S
-                                      ? (long long)((((size_t)b * a.S + s0 +
-                                                      jj) * a.KV + kvh) * HD)
-                                      : -1;
-                         });
+      copy_rows2<HD, RS, kRag>(st, st + L::kTile, a.k, a.v, KT, warp, lane,
+                               hs, [&](int jj) -> long long {
+                                 return s0 + jj < a.S
+                                            ? (long long)((((size_t)b * a.S +
+                                                            s0 + jj) * a.KV +
+                                                           kvh) * hs)
+                                            : -1;
+                               });
       if (tid < KT) {
         const int s = s0 + tid;
         const bool ok = s < a.S;
-        cp_async4(st + 2 * L::kTile + tid * 4,
-                  a.k_pos + (ok ? (size_t)b * a.S + s : 0), ok);
+        cp_async4n(st + 2 * L::kTile + tid * 4,
+                   a.k_pos + (ok ? (size_t)b * a.S + s : 0), ok ? 4 : 0);
       }
     }
     cp_async_commit();
@@ -972,12 +1061,19 @@ __global__ void __launch_bounds__(kThreads)
   }
   Walk walk;
   walk.load(cur & ~31, n_kt, lane, cls);
-  copy_rows2<HD, RS>(sQ, sO, a.q, a.dout, kQRows, warp, lane,
-                     [&](int rr) -> long long {
-                       return r0 + rr < nrows
-                                  ? (long long)(row_base(a, b, kvh, r0 + rr) * HD)
-                                  : -1;
-                     });
+  if constexpr (kRag) {  // the tiles' columns past hs, once (Q, dO; K, V)
+    zero_tails<HD, 2, RS>(sQ, 2 * kQRows, hs, tid, kThreads);
+    zero_tails<HD, 2, RS>(ring, 2 * KT, hs, tid, kThreads);
+    zero_tails<HD, 2, RS>(ring + L::kStage, 2 * KT, hs, tid, kThreads);
+    __syncthreads();
+  }
+  copy_rows2<HD, RS, kRag>(sQ, sO, a.q, a.dout, kQRows, warp, lane, hs,
+                           [&](int rr) -> long long {
+                             return r0 + rr < nrows
+                                        ? (long long)(row_base(a, b, kvh,
+                                                               r0 + rr) * hs)
+                                        : -1;
+                           });
   cp_async_commit();
   issue(cur, 0);
 
@@ -1004,6 +1100,7 @@ __global__ void __launch_bounds__(kThreads)
   const int krow = (lane & 7) + ((lane >> 4) << 3), kcol = ((lane >> 3) & 1) * 8;
   const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8, vcol = (lane >> 4) * 8;
   int stage = 0, left = a.cq;
+  [[maybe_unused]] bool first = true;  // kRag: Q / dO (K / V) still led
   while (cur < n_kt) {
     int nxt_cls = 0, nxt = n_kt;
     if (--left > 0) nxt = walk.next(cur, n_kt, lane, cls, nxt_cls);
@@ -1014,6 +1111,27 @@ __global__ void __launch_bounds__(kThreads)
 #else
     issue(nxt, stage ^ 1);
 #endif
+    if constexpr (kRag) {  // the led rows of this tile (and of Q, dO)
+      unsigned char* st = ring + stage * L::kStage;
+      const int s0 = cur * KT;
+      shift_rows2<HD, RS>(st, st + L::kTile, a.k, a.v, KT, warp, lane, hs,
+                          [&](int jj) -> long long {
+                            return s0 + jj < a.S
+                                       ? (long long)((((size_t)b * a.S + s0 +
+                                                       jj) * a.KV + kvh) * hs)
+                                       : -1;
+                          });
+      if (first)
+        shift_rows2<HD, RS>(sQ, sO, a.q, a.dout, kQRows, warp, lane, hs,
+                            [&](int rr) -> long long {
+                              return r0 + rr < nrows
+                                         ? (long long)(row_base(a, b, kvh,
+                                                                r0 + rr) * hs)
+                                         : -1;
+                            });
+      first = false;
+      __syncthreads();
+    }
     const unsigned char* Kt = ring + stage * L::kStage;
     const unsigned char* Vt = Kt + L::kTile;
     const int* kpt = reinterpret_cast<const int*>(Kt + 2 * L::kTile);
@@ -1163,7 +1281,7 @@ struct DkvSmem {
 // and dP^T = V dO^T for 16 keys x 16 rows and writes P^T and dS^T to
 // shared memory in bf16; (B) each warp adds P^T dO and dS^T Q into its
 // share of dv and dk (see kShare).  The chunk's dk, dv go to the reduce.
-template <int HD>
+template <int HD, bool kRag>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_mma_kernel(const Args a) {
 #if REPRO_BWD_STOP == 4
@@ -1171,6 +1289,7 @@ __global__ void __launch_bounds__(kThreads)
 #endif
   using L = DkvSmem<HD>;
   constexpr int RS = L::RS, PS = L::PS, KS = HD / 16;
+  const int hs = kRag ? a.hd : HD;  // the rows' stride in device memory
   // phase B's split: with a multiple of 4 column steps (hd 64, 128, 256)
   // each warp takes all 32 keys (kJ key groups) over every fourth step,
   // so a dO / Q fragment feeds both key groups; else (hd 16, 32, 80, 144,
@@ -1207,13 +1326,13 @@ __global__ void __launch_bounds__(kThreads)
     if (i < n_rt) {
       unsigned char* st = ring + stage * L::kStage;
       const int r0 = i * kRTile;
-      copy_rows2<HD, RS>(st, st + L::kTile, a.q, a.dout, kRTile, warp, lane,
-                         [&](int rr) -> long long {
-                           return r0 + rr < nrows
-                                      ? (long long)(row_base(a, b, kvh,
-                                                             r0 + rr) * HD)
-                                      : -1;
-                         });
+      copy_rows2<HD, RS, kRag>(st, st + L::kTile, a.q, a.dout, kRTile, warp,
+                               lane, hs, [&](int rr) -> long long {
+                                 return r0 + rr < nrows
+                                            ? (long long)(row_base(
+                                                  a, b, kvh, r0 + rr) * hs)
+                                            : -1;
+                               });
       if (tid < kRTile) {
         const bool ok = r0 + tid < nrows;
         cp_async16(st + 2 * L::kTile + tid * 16,
@@ -1232,13 +1351,20 @@ __global__ void __launch_bounds__(kThreads)
   if (cur >= n_rt) return;  // no live tile in this chunk: no part
   Walk walk;
   walk.load(cur & ~31, n_rt, lane, cls);
-  copy_rows2<HD, RS>(sK, sV, a.k, a.v, kKBlock, warp, lane,
-                     [&](int jj) -> long long {
-                       return s0 + jj < a.S
-                                  ? (long long)((((size_t)b * a.S + s0 + jj) *
-                                                 a.KV + kvh) * HD)
-                                  : -1;
-                     });
+  if constexpr (kRag) {  // the tiles' columns past hs, once (K, V; Q, dO)
+    zero_tails<HD, 2, RS>(sK, 2 * kKBlock, hs, tid, kThreads);
+    zero_tails<HD, 2, RS>(ring, 2 * kRTile, hs, tid, kThreads);
+    zero_tails<HD, 2, RS>(ring + L::kStage, 2 * kRTile, hs, tid, kThreads);
+    __syncthreads();
+  }
+  copy_rows2<HD, RS, kRag>(sK, sV, a.k, a.v, kKBlock, warp, lane, hs,
+                           [&](int jj) -> long long {
+                             return s0 + jj < a.S
+                                        ? (long long)((((size_t)b * a.S + s0 +
+                                                        jj) * a.KV + kvh) *
+                                                      hs)
+                                        : -1;
+                           });
   cp_async_commit();
   issue(cur, 0);
 
@@ -1267,6 +1393,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dv[j][i][nt][e] = dk[j][i][nt][e] = 0.f;
   int stage = 0, left = a.ck;
+  [[maybe_unused]] bool first = true;  // kRag: Q / dO (K / V) still led
   while (cur < n_rt) {
     int nxt_cls = 0, nxt = n_rt;
     if (--left > 0) nxt = walk.next(cur, n_rt, lane, cls, nxt_cls);
@@ -1277,6 +1404,28 @@ __global__ void __launch_bounds__(kThreads)
 #else
     issue(nxt, stage ^ 1);
 #endif
+    if constexpr (kRag) {  // the led rows of this tile (and of K, V)
+      unsigned char* st = ring + stage * L::kStage;
+      const int r0 = cur * kRTile;
+      shift_rows2<HD, RS>(st, st + L::kTile, a.q, a.dout, kRTile, warp, lane,
+                          hs, [&](int rr) -> long long {
+                            return r0 + rr < nrows
+                                       ? (long long)(row_base(a, b, kvh,
+                                                              r0 + rr) * hs)
+                                       : -1;
+                          });
+      if (first)
+        shift_rows2<HD, RS>(sK, sV, a.k, a.v, kKBlock, warp, lane, hs,
+                            [&](int jj) -> long long {
+                              return s0 + jj < a.S
+                                         ? (long long)((((size_t)b * a.S +
+                                                         s0 + jj) * a.KV +
+                                                        kvh) * hs)
+                                         : -1;
+                            });
+      first = false;
+      __syncthreads();
+    }
     const unsigned char* Qt = ring + stage * L::kStage;
     const unsigned char* Ot = Qt + L::kTile;
     const float4* info = reinterpret_cast<const float4*>(Qt + 2 * L::kTile);
@@ -1412,7 +1561,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int HD>
+template <int HD, bool kRag>
 int launch(const Args& a, cudaStream_t st) {
   constexpr int smem_q = DqSmem<HD>::kBytes, smem_k = DkvSmem<HD>::kBytes;
   static_assert(smem_q <= 232448 && smem_k <= 232448,
@@ -1424,88 +1573,93 @@ int launch(const Args& a, cudaStream_t st) {
                            kThreads, 0, st>>>(a);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  flash_bwd_rows_kernel<HD><<<row_blocks, kThreads, 0, st>>>(a);
+  flash_bwd_rows_kernel<HD, kRag><<<row_blocks, kThreads, 0, st>>>(a);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  rc = (int)cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<HD>,
+  rc = (int)cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<HD, kRag>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem_q);
   if (rc != 0) return rc;
-  rc = (int)cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<HD>,
+  rc = (int)cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<HD, kRag>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem_k);
   if (rc != 0) return rc;
   // the largest shared-memory share, so that two blocks fit on an SM
-  rc = (int)cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<HD>,
+  rc = (int)cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<HD, kRag>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
   if (rc != 0) return rc;
-  rc = (int)cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<HD>,
+  rc = (int)cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<HD, kRag>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
   if (rc != 0) return rc;
-  flash_bwd_dq_mma_kernel<HD>
+  flash_bwd_dq_mma_kernel<HD, kRag>
       <<<dim3(a.n_rb * a.n_cq, a.KV, B), kThreads, smem_q, st>>>(a);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  flash_bwd_dq_merge_kernel<HD><<<row_blocks, kThreads, 0, st>>>(a);
+  flash_bwd_dq_merge_kernel<HD, kRag><<<row_blocks, kThreads, 0, st>>>(a);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  flash_bwd_dkdv_mma_kernel<HD>
+  flash_bwd_dkdv_mma_kernel<HD, kRag>
       <<<dim3(a.n_kb * a.n_ck, a.KV, B), kThreads, smem_k, st>>>(a);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const long long n4 = (long long)B * a.S * a.KV * (HD / 4);
-  flash_bwd_dkdv_reduce_kernel<HD>
+  flash_bwd_dkdv_reduce_kernel<HD, kRag>
       <<<(int)((n4 + kThreads - 1) / kThreads), kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const Args& a, int hd, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<16>(a, s);
-    case 32: return launch<32>(a, s);
-    case 64: return launch<64>(a, s);
-    case 80: return launch<80>(a, s);
-    case 128: return launch<128>(a, s);
-    case 144: return launch<144>(a, s);
-    case 160: return launch<160>(a, s);
-    case 256: return launch<256>(a, s);
-    default: return -1;
+template <bool kRag>
+int dispatch(const Args& a, int width, cudaStream_t s) {
+  if constexpr (kRag) {
+    switch (width) {
+      case 16: return launch<16, true>(a, s);
+      case 32: return launch<32, true>(a, s);
+      case 64: return launch<64, true>(a, s);
+      case 96: return launch<96, true>(a, s);
+      case 128: return launch<128, true>(a, s);
+      case 160: return launch<160, true>(a, s);
+      case 256: return launch<256, true>(a, s);
+      default: return -1;
+    }
+  } else {
+    switch (width) {
+      case 16: return launch<16, false>(a, s);
+      case 32: return launch<32, false>(a, s);
+      case 64: return launch<64, false>(a, s);
+      case 80: return launch<80, false>(a, s);
+      case 128: return launch<128, false>(a, s);
+      case 144: return launch<144, false>(a, s);
+      case 160: return launch<160, false>(a, s);
+      case 256: return launch<256, false>(a, s);
+      default: return -1;
+    }
   }
 }
 
 }  // namespace tc
 
-}  // namespace
-
-// q, o, dout, dq (B,T,H,hd); k, v, dk, dv (B,S,KV,hd); q_pos, q_ctx (B,T)
-// and k_pos (B,S) int32; work (f32) and spans (int32) scratch, sized by
-// kernels/flash_attention.py::bwd_plan: at bf16, work holds the row
-// records (B,H,T,4), the dq chunks' (m, l) and sums and the dk/dv
-// chunks' sums, spans the position summaries and the dk/dv chunks' live
-// flags; at f32, work holds the CUDA-core kernels' lse and D, (B,H,T)
-// each.  is_bf16 selects bf16 storage, else f32.  causal 0 drops the
-// horizon; cap <= 0 means no softcap, window <= 0 no window.  The kernels
-// run on the stream, in order.  Returns cudaGetLastError(), or -1 for a
-// head dim it does not take.
-extern "C" int repro_flash_attention_bwd(
+// one load path's launches (the C entries below)
+template <bool kRag>
+int bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const int* q_pos, const int* q_ctx, const int* k_pos,
     void* dq, void* dk, void* dv, float* work, int* spans, int B, int T,
-    int S, int H, int KV, int hd, int causal, int window, float cap,
-    float scale, int is_bf16, void* stream) {
+    int S, int H, int KV, int hd, int width, int causal, int window,
+    float cap, float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / KV;
+  if (kRag ? (hd < 1 || hd > width) : hd != width) return -1;
   if (!is_bf16) {
     const cuda_core::Args a{q,  k,  v, o,    dout, q_pos, q_ctx,
                             k_pos, dq, dk, dv, work, work + (size_t)B * H * T,
                             T,  S,  H, KV,   G,    causal, window,
-                            cap, scale};
-    return cuda_core::dispatch<float>(a, B, hd, s);
+                            cap, scale, hd};
+    return cuda_core::dispatch<float, kRag>(a, B, width, s);
   }
   using namespace tc;
-  const int NR = T * G, KT = key_tile(hd);
+  const int NR = T * G, KT = key_tile(width);
   const int n_rb = (NR + kQRows - 1) / kQRows, n_kt = (S + KT - 1) / KT;
   const int n_cq = chunks_of(n_kt, B * KV * n_rb);
   const int cq = (n_kt + n_cq - 1) / n_cq;
@@ -1518,7 +1672,7 @@ extern "C" int repro_flash_attention_bwd(
   const size_t q_rows = (size_t)n_cq * B * KV * n_rb * kQRows;
   float* stat_q = work + (size_t)B * H * T * 4;
   float* part_q = stat_q + q_rows * 2;
-  float* part_k = part_q + q_rows * hd;
+  float* part_k = part_q + q_rows * width;
   int* flags = spans + (size_t)B * (n_rspan + n_kspan) * 4;
   using bf = __nv_bfloat16;
   const Args a{static_cast<const bf*>(q),    static_cast<const bf*>(k),
@@ -1531,6 +1685,63 @@ extern "C" int repro_flash_attention_bwd(
                reinterpret_cast<float2*>(stat_q), part_q, part_k,
                B, T, S, H, KV, G, causal, window, n_rspan, n_kspan,
                n_rb, n_cq, cq, n_kb, n_ck, ck, cap,
-               cap > 0.f ? 1.f / cap : 0.f, scale};
-  return dispatch(a, hd, s);
+               cap > 0.f ? 1.f / cap : 0.f, scale, hd};
+  return dispatch<kRag>(a, width, s);
 }
+
+}  // namespace
+
+// The ragged path's instances build as an object of their own
+// (flash_attention_bwd_ragged.cu includes this file with
+// REPRO_RAGGED_PART defined), so nvcc compiles them in parallel with the
+// aligned ones; the entry reaches them through a weak symbol (a build of
+// this source alone, as a probe's, refuses ragged calls).
+#ifdef REPRO_RAGGED_PART
+extern "C" int repro_flash_attention_bwd_ragged(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const int* q_pos, const int* q_ctx, const int* k_pos,
+    void* dq, void* dk, void* dv, float* work, int* spans, int B, int T,
+    int S, int H, int KV, int hd, int width, int causal, int window,
+    float cap, float scale, int is_bf16, void* stream) {
+  return bwd_launch<true>(q, k, v, o, dout, q_pos, q_ctx, k_pos, dq, dk, dv,
+                          work, spans, B, T, S, H, KV, hd, width, causal,
+                          window, cap, scale, is_bf16, stream);
+}
+#else
+extern "C" __attribute__((weak)) int repro_flash_attention_bwd_ragged(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const int* q_pos, const int* q_ctx, const int* k_pos,
+    void* dq, void* dk, void* dv, float* work, int* spans, int B, int T,
+    int S, int H, int KV, int hd, int width, int causal, int window,
+    float cap, float scale, int is_bf16, void* stream);
+
+// q, o, dout, dq (B,T,H,hd); k, v, dk, dv (B,S,KV,hd); q_pos, q_ctx (B,T)
+// and k_pos (B,S) int32; work (f32) and spans (int32) scratch, sized by
+// kernels/flash_attention.py::bwd_plan: at bf16, work holds the row
+// records (B,H,T,4), the dq chunks' (m, l) and sums and the dk/dv
+// chunks' sums, spans the position summaries and the dk/dv chunks' live
+// flags; at f32, work holds the CUDA-core kernels' lse and D, (B,H,T)
+// each.  width and ragged: the compiled width and load path
+// (kernels/decode_attention.py::head_dim_path; the chunks' sums have rows
+// of width columns).  is_bf16 selects bf16 storage, else f32.  causal 0
+// drops the horizon; cap <= 0 means no softcap, window <= 0 no window.
+// The kernels run on the stream, in order.  Returns cudaGetLastError(),
+// or -1 for a width or head dim it does not take.
+extern "C" int repro_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const int* q_pos, const int* q_ctx, const int* k_pos,
+    void* dq, void* dk, void* dv, float* work, int* spans, int B, int T,
+    int S, int H, int KV, int hd, int width, int ragged, int causal,
+    int window, float cap, float scale, int is_bf16, void* stream) {
+  if (ragged)
+    return repro_flash_attention_bwd_ragged
+               ? repro_flash_attention_bwd_ragged(
+                     q, k, v, o, dout, q_pos, q_ctx, k_pos, dq, dk, dv, work,
+                     spans, B, T, S, H, KV, hd, width, causal, window, cap,
+                     scale, is_bf16, stream)
+               : -1;
+  return bwd_launch<false>(q, k, v, o, dout, q_pos, q_ctx, k_pos, dq, dk, dv,
+                           work, spans, B, T, S, H, KV, hd, width, causal,
+                           window, cap, scale, is_bf16, stream);
+}
+#endif

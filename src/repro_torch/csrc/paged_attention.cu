@@ -11,8 +11,9 @@
 // TPU kernel does.
 //
 // The tile loop, and what bounds it, is decode_attention.cuh's (shared
-// with branch_attention.cu and flash_attention.cu, head dims 16, 32, 64,
-// 80, 128, 144, 160 and 256); this file gives it the paged addressing:
+// with branch_attention.cu and flash_attention.cu, any head dim from 1
+// to 256 on its aligned or ragged load path); this file gives it the paged
+// addressing:
 // key s of row b is slot s % ps of page table[b, s / ps].  A block's key range is planned from n_max * ps,
 // which the host knows; the loop walks only the row's first lens[b] keys
 // (a serve's tables are as wide as its longest request), and the first
@@ -52,19 +53,25 @@ struct PagedKeys {
 }  // namespace
 
 // q (B,T,H,hd); k/v pages (P,ps,KV,hd); table (B,n_max); lens, q_start
-// (B,); out (B,T,H,hd).  The key axis runs in n_split (<= 8) splits of
-// split_len keys.  is_bf16 selects bf16 storage, else f32.  cap <= 0
+// (B,); out (B,T,H,hd).  width and ragged: the compiled width and load
+// path (kernels/decode_attention.py::head_dim_path).  The key axis runs
+// in n_split (<= 8) splits of split_len keys.  is_bf16 selects bf16
+// storage, else f32.  cap <= 0
 // means no softcap, window <= 0 no window.  Returns cudaGetLastError().
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const int* table, const int* lens, const int* q_start, void* out, int B,
-    int T, int H, int KV, int hd, int ps, int n_max, int n_split,
+    int T, int H, int KV, int hd, int width, int ragged, int ps, int n_max,
+    int n_split,
     int split_len, int window, float cap, float scale, int is_bf16,
     void* stream) {
   const PagedKeys keys{table, lens, q_start, ps, n_max};
   const int G = H / KV;
   const DecodeArgs a{q, k_pages, v_pages, k_pages, v_pages, out, T, H, KV,
                      G, (T * G + kRows - 1) / kRows, n_split, split_len,
-                     window, cap, scale};
-  return decode_launch<false>(keys, a, B, hd, is_bf16, stream);
+                     window, cap, scale, hd};
+  return ragged ? decode_launch<false, true>(keys, a, B, width, is_bf16,
+                                            stream)
+                : decode_launch<false, false>(keys, a, B, width, is_bf16,
+                                              stream);
 }

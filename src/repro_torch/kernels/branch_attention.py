@@ -23,7 +23,6 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as DA
-from repro_torch.kernels.paged_attention import check_rows16
 
 
 def max_branches_per_tile(nb: int, Tq: int, G: int) -> int:
@@ -89,10 +88,8 @@ def branch_decode_attention(q: torch.Tensor, prefix_k: torch.Tensor,
     prefix_pos, suffix_pos, q_pos = (
         x.to(torch.int32).contiguous()
         for x in (prefix_pos, suffix_pos, q_pos))
-    check_rows16("branch_decode_attention", hd, prefix_k, prefix_v)
-    check_rows16("branch_decode_attention", hd, suffix_k, suffix_v)
-    check_rows16("branch_decode_attention", hd, q, q)
-    DA.check_head_dim("branch_decode_attention", hd)
+    width, ragged = DA.head_dim_path("branch_decode_attention", hd, q,
+                                     prefix_k, prefix_v, suffix_k, suffix_v)
     L = build.lib()
     out = torch.empty_like(q)
     if nb == 0 or T == 0:
@@ -105,7 +102,7 @@ def branch_decode_attention(q: torch.Tensor, prefix_k: torch.Tensor,
             q.data_ptr(), prefix_k.data_ptr(), prefix_v.data_ptr(),
             prefix_pos.data_ptr(), suffix_k.data_ptr(), suffix_v.data_ptr(),
             suffix_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-            nb, T, Sp, Ss, H, KV, hd, n_split, split_len,
+            nb, T, Sp, Ss, H, KV, hd, width, int(ragged), n_split, split_len,
             float(cap) if cap is not None else 0.0, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16), stream)
     build.check(rc, "branch_decode_attention")

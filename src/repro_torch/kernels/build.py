@@ -15,6 +15,7 @@ run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -25,9 +26,12 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-SOURCES = ("paged_attention.cu", "verify_accept.cu", "paged_gather.cu",
-           "flash_attention.cu", "ssm_scan.cu", "branch_attention.cu",
-           "flash_attention_bwd.cu", "ssm_scan_bwd.cu")
+# the flash kernels' ragged load path builds as objects of its own
+# (``*_ragged.cu`` include their source), compiled beside the rest
+SOURCES = ("flash_attention_bwd.cu", "flash_attention_bwd_ragged.cu",
+           "flash_attention.cu", "flash_attention_ragged.cu",
+           "paged_attention.cu", "branch_attention.cu", "ssm_scan.cu",
+           "ssm_scan_bwd.cu", "verify_accept.cu", "paged_gather.cu")
 HEADERS = ("decode_attention.cuh", "ssm_scan_step.cuh")  # hashed too
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -86,21 +90,22 @@ def build(sources=SOURCES, defines=()) -> Path:
     t0 = time.time()
     cc = nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        procs = []
-        for name in sources:
+        def compile_one(name):
             obj = os.path.join(tmp, name.replace(".cu", ".o"))
             cmd = [cc, *CFLAGS, *defines, "-Xptxas", "-v", "-c",
                    str(CSRC / name),
                    "-o", obj]
-            procs.append((name, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
+            p = subprocess.run(cmd, capture_output=True, text=True)
+            return name, obj, p, time.time() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+            done = list(ex.map(compile_one, sources))
         logs, objs = [], []
-        for name, obj, p in procs:
-            out, err = p.communicate()
+        for name, obj, p, _ in done:
             if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}:\n{out}{err}")
-            logs.append(f"--- {name}\n{err}")
+                raise RuntimeError(f"nvcc failed on {name}:\n{p.stdout}"
+                                   f"{p.stderr}")
+            logs.append(f"--- {name}\n{p.stderr}")
             objs.append(obj)
         tmp_so = os.path.join(tmp, so.name)
         link = subprocess.run([cc, *ARCH, "-shared", *objs, "-o", tmp_so],
@@ -111,6 +116,8 @@ def build(sources=SOURCES, defines=()) -> Path:
         os.replace(tmp_so, so)
     BUILD_INFO["seconds"] = time.time() - t0
     BUILD_INFO["ptxas"] = "".join(logs)
+    # each source's nvcc, from the start of the build to its end
+    BUILD_INFO["per_source"] = {name: sec for name, _, _, sec in done}
     return so
 
 
@@ -125,17 +132,17 @@ def lib() -> ctypes.CDLL:
 def _signatures() -> Dict[str, tuple]:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return {  # entry: (argtypes, restype)
-        "repro_paged_attention": ([P] * 7 + [I] * 10 + [F, F, I, P], I),
+        "repro_paged_attention": ([P] * 7 + [I] * 12 + [F, F, I, P], I),
         "repro_verify_accept_batched": ([P] * 10 + [I] * 4 + [P], I),
         "repro_paged_gather": ([P] * 3 + [I] * 4 + [P], I),
-        "repro_flash_attention": ([P] * 7 + [I] * 11 + [F, F, I, P], I),
+        "repro_flash_attention": ([P] * 7 + [I] * 13 + [F, F, I, P], I),
         "repro_ssm_scan": ([P] * 10 + [I] * 5 + [P], I),
         "repro_ssm_scan_ring": ([P] * 10 + [I] * 7 + [P], I),
         "repro_ssm_scan_chunks": ([P] * 10 + [I] * 5 + [P], I),
         "repro_ssm_scan_chunk": ([], I),
-        "repro_branch_attention": ([P] * 9 + [I] * 9 + [F, F, I, P], I),
+        "repro_branch_attention": ([P] * 9 + [I] * 11 + [F, F, I, P], I),
         "repro_verify_accept": ([P] * 9 + [I] * 4 + [P], I),
-        "repro_flash_attention_bwd": ([P] * 13 + [I] * 8 + [F, F, I, P], I),
+        "repro_flash_attention_bwd": ([P] * 13 + [I] * 10 + [F, F, I, P], I),
         "repro_ssm_scan_bwd": ([P] * 17 + [I] * 5 + [P], I),
         "repro_ssm_scan_bwd_scratch": ([I] * 4, ctypes.c_longlong),
     }

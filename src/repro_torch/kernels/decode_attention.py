@@ -1,6 +1,6 @@
 """Host side of the decode tile loop (``csrc/decode_attention.cuh``) that
 the paged, branch-decode and flash kernels share: the row tiling, the
-split-KV plan and the head dims the loop is built for.
+split-KV plan and the width and load path a head dim runs at.
 
 A block holds ``ROWS`` query rows (G heads x tokens) of one kv head;
 the flash kernel gives an item's rows to blocks of ``WIDE_ROWS`` rows
@@ -13,6 +13,17 @@ of ``lens`` or key positions, which live on the card.  The splits of a
 (row tile, kv head) run as one thread-block cluster and merge through
 shared memory inside the launch, so a split call needs no scratch and
 keeps no state.
+
+Head dims 1-256.  A call whose head dim is one of ``HEAD_DIMS``, with
+every row a multiple of 16 bytes and every tensor 16-byte aligned, takes
+the aligned path: its tiles load by 16-byte ``cp.async`` at the compiled
+width hd.  Any other head dim, or storage off a 16-byte boundary, takes
+the ragged path (``head_dim_path``): the loop runs at the smallest of
+``RAGGED_WIDTHS`` not below hd, with hd the rows' stride in device
+memory, the tiles' columns past hd zero, 4-byte word copies (a bf16 row
+starting 2 bytes past a word is shifted into place once it lands) and
+guarded stores.  granite-moe-3b-a800m's draft (3 heads of 85: rows of
+170 bytes in bf16) runs at 96.
 """
 from __future__ import annotations
 
@@ -25,9 +36,14 @@ WIDE_ROWS = 64            # query rows of a wide block: a 16-row tile a warp
 SPLIT_ALIGN = 64          # keys the block's four warps walk in one pass
 MIN_SPLIT_KEYS = 128      # fewer keys per split do not repay the merge
 MAX_SPLITS = 8            # a cluster's portable size
-# the head dims of the repo's configs and of their draft() variants that
-# a 16-byte row holds (granite-moe's draft, 85, is refused)
+# the aligned path's head dims: every attention head dim of the repo's
+# configs and of their draft() variants but granite-moe's draft's 85
 HEAD_DIMS = (16, 32, 64, 80, 128, 144, 160, 256)
+# the ragged path's compiled widths: 96 holds 85 with 11 zero columns (128
+# would do 51% more tile work); 80 and 144 are left out, so a head dim runs
+# at the next width up, to keep the build's template instances few
+RAGGED_WIDTHS = (16, 32, 64, 96, 128, 160, 256)
+MAX_HEAD_DIM = 256
 
 _SM_COUNT: Dict[int, int] = {}
 
@@ -68,5 +84,22 @@ def sm_count(device: torch.device) -> int:
 
 
 def check_head_dim(name: str, hd: int) -> None:
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} is not one of {HEAD_DIMS}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {hd} is outside 1-{MAX_HEAD_DIM}")
+
+
+def head_dim_path(name: str, hd: int, *tensors: torch.Tensor
+                  ) -> Tuple[int, bool]:
+    """(width, ragged): the compiled width a call of head dim ``hd`` over
+    ``tensors`` (its q, K/V and gradient inputs) runs at, and whether it
+    takes the ragged load path.  Aligned: hd is one of ``HEAD_DIMS`` and
+    every tensor's rows are whole 16-byte chunks from a 16-byte aligned
+    start, so the tiles load by 16-byte ``cp.async`` (width = hd).
+    Ragged: any other hd, or storage off a 16-byte boundary; width is the
+    smallest of ``RAGGED_WIDTHS`` not below hd.  Reads no device memory.
+    Raises outside 1-256."""
+    check_head_dim(name, hd)
+    if hd in HEAD_DIMS and all((hd * x.element_size()) % 16 == 0
+                               and x.data_ptr() % 16 == 0 for x in tensors):
+        return hd, False
+    return next(w for w in RAGGED_WIDTHS if w >= hd), True

@@ -36,7 +36,6 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as DA
-from repro_torch.kernels.paged_attention import check_rows16
 
 
 def block_rows(T: int, H: int, KV: int) -> int:
@@ -76,11 +75,14 @@ def bwd_chunks(n_tiles: int, n_units: int) -> int:
     return max(1, min(MAX_CHUNKS, n))
 
 
-def bwd_plan(B: int, T: int, S: int, H: int, KV: int, hd: int,
+def bwd_plan(B: int, T: int, S: int, H: int, KV: int, width: int,
              dtype: torch.dtype) -> dict:
-    """The backward's launches and scratch: ``blocks`` of each kernel,
-    ``chunks`` of the dq and dk/dv walks (bf16), and the f32 (``work``)
-    and int32 (``ints``) scratch elements the C entry lays out."""
+    """The backward's launches and scratch at the compiled ``width`` a
+    head dim runs at (``decode_attention.head_dim_path``; the head dim
+    itself on the aligned path): ``blocks`` of each kernel, ``chunks`` of
+    the dq and dk/dv walks (bf16), and the f32 (``work``) and int32
+    (``ints``) scratch elements the C entry lays out (the chunks' sums
+    have rows of ``width`` columns)."""
     rows = T * (H // KV)
     n_spans = _cdiv(rows, SPAN) + _cdiv(S, SPAN)
     if dtype != torch.bfloat16:
@@ -89,12 +91,12 @@ def bwd_plan(B: int, T: int, S: int, H: int, KV: int, hd: int,
                 "blocks": {"dq": B * KV * _cdiv(rows, BWD_F32_BLOCK),
                            "dkdv": B * KV * _cdiv(S, BWD_F32_BLOCK)}}
     n_rb, n_kb = _cdiv(rows, BWD_ROWS), _cdiv(S, BWD_KEYS)
-    n_cq = bwd_chunks(_cdiv(S, 16 if hd > 128 else 32), B * KV * n_rb)
+    n_cq = bwd_chunks(_cdiv(S, 16 if width > 128 else 32), B * KV * n_rb)
     n_ck = bwd_chunks(_cdiv(rows, BWD_RTILE), B * KV * n_kb)
     q_rows = n_cq * B * KV * n_rb * BWD_ROWS
     row_warps = _cdiv(B * KV * rows, 4)          # one row a warp
-    return {"work": 4 * B * H * T + q_rows * (2 + hd)
-                    + n_ck * 2 * B * n_kb * BWD_KEYS * KV * hd,
+    return {"work": 4 * B * H * T + q_rows * (2 + width)
+                    + n_ck * 2 * B * n_kb * BWD_KEYS * KV * width,
             "ints": 4 * B * n_spans + B * KV * n_kb * n_ck,
             "chunks": {"dq": n_cq, "dkdv": n_ck},
             "blocks": {"spans": B * _cdiv(n_spans * SPAN, 128),
@@ -102,7 +104,7 @@ def bwd_plan(B: int, T: int, S: int, H: int, KV: int, hd: int,
                        "dq": B * KV * n_rb * n_cq,
                        "dq_merge": row_warps,
                        "dkdv": B * KV * n_kb * n_ck,
-                       "dkdv_reduce": _cdiv(B * S * KV * hd // 4, 128)}}
+                       "dkdv_reduce": _cdiv(B * S * KV * width // 4, 128)}}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,9 +141,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     q_pos, k_pos, q_ctx = (x.to(torch.int32).contiguous()
                            for x in (q_pos, k_pos, q_ctx))
-    check_rows16("flash_attention", hd, k, v)
-    check_rows16("flash_attention", hd, q, q)
-    DA.check_head_dim("flash_attention", hd)
+    width, ragged = DA.head_dim_path("flash_attention", hd, q, k, v)
     L = build.lib()
     out = torch.empty_like(q)
     if B == 0 or T == 0:
@@ -152,7 +152,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = L.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             q_ctx.data_ptr(), k_pos.data_ptr(), out.data_ptr(),
-            B, T, S, H, KV, hd, int(block_rows(T, H, KV) == DA.WIDE_ROWS),
+            B, T, S, H, KV, hd, width, int(ragged),
+            int(block_rows(T, H, KV) == DA.WIDE_ROWS),
             n_split, split_len, int(causal), int(window),
             float(cap) if cap is not None else 0.0, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16), stream)
@@ -199,15 +200,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(x.shape) != shape or x.dtype.is_floating_point:
             raise ValueError(f"flash_attention_bwd: {name} must be integer "
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
-    DA.check_head_dim("flash_attention_bwd", hd)
     q, k, v, o, dout = (x.contiguous() for x in (q, k, v, o, dout))
+    width, ragged = DA.head_dim_path("flash_attention_bwd", hd, q, k, v, o,
+                                     dout)
     q_pos, k_pos, q_ctx = (x.to(torch.int32).contiguous()
                            for x in (q_pos, k_pos, q_ctx))
     if B == 0 or T == 0 or S == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     L = build.lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    plan = bwd_plan(B, T, S, H, KV, hd, q.dtype)
+    plan = bwd_plan(B, T, S, H, KV, width, q.dtype)
     work = torch.empty(plan["work"], dtype=torch.float32, device=q.device)
     ints = torch.empty(plan["ints"], dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
@@ -215,8 +217,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), q_pos.data_ptr(), q_ctx.data_ptr(),
             k_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            work.data_ptr(), ints.data_ptr(), B, T, S, H, KV, hd,
-            int(causal), int(window),
+            work.data_ptr(), ints.data_ptr(), B, T, S, H, KV, hd, width,
+            int(ragged), int(causal), int(window),
             float(cap) if cap is not None else 0.0, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)

@@ -10,9 +10,9 @@ tokens, so T is tiled) of one kv head, and the key axis is split when
 those blocks would leave SMs idle (``kernels.decode_attention``).
 
 The kernel's tile loop (``csrc/decode_attention.cuh``) is shared with
-the branch-decode and flash kernels, built for the head dims in
-``decode_attention.HEAD_DIMS``; ``check_rows16`` serves all three
-attention wrappers.
+the branch-decode and flash kernels; ``decode_attention.head_dim_path``
+picks the width and load path (aligned or ragged) of all three, for any
+head dim from 1 to 256.
 """
 from __future__ import annotations
 
@@ -23,19 +23,6 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as DA
-
-
-def check_rows16(name: str, hd: int, k: torch.Tensor,
-                 v: torch.Tensor) -> None:
-    """The kernels load K/V (and the decode kernels q) 16 bytes at a time:
-    a row of hd values must span a multiple of 16 bytes and both tensors
-    start 16-byte aligned."""
-    if (hd * k.element_size()) % 16:
-        raise ValueError(f"{name}: rows of hd={hd} {k.dtype} values are "
-                         "not a multiple of 16 bytes")
-    for x in (k, v):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name}: storage is not 16-byte aligned")
 
 
 def split_plan(B: int, T: int, H: int, KV: int, n_max: int, ps: int,
@@ -75,9 +62,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         if x.dtype != torch.int32 or tuple(x.shape) != shape:
             raise ValueError(f"paged_attention: {name} must be int32 "
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
-    check_rows16("paged_attention", hd, k_pages, v_pages)
-    check_rows16("paged_attention", hd, q, q)
-    DA.check_head_dim("paged_attention", hd)
+    width, ragged = DA.head_dim_path("paged_attention", hd, q, k_pages,
+                                     v_pages)
     L = build.lib()
     out = torch.empty_like(q)
     if B == 0 or T == 0:
@@ -89,7 +75,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         rc = L.repro_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             table.data_ptr(), lens.data_ptr(), q_start.data_ptr(),
-            out.data_ptr(), B, T, H, KV, hd, ps, n_max, n_split, split_len,
+            out.data_ptr(), B, T, H, KV, hd, width, int(ragged), ps, n_max,
+            n_split, split_len,
             int(window),
             float(cap) if cap is not None else 0.0, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16), stream)

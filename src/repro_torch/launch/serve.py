@@ -45,9 +45,10 @@ mode) — and configs the reference defines, served at full width with
 random weights from fixed seeds (target 0, draft 1; no checkpoint is
 needed): ``paper-llama``, the paper's LLaMA-68M draft / LLaMA-7B target,
 and every assigned architecture that decodes (``configs.ARCH_IDS`` but
-the encoder-only hubert-xlarge), e.g. ``falcon-mamba-7b`` or
-``gemma3-4b``, with its ``draft()``; all bf16 (random draft heads from
-seed 2 in parallel draft mode).  The largest (grok-1-314b,
+the encoder-only hubert-xlarge), e.g. ``falcon-mamba-7b``,
+``gemma3-4b`` or ``granite-moe-3b-a800m`` (whose draft's 3 heads of 85
+run on the attention kernels' ragged path), with its ``draft()``; all
+bf16 (random draft heads from seed 2 in parallel draft mode).  The largest (grok-1-314b,
 jamba-1.5-large-398b, gemma2-27b at bf16) do not fit one 80 GB card.
 
 Usage:
@@ -57,6 +58,8 @@ Usage:
       --requests 8 --new-tokens 32 --pair falcon-mamba-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
       --requests 8 --new-tokens 32 --pair gemma3-4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
+      --requests 8 --new-tokens 16 --pair granite-moe-3b-a800m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --mode sequential --engine specbranch
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -422,8 +425,8 @@ def _parse(argv=None) -> argparse.Namespace:
                     "pairs (cached checkpoints); falcon-shaped/"
                     "jamba-shaped: tiny random-init SSM pairs; "
                     "paper-llama and the assigned architectures that "
-                    "decode (with their draft()): full width, bf16, "
-                    "random weights")
+                    "decode (with their draft(); granite-moe-3b-a800m's "
+                    "at head dim 85): full width, bf16, random weights")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=48)
     ap.add_argument("--gamma", type=int, default=4)

@@ -98,13 +98,19 @@ def rope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
                ) -> torch.Tensor:
-    """x (B, T, H, hd); sin/cos (B, T, hd//2)."""
+    """x (B, T, H, hd); sin/cos (B, T, hd//2).  Rotate-half over the first
+    2 * (hd // 2) columns.  At an odd hd (granite-moe-3b-a800m's draft,
+    85) the last column passes through unrotated: the reference's
+    rotate-half splits 85 into halves of 42 and 43 and raises."""
     dt = x.dtype
     x = x.float()
     half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
+    x1, x2 = x[..., :half], x[..., half:2 * half]
     s, c = sin[..., None, :], cos[..., None, :]
-    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(dt)
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    if x.shape[-1] % 2:
+        out = torch.cat([out, x[..., 2 * half:]], dim=-1)
+    return out.to(dt)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -129,6 +129,13 @@ ATTN_CASES = [
     dict(B=3, T=4, H=4, KV=4, hd=144, ps=16),
     dict(B=1, T=2, H=4, KV=4, hd=144, ps=16, lens=[3000], window=1024),
     dict(B=1, T=1, H=4, KV=4, hd=160, ps=16, lens=[3000]),
+    # the ragged path: granite-moe's draft (3 heads of 85, rows of 170 /
+    # 340 bytes) unsplit and over a split row; hd 40 (GQA, softcap) and
+    # 200 (a split row beside a short one) at widths 64 and 256
+    dict(B=8, T=4, H=3, KV=3, hd=85, ps=16, window=9),
+    dict(B=1, T=2, H=3, KV=3, hd=85, ps=16, lens=[3000], window=1024),
+    dict(B=3, T=5, H=4, KV=2, hd=40, ps=8, cap=20.0),
+    dict(B=2, T=3, H=2, KV=1, hd=200, ps=16, lens=[2500, 7]),
 ]
 
 
@@ -193,6 +200,101 @@ def test_split_decode_calls_are_one_launch_without_host_sync(cuda):
     _assert_attn_close(got, ref.paged_attention_ref(q, kp, vp, table, lens,
                                                     qs))
     _assert_attn_close(bgot, ref.branch_decode_ref(*bargs))
+
+
+@pytest.mark.requires_cuda
+def test_ragged_paged_call_is_one_launch_without_host_sync(cuda):
+    """The ragged path (granite-moe's draft, hd 85, over a row that
+    splits; hd 64 pages stored off a 16-byte boundary) is one launch per
+    call, reads nothing back to the host and allocates nothing on the
+    card but its output: no padded copy of K/V."""
+    q, kp, vp, table, lens, qs = (x.bfloat16() if i < 3 else x
+                                  for i, x in enumerate(_dev(_attn_inputs(
+                                      9, 1, 2, 3, 3, 85, 16, lens=[4000]),
+                                      cuda)))
+    assert DA.head_dim_path("t", 85, q, kp, vp) == (96, True)
+    assert PA.split_plan(1, 2, 3, 3, table.shape[1], 16,
+                         DA.sm_count(q.device))[0] > 1
+    q2, kp2, vp2, table2, lens2, qs2 = _dev(
+        _attn_inputs(4, 2, 3, 4, 2, 64, 8), cuda)
+    flat = torch.empty(kp2.numel() + 1, device=cuda)
+    kp2 = flat[1:].view(kp2.shape).copy_(kp2)       # 4 bytes off
+    assert DA.head_dim_path("t", 64, q2, kp2, vp2) == (64, True)
+    ops.paged_attention(q, kp, vp, table, lens, qs)      # build, warm up
+    n0 = ops.LAUNCHES["paged_attention"]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.paged_attention(q, kp, vp, table, lens, qs)
+        got2 = ops.paged_attention(q2, kp2, vp2, table2, lens2, qs2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.LAUNCHES["paged_attention"] == n0 + 2
+    torch.cuda.synchronize()
+    assert (torch.cuda.memory_allocated() - mem0
+            <= 2 * got.numel() + 4 * got2.numel() + 1024)
+    _assert_attn_close(got, ref.paged_attention_ref(q, kp, vp, table, lens,
+                                                    qs))
+    _assert_attn_close(got2, ref.paged_attention_ref(q2, kp2, vp2, table2,
+                                                     lens2, qs2))
+
+
+def _offset_view(x, elems):
+    """x's values in a view ``elems`` elements into a larger allocation:
+    storage off a 16-byte (at odd ``elems`` in bf16, a 4-byte) boundary."""
+    flat = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    return flat[elems:].view(x.shape).copy_(x)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd", [64, 85])
+@pytest.mark.parametrize("kernel", ["paged", "flash", "wide", "branch",
+                                    "bwd"])
+def test_ragged_path_at_a_2_byte_offset(cuda, kernel, hd):
+    """bf16 K/V (and q) stored one element into their allocation: every
+    row of hd 64 (the compiled width itself), and every other row of hd
+    85, starts 2 bytes past a 4-byte word, so the ragged loader copies it
+    from that word and moves it into place once it has landed."""
+    bf = torch.bfloat16
+    if kernel == "paged":
+        q, kp, vp, table, lens, qs = _dev(
+            _attn_inputs(3, 3, 4, 4, 2, hd, 8), cuda)
+        q, kp, vp = (_offset_view(x.to(bf), 1) for x in (q, kp, vp))
+        assert DA.head_dim_path("t", hd, q, kp, vp)[1]
+        got = ops.paged_attention(q, kp, vp, table, lens, qs)
+        want = ref.paged_attention_ref(q, kp, vp, table, lens, qs)
+    elif kernel in ("flash", "wide"):
+        T, S = (3, 40) if kernel == "flash" else (70, 70)
+        q, k, v, qp, kp = _dev(_flash_inputs(4, 2, T, S, 4, 2, hd, S,
+                                             dead=2), cuda)
+        q, k, v = (_offset_view(x.to(bf), 1) for x in (q, k, v))
+        got = ops.flash_attention(q, k, v, qp, kp, window=50)
+        want = ref.flash_attention_ref(q, k, v, qp, kp, window=50)
+    elif kernel == "branch":
+        rng = np.random.default_rng(3)
+        q, pk, pv, sk, sv = (_offset_view(x.to(bf), 1) for x in _dev(
+            [rng.normal(size=sh).astype(np.float32) for sh in (
+                (3, 1, 4, hd), (1, 37, 2, hd), (1, 37, 2, hd),
+                (3, 5, 2, hd), (3, 5, 2, hd))], cuda))
+        ppos, spos, qpos = _dev([np.arange(37, dtype=np.int32)[None],
+                                 np.tile(np.arange(37, 42, dtype=np.int32),
+                                         (3, 1)),
+                                 np.full((3, 1), 41, np.int32)], cuda)
+        args = (q, pk, pv, ppos, sk, sv, spos, qpos)
+        got = ops.branch_decode_attention(*args)
+        want = ref.branch_decode_ref(*args)
+    else:
+        q, k, v, do, qp, kp, kw = _bwd_flash_inputs(
+            cuda, (1, 40, 47, 4, 2, hd, True, 0, None, False), bf)
+        q, k, v, do = (_offset_view(x, 1) for x in (q, k, v, do))
+        o = _offset_view(FA.flash_attention(q, k, v, qp, kp, **kw), 1)
+        got = FA.flash_attention_bwd(q, k, v, o, do, qp, kp, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do, qp, kp, **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            _assert_grad_close(name, a, b)
+        return
+    _assert_attn_close(got, want)
 
 
 def _verify_args(rng, B, R, V, lens, device):
@@ -366,6 +468,17 @@ FLASH_CASES = [
     dict(B=1, T=64, S=512, H=4, KV=2, hd=160, L=500, window=128),
     dict(B=3, T=1, S=512, H=4, KV=4, hd=144, L=300, window=256,
          cap=50.0),
+    # the ragged path at hd 85 (granite-moe's draft): its ring under the
+    # window (B=8 unsplit, B=1 split), a cache-less wide block and a wide
+    # GQA block under a window; hd 200 wide with a softcap, hd 40 decode
+    dict(B=8, T=4, S=1040, H=3, KV=3, hd=85, L=1030, window=1024),
+    dict(B=1, T=5, S=2048, H=3, KV=3, hd=85, L=1800, stale=3,
+         window=1024),
+    dict(B=2, T=70, S=70, H=3, KV=3, hd=85, L=70),
+    dict(B=1, T=64, S=512, H=4, KV=2, hd=85, L=500, window=128),
+    dict(B=2, T=33, S=48, H=4, KV=2, hd=200, L=60, stale=3, dead=2,
+         cap=20.0),
+    dict(B=3, T=1, S=512, H=4, KV=4, hd=40, L=300, window=256),
 ]
 
 
@@ -611,13 +724,16 @@ def test_hybrid_pairs_on_the_card_are_greedy_lossless(cuda, kind):
 # (k branches, Tq, Sp, Ss, H, KV, hd): the 7B branch-decode width, a GQA
 # case with odd lengths and Tq > 1, a tile straddling the boundary;
 # k * G * Tq = 36 rows (three row tiles) with Sp not a multiple of the
-# 16-key tile; a long prefix that splits; head dims 16, 80, 256 and the
-# draft() head dims 160 and 144
+# 16-key tile; a long prefix that splits; head dims 16, 80, 256, the
+# draft() head dims 160 and 144, and the ragged path's 85 (granite-moe's
+# draft; a split prefix; GQA over three row tiles) and 40
 BRANCH_CASES = [(6, 1, 504, 8, 32, 32, 128), (3, 3, 29, 5, 4, 2, 32),
                 (4, 2, 70, 13, 8, 2, 64), (6, 3, 70, 5, 8, 4, 64),
                 (6, 1, 2048, 8, 32, 32, 128), (4, 2, 45, 3, 4, 4, 16),
                 (6, 1, 504, 8, 16, 16, 80), (4, 2, 70, 13, 8, 4, 256),
-                (6, 1, 504, 8, 2, 2, 160), (4, 2, 70, 13, 4, 4, 144)]
+                (6, 1, 504, 8, 2, 2, 160), (4, 2, 70, 13, 4, 4, 144),
+                (6, 1, 504, 8, 3, 3, 85), (6, 1, 2048, 8, 3, 3, 85),
+                (6, 3, 70, 5, 8, 4, 85), (4, 2, 45, 3, 4, 4, 40)]
 
 
 @pytest.mark.requires_cuda
@@ -1010,6 +1126,13 @@ BWD_FLASH_CASES = [
     (2, 1, 33, 4, 2, 160, True, 0, None, False),
     (1, 130, 97, 2, 1, 32, False, 0, None, "dead"),
     (1, 1280, 1280, 8, 4, 256, True, 1024, None, False),  # gemma3-4b
+    # the ragged path: granite-moe's draft (3 heads of 85) at its
+    # training frame and with dead keys under a window; hd 200 (GQA,
+    # softcap) and hd 40 (bidirectional slot frame)
+    (1, 256, 256, 3, 3, 85, True, 0, None, False),
+    (2, 45, 45, 3, 3, 85, True, 16, None, "dead"),
+    (1, 70, 70, 4, 2, 200, True, 0, 30.0, False),
+    (2, 33, 47, 4, 2, 40, False, 0, None, True),
 ]
 
 

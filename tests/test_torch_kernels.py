@@ -85,6 +85,10 @@ ATTN_CASES = [
     # fragmented tables with a COW fork (the property test's layout)
     dict(B=4, T=3, H=4, KV=2, hd=16, ps=4, cow=True, seed=7),
     dict(B=3, T=1, H=2, KV=2, hd=16, ps=8, cow=True, seed=8),
+    # head dims off the aligned path: granite-moe's draft (3 heads of 85),
+    # and 40 with GQA under a window
+    dict(B=3, T=4, H=3, KV=3, hd=85, ps=8),
+    dict(B=2, T=3, H=4, KV=2, hd=40, ps=4, window=5),
 ]
 
 
@@ -398,6 +402,11 @@ FLASH_CASES = [
     dict(B=2, T=9, S=24, H=8, KV=4, hd=16, L=40, stale=3, dead=2),
     # prefill-shaped at head dim 80: 24 rows a kv head, window, softcap
     dict(B=3, T=6, S=16, H=12, KV=3, hd=80, L=16, window=5, cap=10.0),
+    # granite-moe's draft head dim 85: a verify chunk on a wrapped ring
+    # with stale and dead slots, and bidirectional; hd 200 GQA, softcap
+    dict(B=2, T=4, S=24, H=3, KV=3, hd=85, L=40, stale=2, dead=2),
+    dict(B=1, T=9, S=9, H=3, KV=3, hd=85, L=9, causal=False),
+    dict(B=1, T=3, S=20, H=4, KV=2, hd=200, L=30, window=7, cap=20.0),
 ]
 
 
@@ -437,15 +446,17 @@ def test_flash_route_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("hd,offset", [(6, 0), (32, 1)])
 def test_attention_wrappers_need_16_byte_rows(hd, offset):
-    """Both attention kernels load K/V 16 bytes at a time; the wrappers
-    refuse rows that are not a multiple of 16 bytes or storage that is
-    not 16-byte aligned, instead of reading past or across rows."""
+    """The attention kernels load K/V 16 bytes at a time only on their
+    aligned path, which needs 16-byte rows from a 16-byte aligned start:
+    rows that are not a multiple of 16 bytes, or storage that is not
+    16-byte aligned, take the ragged path (element loads at the next
+    compiled width) instead of reading past or across rows."""
     flat = torch.zeros(4 * hd + 8)
     k = flat[offset:offset + 4 * hd].view(1, 4, 1, hd)
-    with pytest.raises(ValueError, match="16"):
-        tpa.check_rows16("attention", hd, k, k)
-    tpa.check_rows16("attention", 32, torch.zeros(1, 4, 1, 32),
-                  torch.zeros(1, 4, 1, 32))
+    assert tda.head_dim_path("attention", hd, k, k) == (
+        {6: 16, 32: 32}[hd], True)
+    assert tda.head_dim_path("attention", 32, torch.zeros(1, 4, 1, 32),
+                             torch.zeros(1, 4, 1, 32)) == (32, False)
 
 
 # (k branches, Tq, Sp, Ss, KV, hd): the reference's sweep
@@ -454,7 +465,10 @@ def test_attention_wrappers_need_16_byte_rows(hd, offset):
 # slots
 BRANCH_CASES = [(2, 1, 16, 4, 2, 32), (4, 1, 33, 7, 4, 64),
                 (6, 1, 8, 1, 1, 16), (3, 3, 29, 5, 2, 32),
-                (5, 2, 13, 11, 1, 16)]
+                (5, 2, 13, 11, 1, 16),
+                # head dims off the aligned path: 85 (granite-moe's
+                # draft's) and 40
+                (6, 1, 29, 5, 3, 85), (3, 2, 13, 4, 2, 40)]
 
 
 def _branch_inputs(seed, kb, Tq, Sp, Ss, KV, hd, dead=0):
@@ -819,13 +833,13 @@ def test_merge_of_jax_flash_stats_matches_plain():
 
 
 def test_decode_loop_head_dims_cover_the_repos_configs(monkeypatch):
-    """Every head dim of an attention-bearing configuration of the repo
-    (src/repro/configs, the tiny pairs, the hybrid and local pairs) and of
-    every assigned config's ``draft()`` is one the decode loop is built
-    for: the paged, branch-decode and flash kernels would refuse any
-    other.  granite-moe's draft (hd 85, which no 16-byte bf16 row holds)
-    is the one exception, refused by name.  The pairs' configs are read
-    without initialising their weights."""
+    """No attention-bearing configuration of the repo (src/repro/configs,
+    the tiny pairs, the hybrid and local pairs) nor any assigned config's
+    ``draft()`` is refused by the decode loop: every head dim is one of
+    its aligned widths but granite-moe's draft's (hd 85, which no
+    16-byte bf16 row holds), which takes the ragged path at width 96.
+    Every head dim from 1 to 256 passes, 257 does not.  The pairs'
+    configs are read without initialising their weights."""
     import importlib
     import pkgutil
 
@@ -852,8 +866,14 @@ def test_decode_loop_head_dims_cover_the_repos_configs(monkeypatch):
     drafts = [get_config(a).draft() for a in ARCH_IDS]
     dims = {c.name: c.hd for c in cfgs + drafts if c.has_attention()}
     assert {80, 144, 160, 256} <= set(dims.values())
-    missing = {n: hd for n, hd in dims.items() if hd not in tda.HEAD_DIMS}
-    assert missing == {"granite-moe-3b-a800m-draft": 85}, missing
-    for hd in (85, 96):
-        with pytest.raises(ValueError, match=f"head dim {hd} is not one of"):
-            tda.check_head_dim("flash_attention", hd)
+    ragged = {}
+    for n, hd in dims.items():
+        x = torch.zeros(1, hd, dtype=torch.bfloat16)
+        width, rag = tda.head_dim_path("flash_attention", hd, x)
+        if rag:
+            ragged[n] = width
+    assert ragged == {"granite-moe-3b-a800m-draft": 96}, ragged
+    for hd in range(1, 257):
+        tda.check_head_dim("flash_attention", hd)
+    with pytest.raises(ValueError, match="head dim 257 is outside 1-256"):
+        tda.check_head_dim("flash_attention", 257)
