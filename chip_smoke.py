@@ -319,10 +319,12 @@ forward's states and chunk modes and, for this checkout's port, the
 backward at falcon's frame phase by phase (-DREPRO_SCAN_BWD_STOP
 variants) and at the other chunk lengths of 16, 32 and 64 steps
 (-DREPRO_SCAN_CHUNK);
-``--flash-bwd`` times phase 2's flash backward cases alone, the
-backward's kernels at gemma3-4b's window frame (profiler) and, for this
-checkout's port, that frame phase by phase (-DREPRO_BWD_STOP variants)
-and at B=2; ``--profile`` runs phases 4 and 6's profiled serves, the
+``--flash-bwd`` times phase 2's flash backward cases and granite's
+draft frame (bf16, f32) alone, the backward's kernels at gemma3-4b's
+window frame, the tiny pair's and granite's f32 frame (one profiler
+session), gemma3-4b's frame phase by phase (-DREPRO_BWD_STOP variants)
+and at B=2, and the f32 frames phase by phase (the same variants);
+``--profile`` runs phases 4 and 6's profiled serves, the
 batched LLaMA serve at temperature 1 (verify device time) and phase 8's
 falcon serve (scan and h-ring device time) only.  With ``--src DIR``
 (``--profile``, ``--scan``, ``--scan-bwd``, ``--flash-bwd``,
@@ -392,6 +394,9 @@ TF_MARGIN = 0.25
 BOUNDARY_EPS = 1e-6
 EPS = EngineConfig.epsilon      # the engines' default confidence threshold
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # CUDA f32 / bf16
+# f32 work on the tensor cores as 3xTF32 (three TF32 products at 495
+# TFLOP/s each): the rate the f32 flash backward's design can reach
+PEAK_3XTF32 = 495e12 / 3
 
 KERNELS = {
     "paged_attention": dict(
@@ -473,6 +478,12 @@ LATE_NEW = 8
 # (kernels' and PyTorch's f32 summation orders through a forward and
 # backward)
 FLASH_BWD_CASE = "gemma3-4b train B=1 T=S=1280 w1024"
+TINY_BWD_CASE = "zm-target train B=16 T=S=63"
+GRANITE_BWD_CASE = "granite draft hd85 {} train B=1 T=S=256"
+# the frames ``--flash-bwd`` splits by kernel: gemma3-4b's (bf16), the
+# tiny pair's and granite's draft's (f32)
+BWD_SPLIT_FRAMES = (FLASH_BWD_CASE, TINY_BWD_CASE,
+                    GRANITE_BWD_CASE.format("f32"))
 SCAN_BWD_CASE = "falcon-7b train B=1 T=256 E=8192"
 G3_TRAIN = dict(batch=2, seq=1281, micro=2, steps=3)
 FALCON_TRAIN = dict(batch=2, seq=257, micro=2, steps=2, layers=16)
@@ -593,9 +604,9 @@ def check_close(name, got, want) -> tuple:
     return err.max().item(), share
 
 
-def bound(nbytes: float, ops_: float, dtype) -> tuple:
+def bound(nbytes: float, ops_: float, dtype, peak: float = 0.0) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops_ / PEAK_OPS[dtype] * 1e3
+    to = ops_ / (peak or PEAK_OPS[dtype]) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -1386,23 +1397,42 @@ def flash_bwd_inputs(rng, B, T, S, H, KV, hd, dtype, frame=None):
     return q, k, v, do, qp, kp, qc
 
 
-def bwd_kernel_times(fn, n: int = 5) -> dict:
-    """Device ms per call of each kernel ``fn`` launches (by name), from
-    the CUDA profiler over n back-to-back calls after one warm-up (warm
-    L2)."""
-    fn()
+# ``--flash-bwd``: the frames whose kernels ``bwd_kernel_times`` splits,
+# by label (filled by ``check_flash_bwd``)
+BWD_SPLIT_CALLS: dict = {}
+
+
+def bwd_kernel_times(fns: dict, n: int = 5) -> dict:
+    """Device ms per call of each kernel each of ``fns`` (label -> call)
+    launches (by name), from one CUDA profiler session (a later session
+    of a process may lose events) over n back-to-back calls each after
+    one warm-up (warm L2); a spin kernel after each frame's calls marks
+    where the next frame's begin."""
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
+        for fn in fns.values():
+            for _ in range(n):
+                fn()
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            m = re.search(r"flash_bwd_\w+?_kernel", e.name())
-            k = m.group(0) if m else e.name()[:40]
-            out[k] = out.get(k, 0.0) + e.duration_ns() / 1e6 / n
+    evs = sorted((e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.start_ns())
+    out = {label: {} for label in fns}
+    labels, i = list(fns), 0
+    for e in evs:
+        if "spin" in e.name():
+            i += 1
+            continue
+        if i >= len(labels):
+            break
+        m = re.search(r"flash_bwd_\w+?_kernel", e.name())
+        k = m.group(0) if m else e.name()[:40]
+        d = out[labels[i]]
+        d[k] = d.get(k, 0.0) + e.duration_ns() / 1e6 / n
     return out
 
 
@@ -1411,7 +1441,8 @@ def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
     """The flash backward kernel against ``flash_attention_bwd_ref`` on a
     training frame; its bound is the work the visible (query, key) pairs
     need (five hd-long products each: q.k, dO.v, and the dq, dk and dv
-    accumulations) or the bytes of q, k, v, o, dO in and dq, dk, dv out;
+    accumulations; f32 at 3xTF32's rate, and at the CUDA cores' f32 rate
+    beside it) or the bytes of q, k, v, o, dO in and dq, dk, dv out;
     the library figure is SDPA's forward and backward over the same
     visibility mask (none with a softcap, which SDPA lacks), and beside it
     SDPA's backward alone (its forward and graph built outside the timed
@@ -1438,7 +1469,9 @@ def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
     es = q.element_size()
     nbytes = (4 * q.numel() + 4 * k.numel()) * es + 3 * qp.numel() * 4
     work = 10 * hd * int(vis.sum()) * H
-    bms, by = bound(nbytes, work, dtype)
+    f32 = dtype == torch.float32
+    bms, by = bound(nbytes, work, dtype, PEAK_3XTF32 if f32 else 0.0)
+    cc_bms = bound(nbytes, work, dtype)[0] if f32 else None
     ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, qp, kp,
                                                 **kw))
     plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, qp,
@@ -1447,10 +1480,9 @@ def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
              if hasattr(DA, "head_dim_path") else hd)
     blocks = (FA.bwd_plan(B, T, S, H, KV, width, dtype)["blocks"]
               if hasattr(FA, "bwd_plan") else None)
-    # one profiler session a process: a later one may lose events
-    split = (bwd_kernel_times(lambda: FA.flash_attention_bwd(
-        q, k, v, o, do, qp, kp, **kw))
-        if "--flash-bwd" in sys.argv and label == FLASH_BWD_CASE else None)
+    if "--flash-bwd" in sys.argv and label in BWD_SPLIT_FRAMES:
+        BWD_SPLIT_CALLS[label] = lambda: FA.flash_attention_bwd(
+            q, k, v, o, do, qp, kp, **kw)
     lib = lib_bwd = None
     if cap is None:
         qd = q.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1471,8 +1503,8 @@ def check_flash_bwd(rng, label, B, T, S, H, KV, hd, dtype, causal=True,
         del out
     return dict(case=label, max_abs_err=err, err_share=share, ms=ms,
                 plain_ms=plain, library_ms=lib, sdpa_bwd_ms=lib_bwd,
-                bound_ms=bms, bound_by=by, tflops=work / ms / 1e9,
-                blocks=blocks, split=split)
+                bound_ms=bms, bound_by=by, cuda_core_bound_ms=cc_bms,
+                tflops=work / ms / 1e9, blocks=blocks, split=None)
 
 
 def check_ssm_bwd(rng, label, B, T, E, N, xdtype):
@@ -1644,8 +1676,7 @@ def flash_bwd_cases(rng) -> list:
     hubert's bidirectional frame and the tiny draft's head-loss frame
     (invisible slot keys, clamped queries)."""
     bf, f32 = torch.bfloat16, torch.float32
-    fl = [check_flash_bwd(rng, "zm-target train B=16 T=S=63", 16, 63, 63, 4,
-                          2, 32, f32),
+    fl = [check_flash_bwd(rng, TINY_BWD_CASE, 16, 63, 63, 4, 2, 32, f32),
           check_flash_bwd(rng, FLASH_BWD_CASE, 1, 1280, 1280, 8, 4, 256, bf,
                           window=1024),
           check_flash_bwd(rng, "gemma3-4b train B=1 T=S=1280 global", 1,
@@ -1663,13 +1694,20 @@ def flash_bwd_cases(rng) -> list:
 
 
 def log_bwd_rows(rows) -> None:
-    """The flash backward cases' extra columns: SDPA's backward alone, the
-    bound's work over the kernel's time and the kernels' blocks."""
+    """The flash backward cases' columns: the kernel's, the plain
+    version's and SDPA's times (forward + backward, and its backward
+    alone), the bound (at f32 also the bound at the CUDA cores' f32 rate,
+    as rows before the 3xTF32 design gave it), the bound's work over the
+    kernel's time and the kernels' blocks."""
     def fmt(x):
         return "null" if x is None else f"{x:.4f}"
     for r in rows:
         log(f"  {r['case']:32s} ms={r['ms']:.4f} "
-            f"sdpa_fwd_bwd={fmt(r['library_ms'])} "
+            f"plain={r['plain_ms']:.4f} bound={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) "
+            + ("" if r["cuda_core_bound_ms"] is None else
+               f"bound_cuda_core={r['cuda_core_bound_ms']:.4f} ")
+            + f"sdpa_fwd_bwd={fmt(r['library_ms'])} "
             f"sdpa_bwd={fmt(r['sdpa_bwd_ms'])} "
             f"{r['tflops']:.1f} TFLOP/s of the bound's work; "
             f"blocks {r['blocks']}; err {r['err_share']:.3f} of its bound"
@@ -1678,15 +1716,28 @@ def log_bwd_rows(rows) -> None:
 
 
 def phase_flash_bwd() -> None:
-    """``--flash-bwd``: phase 2's flash backward cases alone (with
-    ``--src``, of another checkout's kernel), the kernels' device time at
-    gemma3-4b's window frame from the profiler, and (this checkout's
-    port) ``probe_flash_bwd``."""
-    rows = flash_bwd_cases(np.random.default_rng(0))
+    """``--flash-bwd``: phase 2's flash backward cases and granite's draft
+    frame at bf16 and f32 alone (with ``--src``, of another checkout's
+    kernel), the kernels' device time at gemma3-4b's window frame, the
+    tiny pair's and granite's f32 frame from one profiler session,
+    ``probe_flash_bwd`` and (absent from an older checkout's port: no f32
+    tiles) ``probe_flash_bwd_f32``."""
+    rng = np.random.default_rng(0)
+    rows = flash_bwd_cases(rng)
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt is torch.bfloat16 else "f32"
+        rows.append(check_flash_bwd(rng, GRANITE_BWD_CASE.format(tag), 1,
+                                    256, 256, 3, 3, 85, dt))
     timing_floor()
+    split = bwd_kernel_times(BWD_SPLIT_CALLS)
+    BWD_SPLIT_CALLS.clear()
+    for r in rows:
+        r["split"] = split.get(r["case"])
     log_bwd_rows(rows)
     if hasattr(FA, "bwd_plan"):
         probe_flash_bwd()
+    if hasattr(FA, "F32_TARGET"):
+        probe_flash_bwd_f32()
 
 
 def probe_flash_bwd() -> None:
@@ -1720,6 +1771,45 @@ def probe_flash_bwd() -> None:
         build._lib = saved
     for k, v in out.items():
         log(f"  flash-bwd probe {FLASH_BWD_CASE}: {k:26s} ms={v:.4f}")
+
+
+def probe_flash_bwd_f32() -> None:
+    """The f32 backward at the tiny pair's, the draft-head loss's and
+    granite's draft's training frames, whole and from variants built with
+    -DREPRO_BWD_STOP (1: copies only; 3: compute only; 4: without the
+    dk/dv kernel)."""
+    import ctypes
+    rng = np.random.default_rng(2)
+    f32 = torch.float32
+    Lp, K = 64, 4
+    frame = draft_frame(Lp, K, 8)
+    T = len(frame[0])
+    frames = {}
+    for label, args, fr in (("tiny", (16, 63, 63, 4, 2, 32), None),
+                            ("draft-head", (16, T, T, 2, 1, 16), frame),
+                            ("granite", (1, 256, 256, 3, 3, 85), None)):
+        q, k, v, do, qp, kp, qc = flash_bwd_inputs(rng, *args, f32, fr)
+        o = FA.flash_attention(q, k, v, qp, kp, q_ctx=qc)
+        frames[label] = (q, k, v, o, do, qp, kp, qc)
+
+    def times():
+        return {lab: time_ms(lambda: FA.flash_attention_bwd(
+            *x[:7], q_ctx=x[7])) for lab, x in frames.items()}
+    out = {"whole": times()}
+    saved = build._lib
+    srcs = ("flash_attention_bwd.cu", "flash_attention_bwd_f32.cu",
+            "flash_attention_bwd_f32_ragged.cu")
+    try:
+        for stop, what in ((1, "copies only"), (3, "compute only"),
+                           (4, "without the dk/dv kernel")):
+            build._lib = build.bind(ctypes.CDLL(str(build.build(
+                srcs, (f"-DREPRO_BWD_STOP={stop}",)))))
+            out[what] = times()
+    finally:
+        build._lib = saved
+    for k, v in out.items():
+        log(f"  flash-bwd f32 probe {k:28s} " + " ".join(
+            f"{lab} ms={ms:.4f}" for lab, ms in v.items()))
 
 
 def phase_kernels_bwd(rng) -> dict:
@@ -5652,14 +5742,14 @@ def log_ptxas(ptx: str) -> None:
                 mode = ("carry", "states", "ring", "chunks")[
                     int(m.group(3))]
                 name = f"ssm_scan N={m.group(1)} x {dt} {mode}"
-            m = re.search(r"(flash_bwd_(?:dq_mma|dkdv_mma|dq_merge|dkdv_reduce"
-                          r"|rows|dq|dkdv|spans)"
-                          r"_kernel)(?:ILi(\d+)E(f?)(?:Lb([01]))?)?", name)
+            m = re.search(r"(flash_bwd_(?:dq_mma|dkdv_mma|dq_tf32|dkdv_tf32"
+                          r"|dq_merge|dkdv_reduce|rows|spans|prep|final)"
+                          r"_kernel)(?:I(?:Li(\d+)E)?(?:Lb([01])E)?)?", name)
             if m:
                 name = (m.group(1) + (f" hd={m.group(2)}" if m.group(2)
                                       else "")
-                        + (" f32" if m.group(3) else " bf16")
-                        + (" ragged" if m.group(4) == "1" else ""))
+                        + (" f32" if "ArgsTIfE" in name else " bf16")
+                        + (" ragged" if m.group(3) == "1" else ""))
             m = re.search(r"(ssm_bwd_(?:local|join|main|reduce)_kernel)"
                           r"(?:ILi(\d+)E(13__nv_bfloat16|f)?)?", name)
             if m:

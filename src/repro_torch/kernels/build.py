@@ -26,9 +26,11 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-# the flash kernels' ragged load path builds as objects of its own
-# (``*_ragged.cu`` include their source), compiled beside the rest
+# the flash kernels' ragged load path, and the flash backward's f32
+# instances, build as objects of their own (``*_ragged.cu`` and
+# ``*_f32*.cu`` include their source), compiled beside the rest
 SOURCES = ("flash_attention_bwd.cu", "flash_attention_bwd_ragged.cu",
+           "flash_attention_bwd_f32.cu", "flash_attention_bwd_f32_ragged.cu",
            "flash_attention.cu", "flash_attention_ragged.cu",
            "paged_attention.cu", "branch_attention.cu", "ssm_scan.cu",
            "ssm_scan_bwd.cu", "verify_accept.cu", "paged_gather.cu")
@@ -131,6 +133,7 @@ def lib() -> ctypes.CDLL:
 
 def _signatures() -> Dict[str, tuple]:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    LL = ctypes.c_longlong
     return {  # entry: (argtypes, restype)
         "repro_paged_attention": ([P] * 7 + [I] * 12 + [F, F, I, P], I),
         "repro_verify_accept_batched": ([P] * 10 + [I] * 4 + [P], I),
@@ -142,9 +145,10 @@ def _signatures() -> Dict[str, tuple]:
         "repro_ssm_scan_chunk": ([], I),
         "repro_branch_attention": ([P] * 9 + [I] * 11 + [F, F, I, P], I),
         "repro_verify_accept": ([P] * 9 + [I] * 4 + [P], I),
-        "repro_flash_attention_bwd": ([P] * 13 + [I] * 10 + [F, F, I, P], I),
+        "repro_flash_attention_bwd": ([P] * 12 + [LL, P, LL] + [I] * 10
+                                      + [F, F, I, P], I),
         "repro_ssm_scan_bwd": ([P] * 17 + [I] * 5 + [P], I),
-        "repro_ssm_scan_bwd_scratch": ([I] * 4, ctypes.c_longlong),
+        "repro_ssm_scan_bwd_scratch": ([I] * 4, LL),
     }
 
 

@@ -20,9 +20,10 @@ because every query's own key is written before it attends.
 
 ``flash_attention_bwd`` launches the backward kernels
 (``csrc/flash_attention_bwd.cu``: dq, and dk / dv summed over each kv
-head's query heads, for the forward's whole contract; on tensor cores at
-bf16, CUDA cores at f32; ``bwd_plan`` gives their grids and scratch),
-and
+head's query heads, for the forward's whole contract; on the tensor
+cores, bf16 as ``mma`` over bf16 tiles and f32 as 3xTF32 tiles, each f32
+value split into two TF32 terms; ``bwd_plan`` gives their grids and
+scratch), and
 ``FlashAttentionFn`` joins the two for autograd: its forward launches the
 forward kernel unchanged and saves q, k, v, the output and the
 positions; its backward launches the backward kernel.
@@ -54,25 +55,35 @@ def split_plan(B: int, T: int, H: int, KV: int, S: int,
 
 
 # the backward kernels' tiles (csrc/flash_attention_bwd.cu): position
-# summaries of SPAN rows or keys; at bf16 the dq kernel's blocks of
+# summaries of SPAN rows or keys; at bf16 the dq kernel's 4-warp blocks of
 # BWD_ROWS query rows over key tiles of 32 keys (16 above hd 128), the
-# dk/dv kernel's blocks of BWD_KEYS keys over tiles of BWD_RTILE rows,
-# each block's walk split into chunks (``bwd_chunks``); at f32 (the
-# CUDA-core kernels) blocks of 16 rows and of 16 keys
+# dk/dv kernel's blocks of BWD_KEYS keys over tiles of BWD_RTILE rows; at
+# f32 one-warp blocks of BWD_F32_ROWS rows over key tiles of SPAN keys and
+# of BWD_F32_KEYS keys over tiles of SPAN rows, two blocks a key block
+# above hd 128 (each sums half of dk's and dv's columns); each block's
+# walk split into chunks
+# (``bwd_chunks``: about TARGET_BLOCKS blocks at bf16, at most MAX_CHUNKS;
+# F32_TARGET at f32 (eight an SM: the f32 frames are small and
+# latency-bound), down to single tiles, at most F32_MAX_CHUNKS)
 SPAN, BWD_ROWS, BWD_KEYS, BWD_RTILE = 16, 64, 32, 32
-TARGET_BLOCKS, MIN_CHUNK, MAX_CHUNKS, BWD_F32_BLOCK = 800, 8, 8, 16
+TARGET_BLOCKS, MIN_CHUNK, MAX_CHUNKS = 800, 8, 8
+BWD_F32_ROWS, BWD_F32_KEYS, F32_TARGET, F32_MIN_CHUNK = 16, 16, 1056, 1
+F32_MAX_CHUNKS = 16
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def bwd_chunks(n_tiles: int, n_units: int) -> int:
+def bwd_chunks(n_tiles: int, n_units: int, target: int = TARGET_BLOCKS,
+               min_chunk: int = MIN_CHUNK,
+               max_chunks: int = MAX_CHUNKS) -> int:
     """Chunks each of ``n_units`` walks of ``n_tiles`` tiles is split into
     (the C entry's ``chunks_of``): as many as bring the grid to about
-    TARGET_BLOCKS, each at least MIN_CHUNK tiles, at most MAX_CHUNKS."""
-    n = min(_cdiv(TARGET_BLOCKS, n_units), n_tiles // MIN_CHUNK)
-    return max(1, min(MAX_CHUNKS, n))
+    ``target`` blocks, each at least ``min_chunk`` tiles, at most
+    ``max_chunks``."""
+    n = min(_cdiv(target, n_units), n_tiles // min_chunk)
+    return max(1, min(max_chunks, n))
 
 
 def bwd_plan(B: int, T: int, S: int, H: int, KV: int, width: int,
@@ -80,31 +91,48 @@ def bwd_plan(B: int, T: int, S: int, H: int, KV: int, width: int,
     """The backward's launches and scratch at the compiled ``width`` a
     head dim runs at (``decode_attention.head_dim_path``; the head dim
     itself on the aligned path): ``blocks`` of each kernel, ``chunks`` of
-    the dq and dk/dv walks (bf16), and the f32 (``work``) and int32
-    (``ints``) scratch elements the C entry lays out (the chunks' sums
-    have rows of ``width`` columns)."""
+    the dq and dk/dv walks, and the f32 (``work``) and int32 (``ints``)
+    scratch elements the C entry lays out (the chunks' sums have rows of
+    ``width`` columns).  bf16 launches six kernels (the summaries, the row
+    records, the dq chunks on ``mma`` blocks of four warps, their merge,
+    the dk/dv chunks, their sum), f32 four (``prep``: the summaries and
+    row records; the 3xTF32 dq and dk/dv chunks on one-warp blocks;
+    ``final``: the dq merge and the dk/dv sum).  The C entry refuses
+    scratch of any other size than its own layout's."""
     rows = T * (H // KV)
     n_spans = _cdiv(rows, SPAN) + _cdiv(S, SPAN)
-    if dtype != torch.bfloat16:
-        return {"work": 4 * B * H * T, "ints": 4 * B * n_spans,
-                "chunks": None,
-                "blocks": {"dq": B * KV * _cdiv(rows, BWD_F32_BLOCK),
-                           "dkdv": B * KV * _cdiv(S, BWD_F32_BLOCK)}}
-    n_rb, n_kb = _cdiv(rows, BWD_ROWS), _cdiv(S, BWD_KEYS)
-    n_cq = bwd_chunks(_cdiv(S, 16 if width > 128 else 32), B * KV * n_rb)
-    n_ck = bwd_chunks(_cdiv(rows, BWD_RTILE), B * KV * n_kb)
-    q_rows = n_cq * B * KV * n_rb * BWD_ROWS
+    if dtype == torch.bfloat16:
+        q_blk, k_blk, r_tile, splits = BWD_ROWS, BWD_KEYS, BWD_RTILE, 1
+        key_tile = 16 if width > 128 else 32
+        target, min_chunk, max_chunks = TARGET_BLOCKS, MIN_CHUNK, MAX_CHUNKS
+    else:
+        q_blk, k_blk = BWD_F32_ROWS, BWD_F32_KEYS
+        key_tile = r_tile = SPAN
+        splits = 2 if width > 128 else 1
+        target, min_chunk = F32_TARGET, F32_MIN_CHUNK
+        max_chunks = F32_MAX_CHUNKS
+    n_rb, n_kb = _cdiv(rows, q_blk), _cdiv(S, k_blk)
+    n_cq = bwd_chunks(_cdiv(S, key_tile), B * KV * n_rb, target, min_chunk,
+                      max_chunks)
+    n_ck = bwd_chunks(_cdiv(rows, r_tile), B * KV * n_kb * splits, target,
+                      min_chunk, max_chunks)
+    q_rows = n_cq * B * KV * n_rb * q_blk
     row_warps = _cdiv(B * KV * rows, 4)          # one row a warp
+    blocks = {"spans": B * _cdiv(n_spans * SPAN, 128),
+              "rows": row_warps,
+              "dq": B * KV * n_rb * n_cq,
+              "dq_merge": row_warps,
+              "dkdv": B * KV * n_kb * splits * n_ck,
+              "dkdv_reduce": _cdiv(B * S * KV * width // 4, 128)}
+    if dtype != torch.bfloat16:
+        blocks = {"prep": blocks["spans"] + blocks["rows"],
+                  "dq": blocks["dq"], "dkdv": blocks["dkdv"],
+                  "final": blocks["dq_merge"] + blocks["dkdv_reduce"]}
     return {"work": 4 * B * H * T + q_rows * (2 + width)
-                    + n_ck * 2 * B * n_kb * BWD_KEYS * KV * width,
+                    + n_ck * 2 * B * n_kb * k_blk * KV * width,
             "ints": 4 * B * n_spans + B * KV * n_kb * n_ck,
             "chunks": {"dq": n_cq, "dkdv": n_ck},
-            "blocks": {"spans": B * _cdiv(n_spans * SPAN, 128),
-                       "rows": row_warps,
-                       "dq": B * KV * n_rb * n_cq,
-                       "dq_merge": row_warps,
-                       "dkdv": B * KV * n_kb * n_ck,
-                       "dkdv_reduce": _cdiv(B * S * KV * width // 4, 128)}}
+            "blocks": blocks}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,10 +197,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         cap: Optional[float] = None,
                         q_ctx: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, ...]:
-    """Launch the backward kernels (one call, on the current stream: at
-    bf16 the position summaries, the row records, the dq chunks and their
-    merge, the dk/dv chunks and their sum; at f32 a dq and a dk/dv kernel)
-    on CUDA tensors: o is the forward's
+    """Launch the backward kernels (one call, on the current stream: the
+    position summaries, the row records, the dq chunks and their merge,
+    the dk/dv chunks and their sum) on CUDA tensors: o is the forward's
     output and dout its gradient, both (B, T, H, hd) in q's dtype.
     Returns (dq, dk, dv) in the dtypes of q, k, v.  Raises as
     ``flash_attention`` does."""
@@ -217,7 +244,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), q_pos.data_ptr(), q_ctx.data_ptr(),
             k_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            work.data_ptr(), ints.data_ptr(), B, T, S, H, KV, hd, width,
+            work.data_ptr(), work.numel(), ints.data_ptr(), ints.numel(),
+            B, T, S, H, KV, hd, width,
             int(ragged), int(causal), int(window),
             float(cap) if cap is not None else 0.0, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16),

@@ -297,6 +297,23 @@ def test_ragged_path_at_a_2_byte_offset(cuda, kernel, hd):
     _assert_attn_close(got, want)
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd", [64, 85])
+def test_ragged_path_at_a_4_byte_offset(cuda, hd):
+    """The f32 backward with q, k, v, o and dO stored one element into
+    their allocation: rows 4 bytes past a 16-byte boundary, so hd 64 too
+    takes the ragged path (4-byte copies; an f32 row needs no shift)."""
+    q, k, v, do, qp, kp, kw = _bwd_flash_inputs(
+        cuda, (2, 40, 47, 4, 2, hd, True, 0, None, False), torch.float32)
+    q, k, v, do = (_offset_view(x, 1) for x in (q, k, v, do))
+    o = _offset_view(FA.flash_attention(q, k, v, qp, kp, **kw), 1)
+    assert DA.head_dim_path("t", hd, q, k, v, o, do)[1]
+    got = FA.flash_attention_bwd(q, k, v, o, do, qp, kp, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, qp, kp, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _assert_grad_close(name, a, b)
+
+
 def _verify_args(rng, B, R, V, lens, device):
     lens = {"ragged": np.concatenate(
                 [[R], rng.integers(0, R + 1, size=B - 1)]),
@@ -1133,6 +1150,19 @@ BWD_FLASH_CASES = [
     (2, 45, 45, 3, 3, 85, True, 16, None, "dead"),
     (1, 70, 70, 4, 2, 200, True, 0, 30.0, False),
     (2, 33, 47, 4, 2, 40, False, 0, None, True),
+    # tile edges of the f32 kernels (16-row and 16-key one-warp blocks,
+    # key and row tiles of 16): T x G and S off every multiple; then walks
+    # long enough to be chunked (f32: 38 row blocks, each walk of 19 key
+    # tiles in 16 chunks; 19 key blocks, each walk of 38 row tiles in 16
+    # chunks), at hd 160 with its two column splits
+    # of dk and dv, a window, a softcap and shuffled keys, and on the
+    # ragged path with slot columns
+    (1, 23, 37, 4, 2, 32, True, 0, None, False),
+    (2, 45, 51, 2, 1, 80, True, 7, None, "dead"),
+    (3, 9, 13, 6, 3, 128, False, 0, None, False),
+    (1, 300, 300, 2, 1, 64, True, 0, None, False),
+    (1, 150, 150, 4, 2, 160, True, 40, 20.0, "perm"),
+    (1, 200, 200, 3, 3, 85, True, 0, None, True),
 ]
 
 
@@ -1189,6 +1219,30 @@ def test_flash_backward_kernel_is_deterministic(cuda, dtype):
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
         assert bool(torch.isfinite(a.float()).all()), name
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("key,delta", [("work", -1), ("work", 1),
+                                       ("ints", -1)])
+def test_flash_backward_refuses_scratch_off_its_layout(cuda, monkeypatch,
+                                                       dtype, key, delta):
+    """The C entry launches nothing when the scratch ``bwd_plan`` sized
+    differs from its own layout (the two plans written apart)."""
+    case = (1, 45, 51, 4, 2, 32, True, 0, None, False)
+    q, k, v, do, qp, kp, kw = _bwd_flash_inputs(cuda, case,
+                                                getattr(torch, dtype))
+    o = FA.flash_attention(q, k, v, qp, kp, **kw)
+    plan = FA.bwd_plan
+
+    def off(*args):
+        out = plan(*args)
+        return {**out, key: out[key] + delta}
+    monkeypatch.setattr(FA, "bwd_plan", off)
+    n0 = ops.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(RuntimeError, match="flash_attention_bwd"):
+        FA.flash_attention_bwd(q, k, v, o, do, qp, kp, **kw)
+    assert ops.LAUNCHES["flash_attention_bwd"] == n0
 
 
 def _scan_bwd_inputs(cuda, B, T, E, N, dtype):

@@ -96,21 +96,25 @@ def test_flash_bwd_plan_at_the_granite_draft_width(dtype):
     3 heads of 85) plans at the compiled width 96, as the C entry lays
     out its scratch: the chunks' dq, dk and dv rows hold 96 columns, and
     the dk/dv reduction's float4 columns cover all 96 (floor division
-    at 85 would drop the tail).  f32 keeps no per-column scratch."""
+    at 85 would drop the tail).  bf16 takes 64-row and 32-key blocks, f32
+    16-row and 16-key blocks (one warp each)."""
     width, ragged = tda.head_dim_path(
         "flash_attention_bwd", 85, torch.zeros(1, 256, 3, 85, dtype=dtype))
     assert (width, ragged) == (96, True)
     plan = tfa.bwd_plan(1, 256, 256, 3, 3, width, dtype)
-    if dtype == torch.float32:
-        assert plan["work"] == 4 * 3 * 256 and plan["chunks"] is None
-        assert plan["blocks"] == {"dq": 3 * 16, "dkdv": 3 * 16}
-        return
     n_cq, n_ck = plan["chunks"]["dq"], plan["chunks"]["dkdv"]
-    q_rows = n_cq * 3 * 4 * 64                     # 4 row blocks of 64
+    rows, keys = (64, 32) if dtype == torch.bfloat16 else (16, 16)
+    q_rows = n_cq * 3 * (256 // rows) * rows
     assert plan["work"] == (4 * 3 * 256 + q_rows * (2 + 96)
-                            + n_ck * 2 * 8 * 32 * 3 * 96)
-    assert plan["blocks"]["dkdv_reduce"] == -(-256 * 3 * 96 // 4 // 128)
-    assert plan["blocks"]["dkdv_reduce"] * 128 * 4 >= 256 * 3 * 96
+                            + n_ck * 2 * 256 * 3 * 96)
+    assert plan["blocks"]["dq"] == 3 * (256 // rows) * n_cq
+    assert plan["blocks"]["dkdv"] == 3 * (256 // keys) * n_ck
+    if dtype == torch.float32:
+        assert (n_cq, n_ck) == (16, 16)
+    reduce = -(-256 * 3 * 96 // 4 // 128)
+    assert reduce * 128 * 4 >= 256 * 3 * 96
+    assert (plan["blocks"]["dkdv_reduce"] if dtype == torch.bfloat16 else
+            plan["blocks"]["final"] - 3 * 256 // 4) == reduce
 
 
 def _odd_rope(x, sin, cos):

@@ -191,30 +191,48 @@ def test_verify_split_plan_refuses_a_vocabulary_past_shared_memory():
 # chunks): gemma3-4b's training frame (window and global share it: 160
 # walks of 80 key tiles of 16 and 160 of 80 row tiles of 32, each in 5
 # chunks), gemma2's softcap frame (256 walks of 16 key tiles, 2 chunks;
-# 256 of 32 row tiles, 4), hubert's, the f32 tiny pair's (the CUDA-core
-# kernels' 16-row and 16-key blocks, no chunks) and a one-token frame
+# 256 of 32 row tiles, 4), hubert's and a one-token frame; at f32 (one-warp
+# blocks of 16 rows over tiles of 16 keys and of 16 keys over tiles of 16
+# rows, walks chunked down to single tiles toward 1056 blocks, eight an
+# SM, at most 16 chunks) the frames the repo trains: the tiny pair's (256
+# dq walks of 4 key tiles in 4 chunks; 128 dk/dv walks of 8 row tiles in
+# 8), the draft-head loss's (192 of 6 in 6; 96 of 12 in 11), granite-moe's
+# draft at its compiled width 96 (48 of 16 in 16; 48 of 16 in 16) and a
+# reduced config's hd 64 under ``launch.train``'s defaults (128 of 4 in 4;
+# 64 of 8 in 8)
 @pytest.mark.parametrize("B,T,S,H,KV,hd,dtype,dq,dkdv,chunks", [
     (1, 1280, 1280, 8, 4, 256, torch.bfloat16, 800, 800, (5, 5)),
     (1, 512, 512, 32, 16, 128, torch.bfloat16, 512, 1024, (2, 4)),
     (2, 500, 500, 16, 16, 80, torch.bfloat16, 512, 1024, (2, 2)),
-    (16, 63, 63, 4, 2, 32, torch.float32, 256, 128, None),
-    (1, 1, 33, 4, 2, 160, torch.bfloat16, 2, 4, (1, 1))])
+    (16, 63, 63, 4, 2, 32, torch.float32, 1024, 1024, (4, 8)),
+    (1, 1, 33, 4, 2, 160, torch.bfloat16, 2, 4, (1, 1)),
+    (16, 96, 96, 2, 1, 16, torch.float32, 1152, 1056, (6, 11)),
+    (1, 256, 256, 3, 3, 96, torch.float32, 768, 768, (16, 16)),
+    (8, 64, 64, 4, 2, 64, torch.float32, 512, 512, (4, 8))])
 def test_flash_bwd_plan(B, T, S, H, KV, hd, dtype, dq, dkdv, chunks):
     plan = tfa.bwd_plan(B, T, S, H, KV, hd, dtype)
     assert plan["blocks"]["dq"] == dq and plan["blocks"]["dkdv"] == dkdv
+    if dtype == torch.float32:      # a block per SM, from shapes only
+        assert dq >= 132 and dkdv >= 132
     n_spans = -(-T * (H // KV) // 16) + -(-S // 16)
-    if chunks is None:
-        assert plan["chunks"] is None
-        assert plan["work"] == 4 * B * H * T and plan["ints"] == 4 * B * n_spans
-        return
     assert (plan["chunks"]["dq"], plan["chunks"]["dkdv"]) == chunks
-    # one row record a warp; the summaries one per 16 threads of 128
-    assert plan["blocks"]["rows"] == plan["blocks"]["dq_merge"] == \
-        -(-B * H * T // 4)
-    assert plan["blocks"]["spans"] == B * -(-n_spans * 16 // 128)
+    # one row record a warp; the summaries one per 16 threads of 128; at
+    # f32 both in one launch, and the dq merge with the dk/dv sum in one
+    rows, spans = -(-B * H * T // 4), B * -(-n_spans * 16 // 128)
+    reduce = -(-B * S * KV * hd // 4 // 128)
+    if dtype == torch.bfloat16:
+        assert plan["blocks"]["rows"] == plan["blocks"]["dq_merge"] == rows
+        assert plan["blocks"]["spans"] == spans
+        assert plan["blocks"]["dkdv_reduce"] == reduce
+    else:
+        assert plan["blocks"]["prep"] == spans + rows
+        assert plan["blocks"]["final"] == rows + reduce
     assert plan["ints"] == 4 * B * n_spans + dkdv
     if T == 1280:   # row records + dq chunks' (m, l) and sums + dk/dv sums
         assert plan["work"] == 40960 + 51200 * (2 + 256) + 13107200
+    if T == 63:     # the same at f32: 4 x 16 x 2 x 8 row blocks of 16, 8
+        # x 2 x 16 x 4 x 2 key blocks of 16, rows of 32 columns
+        assert plan["work"] == 16128 + 16384 * (2 + 32) + 1048576
 
 
 @pytest.mark.parametrize("n_tiles,n_units,want", [
